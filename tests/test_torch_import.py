@@ -1,0 +1,63 @@
+"""tfhe_tpu_torch imports without jax, and carries the JAX package's
+parameter tables unchanged."""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import tfhe_tpu.core.params as jp
+import tfhe_tpu_torch.core.params as tp
+
+REPO = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = """
+import sys
+for name in ("jax", "flax", "jaxlib"):
+    sys.modules[name] = None          # any import of them now raises
+import importlib, pkgutil
+import tfhe_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(tfhe_tpu_torch.__path__, "tfhe_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+assert not any(k == "tfhe_tpu" or k.startswith("tfhe_tpu.") for k in sys.modules)
+print(len(mods))
+"""
+
+
+def test_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
+
+
+def _named_sets():
+    names = sorted(jp.ALL_NAMED_PARAMS)
+    return names + ["TEST_PARAMS_SHORTINT", "TEST_PARAMS_WOPBS",
+                    "TEST_PARAMS_TRIVIUM", "TEST_PARAMS_BOOLEAN",
+                    "TEST_PARAMS_BOOLEAN_U32", "TEST_PARAMS_GADGET"]
+
+
+def _lookup(mod, name):
+    return getattr(mod, name) if name.startswith("TEST_") else mod.ALL_NAMED_PARAMS[name]
+
+
+@pytest.mark.parametrize("name", _named_sets())
+def test_param_table_matches_jax(name):
+    a, b = _lookup(jp, name), _lookup(tp, name)
+    assert type(a).__name__ == type(b).__name__
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for prop in ("glwe_size", "big_lwe_dimension", "pbs_order",
+                 "lwe_noise_std", "glwe_noise_std"):
+        if hasattr(a, prop):
+            assert getattr(a, prop) == getattr(b, prop)
+
+
+def test_named_set_lookup():
+    assert set(tp.ALL_NAMED_PARAMS) == set(jp.ALL_NAMED_PARAMS)
+    p = tp.shortint_params("PARAM_MESSAGE_2_CARRY_2_KS_PBS")
+    assert (p.lwe_dimension, p.glwe_dimension, p.polynomial_size) == (742, 1, 2048)
+    assert (p.pbs_base_log, p.pbs_level, p.ks_base_log, p.ks_level) == (23, 1, 3, 5)
+    assert tp.shortint_params("TEST_PARAMS_SHORTINT") is tp.TEST_PARAMS_SHORTINT

@@ -1,0 +1,18 @@
+"""Core algorithms of the port's slice: encryption, keyswitch, bootstrap."""
+from .bootstrap import (external_product_num_primes, modulus_switch,
+                        programmable_bootstrap, sample_extract)
+from .encryption import (bootstrap_key_to_ntt, decrypt_lwe, encrypt_constant_ggsw,
+                         encrypt_glwe, encrypt_glwe_deterministic_mask, encrypt_lwe,
+                         encrypt_lwe_deterministic_mask, generate_bootstrap_key,
+                         generate_glwe_secret_key, generate_keyswitch_key,
+                         generate_lwe_secret_key, ggsw_plaintexts, trivial_glwe)
+from .keyswitch import keyswitch_lwe
+
+__all__ = [
+    "external_product_num_primes", "modulus_switch", "programmable_bootstrap",
+    "sample_extract", "bootstrap_key_to_ntt", "decrypt_lwe", "encrypt_constant_ggsw",
+    "encrypt_glwe", "encrypt_glwe_deterministic_mask", "encrypt_lwe",
+    "encrypt_lwe_deterministic_mask", "generate_bootstrap_key",
+    "generate_glwe_secret_key", "generate_keyswitch_key", "generate_lwe_secret_key",
+    "ggsw_plaintexts", "trivial_glwe", "keyswitch_lwe",
+]

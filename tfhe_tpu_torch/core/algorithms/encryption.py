@@ -1,0 +1,185 @@
+"""Key generation, encryption and decryption for LWE, GLWE and GGSW, and the
+bootstrap key's conversion into the port's spectra.
+
+Counterpart of `tfhe_tpu/core/algorithms/encryption.py`.  Randomness comes
+from explicit `torch.Generator`s (`core/rng.py`); every function runs on the
+device of its inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey,
+                        LweCiphertext, LweKeyswitchKey, LweSecretKey,
+                        NttBootstrapKey)
+from ..numeric import LOG_Q, as_i64
+from ..params import DecompParams
+from ..poly import ntt
+
+# ---------------------------------------------------------------------------
+# secret keys
+# ---------------------------------------------------------------------------
+
+
+def generate_lwe_secret_key(gen: torch.Generator, lwe_dimension: int) -> LweSecretKey:
+    return LweSecretKey(bits=rng.binary_key(gen, (lwe_dimension,)))
+
+
+def generate_glwe_secret_key(gen: torch.Generator, glwe_dimension: int,
+                             polynomial_size: int) -> GlweSecretKey:
+    return GlweSecretKey(bits=rng.binary_key(gen, (glwe_dimension, polynomial_size)))
+
+
+# ---------------------------------------------------------------------------
+# LWE
+# ---------------------------------------------------------------------------
+
+
+def _mask_dot_key(mask: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """<a, s> mod 2^64 for binary s: a masked wrapping sum."""
+    return torch.where(bits != 0, mask, torch.zeros_like(mask)).sum(dim=-1)
+
+
+def encrypt_lwe_deterministic_mask(mask: torch.Tensor, sk: LweSecretKey,
+                                   plaintexts: torch.Tensor,
+                                   noise: torch.Tensor) -> torch.Tensor:
+    """LWE data [..., n+1] from a given mask [..., n] and noise [...]."""
+    body = _mask_dot_key(mask, sk.bits) + plaintexts + noise
+    return torch.cat([mask, body.unsqueeze(-1)], dim=-1)
+
+
+def encrypt_lwe(gen: torch.Generator, sk: LweSecretKey, plaintexts: torch.Tensor,
+                noise_std: float) -> LweCiphertext:
+    """Torus plaintexts [...] → LweCiphertext [..., n+1]."""
+    shape = tuple(plaintexts.shape)
+    mask = rng.uniform_torus(gen, shape + (sk.lwe_dimension,))
+    noise = rng.gaussian_noise(gen, shape, noise_std)
+    return LweCiphertext(data=encrypt_lwe_deterministic_mask(
+        mask, sk, plaintexts, noise))
+
+
+def decrypt_lwe(ct: LweCiphertext, sk: LweSecretKey) -> torch.Tensor:
+    """Phase b - <a, s> (message + noise), int64 torus."""
+    return ct.body - _mask_dot_key(ct.mask, sk.bits)
+
+
+# ---------------------------------------------------------------------------
+# GLWE
+# ---------------------------------------------------------------------------
+
+
+def _glwe_mask_dot_key(mask: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """sum_i a_i * s_i over Z_q[X]/(X^N+1) for binary key polys, exact via
+    CRT-NTT.  mask [..., k, N], bits [k, N] → [..., N]."""
+    n, k = mask.shape[-1], bits.shape[-2]
+    log_bound = LOG_Q + np.log2(n) + np.log2(max(k, 1))
+    plan = ntt.get_plan(n, ntt.required_num_primes(log_bound))
+    p = plan.tables(mask.device)["p"]
+    m_hat = ntt.ntt_forward(plan, ntt.reduce(plan, mask))     # [..., k, P, N]
+    s_hat = ntt.ntt_forward(plan, ntt.reduce(plan, bits))     # [k, P, N]
+    acc = (m_hat * s_hat % p).sum(dim=-3) % p
+    return ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, acc))
+
+
+def encrypt_glwe_deterministic_mask(mask: torch.Tensor, sk: GlweSecretKey,
+                                    plaintext_polys: torch.Tensor,
+                                    noise: torch.Tensor) -> torch.Tensor:
+    """GLWE data [..., k+1, N] from a given mask [..., k, N] and noise."""
+    body = _glwe_mask_dot_key(mask, sk.bits) + plaintext_polys + noise
+    return torch.cat([mask, body.unsqueeze(-2)], dim=-2)
+
+
+def encrypt_glwe(gen: torch.Generator, sk: GlweSecretKey,
+                 plaintext_polys: torch.Tensor, noise_std: float) -> GlweCiphertext:
+    """plaintext_polys [..., N] → GlweCiphertext [..., k+1, N]."""
+    k, n = sk.glwe_dimension, sk.polynomial_size
+    lead = tuple(plaintext_polys.shape[:-1])
+    mask = rng.uniform_torus(gen, lead + (k, n))
+    noise = rng.gaussian_noise(gen, lead + (n,), noise_std)
+    return GlweCiphertext(data=encrypt_glwe_deterministic_mask(
+        mask, sk, plaintext_polys, noise))
+
+
+def trivial_glwe(plaintext_polys: torch.Tensor, glwe_dimension: int) -> GlweCiphertext:
+    lead = tuple(plaintext_polys.shape[:-1])
+    mask = torch.zeros(lead + (glwe_dimension, plaintext_polys.shape[-1]),
+                       dtype=torch.int64, device=plaintext_polys.device)
+    return GlweCiphertext(data=torch.cat([mask, plaintext_polys.unsqueeze(-2)], dim=-2))
+
+
+# ---------------------------------------------------------------------------
+# GGSW and bootstrap key
+# ---------------------------------------------------------------------------
+
+
+def ggsw_plaintexts(msg: torch.Tensor, sk: GlweSecretKey,
+                    decomp: DecompParams) -> torch.Tensor:
+    """Plaintext rows of GGSW(msg) for a batch of small integers msg [...]:
+    [..., l, k+1, N].  Row (l, r<k) holds -m*g_l*s_r, the last row the
+    constant m*g_l, with g_l = q/B^(l+1) (tfhe_tpu encrypt_constant_ggsw)."""
+    k, n = sk.glwe_dimension, sk.polynomial_size
+    levels = decomp.level
+    g = torch.tensor([as_i64(1 << (LOG_Q - decomp.base_log * (l + 1)))
+                      for l in range(levels)], dtype=torch.int64, device=msg.device)
+    lvl = msg.unsqueeze(-1) * g                                  # [..., l]
+    pts = torch.zeros(tuple(msg.shape) + (levels, k + 1, n), dtype=torch.int64,
+                      device=msg.device)
+    pts[..., :k, :] = -(lvl[..., None, None] * sk.bits)
+    pts[..., k, 0] = lvl
+    return pts
+
+
+def encrypt_constant_ggsw(gen: torch.Generator, sk: GlweSecretKey,
+                          msg: torch.Tensor, decomp: DecompParams,
+                          noise_std: float) -> torch.Tensor:
+    """GGSW encryptions of a batch of small integers msg [...]: data
+    [..., l, k+1, k+1, N], every row a GLWE encryption of its plaintext
+    row (tfhe_tpu encrypt_constant_ggsw, batched)."""
+    return encrypt_glwe(gen, sk, ggsw_plaintexts(msg, sk, decomp), noise_std).data
+
+
+def generate_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
+                           glwe_sk: GlweSecretKey, decomp: DecompParams,
+                           noise_std: float) -> LweBootstrapKey:
+    """One GGSW(s_i) of the GLWE key per input LWE key bit, all encrypted in
+    one batched call: data [n, l, k+1, k+1, N]."""
+    return LweBootstrapKey(data=encrypt_constant_ggsw(gen, glwe_sk, lwe_sk.bits,
+                                                      decomp, noise_std),
+                           decomp=decomp)
+
+
+def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int) -> NttBootstrapKey:
+    """Standard BSK → the port's spectra [n, P, l*(k+1), k+1, N] int32
+    (counterpart of tfhe_tpu bootstrap_key_to_ntt).  Coefficients enter as
+    signed representatives, in chunks of input key bits to bound memory."""
+    n_in, levels, glwe_size, _, n = bsk.data.shape
+    plan = ntt.get_plan(n, num_primes)
+    spectra = torch.empty((n_in, num_primes, levels * glwe_size, glwe_size, n),
+                          dtype=torch.int32, device=bsk.data.device)
+    chunk = max(1, (1 << 22) // (levels * glwe_size * glwe_size * n * num_primes))
+    for start in range(0, n_in, chunk):
+        part = bsk.data[start:start + chunk]
+        hat = ntt.ntt_forward(plan, ntt.reduce(plan, part))    # [c, l, row, comp, P, N]
+        hat = hat.permute(0, 4, 1, 2, 3, 5).reshape(
+            part.shape[0], num_primes, levels * glwe_size, glwe_size, n)
+        spectra[start:start + chunk] = hat.to(torch.int32)
+    return NttBootstrapKey(spectra=spectra, decomp=bsk.decomp, primes=plan.primes)
+
+
+# ---------------------------------------------------------------------------
+# keyswitch key
+# ---------------------------------------------------------------------------
+
+
+def generate_keyswitch_key(gen: torch.Generator, in_sk: LweSecretKey,
+                           out_sk: LweSecretKey, decomp: DecompParams,
+                           noise_std: float) -> LweKeyswitchKey:
+    """KSK[i, l] = LWE_out(s_in[i] * q/B^(l+1)), data [n_in, l, n_out+1]."""
+    g = torch.tensor([as_i64(1 << (LOG_Q - decomp.base_log * (l + 1)))
+                      for l in range(decomp.level)],
+                     dtype=torch.int64, device=in_sk.bits.device)
+    pts = in_sk.bits.unsqueeze(-1) * g                           # [n_in, l]
+    return LweKeyswitchKey(data=encrypt_lwe(gen, out_sk, pts, noise_std).data,
+                           decomp=decomp)

@@ -1,0 +1,53 @@
+"""Randomness for keys, masks and noise from explicit `torch.Generator`s.
+
+Counterpart of `tfhe_tpu/core/rng.py`.  The JAX package derives substreams
+with threefry `fold_in`; here `generator(seed, *stream, device=...)` seeds a
+fresh torch generator from (seed, stream) through numpy's SeedSequence, so
+every substream is reproducible on its own.  The bits differ from the JAX
+package's (and between CPU and CUDA generators): tests feed both packages
+the same numpy-made randomness, and hold the port's own noise
+statistically.  Like the JAX package's threefry, torch's generators are not
+a vetted CSPRNG.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .numeric import float_round_to_torus
+
+
+def generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
+    """A generator on `device` seeded from (seed, *stream)."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, *stream]).generate_state(2)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return g
+
+
+def uniform_torus(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Uniform 64-bit torus elements: two 32-bit draws joined (randint
+    cannot span 2^64)."""
+    device = gen.device if device is None else device
+    hi_lo = torch.randint(0, 1 << 32, (2,) + tuple(shape), generator=gen,
+                          dtype=torch.int64, device=device)
+    return (hi_lo[0] << 32) | hi_lo[1]
+
+
+def binary_key(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Uniform binary secret key bits (int64 0/1)."""
+    device = gen.device if device is None else device
+    return torch.randint(0, 2, tuple(shape), generator=gen, dtype=torch.int64,
+                         device=device)
+
+
+def gaussian_noise(gen: torch.Generator, shape, std: float,
+                   device=None) -> torch.Tensor:
+    """Rounded gaussian on the torus with absolute std-dev `std` (units of
+    q), sampled in float64."""
+    device = gen.device if device is None else device
+    if std == 0.0:
+        return torch.zeros(tuple(shape), dtype=torch.int64, device=device)
+    n = torch.randn(tuple(shape), generator=gen, dtype=torch.float64,
+                    device=device)
+    return float_round_to_torus(n * std)

@@ -1,0 +1,245 @@
+// Whole blind rotation (delta form) for a batch of LWE ciphertexts.
+//
+// Replaces the TPU kernel `_make_rotation_kernel_mxu` run through
+// `blind_rotate_fused(mode="delta")` (tfhe_tpu/core/poly/pallas_ntt.py:1073,
+// :1537).  For each of the n_steps mask elements, with e_j = a~_j mod 2N:
+//
+//   acc += (X^e_j - 1) * sum_{l,r} decomp_l(acc_r) * GGSW(s_j)[l, r]
+//
+// mod (X^N + 1, 2^64), computed exactly over P NTT primes below 2^30 and
+// lifted back with Garner (signed lift, then mod 2^64), so the result is
+// bit-identical to the JAX kernel whatever the transform's order.
+//
+// Design.  One block per ciphertext; the step loop runs inside the block
+// (it takes the place of the TPU's sequential grid axis) and the
+// accumulator stays in shared memory for the whole rotation.  Per step and
+// prime: balanced digits of acc -> forward Cooley-Tukey NTT (psi merged,
+// bit-reversed out) of the J digit polys -> MAC against the step's key
+// spectra -> pointwise (X^e - 1)/N phase from a 2N-entry table ->
+// Gentleman-Sande inverse of the R products.  Then Garner adds the delta
+// into acc.  Modular products of residues use 32-bit Shoup multiplies with
+// the native __umulhi (twiddles, phases, Garner constants); the MAC sums
+// J 60-bit products in 64 bits and reduces once (Barrett).
+//
+// Bounds on the card.  At PARAM_MESSAGE_2_CARRY_2 (N=2048, P=4, J=R=2) a
+// step is ~2.5e5 modular multiplies per ciphertext, so the kernel is bound
+// by 32-bit integer multiply throughput; and each block reads the step's
+// key slice (P*J*R*N*4 B = 128 KB; 97 MB for all 742 steps, more than the
+// 50 MB L2) once per ciphertext.  Shared memory per block is
+// 8RN + 4JN + 4PRN bytes (112 KB at 2_2: two blocks per SM).  Sharing a
+// key slice among several ciphertexts of a block is left to later work.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef unsigned long long u64;
+
+constexpr int THREADS = 512;
+constexpr int MAXP = 8;
+
+// Layout of the u64 constants buffer; mirrored by rotation.py _kernel_tables.
+enum {
+  C_P = 0, C_MU = 8, C_GINV = 16, C_GINV_SH = 24, C_GW = 32, C_GW_SH = 96,
+  C_HALF = 160, C_PREFIX = 168, C_MMOD = 176, C_SIZE = 177
+};
+
+__device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
+                                              uint32_t ws, uint32_t p) {
+  // a < 2^32, w < p < 2^31, ws = floor(w * 2^32 / p): a*w - q*p in [0, 2p)
+  const uint32_t q = __umulhi(a, ws);
+  const uint32_t r = a * w - q * p;
+  return r >= p ? r - p : r;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
+  const uint32_t s = a + b;
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
+  return a >= b ? a - b : a + p - b;
+}
+
+__device__ __forceinline__ uint32_t barrett(uint64_t x, uint64_t p, uint64_t mu) {
+  // mu = floor(2^64 / p): x - q*p in [0, 2p) for any x < 2^64
+  const uint64_t q = __umul64hi(x, mu);
+  const uint64_t r = x - q * p;
+  return (uint32_t)(r >= p ? r - p : r);
+}
+
+// In-place forward negacyclic NTT of `npoly` polynomials of size n = 2^log_n
+// (Cooley-Tukey, psi merged; natural order in, bit-reversed order out).
+__device__ void ntt_forward(uint32_t* a, int npoly, int log_n,
+                            const uint32_t* __restrict__ w,
+                            const uint32_t* __restrict__ ws, uint32_t p) {
+  const int n = 1 << log_n, half = n >> 1, total = npoly * half;
+  for (int m = 1, lt = log_n - 1; m < n; m <<= 1, --lt) {
+    const int t = 1 << lt;
+    for (int x = threadIdx.x; x < total; x += blockDim.x) {
+      const int q = x & (half - 1);
+      const int i = q >> lt;
+      const int j = (i << (lt + 1)) + (q & (t - 1));
+      uint32_t* v = a + (x >> (log_n - 1)) * n;
+      const uint32_t u = v[j];
+      const uint32_t y = mul_shoup(v[j + t], __ldg(w + m + i), __ldg(ws + m + i), p);
+      v[j] = add_mod(u, y, p);
+      v[j + t] = sub_mod(u, y, p);
+    }
+    __syncthreads();
+  }
+}
+
+// In-place inverse (Gentleman-Sande, psi^-1 merged; bit-reversed in, natural
+// out), without the 1/N factor: the caller folds it into the phase table.
+__device__ void ntt_inverse(uint32_t* a, int npoly, int log_n,
+                            const uint32_t* __restrict__ w,
+                            const uint32_t* __restrict__ ws, uint32_t p) {
+  const int n = 1 << log_n, half = n >> 1, total = npoly * half;
+  for (int h = half, lt = 0; h >= 1; h >>= 1, ++lt) {
+    const int t = 1 << lt;
+    for (int x = threadIdx.x; x < total; x += blockDim.x) {
+      const int q = x & (half - 1);
+      const int i = q >> lt;
+      const int j = (i << (lt + 1)) + (q & (t - 1));
+      uint32_t* v = a + (x >> (log_n - 1)) * n;
+      const uint32_t u = v[j], y = v[j + t];
+      v[j] = add_mod(u, y, p);
+      v[j + t] = mul_shoup(sub_mod(u, y, p), __ldg(w + h + i), __ldg(ws + h + i), p);
+    }
+    __syncthreads();
+  }
+}
+
+// Residues res[a * stride + i] (a < P) -> signed-lifted integer mod 2^64.
+__device__ __forceinline__ uint64_t garner(const uint32_t* res, int i, int stride,
+                                           int P, const u64* __restrict__ cs) {
+  uint32_t t[MAXP];
+  t[0] = res[i];
+  uint64_t c = t[0];
+#pragma unroll
+  for (int a = 1; a < MAXP; ++a) {
+    if (a >= P) break;
+    const uint32_t pa = (uint32_t)__ldg(cs + C_P + a);
+    uint32_t acc = 0;
+#pragma unroll
+    for (int b = 0; b < a; ++b)
+      acc = add_mod(acc, mul_shoup(t[b], (uint32_t)__ldg(cs + C_GW + a * 8 + b),
+                                   (uint32_t)__ldg(cs + C_GW_SH + a * 8 + b), pa), pa);
+    t[a] = mul_shoup(sub_mod(res[a * stride + i], acc, pa),
+                     (uint32_t)__ldg(cs + C_GINV + a),
+                     (uint32_t)__ldg(cs + C_GINV_SH + a), pa);
+    c += (uint64_t)t[a] * __ldg(cs + C_PREFIX + a);
+  }
+  bool ge = false, eq = true;
+#pragma unroll
+  for (int a = MAXP - 1; a >= 0; --a) {
+    if (a >= P) continue;
+    const uint32_t h = (uint32_t)__ldg(cs + C_HALF + a);
+    ge = ge || (eq && t[a] > h);
+    eq = eq && (t[a] == h);
+  }
+  return (ge || eq) ? c - __ldg(cs + C_MMOD) : c;
+}
+
+// tab (u32): psi_rev [P][N], its Shoup twin, psi_inv_rev [P][N], its twin,
+// phase [P][2N] = (psi^m - 1) / N mod p, its twin.  bsk: [steps][P][J][R][N].
+__global__ void __launch_bounds__(THREADS, 2)
+blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
+                    const uint32_t* __restrict__ bsk, const uint32_t* __restrict__ tab,
+                    const u64* __restrict__ cs, int n_steps, int log_n, int P,
+                    int R, int L, int base_log) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = 1 << log_n, J = L * R, RN = R * n;
+  uint64_t* acc = reinterpret_cast<uint64_t*>(smem);            // [R][N]
+  uint32_t* spec = reinterpret_cast<uint32_t*>(acc + RN);       // [J][N]
+  uint32_t* res = spec + J * n;                                 // [P][R][N]
+
+  const uint32_t* psi = tab;
+  const uint32_t* psi_sh = tab + P * n;
+  const uint32_t* ipsi = tab + 2 * P * n;
+  const uint32_t* ipsi_sh = tab + 3 * P * n;
+  const uint32_t* phase = tab + 4 * P * n;
+  const uint32_t* phase_sh = tab + 6 * P * n;
+
+  int64_t* acc_b = acc_g + (size_t)blockIdx.x * RN;
+  const int32_t* e_b = exps + (size_t)blockIdx.x * n_steps;
+  for (int i = threadIdx.x; i < RN; i += blockDim.x) acc[i] = (uint64_t)acc_b[i];
+  __syncthreads();
+
+  const int shift = 64 - base_log * L;
+  const uint64_t round = shift > 0 ? (1ull << (shift - 1)) : 0ull;
+  const uint64_t dmask = (1ull << base_log) - 1, dhalf = 1ull << (base_log - 1);
+  const uint32_t two_n_mask = 2u * n - 1;
+  const size_t step_stride = (size_t)P * J * RN;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const uint32_t e = (uint32_t)__ldg(e_b + step);
+    const uint32_t* key = bsk + step * step_stride;
+    for (int pi = 0; pi < P; ++pi) {
+      const uint32_t p = (uint32_t)__ldg(cs + C_P + pi);
+      // 1. balanced digits of acc (signed_decompose), reduced mod p;
+      //    digit (l, r) goes to row j = l*R + r
+      for (int i = threadIdx.x; i < RN; i += blockDim.x) {
+        const int r = i >> log_n, k = i & (n - 1);
+        uint64_t s = shift > 0 ? (acc[i] + round) >> shift : acc[i];
+        for (int l = L - 1; l >= 0; --l) {
+          const uint64_t raw = s & dmask;
+          const uint64_t carry = (raw + dhalf) >> base_log;
+          const int64_t d = (int64_t)raw - (int64_t)(carry << base_log);
+          s = (s >> base_log) + carry;
+          spec[(l * R + r) * n + k] = d < 0 ? (uint32_t)(d + p) : (uint32_t)d;
+        }
+      }
+      __syncthreads();
+      // 2. forward NTT of the J digit polynomials
+      ntt_forward(spec, J, log_n, psi + pi * n, psi_sh + pi * n, p);
+      // 3. MAC with the key slice, times the (X^e - 1)/N phase
+      const uint32_t* key_p = key + (size_t)pi * J * RN;
+      const u64 mu = __ldg(cs + C_MU + pi);
+      for (int i = threadIdx.x; i < RN; i += blockDim.x) {
+        const int r = i >> log_n, k = i & (n - 1);
+        uint64_t s = 0;
+        for (int j = 0; j < J; ++j)
+          s += (uint64_t)spec[j * n + k] * __ldg(key_p + (size_t)(j * R + r) * n + k);
+        const uint32_t odd = 2u * (__brev((unsigned)k) >> (32 - log_n)) + 1u;
+        const uint32_t m = (e * odd) & two_n_mask;
+        res[pi * RN + i] = mul_shoup(barrett(s, p, mu), __ldg(phase + pi * 2 * n + m),
+                                     __ldg(phase_sh + pi * 2 * n + m), p);
+      }
+      __syncthreads();
+      // 4. inverse NTT of the R products
+      ntt_inverse(res + pi * RN, R, log_n, ipsi + pi * n, ipsi_sh + pi * n, p);
+    }
+    // 5. CRT back to the torus and accumulate
+    for (int i = threadIdx.x; i < RN; i += blockDim.x)
+      acc[i] += garner(res, i, RN, P, cs);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < RN; i += blockDim.x) acc_b[i] = (int64_t)acc[i];
+}
+
+}  // namespace
+
+extern "C" const char* tfhe_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" int tfhe_blind_rotate(void* acc, const void* exps, const void* bsk,
+                                 const void* tab, const void* consts, int batch,
+                                 int n_steps, int n, int log_n, int P, int R, int L,
+                                 int base_log, void* stream) {
+  const int J = L * R;
+  if (P < 1 || P > MAXP || J < 1 || J > 15 || (1 << log_n) != n || log_n < 2 ||
+      base_log < 1 || base_log > 24 || base_log * L > 64 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)8 * R * n + (size_t)4 * J * n + (size_t)4 * P * R * n;
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  blind_rotate_kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(
+      (int64_t*)acc, (const int32_t*)exps, (const uint32_t*)bsk,
+      (const uint32_t*)tab, (const u64*)consts, n_steps, log_n, P, R, L,
+      base_log);
+  return (int)cudaGetLastError();
+}

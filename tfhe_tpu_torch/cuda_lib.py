@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `csrc/` have a plain C interface.  At first use they are
+compiled with `nvcc` for `sm_90a` into one shared library under `build/`
+(named by a hash of the sources and flags) and loaded with ctypes; nothing
+is built when the package is imported.  If `nvcc` is missing or the build
+fails, `library()` raises with the compiler's output: there is no fallback.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+SOURCES = ("rotation.cu", "keyswitch.cu")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "tfhe_blind_rotate": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lib = None
+build_info: dict = {}      # command, seconds and compiler log of the last build
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise BuildError("nvcc not found on PATH or under $CUDA_HOME/bin: "
+                     "the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/ unless a library of the same sources
+    and flags is there already; returns its path."""
+    nvcc = find_nvcc()
+    srcs = [CSRC / s for s in SOURCES]
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for s in srcs:
+        digest.update(s.read_bytes())
+    out = BUILD / f"libtfhe_tpu_torch_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), cached=True)
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), cached=False, seconds=seconds,
+                      command=" ".join(cmd), log=log)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = library().tfhe_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_of(tensor: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as a raw handle.
+    Kernels launch there, so the caching allocator reuses a temporary's
+    memory only for work queued after the kernel."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream

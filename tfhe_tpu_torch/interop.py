@@ -1,0 +1,73 @@
+"""Keys carried across from the JAX package, as numpy arrays.
+
+The JAX package's key arrays (`np.asarray` of its entities' fields) become
+the port's keys, so that both packages compute the same thing on the same
+keys.  Nothing here imports jax.
+
+  secret keys            int8 bits            → LweSecretKey / GlweSecretKey
+  LweKeyswitchKey.data   [big_n, l, n+1] u64  → LweKeyswitchKey
+  LweBootstrapKey.data   [n, l, k+1, k+1, N]  → the port's NttBootstrapKey
+  NttLweBootstrapKey.data [n, P, J, R, N] u64 residues in the JAX DIF order
+                                              → the port's NttBootstrapKey
+
+The DIF residues are inverted with the port's copy of the JAX plan tables
+and Garner (signed lift, exact: |coefficient| < 2^63 < M/2), back to the
+standard coefficients, from which the port builds its own spectra.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.algorithms.encryption import bootstrap_key_to_ntt
+from .core.entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
+                            LweSecretKey, NttBootstrapKey)
+from .core.numeric import from_numpy_u64
+from .core.params import DecompParams
+from .core.poly import ntt
+
+
+def lwe_secret_key(bits, device="cpu") -> LweSecretKey:
+    return LweSecretKey(bits=torch.as_tensor(np.asarray(bits, dtype=np.int64),
+                                             device=device))
+
+
+def glwe_secret_key(bits, device="cpu") -> GlweSecretKey:
+    return GlweSecretKey(bits=torch.as_tensor(np.asarray(bits, dtype=np.int64),
+                                              device=device))
+
+
+def keyswitch_key(data, decomp: DecompParams, device="cpu") -> LweKeyswitchKey:
+    return LweKeyswitchKey(data=from_numpy_u64(data, device), decomp=decomp)
+
+
+def bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
+                                device="cpu") -> NttBootstrapKey:
+    """Standard BSK [n, l, k+1, k+1, N] u64 → the port's spectra."""
+    std = LweBootstrapKey(data=from_numpy_u64(data, device), decomp=decomp)
+    return bootstrap_key_to_ntt(std, num_primes)
+
+
+def standard_from_dif(data, primes) -> np.ndarray:
+    """JAX NttLweBootstrapKey.data [n, P, J, R, N] (DIF-order residues) →
+    standard coefficients [n, l*(k+1), k+1, N] u64 (the contraction axis
+    stays flattened).  Raises unless `primes` equal primes_for(N)[:P]."""
+    data = np.asarray(data)
+    n_in, P, J, R, n = data.shape
+    plan = ntt.get_plan(n, P)
+    if tuple(int(p) for p in primes) != plan.primes:
+        raise ValueError(f"key primes {tuple(primes)} differ from primes_for({n})"
+                         f"[:{P}] = {plan.primes}")
+    res = torch.from_numpy(data.astype(np.int64)).permute(0, 2, 3, 1, 4)  # [n,J,R,P,N]
+    coeffs = ntt.garner_to_torus(plan, ntt.dif_inverse(plan, res))
+    return coeffs.numpy().view(np.uint64)
+
+
+def bootstrap_key_from_dif(data, primes, decomp: DecompParams,
+                           device="cpu") -> NttBootstrapKey:
+    """JAX NttLweBootstrapKey.data → the port's spectra (through the
+    standard coefficients)."""
+    std = standard_from_dif(data, primes)
+    n_in, J, R, n = std.shape
+    std = std.reshape(n_in, J // R, R, R, n)
+    return bootstrap_key_from_standard(std, decomp, np.asarray(data).shape[1], device)

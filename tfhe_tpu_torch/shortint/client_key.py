@@ -1,0 +1,86 @@
+"""Shortint client key: encrypt and decrypt under the big (GLWE-as-LWE) key
+(counterpart of `tfhe_tpu/shortint/client_key.py`)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import rng
+from ..core.algorithms import (decrypt_lwe, encrypt_lwe, generate_glwe_secret_key,
+                               generate_lwe_secret_key)
+from ..core.entities import GlweSecretKey, LweSecretKey
+from ..core.numeric import LOG_Q, as_i64, udiv
+from ..core.params import ClassicPBSParameters, EncryptionKeyChoice, shortint_params
+from .ciphertext import Ciphertext, NoiseLevel
+
+
+def delta_for(params) -> int:
+    """Δ = q / (2 * msg_mod * carry_mod): one bit of padding."""
+    return (1 << LOG_Q) // (2 * params.message_modulus * params.carry_modulus)
+
+
+@dataclass(frozen=True)
+class ClientKey:
+    glwe_sk: GlweSecretKey
+    lwe_sk: LweSecretKey
+    params: ClassicPBSParameters
+
+    @property
+    def device(self) -> torch.device:
+        return self.lwe_sk.bits.device
+
+    @property
+    def big_sk(self) -> LweSecretKey:
+        return self.glwe_sk.as_lwe_secret_key()
+
+    @property
+    def encryption_key(self) -> LweSecretKey:
+        if self.params.encryption_key_choice == EncryptionKeyChoice.BIG:
+            return self.big_sk
+        return self.lwe_sk
+
+    @property
+    def encryption_noise_std(self) -> float:
+        if self.params.encryption_key_choice == EncryptionKeyChoice.BIG:
+            return self.params.glwe_noise_std
+        return self.params.lwe_noise_std
+
+    def encrypt(self, messages, seed: int = 0) -> Ciphertext:
+        """messages: integers [...] in [0, message_modulus)."""
+        p = self.params
+        msgs = torch.as_tensor(messages, dtype=torch.int64, device=self.device)
+        pts = torch.remainder(msgs, p.message_modulus * p.carry_modulus) \
+            * as_i64(delta_for(p))
+        gen = rng.generator(seed, 0x5C, device=self.device)
+        ct = encrypt_lwe(gen, self.encryption_key, pts, self.encryption_noise_std)
+        return Ciphertext(lwe=ct, degree=p.message_modulus - 1,
+                          message_modulus=p.message_modulus,
+                          carry_modulus=p.carry_modulus,
+                          noise_level=NoiseLevel.NOMINAL)
+
+    def decrypt_message_and_carry(self, ct: Ciphertext) -> torch.Tensor:
+        """→ int64 [...] in [0, 2 * msg_mod * carry_mod): the rounded phase,
+        divided by Δ as an unsigned value."""
+        phase = decrypt_lwe(ct.lwe, self.encryption_key)
+        d = delta_for(self.params)
+        space = 2 * self.params.message_modulus * self.params.carry_modulus
+        return torch.remainder(udiv(phase + (d >> 1), d), space)
+
+    def decrypt(self, ct: Ciphertext) -> torch.Tensor:
+        """→ message tensor [...] (mod message_modulus)."""
+        return torch.remainder(self.decrypt_message_and_carry(ct), ct.message_modulus)
+
+
+def gen_keys(params="PARAM_MESSAGE_2_CARRY_2_KS_PBS", seed: int = 0,
+             device="cpu"):
+    """→ (ClientKey, ServerKey) on `device` (reference shortint::gen_keys)."""
+    from .server_key import gen_server_key
+    if isinstance(params, str):
+        params = shortint_params(params)
+    glwe_sk = generate_glwe_secret_key(rng.generator(seed, 1, device=device),
+                                       params.glwe_dimension, params.polynomial_size)
+    lwe_sk = generate_lwe_secret_key(rng.generator(seed, 2, device=device),
+                                     params.lwe_dimension)
+    ck = ClientKey(glwe_sk=glwe_sk, lwe_sk=lwe_sk, params=params)
+    return ck, gen_server_key(ck, seed)
