@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
-Drives the port's shortint keyswitch + PBS main path once at the full
-PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048, batch 512), through
-the entry points a user calls, and checks it:
+Drives the port's two shortint keyswitch + PBS paths once, through the
+entry points a user calls, and checks them: the classic path at the full
+PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048) and the multi-bit
+path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in 296
+groups of 3, N=2048), batch 512 each:
 
-  1. card, power limit, torch and CUDA versions;
-  2. builds both CUDA kernels (csrc/*.cu) with nvcc and prints ptxas's
-     register, shared-memory and spill lines;
-  3. holds each kernel bit for bit (tolerance 0: the arithmetic is exact)
-     against its plain PyTorch version on the card at the main path's
-     shapes (K1 blind rotation at batch 1, 6, 8 and 512 over all 742 steps,
-     K2 keyswitch contraction at batch 512), and times both versions at
-     batch 512 with CUDA events;
-  4. gen_keys on the card, encrypts 512 messages, serves three requests
-     (a LUT, a second LUT chained on its output, a bivariate LUT), decrypts
-     all 3 x 512 results against the clear model, and holds the first
-     results bit for bit against the plain path on CPU tensors;
-  5. reports each kernel's launch count in the main path (each must be > 0)
-     and PBS/s at batch 512.
+  1. card, power limit, SM clock, torch and CUDA versions;
+  2. builds the CUDA kernels (csrc/*.cu: K1, K3 in rotation.cu, K2 in
+     keyswitch.cu) with nvcc and prints ptxas's register, shared-memory and
+     spill lines;
+  3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
+     against their plain PyTorch versions on the card at the classic
+     path's shapes (K1 at batch 1, 6, 8 and 512 over all 742 steps, K2 at
+     batch 512), and times both versions at batch 512 with CUDA events;
+  3b. holds K3 the same way at the GROUP_2 and GROUP_3 widths (batch 1, 6,
+     8 and 512, all steps, random keys) and times it and its plain version
+     at batch 512;
+  4. classic path: counts to 0, gen_keys on the card, encrypts 512
+     messages, serves three requests (a LUT, a second LUT on its output, a
+     bivariate LUT), reads the counts, decrypts all 3 x 512 results against
+     the clear model, and holds the first results bit for bit against the
+     plain path on CPU tensors;
+  4b. multi-bit path, GROUP_3: counts to 0, gen_keys on the card, encrypts
+     two batches of 512, serves four requests (a LUT, add, mul, greater),
+     reads the counts, decrypts all 4 x 512 results against the clear
+     model, and holds the first results bit for bit against the plain path
+     on CPU tensors;
+  5. checks each kernel's launch count on its path (each must be > 0),
+     measures KS+PBS PBS/s at batch 512 for 2_2, GROUP_3 and GROUP_2, and
+     prints the kernels line: each kernel's time beside its bound (the
+     larger of its 32-bit integer multiplies over the card's INT32 issue
+     rate and its bytes over 3.35 TB/s) and its plain version's time.
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -29,17 +43,24 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
 
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA's data sheet)
+INT32_LANES_PER_SM = 64          # Hopper: INT32 multiply issue per SM per clock
+CLASSIC = "PARAM_MESSAGE_2_CARRY_2_KS_PBS"
+GROUP_2 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_KS_PBS"
+GROUP_3 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS"
+B = 512
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
 
 
@@ -59,6 +80,52 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a - b).abs().max().item())
 
 
+def hold(name: str, got: torch.Tensor, ref: torch.Tensor) -> int:
+    """Print and check bit-identity; → max_abs_err."""
+    same = torch.equal(got, ref)
+    print(f"{name}: {'bit-identical' if same else 'MISMATCH'} to plain")
+    if not same:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return max_abs_err(got, ref)
+
+
+# ---- bounds: 32-bit integer multiplies counted from csrc/, and bytes --------
+# mul_shoup = 3 (__umulhi, a*w, q*p); barrett = 7 (__umul64hi of two u64: 4,
+# q*p low 64 bits: 3); a 32x32->64 MAC product = 1; a u64 x u64 low product
+# = 3; the phase index e*odd = 1.
+
+def ntt_mults(n: int) -> int:
+    return 3 * (n // 2) * (n.bit_length() - 1)
+
+
+def garner_mults(P: int) -> int:
+    return sum(3 * a + 3 + 3 for a in range(1, P))
+
+
+def k1_mults(batch, steps, P, J, R, n) -> int:
+    per_prime = J * ntt_mults(n) + R * n * (J + 7 + 1 + 3) + R * ntt_mults(n)
+    return batch * steps * (P * per_prime + R * n * garner_mults(P))
+
+
+def k3_mults(batch, steps, V, P, J, R, n) -> int:
+    chunks = math.ceil(V / (16 // J))           # Barrett reductions per output
+    mac = n * ((V - 1) * (1 + 3 * J) + R * V * J + R * 7 * chunks + R * 3)
+    per_prime = J * ntt_mults(n) + mac + R * ntt_mults(n)
+    return batch * steps * (P * per_prime + R * n * garner_mults(P))
+
+
+def k2_mults(batch, K, M) -> int:
+    return 3 * batch * K * M
+
+
+def bound(mults: int, nbytes: int, sm_clock_hz: float, sms: int) -> tuple:
+    """(bound_ms, bound_by): the larger of operations over the INT32 issue
+    rate and bytes over the memory rate."""
+    ops_ms = mults / (INT32_LANES_PER_SM * sms * sm_clock_hz) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -72,39 +139,48 @@ def main() -> int:
     from tfhe_tpu_torch.core import rng
     from tfhe_tpu_torch.core.algorithms import external_product_num_primes, keyswitch
     from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
-                                              NttBootstrapKey)
+                                              NttBootstrapKey, NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import shortint_params
     from tfhe_tpu_torch.core.poly import ntt, rotation
-    from tfhe_tpu_torch.core.poly.rotation import blind_rotate_plain
 
     # ---- 1. the card ---------------------------------------------------------
-    card = card_line()
+    card = smi("name,power.limit")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     dev = torch.device("cuda", 0)
-    print(f"card: {card}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"card: {card}; max SM clock {clock_mhz:.0f} MHz, {sms} SMs")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"devices {torch.cuda.device_count()}, {torch.cuda.get_device_name(0)}")
     tag = f"[{card}]"
+    clock_hz = clock_mhz * 1e6
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_lib.library()
     info = cuda_lib.build_info
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info.get('seconds', 0):.2f} s, "
+    print(f"{tag} build: {time.perf_counter() - t0:.2f} s (nvcc {info.get('seconds', 0):.2f} s, "
           f"cached={info.get('cached')})")
     for line in info.get("log", "").splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
             print(f"ptxas: {line.strip()}")
 
-    # ---- 3. kernels against their plain versions, full 2_2 widths ----------
-    params = shortint_params("PARAM_MESSAGE_2_CARRY_2_KS_PBS")
-    n, N, R = params.lwe_dimension, params.polynomial_size, params.glwe_size
-    J = params.pbs_level * R
-    P = external_product_num_primes(N, R, params.pbs_decomp)
-    plan = ntt.get_plan(N, P)
     g = rng.generator(args.seed, 7, device=dev)
-    spectra = torch.stack([torch.randint(0, p, (n, J, R, N), generator=g, device=dev,
-                                         dtype=torch.int32) for p in plan.primes], dim=1)
-    key = NttBootstrapKey(spectra=spectra, decomp=params.pbs_decomp, primes=plan.primes)
+
+    def widths(params):
+        n, N, R = params.lwe_dimension, params.polynomial_size, params.glwe_size
+        J = params.pbs_level * R
+        P = external_product_num_primes(N, R, params.pbs_decomp)
+        return n, N, R, J, P, ntt.get_plan(N, P)
+
+    def random_spectra(plan, shape, axis):
+        return torch.stack([torch.randint(0, p, shape, generator=g, device=dev,
+                                          dtype=torch.int32) for p in plan.primes], dim=axis)
+
+    # ---- 3. K1 and K2 against their plain versions, full 2_2 widths ---------
+    params = shortint_params(CLASSIC)
+    n, N, R, J, P, plan = widths(params)
+    key = NttBootstrapKey(spectra=random_spectra(plan, (n, J, R, N), 1),
+                          decomp=params.pbs_decomp, primes=plan.primes)
 
     def rot_inputs(batch):
         return (rng.uniform_torus(g, (batch, R, N)),
@@ -115,49 +191,80 @@ def main() -> int:
         acc, exps = rot_inputs(batch)
         got = rotation.rotate_accumulator(acc, exps, key)
         torch.cuda.synchronize()
-        ref = blind_rotate_plain(acc, exps, key)
-        torch.cuda.synchronize()
-        k1_err = max(k1_err, max_abs_err(got, ref))
-        print(f"K1 blind rotation, batch {batch}, {n} steps: "
-              f"{'bit-identical' if torch.equal(got, ref) else 'MISMATCH'} to plain")
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K1 disagrees with its plain version at batch {batch}")
+        k1_err = max(k1_err, hold(f"K1 blind rotation, batch {batch}, {n} steps", got,
+                                  rotation.blind_rotate_plain(acc, exps, key)))
 
-    K, M, B = params.big_lwe_dimension * params.ks_level, n + 1, 512
+    K, M = params.big_lwe_dimension * params.ks_level, n + 1
     digits = torch.randint(-(1 << (params.ks_base_log - 1)), (1 << (params.ks_base_log - 1)) + 1,
                            (B, K), generator=g, device=dev, dtype=torch.int32)
     kmat, body = rng.uniform_torus(g, (K, M)), rng.uniform_torus(g, (B,))
     got = keyswitch.neg_digit_mac(digits, kmat, body)
     torch.cuda.synchronize()
-    ref = keyswitch.neg_digit_mac_plain(digits, kmat, body)
-    k2_err = max_abs_err(got, ref)
-    print(f"K2 keyswitch contraction, batch {B}, K={K}, M={M}: "
-          f"{'bit-identical' if torch.equal(got, ref) else 'MISMATCH'} to plain")
-    if not torch.equal(got, ref):
-        raise AssertionError("K2 disagrees with its plain version")
+    k2_err = hold(f"K2 keyswitch contraction, batch {B}, K={K}, M={M}", got,
+                  keyswitch.neg_digit_mac_plain(digits, kmat, body))
 
     acc, exps = rot_inputs(B)
     outs = {}
     k1_ms = cuda_ms(lambda: outs.update(kernel=rotation.rotate_accumulator(acc, exps, key)), 3)
-    k1_plain_ms = cuda_ms(lambda: outs.update(plain=blind_rotate_plain(acc, exps, key)), 1)
-    k1_err = max(k1_err, max_abs_err(outs["kernel"], outs["plain"]))
-    same = torch.equal(outs["kernel"], outs["plain"])
-    print(f"K1 blind rotation, batch {B}, {n} steps: "
-          f"{'bit-identical' if same else 'MISMATCH'} to plain")
-    if not same:
-        raise AssertionError(f"K1 disagrees with its plain version at batch {B}")
+    k1_plain_ms = cuda_ms(lambda: outs.update(plain=rotation.blind_rotate_plain(acc, exps, key)),
+                          1)
+    k1_err = max(k1_err, hold(f"K1 blind rotation, batch {B}, {n} steps", outs["kernel"],
+                              outs["plain"]))
     k2_ms = cuda_ms(lambda: keyswitch.neg_digit_mac(digits, kmat, body), 10)
     k2_plain_ms = cuda_ms(lambda: keyswitch.neg_digit_mac_plain(digits, kmat, body), 3)
     print(f"{tag} K1 batch {B}: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
     print(f"{tag} K2 batch {B}: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
-    del spectra, key, acc, exps, digits, kmat, body, got, ref, outs
+    k1_bound = bound(k1_mults(B, n, P, J, R, N),
+                     key.spectra.numel() * 4 + 2 * B * R * N * 8 + B * n * 4 + 8 * P * N * 4,
+                     clock_hz, sms)
+    k2_bound = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
+                     clock_hz, sms)
+    del key, acc, exps, digits, kmat, body, got, outs
 
-    # ---- 4. the main path: keygen, encrypt, three requests, decrypt ---------
-    rotation.launches = keyswitch.launches = 0
+    # ---- 3b. K3 against its plain version, GROUP_2 and GROUP_3 widths -------
+    k3 = {}
+    for name in (GROUP_2, GROUP_3):
+        mp = shortint_params(name)
+        n, N, R, J, P, plan = widths(mp)
+        gf, V = mp.grouping_factor, 1 << mp.grouping_factor
+        mkey = NttMultiBitBootstrapKey(spectra=random_spectra(plan, (n // gf, V, J, R, N), 2),
+                                       decomp=mp.pbs_decomp, primes=plan.primes,
+                                       grouping_factor=gf)
+        label = f"K3 multi-bit rotation GROUP_{gf}"
+        err = 0
+
+        def mb_inputs(batch):
+            exps = torch.randint(0, 2 * N, (batch, n), generator=g, device=dev)
+            return (rng.uniform_torus(g, (batch, R, N)),
+                    rotation.variant_exponents(exps, gf, N))
+
+        for batch in (1, 6, 8):
+            acc, cexp = mb_inputs(batch)
+            got = rotation.rotate_accumulator_multi_bit(acc, cexp, mkey)
+            torch.cuda.synchronize()
+            err = max(err, hold(f"{label}, batch {batch}, {n // gf} steps", got,
+                                rotation.blind_rotate_multi_bit_plain(acc, cexp, mkey)))
+        acc, cexp = mb_inputs(B)
+        outs = {}
+        ms = cuda_ms(lambda: outs.update(
+            kernel=rotation.rotate_accumulator_multi_bit(acc, cexp, mkey)), 3)
+        plain_ms = cuda_ms(lambda: outs.update(
+            plain=rotation.blind_rotate_multi_bit_plain(acc, cexp, mkey)), 1)
+        err = max(err, hold(f"{label}, batch {B}, {n // gf} steps", outs["kernel"],
+                            outs["plain"]))
+        print(f"{tag} K3 GROUP_{gf} batch {B}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        k3[gf] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound(
+            k3_mults(B, n // gf, V, P, J, R, N),
+            mkey.spectra.numel() * 4 + 2 * B * R * N * 8 + B * (n // gf) * (V - 1) * 4
+            + 12 * P * N * 4, clock_hz, sms))
+        del mkey, acc, cexp, got, outs
+
+    # ---- 4. the classic path: keygen, encrypt, three requests, decrypt ------
+    rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
     t0 = time.perf_counter()
     ck, sk = shortint.gen_keys(params, seed=args.seed, device=dev)
     torch.cuda.synchronize()
-    print(f"gen_keys on the card: {time.perf_counter() - t0:.2f} s")
+    print(f"{tag} gen_keys {CLASSIC} on the card: {time.perf_counter() - t0:.2f} s")
     mm = params.message_modulus
     msgs = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 8), dtype=torch.int64)
     ct = ck.encrypt(msgs.to(dev), seed=args.seed + 1)
@@ -173,60 +280,123 @@ def main() -> int:
     out3 = sk.unchecked_apply_lookup_table_bivariate(out1, out2, lut3)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {"blind_rotate": rotation.launches, "keyswitch_mac": keyswitch.launches}
+    classic_launches = {"blind_rotate": rotation.launches,
+                        "blind_rotate_multibit": rotation.multi_bit_launches,
+                        "keyswitch_mac": keyswitch.launches}
+
+    def check_requests(ck, outs, expect, path, seconds):
+        right = 0
+        for i, (out, want) in enumerate(zip(outs, expect)):
+            if tuple(out.lwe.data.shape) != (B, ck.params.big_lwe_dimension + 1):
+                raise AssertionError(f"{path} request {i + 1}: shape "
+                                     f"{tuple(out.lwe.data.shape)}")
+            ok = int((ck.decrypt(out).cpu() == want).sum())
+            right += ok
+            print(f"{path} request {i + 1}: {ok}/{B} decrypt right")
+        print(f"{tag} {path} path: {right}/{len(outs) * B} right, {len(outs)} requests in "
+              f"{seconds:.3f} s (first-call costs included)")
+        if right != len(outs) * B:
+            raise AssertionError(f"decryption mismatch on the {path} path")
 
     m1, m2 = f1(msgs), f2(f1(msgs))
-    expect = [m1, m2, fb(m1, m2)]
-    right = 0
-    for i, (out, want) in enumerate(zip((out1, out2, out3), expect)):
-        if tuple(out.lwe.data.shape) != (B, params.big_lwe_dimension + 1):
-            raise AssertionError(f"request {i + 1}: shape {tuple(out.lwe.data.shape)}")
-        got = ck.decrypt(out).cpu()
-        ok = int((got == want).sum())
-        right += ok
-        print(f"request {i + 1}: {ok}/{B} decrypt right")
-    print(f"main path: {right}/{3 * B} right, three requests in {serve_s:.3f} s "
-          f"(first-call costs included)")
-    if right != 3 * B:
-        raise AssertionError("decryption mismatch on the main path")
+    check_requests(ck, (out1, out2, out3), [m1, m2, fb(m1, m2)], "classic", serve_s)
 
-    # the same first request on CPU tensors (the plain path the CPU tests
-    # hold against tfhe_tpu), bit for bit on a small input
-    small = 4
-    sk_cpu = shortint.ServerKey(
-        ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
-        bsk=NttBootstrapKey(spectra=sk.bsk.spectra.cpu(), decomp=sk.bsk.decomp,
-                            primes=sk.bsk.primes), params=params)
-    ct_small = ct.with_(lwe=LweCiphertext(data=ct.lwe.data[:small].cpu()))
-    ref = sk_cpu.apply_lookup_table(ct_small, sk_cpu.generate_lookup_table(f1))
-    same = torch.equal(ref.lwe.data, out1.lwe.data[:small].cpu())
-    print(f"request 1 on {small} ciphertexts: card path {'bit-identical' if same else 'MISMATCH'}"
-          f" to the plain CPU path")
-    if not same:
-        raise AssertionError("card path disagrees with the plain CPU path")
+    def hold_cpu_path(sk, ct, lut_fn, out, bsk_cpu, path):
+        """The first request on 4 ciphertexts through the plain path on CPU
+        tensors (what the CPU tests hold against tfhe_tpu)."""
+        small = 4
+        sk_cpu = shortint.ServerKey(
+            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
+            bsk=bsk_cpu, params=sk.params)
+        ct_small = ct.with_(lwe=LweCiphertext(data=ct.lwe.data[:small].cpu()))
+        ref = sk_cpu.apply_lookup_table(ct_small, sk_cpu.generate_lookup_table(lut_fn))
+        same = torch.equal(ref.lwe.data, out.lwe.data[:small].cpu())
+        print(f"{path} request 1 on {small} ciphertexts: card path "
+              f"{'bit-identical' if same else 'MISMATCH'} to the plain CPU path")
+        if not same:
+            raise AssertionError(f"{path} card path disagrees with the plain CPU path")
 
-    # ---- 5. launch counts and throughput -------------------------------------
-    print(f"main-path kernel launches: {json.dumps(launches)}")
-    for name, count in launches.items():
+    hold_cpu_path(sk, ct, f1, out1, NttBootstrapKey(spectra=sk.bsk.spectra.cpu(),
+                                                    decomp=sk.bsk.decomp,
+                                                    primes=sk.bsk.primes), "classic")
+    kspbs = {CLASSIC: cuda_ms(lambda: sk.apply_lookup_table(ct, lut1), 3)}
+    del ck, sk, ct, out1, out2, out3
+
+    # ---- 4b. the multi-bit path, GROUP_3: four requests ----------------------
+    rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
+    mp3 = shortint_params(GROUP_3)
+    t0 = time.perf_counter()
+    ck, sk = shortint.gen_keys(mp3, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag} gen_keys {GROUP_3} on the card: {time.perf_counter() - t0:.2f} s "
+          f"(key {sk.bsk.spectra.numel() * 4 / 1e6:.1f} MB)")
+    mm = mp3.message_modulus
+    gen = rng.generator(args.seed, 9)
+    a = torch.randint(0, mm, (B,), generator=gen, dtype=torch.int64)
+    b = torch.randint(0, mm, (B,), generator=gen, dtype=torch.int64)
+    ca, cb = ck.encrypt(a.to(dev), seed=args.seed + 2), ck.encrypt(b.to(dev), seed=args.seed + 3)
+    lut_mb = sk.generate_lookup_table(f1)
+    t0 = time.perf_counter()
+    outs = (sk.apply_lookup_table(ca, lut_mb), sk.add(ca, cb), sk.mul(ca, cb),
+            sk.greater(ca, cb))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    multi_bit_launches = {"blind_rotate": rotation.launches,
+                          "blind_rotate_multibit": rotation.multi_bit_launches,
+                          "keyswitch_mac": keyswitch.launches}
+    check_requests(ck, outs, [f1(a), (a + b) % mm, (a * b) % mm, (a > b).long()],
+                   "multi-bit GROUP_3", serve_s)
+    hold_cpu_path(sk, ca, f1, outs[0], NttMultiBitBootstrapKey(
+        spectra=sk.bsk.spectra.cpu(), decomp=sk.bsk.decomp, primes=sk.bsk.primes,
+        grouping_factor=sk.bsk.grouping_factor), "multi-bit GROUP_3")
+    kspbs[GROUP_3] = cuda_ms(lambda: sk.apply_lookup_table(ca, lut_mb), 3)
+    del ck, sk, ca, cb, outs
+
+    # ---- 5. launch counts, throughput, the kernels line -----------------------
+    print(f"classic path kernel launches: {json.dumps(classic_launches)}")
+    print(f"multi-bit GROUP_3 path kernel launches: {json.dumps(multi_bit_launches)}")
+    for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
+                        ("keyswitch_mac", classic_launches["keyswitch_mac"]),
+                        ("blind_rotate_multibit", multi_bit_launches["blind_rotate_multibit"]),
+                        ("keyswitch_mac", multi_bit_launches["keyswitch_mac"])):
         if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    kspbs_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut1), 3)
-    print(f"{tag} KS+PBS 2_2 batch {B}: {kspbs_ms:.3f} ms per call, "
-          f"{B / (kspbs_ms / 1e3):.2f} PBS/s; plain rotation alone at batch {B}: "
-          f"{k1_plain_ms:.3f} ms")
+            raise AssertionError(f"kernel {name} was not launched by its path")
+
+    mp2 = shortint_params(GROUP_2)
+    ck, sk = shortint.gen_keys(mp2, seed=args.seed, device=dev)
+    ct = ck.encrypt(a.to(dev), seed=args.seed + 4)
+    lut = sk.generate_lookup_table(f1)
+    out = sk.apply_lookup_table(ct, lut)
+    if not torch.equal(ck.decrypt(out).cpu(), f1(a)):
+        raise AssertionError("GROUP_2 KS+PBS decrypts wrong")
+    kspbs[GROUP_2] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+    del ck, sk, ct, out
+    for name, ms in kspbs.items():
+        print(f"{tag} KS+PBS {name} batch {B}: {ms:.3f} ms per call, "
+              f"{B / (ms / 1e3):.2f} PBS/s")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        print(f"{tag} {name}: {ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]} "
+              f"(bound / time = {bnd[0] / ms:.1%}), plain {plain_ms:.3f} ms")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
-        {"name": "blind_rotate", "route": "cuda",
-         "source": "tfhe_tpu_torch/csrc/rotation.cu",
-         "replaces": "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-         "launches": launches["blind_rotate"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "keyswitch_mac", "route": "cuda",
-         "source": "tfhe_tpu_torch/csrc/keyswitch.cu",
-         "replaces": "tfhe_tpu/core/algorithms/keyswitch.py:41",
-         "launches": launches["keyswitch_mac"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("blind_rotate", "tfhe_tpu_torch/csrc/rotation.cu",
+              "tfhe_tpu/core/poly/pallas_ntt.py:1073", classic_launches["blind_rotate"],
+              k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("keyswitch_mac", "tfhe_tpu_torch/csrc/keyswitch.cu",
+              "tfhe_tpu/core/algorithms/keyswitch.py:41",
+              classic_launches["keyswitch_mac"] + multi_bit_launches["keyswitch_mac"],
+              k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("blind_rotate_multibit", "tfhe_tpu_torch/csrc/rotation.cu",
+              "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
+              k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"]),
     ]
+    print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
+          f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

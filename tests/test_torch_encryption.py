@@ -49,7 +49,7 @@ def test_lwe_encryption_matches_jax():
     noise = _noise(r, (B,), 2.0 ** 40)
     ref = np.asarray(jax.jit(lambda m, s, p, e: jax_encrypt_lwe(m, JLweSk(bits=s), p, e, 64))(
         jnp.asarray(mask), jnp.asarray(bits), jnp.asarray(pts), jnp.asarray(noise)))
-    sk = interop.lwe_secret_key(bits)
+    sk = interop.lwe_secret_key(bits, device="cpu")
     ours = encrypt_lwe_deterministic_mask(from_numpy_u64(mask), sk, from_numpy_u64(pts),
                                           from_numpy_u64(noise))
     np.testing.assert_array_equal(to_numpy_u64(ours), ref)
@@ -69,7 +69,7 @@ def test_glwe_encryption_matches_jax():
     dot = np.asarray(jax.jit(lambda m, s: jax_glwe_dot(m, s, 64))(jnp.asarray(mask),
                                                                  jnp.asarray(bits)))
     ours = encrypt_glwe_deterministic_mask(from_numpy_u64(mask),
-                                           interop.glwe_secret_key(bits),
+                                           interop.glwe_secret_key(bits, device="cpu"),
                                            from_numpy_u64(pts), from_numpy_u64(noise))
     assert ours.shape == (3, k + 1, N)
     np.testing.assert_array_equal(to_numpy_u64(ours[:, :k]), mask)
@@ -105,8 +105,9 @@ def test_port_bootstrap_key_decrypts():
     k, N, L, Bl = P.glwe_dimension, P.polynomial_size, P.pbs_level, P.pbs_base_log
     lwe_bits = rng.binary_key(rng.generator(3, 1), (P.lwe_dimension,))
     glwe_bits = rng.binary_key(rng.generator(3, 2), (k, N))
-    bsk = generate_bootstrap_key(rng.generator(3, 3), interop.lwe_secret_key(lwe_bits),
-                                 interop.glwe_secret_key(glwe_bits), P.pbs_decomp,
+    bsk = generate_bootstrap_key(rng.generator(3, 3),
+                                 interop.lwe_secret_key(lwe_bits, device="cpu"),
+                                 interop.glwe_secret_key(glwe_bits, device="cpu"), P.pbs_decomp,
                                  P.glwe_noise_std)
     data = to_numpy_u64(bsk.data)                                  # [n, L, k+1, k+1, N]
     sbits, gbits = lwe_bits.numpy(), glwe_bits.numpy()
@@ -127,8 +128,9 @@ def test_port_keyswitch_key_decrypts():
     n_in, L, Bk = 64, P.ks_level, P.ks_base_log
     in_bits = rng.binary_key(rng.generator(4, 1), (n_in,))
     out_bits = rng.binary_key(rng.generator(4, 2), (P.lwe_dimension,))
-    out_sk = interop.lwe_secret_key(out_bits)
-    ksk = generate_keyswitch_key(rng.generator(4, 3), interop.lwe_secret_key(in_bits),
+    out_sk = interop.lwe_secret_key(out_bits, device="cpu")
+    ksk = generate_keyswitch_key(rng.generator(4, 3),
+                                 interop.lwe_secret_key(in_bits, device="cpu"),
                                  out_sk, P.ks_decomp, P.lwe_noise_std)
     assert ksk.data.shape == (n_in, L, P.lwe_dimension + 1)
     phase = to_numpy_u64(decrypt_lwe(LweCiphertext(data=ksk.data), out_sk))

@@ -34,7 +34,7 @@ def test_keyswitch_matches_jax(ksk_data, batch):
     ct.reshape(-1, ct.shape[-1])[0, :4] = [2 ** 64 - 1, 2 ** 63, 2 ** 63 - 1, 0]
     ref = jax.jit(lambda c, k: jax_keyswitch(JLwe(data=c), JKsk(data=k, decomp=JP.ks_decomp),
                                               64).data)(jnp.asarray(ct), jnp.asarray(ksk_data))
-    ksk = interop.keyswitch_key(ksk_data, P.ks_decomp)
+    ksk = interop.keyswitch_key(ksk_data, P.ks_decomp, device="cpu")
     before = keyswitch.launches
     out = keyswitch.keyswitch_lwe(LweCiphertext(data=from_numpy_u64(ct)), ksk)
     assert keyswitch.launches == before       # CPU tensors take the plain path

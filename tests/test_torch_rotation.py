@@ -18,7 +18,7 @@ from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_u64
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.core.params import TEST_PARAMS_SHORTINT as P
 from tfhe_tpu_torch.core.poly import ntt, rotation
-from torch_keys import random_bsk
+from torch_keys import int_external_product, int_monomial, int_polymul, random_bsk
 
 U64 = np.uint64
 N, R = P.polynomial_size, P.glwe_size
@@ -32,9 +32,10 @@ def keys():
     assert jkey.paired_order == "fourstep"
     npr = external_product_num_primes(N, R, P.pbs_decomp)
     assert npr == 4
-    from_std = interop.bootstrap_key_from_standard(std, P.pbs_decomp, npr)
+    from_std = interop.bootstrap_key_from_standard(std, P.pbs_decomp, npr, device="cpu")
     from_dif = interop.bootstrap_key_from_dif(np.asarray(jkey.data),
-                                              ntt.primes_for(N)[:npr], P.pbs_decomp)
+                                              ntt.primes_for(N)[:npr], P.pbs_decomp,
+                                              device="cpu")
     return dict(std=std, jkey=jkey, from_std=from_std, from_dif=from_dif)
 
 
@@ -75,49 +76,17 @@ def test_key_routes_agree(keys):
 def test_dif_conversion_checks_primes(keys):
     with pytest.raises(ValueError, match="primes"):
         interop.bootstrap_key_from_dif(np.asarray(keys["jkey"].data),
-                                       ntt.PRIMES_HIGH_N[:4], P.pbs_decomp)
+                                       ntt.PRIMES_HIGH_N[:4], P.pbs_decomp, device="cpu")
 
 
 def _naive_step(acc, e, ggsw, decomp):
     """One delta step in Python integers: acc + (X^e - 1) * sum_{l,r}
     decomp_l(acc_r) * ggsw[l, r] mod (X^N + 1, 2^64)."""
     n = len(acc[0])
-    base, L = decomp.base_log, decomp.level
-    shift = 64 - base * L
-
-    def digits(x):
-        s = ((x + (1 << (shift - 1))) % 2 ** 64) >> shift
-        out = []
-        for _ in range(L):
-            raw = s & ((1 << base) - 1)
-            carry = (raw + (1 << (base - 1))) >> base
-            out.append(raw - (carry << base))
-            s = (s >> base) + carry
-        return out[::-1]
-
-    def polymul(a, b):
-        c = [0] * n
-        for i, ai in enumerate(a):
-            for j, bj in enumerate(b):
-                k = i + j
-                c[k % n] += ai * bj if k < n else -ai * bj
-        return c
-
-    total = [[0] * n for _ in acc]
-    for r, poly in enumerate(acc):
-        dig = [digits(x) for x in poly]                         # [N][L]
-        for l in range(L):
-            d_poly = [dig[k][l] for k in range(n)]
-            for c in range(len(acc)):
-                prod = polymul(d_poly, ggsw[l][r][c])
-                total[c] = [t + v for t, v in zip(total[c], prod)]
-    mono = [0] * n
-    if e < n:
-        mono[e] = 1
-    else:
-        mono[e - n] = -1
+    total = int_external_product(acc, ggsw, decomp)
+    mono = int_monomial(e, n)
     mono[0] -= 1
-    return [[(a + v) % 2 ** 64 for a, v in zip(acc[c], polymul(mono, total[c]))]
+    return [[(a + v) % 2 ** 64 for a, v in zip(acc[c], int_polymul(mono, total[c]))]
             for c in range(len(acc))]
 
 
@@ -127,7 +96,7 @@ def test_plain_rotation_is_the_step_formula():
     decomp = DecompParams(base_log=7, level=2)
     rng = np.random.default_rng(9)
     std = rng.integers(0, 2 ** 64, (steps, 2, R, R, n_poly), dtype=U64)
-    key = interop.bootstrap_key_from_standard(std, decomp, 4)
+    key = interop.bootstrap_key_from_standard(std, decomp, 4, device="cpu")
     acc = rng.integers(0, 2 ** 64, (2, R, n_poly), dtype=U64)
     exps = np.array([[0, 5, 31], [16, 1, 17]])
     out = rotation.rotate_accumulator(from_numpy_u64(acc), torch.from_numpy(exps), key)

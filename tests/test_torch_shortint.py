@@ -45,8 +45,8 @@ def keys():
     jsk = JServerKey(ksk=JKsk(data=jnp.asarray(k["ksk"]), decomp=JP.ks_decomp),
                      bsk=jbsk, params=JP)
     tsk = shortint.ServerKey(
-        ksk=interop.keyswitch_key(k["ksk"], P.ks_decomp),
-        bsk=interop.bootstrap_key_from_standard(k["bsk"], P.pbs_decomp, 4),
+        ksk=interop.keyswitch_key(k["ksk"], P.ks_decomp, device="cpu"),
+        bsk=interop.bootstrap_key_from_standard(k["bsk"], P.pbs_decomp, 4, device="cpu"),
         params=P)
     return dict(k, jsk=jsk, tsk=tsk)
 
@@ -87,8 +87,9 @@ def test_apply_lookup_table_matches_jax(keys, pallas_interpret):
     np.testing.assert_array_equal(to_numpy_u64(out.lwe.data), ref)
     np.testing.assert_array_equal(decrypt_big(P, keys["big_bits"], ref), f_uni(msgs))
     assert out.degree == tlut.degree
-    ck = shortint.ClientKey(glwe_sk=interop.glwe_secret_key(keys["glwe_bits"]),
-                            lwe_sk=interop.lwe_secret_key(keys["lwe_bits"]), params=P)
+    ck = shortint.ClientKey(glwe_sk=interop.glwe_secret_key(keys["glwe_bits"], device="cpu"),
+                            lwe_sk=interop.lwe_secret_key(keys["lwe_bits"], device="cpu"),
+                            params=P)
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out).numpy(), f_uni(msgs))
 
 
@@ -113,7 +114,7 @@ def test_bivariate_lookup_table_matches_jax(keys, pallas_interpret):
 
 @pytest.fixture(scope="module")
 def port_keys():
-    return shortint.gen_keys(P, seed=5)
+    return shortint.gen_keys(P, seed=5, device="cpu")
 
 
 def test_port_round_trip_all_inputs(port_keys):

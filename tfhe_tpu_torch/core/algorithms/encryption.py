@@ -65,6 +65,13 @@ def decrypt_lwe(ct: LweCiphertext, sk: LweSecretKey) -> torch.Tensor:
     return ct.body - _mask_dot_key(ct.mask, sk.bits)
 
 
+def trivial_lwe(plaintexts: torch.Tensor, lwe_dimension: int) -> LweCiphertext:
+    """Noiseless LWE [..., n+1] with a zero mask and the plaintexts as body."""
+    mask = torch.zeros(tuple(plaintexts.shape) + (lwe_dimension,), dtype=torch.int64,
+                       device=plaintexts.device)
+    return LweCiphertext(data=torch.cat([mask, plaintexts.unsqueeze(-1)], dim=-1))
+
+
 # ---------------------------------------------------------------------------
 # GLWE
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ axes are free batch axes; torus values are int64 bit patterns of u64):
   LweKeyswitchKey.data    [n_in, l, n_out+1]
   LweBootstrapKey.data    [n, l, k+1, k+1, N]    one GGSW per input key bit
   NttBootstrapKey.spectra [n, P, l*(k+1), k+1, N] the port's own spectra
+  LweMultiBitBootstrapKey.data [n/g, 2^g, l, k+1, k+1, N]
+  NttMultiBitBootstrapKey.spectra [n/g, 2^g, P, l*(k+1), k+1, N]
 
 Nothing here is trained, so there is no nn.Module.
 """
@@ -119,4 +121,47 @@ class NttBootstrapKey:
 
     @property
     def polynomial_size(self) -> int:
+        return self.spectra.shape[4]
+
+
+@dataclass(frozen=True)
+class LweMultiBitBootstrapKey:
+    """Standard multi-bit BSK, data [n/g, 2^g, l, k+1, k+1, N]: for group j
+    and variant v, GGSW_{j,v} encrypts the indicator prod_i (s_i if bit i of
+    v else 1 - s_i), the MSB of v standing for the group's first key bit."""
+
+    data: torch.Tensor
+    decomp: DecompParams
+    grouping_factor: int
+
+
+@dataclass(frozen=True)
+class NttMultiBitBootstrapKey:
+    """The multi-bit BSK in the port's spectral form (counterpart of the
+    JAX `NttMultiBitBootstrapKey`, tfhe_tpu/core/algorithms/multi_bit.py:46).
+
+    spectra [n/g, 2^g, P, J, R, N] int32 residues, each [P, J, R, N] slice
+    laid out as `NttBootstrapKey.spectra[i]`; `order` and `primes` as there.
+    No Shoup twins and no phase tables: the kernel builds its own tables."""
+
+    spectra: torch.Tensor
+    decomp: DecompParams
+    primes: tuple
+    grouping_factor: int
+    order: str = "ct-bitrev"
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.spectra.shape[5]
+
+    @property
+    def num_groups(self) -> int:
+        return self.spectra.shape[0]
+
+    @property
+    def input_lwe_dimension(self) -> int:
+        return self.num_groups * self.grouping_factor
+
+    @property
+    def glwe_size(self) -> int:
         return self.spectra.shape[4]

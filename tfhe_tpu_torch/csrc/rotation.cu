@@ -1,33 +1,58 @@
-// Whole blind rotation (delta form) for a batch of LWE ciphertexts.
+// Whole blind rotation for a batch of LWE ciphertexts: K1 (delta form,
+// classic keys) and K3 (multi-bit keys), one kernel body with the mode as a
+// template parameter.
 //
-// Replaces the TPU kernel `_make_rotation_kernel_mxu` run through
+// K1 replaces the TPU kernel `_make_rotation_kernel_mxu` run through
 // `blind_rotate_fused(mode="delta")` (tfhe_tpu/core/poly/pallas_ntt.py:1073,
 // :1537).  For each of the n_steps mask elements, with e_j = a~_j mod 2N:
 //
 //   acc += (X^e_j - 1) * sum_{l,r} decomp_l(acc_r) * GGSW(s_j)[l, r]
 //
-// mod (X^N + 1, 2^64), computed exactly over P NTT primes below 2^30 and
-// lifted back with Garner (signed lift, then mod 2^64), so the result is
-// bit-identical to the JAX kernel whatever the transform's order.
+// K3 replaces the same TPU kernel in multibit mode
+// (`blind_rotate_fused(mode="multibit")`, pallas_ntt.py:1073, the MAC at
+// :1329-1356 and the replacing write-back at :1442-1444).  Each step takes a
+// group of g mask elements and the 2^g GGSWs of that group's key bits, and
+// replaces the accumulator:
+//
+//   acc = sum_{v < 2^g} X^{c_v} * sum_{l,r} decomp_l(acc_r) * GGSW_{j,v}[l, r]
+//
+// with c_0 = 0 and c_v = sum of the a~ of the group selected by v's bits
+// (the MSB of v is the group's first element; the wrapper computes c_v).
+//
+// Both are computed mod (X^N + 1, 2^64), exactly, over P NTT primes below
+// 2^30 and lifted back with Garner (signed lift, then mod 2^64), so the
+// result is bit-identical to the JAX kernel whatever the transform's order.
 //
 // Design.  One block per ciphertext; the step loop runs inside the block
 // (it takes the place of the TPU's sequential grid axis) and the
 // accumulator stays in shared memory for the whole rotation.  Per step and
 // prime: balanced digits of acc -> forward Cooley-Tukey NTT (psi merged,
 // bit-reversed out) of the J digit polys -> MAC against the step's key
-// spectra -> pointwise (X^e - 1)/N phase from a 2N-entry table ->
-// Gentleman-Sande inverse of the R products.  Then Garner adds the delta
-// into acc.  Modular products of residues use 32-bit Shoup multiplies with
-// the native __umulhi (twiddles, phases, Garner constants); the MAC sums
-// J 60-bit products in 64 bits and reduces once (Barrett).
+// spectra with the phase -> Gentleman-Sande inverse of the R products.
+// Then Garner adds the delta into acc (K1) or replaces acc (K3).  Modular
+// products of residues use 32-bit Shoup multiplies with the native
+// __umulhi (twiddles, phases, Garner constants).
+//   K1's MAC sums J 60-bit products in 64 bits and reduces once (Barrett),
+//   then multiplies by (X^e - 1)/N from a 2N-entry table per prime.
+//   K3's MAC runs one thread per spectral slot k: for each variant v >= 1 it
+//   turns the J digit residues into d_j * psi^(c_v (2 brv(k) + 1)) (a
+//   2N-entry psi-power table, one Shoup multiply per (v, j), shared by the R
+//   outputs), sums the products with the key in 64 bits, and reduces with
+//   Barrett after at most 16 products (each is below p^2 < 2^60, so 16 fit
+//   in 64 bits: at g = 3, J = 2 that is one reduction per output).  The
+//   v = 0 term has no phase, so 1/N is one Shoup multiply per output.
 //
-// Bounds on the card.  At PARAM_MESSAGE_2_CARRY_2 (N=2048, P=4, J=R=2) a
-// step is ~2.5e5 modular multiplies per ciphertext, so the kernel is bound
-// by 32-bit integer multiply throughput; and each block reads the step's
-// key slice (P*J*R*N*4 B = 128 KB; 97 MB for all 742 steps, more than the
-// 50 MB L2) once per ciphertext.  Shared memory per block is
-// 8RN + 4JN + 4PRN bytes (112 KB at 2_2: two blocks per SM).  Sharing a
-// key slice among several ciphertexts of a block is left to later work.
+// Bounds on the card.  At PARAM_MESSAGE_2_CARRY_2 (N=2048, P=4, J=R=2) a K1
+// step is ~2.5e5 modular multiplies per ciphertext, so K1 is bound by
+// 32-bit integer multiply throughput; and each block reads the step's key
+// slice (P*J*R*N*4 B = 128 KB; 97 MB for all 742 steps, more than the 50 MB
+// L2) once per ciphertext.  K3 at GROUP_3 (296 steps of 8 variants) does
+// about 0.7x K1's multiplies per ciphertext, with fewer steps and barriers,
+// but reads 2^g times the key per step (1 MB; 310 MB in all): bound by
+// integer multiplies unless the key stream misses L2.  Shared memory per
+// block, for both, is 8RN + 4JN + 4PRN bytes (112 KB at 2_2: two blocks per
+// SM).  Sharing a key slice among several ciphertexts of a block is left to
+// later work.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -37,11 +62,14 @@ typedef unsigned long long u64;
 
 constexpr int THREADS = 512;
 constexpr int MAXP = 8;
+constexpr int MAXR = 4;        // K3 keeps R 64-bit sums per thread in registers
+constexpr int MAX_PRODUCTS = 16;  // 60-bit products one 64-bit sum can hold
 
 // Layout of the u64 constants buffer; mirrored by rotation.py _kernel_tables.
 enum {
   C_P = 0, C_MU = 8, C_GINV = 16, C_GINV_SH = 24, C_GW = 32, C_GW_SH = 96,
-  C_HALF = 160, C_PREFIX = 168, C_MMOD = 176, C_SIZE = 177
+  C_HALF = 160, C_PREFIX = 168, C_MMOD = 176, C_NINV = 177, C_NINV_SH = 185,
+  C_SIZE = 193
 };
 
 __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
@@ -143,12 +171,15 @@ __device__ __forceinline__ uint64_t garner(const uint32_t* res, int i, int strid
 }
 
 // tab (u32): psi_rev [P][N], its Shoup twin, psi_inv_rev [P][N], its twin,
-// phase [P][2N] = (psi^m - 1) / N mod p, its twin.  bsk: [steps][P][J][R][N].
+// phase [P][2N] = (psi^m - 1) / N mod p, its twin, pw [P][2N] = psi^m, its
+// twin.  K1: bsk [steps][P][J][R][N], exps [B][steps].  K3: bsk
+// [steps][V][P][J][R][N], exps [B][steps][V-1] (c_v for v = 1..V-1).
+template <bool kMultiBit>
 __global__ void __launch_bounds__(THREADS, 2)
 blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
                     const uint32_t* __restrict__ bsk, const uint32_t* __restrict__ tab,
                     const u64* __restrict__ cs, int n_steps, int log_n, int P,
-                    int R, int L, int base_log) {
+                    int R, int L, int base_log, int V) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 1 << log_n, J = L * R, RN = R * n;
   uint64_t* acc = reinterpret_cast<uint64_t*>(smem);            // [R][N]
@@ -161,9 +192,12 @@ blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exp
   const uint32_t* ipsi_sh = tab + 3 * P * n;
   const uint32_t* phase = tab + 4 * P * n;
   const uint32_t* phase_sh = tab + 6 * P * n;
+  const uint32_t* pw = tab + 8 * P * n;
+  const uint32_t* pw_sh = tab + 10 * P * n;
 
+  const int e_per_step = kMultiBit ? V - 1 : 1;
   int64_t* acc_b = acc_g + (size_t)blockIdx.x * RN;
-  const int32_t* e_b = exps + (size_t)blockIdx.x * n_steps;
+  const int32_t* e_b = exps + (size_t)blockIdx.x * n_steps * e_per_step;
   for (int i = threadIdx.x; i < RN; i += blockDim.x) acc[i] = (uint64_t)acc_b[i];
   __syncthreads();
 
@@ -171,10 +205,11 @@ blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exp
   const uint64_t round = shift > 0 ? (1ull << (shift - 1)) : 0ull;
   const uint64_t dmask = (1ull << base_log) - 1, dhalf = 1ull << (base_log - 1);
   const uint32_t two_n_mask = 2u * n - 1;
-  const size_t step_stride = (size_t)P * J * RN;
+  const size_t var_stride = (size_t)P * J * RN;   // one GGSW's spectra
+  const size_t step_stride = (kMultiBit ? V : 1) * var_stride;
 
   for (int step = 0; step < n_steps; ++step) {
-    const uint32_t e = (uint32_t)__ldg(e_b + step);
+    const int32_t* e_s = e_b + step * e_per_step;
     const uint32_t* key = bsk + step * step_stride;
     for (int pi = 0; pi < P; ++pi) {
       const uint32_t p = (uint32_t)__ldg(cs + C_P + pi);
@@ -194,29 +229,104 @@ blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exp
       __syncthreads();
       // 2. forward NTT of the J digit polynomials
       ntt_forward(spec, J, log_n, psi + pi * n, psi_sh + pi * n, p);
-      // 3. MAC with the key slice, times the (X^e - 1)/N phase
+      // 3. MAC with the key slice, with the phase
       const uint32_t* key_p = key + (size_t)pi * J * RN;
       const u64 mu = __ldg(cs + C_MU + pi);
-      for (int i = threadIdx.x; i < RN; i += blockDim.x) {
-        const int r = i >> log_n, k = i & (n - 1);
-        uint64_t s = 0;
-        for (int j = 0; j < J; ++j)
-          s += (uint64_t)spec[j * n + k] * __ldg(key_p + (size_t)(j * R + r) * n + k);
-        const uint32_t odd = 2u * (__brev((unsigned)k) >> (32 - log_n)) + 1u;
-        const uint32_t m = (e * odd) & two_n_mask;
-        res[pi * RN + i] = mul_shoup(barrett(s, p, mu), __ldg(phase + pi * 2 * n + m),
-                                     __ldg(phase_sh + pi * 2 * n + m), p);
+      if (!kMultiBit) {
+        const uint32_t e = (uint32_t)__ldg(e_s);
+        for (int i = threadIdx.x; i < RN; i += blockDim.x) {
+          const int r = i >> log_n, k = i & (n - 1);
+          uint64_t s = 0;
+          for (int j = 0; j < J; ++j)
+            s += (uint64_t)spec[j * n + k] * __ldg(key_p + (size_t)(j * R + r) * n + k);
+          const uint32_t odd = 2u * (__brev((unsigned)k) >> (32 - log_n)) + 1u;
+          const uint32_t m = (e * odd) & two_n_mask;
+          res[pi * RN + i] = mul_shoup(barrett(s, p, mu), __ldg(phase + pi * 2 * n + m),
+                                       __ldg(phase_sh + pi * 2 * n + m), p);
+        }
+      } else {
+        const uint32_t* pw_p = pw + pi * 2 * n;
+        const uint32_t* pw_sh_p = pw_sh + pi * 2 * n;
+        const uint32_t ninv = (uint32_t)__ldg(cs + C_NINV + pi);
+        const uint32_t ninv_sh = (uint32_t)__ldg(cs + C_NINV_SH + pi);
+        for (int k = threadIdx.x; k < n; k += blockDim.x) {
+          const uint32_t odd = 2u * (__brev((unsigned)k) >> (32 - log_n)) + 1u;
+          uint64_t s[MAXR];
+          uint32_t tot[MAXR];
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) {
+            s[r] = 0;
+            tot[r] = 0;
+          }
+          int count = 0;   // products in s[r] since its last reduction
+          for (int v = 0; v < V; ++v) {
+            if (count + J > MAX_PRODUCTS) {
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r)
+                if (r < R) {
+                  tot[r] = add_mod(tot[r], barrett(s[r], p, mu), p);
+                  s[r] = 0;
+                }
+              count = 0;
+            }
+            uint32_t ph = 1, ph_sh = 0;
+            if (v > 0) {
+              const uint32_t m = ((uint32_t)__ldg(e_s + v - 1) * odd) & two_n_mask;
+              ph = __ldg(pw_p + m);
+              ph_sh = __ldg(pw_sh_p + m);
+            }
+            const uint32_t* key_v = key_p + v * var_stride;
+            for (int j = 0; j < J; ++j) {
+              uint32_t d = spec[j * n + k];
+              if (v > 0) d = mul_shoup(d, ph, ph_sh, p);
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r)
+                if (r < R)
+                  s[r] += (uint64_t)d * __ldg(key_v + (size_t)(j * R + r) * n + k);
+            }
+            count += J;
+          }
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r)
+            if (r < R)
+              res[pi * RN + r * n + k] =
+                  mul_shoup(add_mod(tot[r], barrett(s[r], p, mu), p), ninv, ninv_sh, p);
+        }
       }
       __syncthreads();
       // 4. inverse NTT of the R products
       ntt_inverse(res + pi * RN, R, log_n, ipsi + pi * n, ipsi_sh + pi * n, p);
     }
-    // 5. CRT back to the torus and accumulate
-    for (int i = threadIdx.x; i < RN; i += blockDim.x)
-      acc[i] += garner(res, i, RN, P, cs);
+    // 5. CRT back to the torus: accumulate the delta (K1) or replace (K3)
+    for (int i = threadIdx.x; i < RN; i += blockDim.x) {
+      if (kMultiBit)
+        acc[i] = garner(res, i, RN, P, cs);
+      else
+        acc[i] += garner(res, i, RN, P, cs);
+    }
     __syncthreads();
   }
   for (int i = threadIdx.x; i < RN; i += blockDim.x) acc_b[i] = (int64_t)acc[i];
+}
+
+template <bool kMultiBit>
+int launch(void* acc, const void* exps, const void* bsk, const void* tab,
+           const void* consts, int batch, int n_steps, int n, int log_n, int P, int R,
+           int L, int base_log, int V, void* stream) {
+  const int J = L * R;
+  if (P < 1 || P > MAXP || J < 1 || J > 15 || (1 << log_n) != n || log_n < 2 ||
+      base_log < 1 || base_log > 24 || base_log * L > 64 || batch < 1 || n_steps < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)8 * R * n + (size_t)4 * J * n + (size_t)4 * P * R * n;
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_kernel<kMultiBit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  blind_rotate_kernel<kMultiBit><<<batch, THREADS, smem, (cudaStream_t)stream>>>(
+      (int64_t*)acc, (const int32_t*)exps, (const uint32_t*)bsk,
+      (const uint32_t*)tab, (const u64*)consts, n_steps, log_n, P, R, L,
+      base_log, V);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -229,17 +339,16 @@ extern "C" int tfhe_blind_rotate(void* acc, const void* exps, const void* bsk,
                                  const void* tab, const void* consts, int batch,
                                  int n_steps, int n, int log_n, int P, int R, int L,
                                  int base_log, void* stream) {
-  const int J = L * R;
-  if (P < 1 || P > MAXP || J < 1 || J > 15 || (1 << log_n) != n || log_n < 2 ||
-      base_log < 1 || base_log > 24 || base_log * L > 64 || batch < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)8 * R * n + (size_t)4 * J * n + (size_t)4 * P * R * n;
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  blind_rotate_kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(
-      (int64_t*)acc, (const int32_t*)exps, (const uint32_t*)bsk,
-      (const uint32_t*)tab, (const u64*)consts, n_steps, log_n, P, R, L,
-      base_log);
-  return (int)cudaGetLastError();
+  return launch<false>(acc, exps, bsk, tab, consts, batch, n_steps, n, log_n, P, R, L,
+                       base_log, 1, stream);
+}
+
+extern "C" int tfhe_blind_rotate_multi_bit(void* acc, const void* exps, const void* bsk,
+                                           const void* tab, const void* consts,
+                                           int batch, int n_steps, int n, int log_n,
+                                           int P, int R, int L, int base_log,
+                                           int grouping, void* stream) {
+  if (grouping < 1 || grouping > 4 || R > MAXR) return (int)cudaErrorInvalidValue;
+  return launch<true>(acc, exps, bsk, tab, consts, batch, n_steps, n, log_n, P, R, L,
+                      base_log, 1 << grouping, stream);
 }

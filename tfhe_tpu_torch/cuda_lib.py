@@ -31,6 +31,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tfhe_blind_rotate": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "tfhe_blind_rotate_multi_bit": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -97,6 +98,16 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().tfhe_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device.  Entry points default to the card and
+    never fall back to the CPU: a CUDA device on a host without one raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} was asked for, but no CUDA device is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def stream_of(tensor: torch.Tensor) -> int:

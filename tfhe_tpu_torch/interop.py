@@ -9,10 +9,17 @@ keys.  Nothing here imports jax.
   LweBootstrapKey.data   [n, l, k+1, k+1, N]  → the port's NttBootstrapKey
   NttLweBootstrapKey.data [n, P, J, R, N] u64 residues in the JAX DIF order
                                               → the port's NttBootstrapKey
+  multi-bit standard BSK [n/g, 2^g, l, k+1, k+1, N] u64
+                                              → the port's NttMultiBitBootstrapKey
+  NttMultiBitBootstrapKey.data [n/g, 2^g, P, J, R, N] u64 residues, DIF order
+                                              → the port's NttMultiBitBootstrapKey
 
 The DIF residues are inverted with the port's copy of the JAX plan tables
-and Garner (signed lift, exact: |coefficient| < 2^63 < M/2), back to the
+and Garner (signed lift, exact: |coefficient| < 2^64 < M/2), back to the
 standard coefficients, from which the port builds its own spectra.
+
+Like every entry point of the port, each constructor puts its key on the
+card unless given `device="cpu"`; without a card that raises.
 """
 from __future__ import annotations
 
@@ -20,32 +27,47 @@ import numpy as np
 import torch
 
 from .core.algorithms.encryption import bootstrap_key_to_ntt
+from .core.algorithms.multi_bit import multi_bit_bootstrap_key_to_ntt
 from .core.entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
-                            LweSecretKey, NttBootstrapKey)
+                            LweMultiBitBootstrapKey, LweSecretKey, NttBootstrapKey,
+                            NttMultiBitBootstrapKey)
 from .core.numeric import from_numpy_u64
 from .core.params import DecompParams
 from .core.poly import ntt
+from .cuda_lib import resolve_device
 
 
-def lwe_secret_key(bits, device="cpu") -> LweSecretKey:
+def lwe_secret_key(bits, device="cuda") -> LweSecretKey:
     return LweSecretKey(bits=torch.as_tensor(np.asarray(bits, dtype=np.int64),
-                                             device=device))
+                                             device=resolve_device(device)))
 
 
-def glwe_secret_key(bits, device="cpu") -> GlweSecretKey:
+def glwe_secret_key(bits, device="cuda") -> GlweSecretKey:
     return GlweSecretKey(bits=torch.as_tensor(np.asarray(bits, dtype=np.int64),
-                                              device=device))
+                                              device=resolve_device(device)))
 
 
-def keyswitch_key(data, decomp: DecompParams, device="cpu") -> LweKeyswitchKey:
-    return LweKeyswitchKey(data=from_numpy_u64(data, device), decomp=decomp)
+def keyswitch_key(data, decomp: DecompParams, device="cuda") -> LweKeyswitchKey:
+    return LweKeyswitchKey(data=from_numpy_u64(data, resolve_device(device)),
+                           decomp=decomp)
 
 
 def bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
-                                device="cpu") -> NttBootstrapKey:
+                                device="cuda") -> NttBootstrapKey:
     """Standard BSK [n, l, k+1, k+1, N] u64 → the port's spectra."""
-    std = LweBootstrapKey(data=from_numpy_u64(data, device), decomp=decomp)
+    std = LweBootstrapKey(data=from_numpy_u64(data, resolve_device(device)),
+                          decomp=decomp)
     return bootstrap_key_to_ntt(std, num_primes)
+
+
+def multi_bit_bootstrap_key_from_standard(data, decomp: DecompParams,
+                                          grouping_factor: int, num_primes: int,
+                                          device="cuda") -> NttMultiBitBootstrapKey:
+    """Standard multi-bit BSK [n/g, 2^g, l, k+1, k+1, N] u64 → the port's
+    spectra."""
+    std = LweMultiBitBootstrapKey(data=from_numpy_u64(data, resolve_device(device)),
+                                  decomp=decomp, grouping_factor=grouping_factor)
+    return multi_bit_bootstrap_key_to_ntt(std, num_primes)
 
 
 def standard_from_dif(data, primes) -> np.ndarray:
@@ -64,10 +86,23 @@ def standard_from_dif(data, primes) -> np.ndarray:
 
 
 def bootstrap_key_from_dif(data, primes, decomp: DecompParams,
-                           device="cpu") -> NttBootstrapKey:
+                           device="cuda") -> NttBootstrapKey:
     """JAX NttLweBootstrapKey.data → the port's spectra (through the
     standard coefficients)."""
     std = standard_from_dif(data, primes)
     n_in, J, R, n = std.shape
     std = std.reshape(n_in, J // R, R, R, n)
     return bootstrap_key_from_standard(std, decomp, np.asarray(data).shape[1], device)
+
+
+def multi_bit_bootstrap_key_from_dif(data, primes, decomp: DecompParams,
+                                     grouping_factor: int,
+                                     device="cuda") -> NttMultiBitBootstrapKey:
+    """JAX NttMultiBitBootstrapKey.data [n/g, 2^g, P, J, R, N] (DIF-order
+    residues) → the port's spectra (through the standard coefficients).
+    Raises unless `primes` equal primes_for(N)[:P]."""
+    data = np.asarray(data)
+    ng, nv, P, J, R, n = data.shape
+    std = standard_from_dif(data.reshape((ng * nv,) + data.shape[2:]), primes)
+    std = std.reshape(ng, nv, J // R, R, R, n)
+    return multi_bit_bootstrap_key_from_standard(std, decomp, grouping_factor, P, device)

@@ -1,10 +1,16 @@
-"""Shortint ciphertext with degree and noise bookkeeping (counterpart of
-`tfhe_tpu/shortint/ciphertext.py`)."""
+"""Shortint ciphertext with degree and noise bookkeeping, and the checks the
+server's ops enforce (counterpart of `tfhe_tpu/shortint/ciphertext.py`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 from ..core.entities import LweCiphertext
+
+
+class CheckError(ValueError):
+    """An op's precondition failed (reference `CheckError`,
+    shortint/ciphertext/mod.rs): CarryFull (degree overflow) or NoiseTooBig
+    (noise level above the parameter set's maximum)."""
 
 
 class NoiseLevel:
@@ -13,6 +19,32 @@ class NoiseLevel:
 
     ZERO = 0
     NOMINAL = 1
+
+
+class MaxNoiseLevel:
+    """The largest noise level a parameter set tolerates (reference
+    `MaxNoiseLevel`, shortint/ciphertext/mod.rs:28-60): its p-fail holds for
+    a norm2 noise bound of this value, derived from the carry space."""
+
+    def __init__(self, value: int):
+        self.value = int(value)
+
+    @classmethod
+    def from_msg_carry_modulus(cls, msg_modulus: int,
+                               carry_modulus: int) -> "MaxNoiseLevel":
+        return cls((carry_modulus * msg_modulus - 1) // (msg_modulus - 1))
+
+    def validate(self, noise_level: int) -> None:
+        if noise_level > self.value:
+            raise CheckError(
+                f"NoiseTooBig: noise level {noise_level} exceeds the "
+                f"parameter set's maximum {self.value}")
+
+    def __eq__(self, other):
+        return isinstance(other, MaxNoiseLevel) and other.value == self.value
+
+    def __repr__(self):
+        return f"MaxNoiseLevel({self.value})"
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,9 @@ from ..core.algorithms import (decrypt_lwe, encrypt_lwe, generate_glwe_secret_ke
                                generate_lwe_secret_key)
 from ..core.entities import GlweSecretKey, LweSecretKey
 from ..core.numeric import LOG_Q, as_i64, udiv
-from ..core.params import ClassicPBSParameters, EncryptionKeyChoice, shortint_params
+from ..core.params import (ClassicPBSParameters, EncryptionKeyChoice,
+                           MultiBitPBSParameters, shortint_params)
+from ..cuda_lib import resolve_device
 from .ciphertext import Ciphertext, NoiseLevel
 
 
@@ -24,7 +26,7 @@ def delta_for(params) -> int:
 class ClientKey:
     glwe_sk: GlweSecretKey
     lwe_sk: LweSecretKey
-    params: ClassicPBSParameters
+    params: ClassicPBSParameters | MultiBitPBSParameters
 
     @property
     def device(self) -> torch.device:
@@ -72,10 +74,13 @@ class ClientKey:
         return torch.remainder(self.decrypt_message_and_carry(ct), ct.message_modulus)
 
 
-def gen_keys(params="PARAM_MESSAGE_2_CARRY_2_KS_PBS", seed: int = 0,
-             device="cpu"):
-    """→ (ClientKey, ServerKey) on `device` (reference shortint::gen_keys)."""
+def gen_keys(params: str | ClassicPBSParameters | MultiBitPBSParameters
+             = "PARAM_MESSAGE_2_CARRY_2_KS_PBS", seed: int = 0, device="cuda"):
+    """→ (ClientKey, ServerKey) on `device` (reference shortint::gen_keys):
+    a classic or a multi-bit server key, as the parameters say.  Runs on
+    the card unless given device="cpu"; without a card that raises."""
     from .server_key import gen_server_key
+    device = resolve_device(device)
     if isinstance(params, str):
         params = shortint_params(params)
     glwe_sk = generate_glwe_secret_key(rng.generator(seed, 1, device=device),
