@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
-Drives the port's two shortint keyswitch + PBS paths once, through the
+Drives the port's shortint keyswitch + PBS paths once each, through the
 entry points a user calls, and checks them: the classic path at the full
-PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048) and the multi-bit
-path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in 296
-groups of 3, N=2048), batch 512 each:
+PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the multi-bit path
+at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in 296 groups
+of 3, N=2048), and the per-step routes the rotation switches select
+(`tfhe_tpu_torch/config.py`), batch 512 each:
 
   1. card, power limit, SM clock, torch and CUDA versions;
-  2. builds the CUDA kernels (csrc/*.cu: K1, K3 in rotation.cu, K2 in
-     keyswitch.cu) with nvcc and prints ptxas's register, shared-memory and
+  2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5 in rotation.cu, K2
+     in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
+     source, in parallel) and prints ptxas's register, shared-memory and
      spill lines;
   3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
      against their plain PyTorch versions on the card at the classic
@@ -17,22 +19,39 @@ groups of 3, N=2048), batch 512 each:
      batch 512), and times both versions at batch 512 with CUDA events;
   3b. holds K3 the same way at the GROUP_2 and GROUP_3 widths (batch 1, 6,
      8 and 512, all steps, random keys) and times it and its plain version
-     at batch 512;
+     at batch 512; holds and times K2 at both multi-bit keyswitch shapes;
+  3c. holds the step kernels at full widths: K4 (one delta step) at batch
+     1, 6, 8 and 512 and K5 (one variant step) on a paired 2_2 key and a
+     GROUP_3 key at the same batches; then the whole per-step rotations at
+     batch 512 (K4 over 742 steps against the plain version and against
+     K1's output on the same inputs; K5 over the 742 steps of a paired key,
+     built as GGSW_trivial(1) - pair1, against the plain paired rotation;
+     K5 over the 296 GROUP_3 steps against the plain version and K3's
+     output), each timed with CUDA events;
   4. classic path: counts to 0, gen_keys on the card, encrypts 512
      messages, serves three requests (a LUT, a second LUT on its output, a
      bivariate LUT), reads the counts, decrypts all 3 x 512 results against
      the clear model, and holds the first results bit for bit against the
      plain path on CPU tensors;
-  4b. multi-bit path, GROUP_3: counts to 0, gen_keys on the card, encrypts
-     two batches of 512, serves four requests (a LUT, add, mul, greater),
-     reads the counts, decrypts all 4 x 512 results against the clear
-     model, and holds the first results bit for bit against the plain path
-     on CPU tensors;
-  5. checks each kernel's launch count on its path (each must be > 0),
-     measures KS+PBS PBS/s at batch 512 for 2_2, GROUP_3 and GROUP_2, and
-     prints the kernels line: each kernel's time beside its bound (the
-     larger of its 32-bit integer multiplies over the card's INT32 issue
-     rate and its bytes over 3.35 TB/s) and its plain version's time.
+  4b. multi-bit path, GROUP_3: the same with four requests (a LUT, add,
+     mul, greater);
+  4c. the per-step routes: for each of TFHE_TPU_FUSED=0 (classic and
+     GROUP_3), TFHE_TPU_MXU_LANES=1 (classic) and TFHE_TPU_MXU=0 (paired
+     classic and GROUP_3) it sets the port's switches, runs gen_keys on the
+     card, encrypts 512 messages, serves one LUT request with the counts
+     set to 0 just before and read just after (K4 742 per classic call, K5
+     742 per paired and 296 per GROUP_3 call, K1 and K3 none), decrypts
+     512/512 and holds the first results against the plain CPU path; it
+     times KS+PBS on the FUSED=0 classic and the paired routes;
+  5. the shared-memory probe: with its count at 0, finds the largest
+     dynamic shared memory one block launches with and reads back right,
+     and holds it equal to the device's opt-in attribute and to the limit
+     the rotation kernels size against;
+  6. checks each kernel's launch count on its path, measures KS+PBS PBS/s
+     at batch 512 for 2_2, GROUP_3 and GROUP_2, and prints the kernels
+     line: each kernel's time beside its bound (the larger of its 32-bit
+     integer multiplies over the card's INT32 issue rate and its bytes over
+     3.35 TB/s) and its plain version's time.
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -42,6 +61,7 @@ The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -56,6 +76,7 @@ CLASSIC = "PARAM_MESSAGE_2_CARRY_2_KS_PBS"
 GROUP_2 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_KS_PBS"
 GROUP_3 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS"
 B = 512
+STEP_BATCHES = (1, 6, 8, B)
 
 
 def smi(query: str) -> str:
@@ -80,12 +101,12 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a - b).abs().max().item())
 
 
-def hold(name: str, got: torch.Tensor, ref: torch.Tensor) -> int:
+def hold(name: str, got: torch.Tensor, ref: torch.Tensor, what: str = "plain") -> int:
     """Print and check bit-identity; → max_abs_err."""
     same = torch.equal(got, ref)
-    print(f"{name}: {'bit-identical' if same else 'MISMATCH'} to plain")
+    print(f"{name}: {'bit-identical' if same else 'MISMATCH'} to {what}")
     if not same:
-        raise AssertionError(f"{name} disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with {what}")
     return max_abs_err(got, ref)
 
 
@@ -118,6 +139,12 @@ def k2_mults(batch, K, M) -> int:
     return 3 * batch * K * M
 
 
+def step_bytes(steps, V, P, J, R, n, e_per_step) -> int:
+    """Bytes of a per-step rotation: every launch reads its key slice and
+    exponents and reads and writes the whole accumulator."""
+    return steps * (V * P * J * R * n * 4 + 2 * B * R * n * 8 + B * e_per_step * 4)
+
+
 def bound(mults: int, nbytes: int, sm_clock_hz: float, sms: int) -> tuple:
     """(bound_ms, bound_by): the larger of operations over the INT32 issue
     rate and bytes over the memory rate."""
@@ -135,9 +162,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from tfhe_tpu_torch import cuda_lib, shortint
+    from tfhe_tpu_torch import config, cuda_lib, shortint, smem_probe
     from tfhe_tpu_torch.core import rng
     from tfhe_tpu_torch.core.algorithms import external_product_num_primes, keyswitch
+    from tfhe_tpu_torch.core.algorithms.encryption import bootstrap_key_to_ntt_paired
     from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
                                               NttBootstrapKey, NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import shortint_params
@@ -153,6 +181,7 @@ def main() -> int:
           f"devices {torch.cuda.device_count()}, {torch.cuda.get_device_name(0)}")
     tag = f"[{card}]"
     clock_hz = clock_mhz * 1e6
+    t_start = time.perf_counter()
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -175,6 +204,15 @@ def main() -> int:
     def random_spectra(plan, shape, axis):
         return torch.stack([torch.randint(0, p, shape, generator=g, device=dev,
                                           dtype=torch.int32) for p in plan.primes], dim=axis)
+
+    def hold_steps(label, acc, exps, key_slice, mode, decomp):
+        """One step kernel launch (K4 or K5) against the plain step on the
+        same inputs; the exponent table is read through its batch stride."""
+        e32 = exps.to(torch.int32)
+        got = rotation.blind_rotate_step(acc.clone(), e32, key_slice, mode, decomp)
+        torch.cuda.synchronize()
+        return hold(label, got, rotation.blind_rotate_step_plain(acc.clone(), exps, key_slice,
+                                                                 mode, decomp))
 
     # ---- 3. K1 and K2 against their plain versions, full 2_2 widths ---------
     params = shortint_params(CLASSIC)
@@ -219,10 +257,40 @@ def main() -> int:
                      clock_hz, sms)
     k2_bound = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
                      clock_hz, sms)
-    del key, acc, exps, digits, kmat, body, got, outs
+
+    # ---- 3c (classic). K4 and the paired K5 at full 2_2 widths --------------
+    k4_err = k5_err = 0
+    pkey = bootstrap_key_to_ntt_paired(key)
+    for batch in STEP_BATCHES:
+        a1, e1 = rot_inputs(batch)
+        k4_err = max(k4_err, hold_steps(f"K4 delta step, batch {batch}", a1, e1[:, 5],
+                                        key.spectra[5], "delta", key.decomp))
+        k5_err = max(k5_err, hold_steps(f"K5 paired step, batch {batch}", a1, e1[:, 5:6],
+                                        pkey.spectra[5], "variants", key.decomp))
+    k4_ms = cuda_ms(lambda: outs.update(steps=rotation.rotate_steps(acc.clone(), exps, key)), 3)
+    k4_err = max(k4_err, hold(f"K4 per-step rotation, batch {B}, {n} launches", outs["steps"],
+                              outs["plain"]))
+    hold(f"K4 per-step rotation, batch {B}, {n} launches", outs["steps"], outs["kernel"],
+         "K1 on the same inputs")
+    k5p_ms = cuda_ms(lambda: outs.update(paired=rotation.rotate_steps(acc.clone(), exps, pkey)),
+                     3)
+    k5p_plain_ms = cuda_ms(lambda: outs.update(
+        paired_plain=rotation.blind_rotate_plain(acc, exps, pkey)), 1)
+    k5_err = max(k5_err, hold(f"K5 paired per-step rotation, batch {B}, {n} launches",
+                              outs["paired"], outs["paired_plain"]))
+    print(f"{tag} K4 per-step rotation batch {B}: {k4_ms:.3f} ms ({k4_ms / n:.4f} ms per "
+          f"launch), plain {k1_plain_ms:.3f} ms (the plain rotation, timed above)")
+    print(f"{tag} K5 paired per-step rotation batch {B}: {k5p_ms:.3f} ms "
+          f"({k5p_ms / n:.4f} ms per launch), plain {k5p_plain_ms:.3f} ms")
+    k4_bound = bound(k1_mults(B, n, P, J, R, N),
+                     step_bytes(n, 1, P, J, R, N, 1) + 8 * P * N * 4, clock_hz, sms)
+    k5p_bound = bound(k3_mults(B, n, 2, P, J, R, N),
+                      step_bytes(n, 2, P, J, R, N, 1) + 12 * P * N * 4, clock_hz, sms)
+    del key, pkey, acc, exps, digits, kmat, body, got, outs
 
     # ---- 3b. K3 against its plain version, GROUP_2 and GROUP_3 widths -------
-    k3 = {}
+    # ---- 3c (GROUP_3). K5 over a multi-bit key; K2 at the multi-bit shapes ---
+    k3, k2_mb = {}, {}
     for name in (GROUP_2, GROUP_3):
         mp = shortint_params(name)
         n, N, R, J, P, plan = widths(mp)
@@ -257,10 +325,82 @@ def main() -> int:
             k3_mults(B, n // gf, V, P, J, R, N),
             mkey.spectra.numel() * 4 + 2 * B * R * N * 8 + B * (n // gf) * (V - 1) * 4
             + 12 * P * N * 4, clock_hz, sms))
-        del mkey, acc, cexp, got, outs
+        if gf == 3:
+            for batch in STEP_BATCHES:
+                a1, c1 = mb_inputs(batch)
+                k5_err = max(k5_err, hold_steps(f"K5 GROUP_3 step, batch {batch}", a1,
+                                                c1[:, 7], mkey.spectra[7], "variants",
+                                                mkey.decomp))
+            k5m_ms = cuda_ms(lambda: outs.update(
+                steps=rotation.rotate_steps(acc.clone(), cexp, mkey)), 3)
+            k5_err = max(k5_err, hold(f"K5 GROUP_3 per-step rotation, batch {B}, "
+                                      f"{n // gf} launches", outs["steps"], outs["plain"]))
+            hold(f"K5 GROUP_3 per-step rotation, batch {B}, {n // gf} launches", outs["steps"],
+                 outs["kernel"], "K3 on the same inputs")
+            print(f"{tag} K5 GROUP_3 per-step rotation batch {B}: {k5m_ms:.3f} ms "
+                  f"({k5m_ms / (n // gf):.4f} ms per launch), plain {plain_ms:.3f} ms "
+                  f"(K3's plain version, timed above)")
+            k5m_bound = bound(k3_mults(B, n // gf, V, P, J, R, N),
+                              step_bytes(n // gf, V, P, J, R, N, V - 1) + 12 * P * N * 4,
+                              clock_hz, sms)
+        # K2 at this set's keyswitch shape
+        Km, Mm = mp.big_lwe_dimension * mp.ks_level, n + 1
+        half = 1 << (mp.ks_base_log - 1)
+        dg = torch.randint(-half, half + 1, (B, Km), generator=g, device=dev, dtype=torch.int32)
+        km, bd = rng.uniform_torus(g, (Km, Mm)), rng.uniform_torus(g, (B,))
+        o2 = {}
+        kms = cuda_ms(lambda: o2.update(kernel=keyswitch.neg_digit_mac(dg, km, bd)), 10)
+        kplain = cuda_ms(lambda: o2.update(plain=keyswitch.neg_digit_mac_plain(dg, km, bd)), 3)
+        k2_err = max(k2_err, hold(f"K2 keyswitch contraction GROUP_{gf}, batch {B}, K={Km}, "
+                                  f"M={Mm}", o2["kernel"], o2["plain"]))
+        print(f"{tag} K2 GROUP_{gf} batch {B} (K={Km}, M={Mm}): kernel {kms:.3f} ms, "
+              f"plain {kplain:.3f} ms")
+        k2_mb[gf] = (kms, kplain)
+        del mkey, acc, cexp, got, outs, dg, km, bd, o2
+
+    def zero_counts():
+        rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
+        rotation.step_launches = rotation.step_variant_launches = 0
+
+    def read_counts():
+        return {"blind_rotate": rotation.launches,
+                "blind_rotate_multibit": rotation.multi_bit_launches,
+                "blind_rotate_step": rotation.step_launches,
+                "blind_rotate_step_variants": rotation.step_variant_launches,
+                "keyswitch_mac": keyswitch.launches}
+
+    def check_requests(ck, outs, expect, path, seconds):
+        right = 0
+        for i, (out, want) in enumerate(zip(outs, expect)):
+            if tuple(out.lwe.data.shape) != (B, ck.params.big_lwe_dimension + 1):
+                raise AssertionError(f"{path} request {i + 1}: shape "
+                                     f"{tuple(out.lwe.data.shape)}")
+            ok = int((ck.decrypt(out).cpu() == want).sum())
+            right += ok
+            print(f"{path} request {i + 1}: {ok}/{B} decrypt right")
+        print(f"{tag} {path} path: {right}/{len(outs) * B} right, {len(outs)} requests in "
+              f"{seconds:.3f} s (first-call costs included)")
+        if right != len(outs) * B:
+            raise AssertionError(f"decryption mismatch on the {path} path")
+
+    def hold_cpu_path(sk, ct, lut_fn, out, path):
+        """The first request on 4 ciphertexts through the plain path on CPU
+        tensors (what the CPU tests hold against tfhe_tpu), with the same
+        key on its recorded route and the same switches."""
+        small = 4
+        sk_cpu = shortint.ServerKey(
+            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
+            bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()), params=sk.params)
+        ct_small = ct.with_(lwe=LweCiphertext(data=ct.lwe.data[:small].cpu()))
+        ref = sk_cpu.apply_lookup_table(ct_small, sk_cpu.generate_lookup_table(lut_fn))
+        same = torch.equal(ref.lwe.data, out.lwe.data[:small].cpu())
+        print(f"{path} request 1 on {small} ciphertexts: card path "
+              f"{'bit-identical' if same else 'MISMATCH'} to the plain CPU path")
+        if not same:
+            raise AssertionError(f"{path} card path disagrees with the plain CPU path")
 
     # ---- 4. the classic path: keygen, encrypt, three requests, decrypt ------
-    rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     ck, sk = shortint.gen_keys(params, seed=args.seed, device=dev)
     torch.cuda.synchronize()
@@ -280,50 +420,15 @@ def main() -> int:
     out3 = sk.unchecked_apply_lookup_table_bivariate(out1, out2, lut3)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    classic_launches = {"blind_rotate": rotation.launches,
-                        "blind_rotate_multibit": rotation.multi_bit_launches,
-                        "keyswitch_mac": keyswitch.launches}
-
-    def check_requests(ck, outs, expect, path, seconds):
-        right = 0
-        for i, (out, want) in enumerate(zip(outs, expect)):
-            if tuple(out.lwe.data.shape) != (B, ck.params.big_lwe_dimension + 1):
-                raise AssertionError(f"{path} request {i + 1}: shape "
-                                     f"{tuple(out.lwe.data.shape)}")
-            ok = int((ck.decrypt(out).cpu() == want).sum())
-            right += ok
-            print(f"{path} request {i + 1}: {ok}/{B} decrypt right")
-        print(f"{tag} {path} path: {right}/{len(outs) * B} right, {len(outs)} requests in "
-              f"{seconds:.3f} s (first-call costs included)")
-        if right != len(outs) * B:
-            raise AssertionError(f"decryption mismatch on the {path} path")
-
+    classic_launches = read_counts()
     m1, m2 = f1(msgs), f2(f1(msgs))
     check_requests(ck, (out1, out2, out3), [m1, m2, fb(m1, m2)], "classic", serve_s)
-
-    def hold_cpu_path(sk, ct, lut_fn, out, bsk_cpu, path):
-        """The first request on 4 ciphertexts through the plain path on CPU
-        tensors (what the CPU tests hold against tfhe_tpu)."""
-        small = 4
-        sk_cpu = shortint.ServerKey(
-            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
-            bsk=bsk_cpu, params=sk.params)
-        ct_small = ct.with_(lwe=LweCiphertext(data=ct.lwe.data[:small].cpu()))
-        ref = sk_cpu.apply_lookup_table(ct_small, sk_cpu.generate_lookup_table(lut_fn))
-        same = torch.equal(ref.lwe.data, out.lwe.data[:small].cpu())
-        print(f"{path} request 1 on {small} ciphertexts: card path "
-              f"{'bit-identical' if same else 'MISMATCH'} to the plain CPU path")
-        if not same:
-            raise AssertionError(f"{path} card path disagrees with the plain CPU path")
-
-    hold_cpu_path(sk, ct, f1, out1, NttBootstrapKey(spectra=sk.bsk.spectra.cpu(),
-                                                    decomp=sk.bsk.decomp,
-                                                    primes=sk.bsk.primes), "classic")
+    hold_cpu_path(sk, ct, f1, out1, "classic")
     kspbs = {CLASSIC: cuda_ms(lambda: sk.apply_lookup_table(ct, lut1), 3)}
     del ck, sk, ct, out1, out2, out3
 
     # ---- 4b. the multi-bit path, GROUP_3: four requests ----------------------
-    rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
+    zero_counts()
     mp3 = shortint_params(GROUP_3)
     t0 = time.perf_counter()
     ck, sk = shortint.gen_keys(mp3, seed=args.seed, device=dev)
@@ -341,24 +446,85 @@ def main() -> int:
             sk.greater(ca, cb))
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    multi_bit_launches = {"blind_rotate": rotation.launches,
-                          "blind_rotate_multibit": rotation.multi_bit_launches,
-                          "keyswitch_mac": keyswitch.launches}
+    multi_bit_launches = read_counts()
     check_requests(ck, outs, [f1(a), (a + b) % mm, (a * b) % mm, (a > b).long()],
                    "multi-bit GROUP_3", serve_s)
-    hold_cpu_path(sk, ca, f1, outs[0], NttMultiBitBootstrapKey(
-        spectra=sk.bsk.spectra.cpu(), decomp=sk.bsk.decomp, primes=sk.bsk.primes,
-        grouping_factor=sk.bsk.grouping_factor), "multi-bit GROUP_3")
+    hold_cpu_path(sk, ca, f1, outs[0], "multi-bit GROUP_3")
     kspbs[GROUP_3] = cuda_ms(lambda: sk.apply_lookup_table(ca, lut_mb), 3)
     del ck, sk, ca, cb, outs
 
-    # ---- 5. launch counts, throughput, the kernels line -----------------------
+    # ---- 4c. the per-step routes, one LUT request each -----------------------
+    steps_per_call = {CLASSIC: params.lwe_dimension,
+                      GROUP_3: mp3.lwe_dimension // mp3.grouping_factor}
+    routes = [  # (label, parameter set, switches, kernel expected, time KS+PBS)
+        ("FUSED=0 classic", CLASSIC, {"fused": False}, "blind_rotate_step", True),
+        ("FUSED=0 GROUP_3", GROUP_3, {"fused": False}, "blind_rotate_step_variants", False),
+        ("MXU_LANES=1 classic", CLASSIC, {"lanes": True}, "blind_rotate_step", False),
+        ("MXU=0 paired classic", CLASSIC, {"mxu": False}, "blind_rotate_step_variants", True),
+        ("MXU=0 GROUP_3", GROUP_3, {"mxu": False}, "blind_rotate_step_variants", False),
+    ]
+    route_launches, route_kspbs = {}, {}
+    for label, pname, sw, kernel, timed in routes:
+        config.set_use_mxu_ntt(sw.get("mxu", True))
+        config.set_use_mxu_lanes(sw.get("lanes", False))
+        config.set_use_fused_rotation(sw.get("fused", True))
+        rp = shortint_params(pname)
+        t0 = time.perf_counter()
+        ck, sk = shortint.gen_keys(rp, seed=args.seed, device=dev)
+        torch.cuda.synchronize()
+        route = sk.bsk.route
+        print(f"{tag} {label}: gen_keys on the card {time.perf_counter() - t0:.2f} s, key "
+              f"route {route!r}, spectra {tuple(sk.bsk.spectra.shape)}")
+        mm = rp.message_modulus
+        m = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 10), dtype=torch.int64)
+        ct = ck.encrypt(m.to(dev), seed=args.seed + 5)
+        lut = sk.generate_lookup_table(f1)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = sk.apply_lookup_table(ct, lut)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"{label} kernel launches: {json.dumps(counts)}")
+        want = {k: 0 for k in counts}
+        want.update({kernel: steps_per_call[pname], "keyswitch_mac": 1})
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        route_launches[label] = counts
+        check_requests(ck, [out], [f1(m)], label, serve_s)
+        hold_cpu_path(sk, ct, f1, out, label)
+        if timed:
+            route_kspbs[label] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+        del ck, sk, ct, out
+    config.set_use_mxu_ntt(True)
+    config.set_use_mxu_lanes(False)
+    config.set_use_fused_rotation(True)
+
+    # ---- 5. the shared-memory probe ------------------------------------------
+    smem_probe.launches = 0
+    largest = smem_probe.largest(dev)
+    probe_launches = smem_probe.launches
+    t0 = time.perf_counter()
+    optin = smem_probe.optin_limit(dev)
+    optin_ms = (time.perf_counter() - t0) * 1e3
+    torch_optin = getattr(torch.cuda.get_device_properties(dev),
+                          "shared_memory_per_block_optin", None)
+    print(f"{tag} shared-memory probe: largest that launched and read back {largest} B "
+          f"({probe_launches} launches); the device's opt-in attribute {optin} B; "
+          f"torch's {torch_optin}; the rotation kernels' limit {rotation._SMEM_LIMIT} B")
+    if not largest == optin == rotation._SMEM_LIMIT or torch_optin not in (None, optin):
+        raise AssertionError("the probe, the device attribute and the kernels' limit "
+                             "disagree")
+    probe_ms = cuda_ms(lambda: smem_probe.probe(largest, dev), 10)
+
+    # ---- 6. launch counts, throughput, the kernels line -----------------------
     print(f"classic path kernel launches: {json.dumps(classic_launches)}")
     print(f"multi-bit GROUP_3 path kernel launches: {json.dumps(multi_bit_launches)}")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
                         ("keyswitch_mac", classic_launches["keyswitch_mac"]),
                         ("blind_rotate_multibit", multi_bit_launches["blind_rotate_multibit"]),
-                        ("keyswitch_mac", multi_bit_launches["keyswitch_mac"])):
+                        ("keyswitch_mac", multi_bit_launches["keyswitch_mac"]),
+                        ("smem_probe", probe_launches)):
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by its path")
 
@@ -371,32 +537,48 @@ def main() -> int:
         raise AssertionError("GROUP_2 KS+PBS decrypts wrong")
     kspbs[GROUP_2] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
     del ck, sk, ct, out
-    for name, ms in kspbs.items():
+    for name, ms in list(kspbs.items()) + list(route_kspbs.items()):
         print(f"{tag} KS+PBS {name} batch {B}: {ms:.3f} ms per call, "
               f"{B / (ms / 1e3):.2f} PBS/s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        print(f"{tag} {name}: {ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]} "
+        print(f"{tag} {name}: {ms:.3f} ms, bound {bnd[0]:.6f} ms by {bnd[1]} "
               f"(bound / time = {bnd[0] / ms:.1%}), plain {plain_ms:.3f} ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
+    def route_total(kernel):
+        return sum(c[kernel] for c in route_launches.values())
+
+    rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
-        entry("blind_rotate", "tfhe_tpu_torch/csrc/rotation.cu",
-              "tfhe_tpu/core/poly/pallas_ntt.py:1073", classic_launches["blind_rotate"],
-              k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("blind_rotate", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              classic_launches["blind_rotate"], k1_err, k1_ms, k1_plain_ms, k1_bound),
         entry("keyswitch_mac", "tfhe_tpu_torch/csrc/keyswitch.cu",
               "tfhe_tpu/core/algorithms/keyswitch.py:41",
-              classic_launches["keyswitch_mac"] + multi_bit_launches["keyswitch_mac"],
-              k2_err, k2_ms, k2_plain_ms, k2_bound),
-        entry("blind_rotate_multibit", "tfhe_tpu_torch/csrc/rotation.cu",
-              "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              classic_launches["keyswitch_mac"] + multi_bit_launches["keyswitch_mac"]
+              + route_total("keyswitch_mac"), k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
               k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"]),
+        entry("blind_rotate_step", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:601",
+              route_total("blind_rotate_step"), k4_err, k4_ms, k1_plain_ms, k4_bound),
+        entry("blind_rotate_step_variants", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:221",
+              route_total("blind_rotate_step_variants"), k5_err, k5p_ms, k5p_plain_ms,
+              k5p_bound),
+        entry("smem_probe", "tfhe_tpu_torch/csrc/probe.cu", "tools/vmem_probe.py:19",
+              probe_launches, abs(largest - optin), probe_ms, optin_ms,
+              bound(largest, 8, clock_hz, sms)),
     ]
     print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")
+    print(f"{tag} K5 GROUP_3 per-step rotation batch {B}: {k5m_ms:.3f} ms, bound "
+          f"{k5m_bound[0]:.3f} ms by {k5m_bound[1]}, plain {k3[3]['plain_ms']:.3f} ms")
+    for gf, (kms, kplain) in k2_mb.items():
+        print(f"{tag} K2 GROUP_{gf} keyswitch shape batch {B}: {kms:.3f} ms, plain "
+              f"{kplain:.3f} ms")
+    print(f"{tag} chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

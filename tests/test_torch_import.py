@@ -22,7 +22,7 @@ mods = [m.name for m in pkgutil.walk_packages(tfhe_tpu_torch.__path__, "tfhe_tpu
 for m in mods:
     importlib.import_module(m)
 assert not any(k == "tfhe_tpu" or k.startswith("tfhe_tpu.") for k in sys.modules)
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -30,7 +30,10 @@ def test_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    mods = set(proc.stdout.split())
+    assert len(mods) >= 17
+    assert {"tfhe_tpu_torch.config", "tfhe_tpu_torch.smem_probe",
+            "tfhe_tpu_torch.core.poly.rotation", "tfhe_tpu_torch.interop"} <= mods
 
 
 def _named_sets():

@@ -1,21 +1,25 @@
 """tfhe_tpu_torch — the PyTorch and CUDA port of `tfhe_tpu`, for one NVIDIA
 H100.
 
-This first slice runs the shortint keyswitch + PBS main path end to end:
-parameters, int64 torus numerics, generator-based randomness, entities,
-the exact CRT-NTT, encryption and key generation, keyswitch, the delta-form
-blind rotation and shortint lookup tables.  Two hand-written CUDA kernels
-carry the hot work (`csrc/`): the whole blind rotation (replacing the JAX
-package's Pallas `_make_rotation_kernel_mxu`) and the keyswitch contraction.
+It runs the shortint keyswitch + PBS path end to end, with classic and
+multi-bit keys: parameters, int64 torus numerics, generator-based
+randomness, entities, the exact CRT-NTT, encryption and key generation,
+keyswitch, the blind rotation on every route the JAX package's switches
+select (`config.py`), and the shortint op families.  Hand-written CUDA
+kernels carry the hot work (`csrc/`): the whole blind rotation (K1 classic,
+K3 multi-bit), one rotation step per launch (K4 delta, K5 paired or
+multi-bit), the keyswitch contraction (K2), and a shared-memory probe.
 Each sits beside a plain PyTorch version that CPU tensors take.
 
 Layout mirrors `tfhe_tpu/`:
+  config.py    the rotation switches (TFHE_TPU_MXU, _MXU_LANES, _FUSED)
   core/        params, numeric, rng, entities, decomposition,
                poly/ (ntt, rotation), algorithms/ (encryption, keyswitch,
-               bootstrap)
+               bootstrap, multi_bit)
   shortint/    ciphertext, client_key, server_key
   interop.py   keys carried across from the JAX package (numpy arrays)
   cuda_lib.py  builds csrc/*.cu with nvcc at first use, loads with ctypes
+  smem_probe.py  the largest dynamic shared memory a block gets
 
 The package imports torch and numpy only, never jax.
 """

@@ -2,19 +2,21 @@
 extraction and the PBS entry point (classic keys).
 
 Counterpart of `tfhe_tpu/core/algorithms/bootstrap.py`.  The blind rotation
-is always the delta form of `poly/rotation.py` (the JAX package's fused
-kernel path), never the rotate-subtract form of the JAX XLA `blind_rotate`,
-which differs in low bits (hazard C4 in ROADMAP.md).
+is one of the JAX package's kernel routes, chosen as it chooses them
+(`config.py`): the fused delta form (K1), the per-step delta form (K4) or
+the per-step paired form (K5), never the rotate-subtract form of the JAX
+XLA `blind_rotate`, which differs in low bits (hazard C4 in ROADMAP.md).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ... import config
 from ..entities import GlweCiphertext, LweCiphertext, NttBootstrapKey
 from ..params import DecompParams
 from ..poly.ntt import required_num_primes
-from ..poly.rotation import blind_rotate_fused, modulus_switch
+from ..poly.rotation import blind_rotate_fused, blind_rotate_steps, modulus_switch
 
 __all__ = ["external_product_num_primes", "modulus_switch", "sample_extract",
            "programmable_bootstrap"]
@@ -45,6 +47,13 @@ def sample_extract(glwe: GlweCiphertext, index: int = 0) -> LweCiphertext:
 
 def programmable_bootstrap(lwe: LweCiphertext, lut: GlweCiphertext,
                            bsk: NttBootstrapKey) -> LweCiphertext:
-    """Mod-switch → blind rotate → sample-extract coefficient 0."""
-    rotated = blind_rotate_fused(lut.data, lwe.data, bsk)
+    """Mod-switch → blind rotate → sample-extract coefficient 0.  The
+    rotation routes as tfhe_tpu bootstrap.py:148-165 does: a key converted
+    for the fused route runs K1 while `use_fused_rotation()` is on; every
+    other key, or that key with the switch off, runs one step per launch
+    (`blind_rotate_steps`: K4, or K5 for a paired key)."""
+    if bsk.route == "fused" and config.use_fused_rotation():
+        rotated = blind_rotate_fused(lut.data, lwe.data, bsk)
+    else:
+        rotated = blind_rotate_steps(lut.data, lwe.data, bsk)
     return sample_extract(GlweCiphertext(data=rotated), 0)

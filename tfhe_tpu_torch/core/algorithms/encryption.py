@@ -7,9 +7,12 @@ device of its inputs.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ... import config
 from .. import rng
 from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey,
                         LweCiphertext, LweKeyswitchKey, LweSecretKey,
@@ -157,22 +160,79 @@ def generate_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
                            decomp=decomp)
 
 
-def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int) -> NttBootstrapKey:
-    """Standard BSK → the port's spectra [n, P, l*(k+1), k+1, N] int32
-    (counterpart of tfhe_tpu bootstrap_key_to_ntt).  Coefficients enter as
-    signed representatives, in chunks of input key bits to bound memory."""
-    n_in, levels, glwe_size, _, n = bsk.data.shape
+def ggsw_spectra(data: torch.Tensor, num_primes: int) -> torch.Tensor:
+    """Standard GGSWs [m, l, k+1, k+1, N] → the port's spectra
+    [m, P, l*(k+1), k+1, N] int32.  Coefficients enter as signed
+    representatives, in chunks of GGSWs to bound memory."""
+    n_in, levels, glwe_size, _, n = data.shape
     plan = ntt.get_plan(n, num_primes)
     spectra = torch.empty((n_in, num_primes, levels * glwe_size, glwe_size, n),
-                          dtype=torch.int32, device=bsk.data.device)
+                          dtype=torch.int32, device=data.device)
     chunk = max(1, (1 << 22) // (levels * glwe_size * glwe_size * n * num_primes))
     for start in range(0, n_in, chunk):
-        part = bsk.data[start:start + chunk]
+        part = data[start:start + chunk]
         hat = ntt.ntt_forward(plan, ntt.reduce(plan, part))    # [c, l, row, comp, P, N]
         hat = hat.permute(0, 4, 1, 2, 3, 5).reshape(
             part.shape[0], num_primes, levels * glwe_size, glwe_size, n)
         spectra[start:start + chunk] = hat.to(torch.int32)
-    return NttBootstrapKey(spectra=spectra, decomp=bsk.decomp, primes=plan.primes)
+    return spectra
+
+
+def key_route(n: int) -> str:
+    """The route a classic key of polynomial size n converted now is
+    recorded for, from the switches (tfhe_tpu encryption.py:209-231: MXU
+    off gives the paired "dif" key, lanes below N = 16384 the
+    "fourstep-lanes" key, else "fourstep")."""
+    if not config.use_mxu_ntt():
+        return "paired"
+    return "steps" if config.use_mxu_lanes() and n < 16384 else "fused"
+
+
+def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int) -> NttBootstrapKey:
+    """Standard BSK → the port's spectra [n, P, l*(k+1), k+1, N] int32
+    (counterpart of tfhe_tpu bootstrap_key_to_ntt), recording the route the
+    switches choose now; the paired route gets the paired form."""
+    n = bsk.data.shape[-1]
+    route = key_route(n)
+    key = NttBootstrapKey(spectra=ggsw_spectra(bsk.data, num_primes), decomp=bsk.decomp,
+                          primes=ntt.get_plan(n, num_primes).primes)
+    if route == "paired":
+        return bootstrap_key_to_ntt_paired(key)
+    return dataclasses.replace(key, route=route)
+
+
+def trivial_ggsw_one_ntt(n: int, glwe_size: int, decomp: DecompParams,
+                         num_primes: int) -> torch.Tensor:
+    """Residues of the *trivial* GGSW of 1 (the gadget matrix): row (l, r)
+    holds the constant polynomial q/B^(l+1) at component r, whose spectrum
+    is that constant in every slot, in any spectral order.  [P, l*(k+1),
+    k+1, N] int64 (tfhe_tpu encryption.py:235)."""
+    plan = ntt.get_plan(n, num_primes)
+    out = torch.zeros((num_primes, decomp.level * glwe_size, glwe_size, n),
+                      dtype=torch.int64)
+    for l in range(decomp.level):
+        gs = as_i64(1 << (LOG_Q - decomp.base_log * (l + 1)))  # signed representative
+        for r in range(glwe_size):
+            for pi, p in enumerate(plan.primes):
+                out[pi, l * glwe_size + r, r, :] = gs % p
+    return out
+
+
+def bootstrap_key_to_ntt_paired(key: NttBootstrapKey) -> NttBootstrapKey:
+    """A classic key → its paired form: spectra [n, 2, P, J, R, N] of
+    pair0 = GGSW_trivial(1) - GGSW(s_i) = GGSW(1 - s_i) and pair1 = GGSW(s_i)
+    (tfhe_tpu encryption.py:254).  A paired step computes
+    acc <- (pair0 + X^a pair1) [x] acc, the multi-bit step with g = 1."""
+    if key.paired:
+        return key
+    n_in, P, J, R, n = key.spectra.shape
+    p = torch.tensor(ntt.get_plan(n, P).primes, dtype=torch.int64,
+                     device=key.spectra.device).reshape(P, 1, 1, 1)
+    g1 = trivial_ggsw_one_ntt(n, R, key.decomp, P).to(key.spectra.device)
+    pair1 = key.spectra.to(torch.int64)
+    pair0 = (g1 + p - pair1) % p
+    spectra = torch.stack([pair0, pair1], dim=1).to(torch.int32)
+    return dataclasses.replace(key, spectra=spectra, route="paired")
 
 
 # ---------------------------------------------------------------------------

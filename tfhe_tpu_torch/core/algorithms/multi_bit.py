@@ -10,17 +10,20 @@ first bit).  A step computes
     acc <- (sum_v X^{c_v} * GGSW_{j,v}) [x] acc,   c_v = sum_{i: v_i = 1} a~_{jg+i},
 
 since the bracketed sum encrypts X^{sum_i a~_i s_i}.  The rotation is
-`poly/rotation.py`'s multi-bit form (the CUDA kernel K3 on the card).
+`poly/rotation.py`'s multi-bit form: the CUDA kernel K3 on the card, or K5
+once per step on the per-step route.
 """
 from __future__ import annotations
 
 import torch
 
-from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey, LweCiphertext,
+from ... import config
+from ..entities import (GlweCiphertext, GlweSecretKey, LweCiphertext,
                         LweMultiBitBootstrapKey, LweSecretKey, NttMultiBitBootstrapKey)
 from ..params import DecompParams
+from ..poly import ntt
 from ..poly.rotation import blind_rotate_fused_multi_bit
-from .encryption import bootstrap_key_to_ntt, encrypt_constant_ggsw
+from .encryption import encrypt_constant_ggsw, ggsw_spectra
 
 
 def indicator_messages(bits: torch.Tensor, grouping_factor: int) -> torch.Tensor:
@@ -53,18 +56,27 @@ def generate_multi_bit_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
 def multi_bit_bootstrap_key_to_ntt(bsk: LweMultiBitBootstrapKey,
                                    num_primes: int) -> NttMultiBitBootstrapKey:
     """Standard multi-bit BSK → the port's spectra [n/g, 2^g, P, J, R, N]
-    (each GGSW converted as `bootstrap_key_to_ntt` converts a classic one)."""
+    (each GGSW converted as `bootstrap_key_to_ntt` converts a classic one),
+    recording the route the switches choose now (`multi_bit_key_route`)."""
     ng, nv = bsk.data.shape[:2]
-    flat = bootstrap_key_to_ntt(
-        LweBootstrapKey(data=bsk.data.reshape((ng * nv,) + bsk.data.shape[2:]),
-                        decomp=bsk.decomp), num_primes)
+    n = bsk.data.shape[-1]
+    spectra = ggsw_spectra(bsk.data.reshape((ng * nv,) + bsk.data.shape[2:]), num_primes)
     return NttMultiBitBootstrapKey(
-        spectra=flat.spectra.reshape((ng, nv) + flat.spectra.shape[1:]),
-        decomp=bsk.decomp, primes=flat.primes, grouping_factor=bsk.grouping_factor)
+        spectra=spectra.reshape((ng, nv) + spectra.shape[1:]), decomp=bsk.decomp,
+        primes=ntt.get_plan(n, num_primes).primes, grouping_factor=bsk.grouping_factor,
+        route=multi_bit_key_route())
+
+
+def multi_bit_key_route() -> str:
+    """The route a multi-bit key converted now is recorded for (tfhe_tpu
+    multi_bit.py:124-139): "steps" when MXU is off (the JAX "dif" key) or
+    lanes are on ("fourstep-lanes"), else "fused" ("fourstep")."""
+    return "fused" if config.use_mxu_ntt() and not config.use_mxu_lanes() else "steps"
 
 
 def multi_bit_blind_rotate(lut: GlweCiphertext, lwe: LweCiphertext,
                            bsk: NttMultiBitBootstrapKey) -> GlweCiphertext:
-    """Blind rotation with grouped mask bits (tfhe_tpu multi_bit.py:184),
-    always in its fused form (`blind_rotate_fused(mode="multibit")`)."""
+    """Blind rotation with grouped mask bits (tfhe_tpu multi_bit.py:184) in
+    its fused form (`blind_rotate_fused(mode="multibit")`, K3).  The shortint
+    server routes by the key and the switches (`ServerKey._pbs`)."""
     return GlweCiphertext(data=blind_rotate_fused_multi_bit(lut.data, lwe.data, bsk))

@@ -8,6 +8,7 @@ axes are free batch axes; torus values are int64 bit patterns of u64):
   LweKeyswitchKey.data    [n_in, l, n_out+1]
   LweBootstrapKey.data    [n, l, k+1, k+1, N]    one GGSW per input key bit
   NttBootstrapKey.spectra [n, P, l*(k+1), k+1, N] the port's own spectra
+                          ([n, 2, P, l*(k+1), k+1, N] in the paired form)
   LweMultiBitBootstrapKey.data [n/g, 2^g, l, k+1, k+1, N]
   NttMultiBitBootstrapKey.spectra [n/g, 2^g, P, l*(k+1), k+1, N]
 
@@ -20,6 +21,8 @@ from dataclasses import dataclass
 import torch
 
 from .params import DecompParams
+
+ROUTES = ("fused", "steps", "paired")
 
 
 @dataclass(frozen=True)
@@ -111,17 +114,36 @@ class NttBootstrapKey:
     level-major; R = k+1 the output component.  `order` names the spectral
     order ("ct-bitrev": the Cooley-Tukey forward transform of
     `poly/ntt.py`, slot k at psi^(2 brv(k) + 1)), and `primes` the CRT
-    primes, the first P of `primes_for(N)`.  Counterpart of the JAX
-    `NttLweBootstrapKey` (whose `paired_order` records its own order)."""
+    primes, the first P of `primes_for(N)`.
+
+    `route` records the rotation the key was converted for (`config.py`):
+    "fused" (the whole rotation in one launch, K1, unless
+    `use_fused_rotation()` is off at PBS time), "steps" (one launch per
+    step, K4) or "paired" (spectra [n, 2, P, J, R, N] of [GGSW(1 - s_i),
+    GGSW(s_i)], one K5 launch per step).  Counterpart of the JAX
+    `NttLweBootstrapKey`, whose `paired_order` ("fourstep",
+    "fourstep-lanes", "dif") records the same choice."""
 
     spectra: torch.Tensor
     decomp: DecompParams
     primes: tuple
     order: str = "ct-bitrev"
+    route: str = "fused"
+
+    def __post_init__(self):
+        if self.route not in ROUTES:
+            raise ValueError(f"route {self.route!r} is not one of {ROUTES}")
+        if self.spectra.ndim != (6 if self.paired else 5):
+            raise ValueError(f"a {self.route!r} key has {6 if self.paired else 5}-axis "
+                             f"spectra, not {tuple(self.spectra.shape)}")
+
+    @property
+    def paired(self) -> bool:
+        return self.route == "paired"
 
     @property
     def polynomial_size(self) -> int:
-        return self.spectra.shape[4]
+        return self.spectra.shape[-1]
 
 
 @dataclass(frozen=True)
@@ -142,13 +164,22 @@ class NttMultiBitBootstrapKey:
 
     spectra [n/g, 2^g, P, J, R, N] int32 residues, each [P, J, R, N] slice
     laid out as `NttBootstrapKey.spectra[i]`; `order` and `primes` as there.
-    No Shoup twins and no phase tables: the kernel builds its own tables."""
+    No Shoup twins and no phase tables: the kernel builds its own tables.
+    `route` is "fused" (K3, unless `use_fused_rotation()` is off at PBS
+    time) or "steps" (one K5 launch per step), the counterpart of the JAX
+    key's `u32_order`."""
 
     spectra: torch.Tensor
     decomp: DecompParams
     primes: tuple
     grouping_factor: int
     order: str = "ct-bitrev"
+    route: str = "fused"
+
+    def __post_init__(self):
+        if self.route not in ("fused", "steps"):
+            raise ValueError(f"a multi-bit key's route is 'fused' or 'steps', "
+                             f"not {self.route!r}")
 
     @property
     def polynomial_size(self) -> int:

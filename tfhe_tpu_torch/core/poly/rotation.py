@@ -1,26 +1,26 @@
-"""The whole blind rotation, classic (delta form) and multi-bit, with the
-rotation itself as the CUDA kernels K1 and K3.
+"""The blind rotation, classic (delta form), paired and multi-bit, on two
+routes: the whole rotation in one kernel launch (K1, K3) or one launch per
+step (K4, K5).
 
-Counterpart of `tfhe_tpu/core/poly/pallas_ntt.py:1537 blind_rotate_fused`:
-the modulus switch, the LUT pre-rotation and the multi-bit variant
-exponents are torch glue here, as they are XLA glue there.
+Counterpart of `tfhe_tpu/core/poly/pallas_ntt.py`: `blind_rotate_fused`
+(:1537, the fused route) and `blind_rotate_pallas` (:1742) /
+`multi_bit_blind_rotate_pallas` (:1853) (the per-step route).  The modulus
+switch, the LUT pre-rotation and the multi-bit variant exponents are torch
+glue here, as they are XLA glue there.  Every step is one of
 
-  mode="delta" (classic keys): `rotate_accumulator` (K1) runs every step
-
+  delta (classic keys), K1's loop body and K4:
     acc += (X^e_j - 1) * sum_{l,r} decomp_l(acc_r) * GGSW(s_j)[l, r]
 
-  mode="multibit" (keys of g-bit groups): `rotate_accumulator_multi_bit`
-  (K3) runs every step
-
+  variants (multi-bit keys of g-bit groups, and paired classic keys as
+  g = 1 over [GGSW(1 - s_j), GGSW(s_j)]), K3's loop body and K5:
     acc = sum_{v < 2^g} X^{c_v} * sum_{l,r} decomp_l(acc_r) * GGSW_{j,v}[l, r]
 
-Both kernels are in `csrc/rotation.cu` (replacing `_make_rotation_kernel_mxu`,
-:1073; the source's header says what bounds them on the card and what
-their design does about that), with `blind_rotate_plain` and
-`blind_rotate_multi_bit_plain` beside them.  All compute the exact product
-mod 2^64, so all are bit-identical to the JAX function.  The JAX wrapper's
-batch bucketing (`_padded_flat_batch`) only caps TPU compiles and has no
-counterpart: the kernels take any batch.
+All four kernels are in `csrc/rotation.cu` (one body; the source's header
+says what each replaces and what bounds it on the card), with
+`blind_rotate_step_plain` as the one plain step formula beside them.  All
+compute the exact product mod 2^64, so all are bit-identical to the JAX
+functions.  The JAX wrappers' batch bucketing (`_padded_flat_batch`) only
+caps TPU compiles and has no counterpart: the kernels take any batch.
 """
 from __future__ import annotations
 
@@ -33,10 +33,13 @@ from ..entities import NttBootstrapKey, NttMultiBitBootstrapKey
 from ..numeric import LOG_Q, shr
 from . import monomial_mul, ntt
 
-# Kernel launches of `rotate_accumulator` (K1) and of
-# `rotate_accumulator_multi_bit` (K3), the CUDA branches only.
+# Kernel launches, the CUDA branches only: `rotate_accumulator` (K1),
+# `rotate_accumulator_multi_bit` (K3) and `blind_rotate_step` (K4 in delta
+# mode, K5 in variants mode).
 launches = 0
 multi_bit_launches = 0
+step_launches = 0
+step_variant_launches = 0
 
 _MAXP = 8
 _MAXR = 4              # K3 keeps one 64-bit sum per output component in registers
@@ -70,28 +73,64 @@ def _digit_spectra(acc: torch.Tensor, decomp, plan: ntt.NttPlan) -> torch.Tensor
     return ntt.ntt_forward(plan, ntt.reduce(plan, digits)).transpose(1, 2)
 
 
-def blind_rotate_plain(acc: torch.Tensor, exps: torch.Tensor,
-                       key: NttBootstrapKey) -> torch.Tensor:
-    """K1's plain version.  acc [B, R, N] int64 (pre-rotated LUT), exps
-    [B, n] integers in [0, 2N), key spectra [n, P, J, R, N] → rotated acc."""
-    n_steps, P, J, R, n = key.spectra.shape
+def _mac(d_hat: torch.Tensor, spec: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """sum_j d_hat[:, :, j] * spec[:, j, r] mod p: [B, P, J, N] x [P, J, R, N]
+    → [B, P, R, N]."""
+    prod = d_hat.unsqueeze(-2) * spec.to(torch.int64) % p.unsqueeze(-1).unsqueeze(-1)
+    return prod.sum(dim=2) % p.unsqueeze(-1)
+
+
+def blind_rotate_step_plain(acc: torch.Tensor, exps_j: torch.Tensor,
+                            key_slice: torch.Tensor, mode: str, decomp) -> torch.Tensor:
+    """The plain version of K4 and K5, and the one step formula of every
+    plain rotation here.  Updates acc [B, R, N] int64 in place and returns
+    it.  mode="delta": exps_j [B] in [0, 2N), key_slice [P, J, R, N] (one
+    GGSW(s_j)); mode="variants": exps_j [B, 2^g - 1] (c_v for v >= 1),
+    key_slice [2^g, P, J, R, N]."""
+    P, J, R, n = key_slice.shape[-4:]
     plan = ntt.get_plan(n, P)
     tab = plan.tables(acc.device)
     p = tab["p"]                                                 # [P, 1]
-    # (X^e - 1) at slot k is psi^(e * (2 brv(k) + 1) mod 2N) - 1
-    phase_tab = (tab["psi_pow"] - 1) % p                         # [P, 2N]
-    exps = exps.to(torch.int64)
-    for j in range(n_steps):
-        d_hat = _digit_spectra(acc, key.decomp, plan)            # [B, P, J, N]
-        spec = key.spectra[j].to(torch.int64)                    # [P, J, R, N]
-        prod = d_hat.unsqueeze(-2) * spec % p.unsqueeze(-1).unsqueeze(-1)
-        mac = prod.sum(dim=2) % p.unsqueeze(-1)                  # [B, P, R, N]
-        m = exps[:, j, None] * tab["slot_odd"] % (2 * n)        # [B, N]
-        phase = phase_tab[:, m].permute(1, 0, 2)                 # [B, P, N]
-        mac = mac * phase.unsqueeze(-2) % p.unsqueeze(-1)
-        delta = ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, mac.transpose(1, 2)))
-        acc = acc + delta                                        # [B, R, N]
+    e = exps_j.to(torch.int64)
+    d_hat = _digit_spectra(acc, decomp, plan)                    # [B, P, J, N]
+    if mode == "delta":
+        # (X^e - 1) at slot k is psi^(e * (2 brv(k) + 1) mod 2N) - 1
+        m = e[:, None] * tab["slot_odd"] % (2 * n)               # [B, N]
+        phase = ((tab["psi_pow"] - 1) % p)[:, m].permute(1, 0, 2)   # [B, P, N]
+        mac = _mac(d_hat, key_slice, p) * phase.unsqueeze(-2) % p.unsqueeze(-1)
+        acc += ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, mac.transpose(1, 2)))
+    elif mode == "variants":
+        total = _mac(d_hat, key_slice[0], p)                     # [B, P, R, N]
+        for v in range(1, key_slice.shape[0]):
+            m = e[:, v - 1, None] * tab["slot_odd"] % (2 * n)    # [B, N]
+            phase = tab["psi_pow"][:, m].permute(1, 0, 2)        # [B, P, N] = X^{c_v}
+            d = d_hat * phase.unsqueeze(2) % p.unsqueeze(-1)
+            total = (total + _mac(d, key_slice[v], p)) % p.unsqueeze(-1)
+        acc.copy_(ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, total.transpose(1, 2))))
+    else:
+        raise ValueError(f"mode is 'delta' or 'variants', not {mode!r}")
     return acc
+
+
+def _step_mode(key, exps: torch.Tensor) -> tuple:
+    """(mode, exps with a variant axis) for a rotation's steps: a paired key
+    runs the variants step with g = 1 and c_1 = e_j."""
+    if isinstance(key, NttMultiBitBootstrapKey):
+        return "variants", exps
+    return ("variants", exps.unsqueeze(-1)) if key.paired else ("delta", exps)
+
+
+def blind_rotate_plain(acc: torch.Tensor, exps: torch.Tensor, key) -> torch.Tensor:
+    """K1's plain version, and for a paired key the plain version of the
+    paired per-step route.  acc [B, R, N] int64 (pre-rotated LUT), exps
+    [B, n] integers in [0, 2N), key spectra [n, P, J, R, N] (or [n, 2, P,
+    J, R, N] paired) → the rotated acc (a new tensor).  A multi-bit key
+    takes exps [B, n/g, 2^g - 1] (`blind_rotate_multi_bit_plain`)."""
+    mode, exps = _step_mode(key, exps)
+    out = acc.clone()
+    for j in range(key.spectra.shape[0]):
+        blind_rotate_step_plain(out, exps[:, j], key.spectra[j], mode, key.decomp)
+    return out
 
 
 def variant_exponents(exps: torch.Tensor, grouping: int, polynomial_size: int
@@ -113,26 +152,7 @@ def blind_rotate_multi_bit_plain(acc: torch.Tensor, exps: torch.Tensor,
     """K3's plain version.  acc [B, R, N] int64 (pre-rotated LUT), exps
     [B, n/g, 2^g - 1] variant exponents (`variant_exponents`), key spectra
     [n/g, 2^g, P, J, R, N] → the rotated acc (each step replaces it)."""
-    n_steps, V, P, J, R, n = key.spectra.shape
-    plan = ntt.get_plan(n, P)
-    tab = plan.tables(acc.device)
-    p = tab["p"]                                                 # [P, 1]
-    exps = exps.to(torch.int64)
-    for j in range(n_steps):
-        d_hat = _digit_spectra(acc, key.decomp, plan)
-        total = None                                             # [B, P, R, N]
-        for v in range(V):
-            d = d_hat                                            # [B, P, J, N]
-            if v:
-                m = exps[:, j, v - 1, None] * tab["slot_odd"] % (2 * n)   # [B, N]
-                phase = tab["psi_pow"][:, m].permute(1, 0, 2)    # [B, P, N] = X^{c_v}
-                d = d_hat * phase.unsqueeze(2) % p.unsqueeze(-1)
-            spec = key.spectra[j, v].to(torch.int64)             # [P, J, R, N]
-            prod = d.unsqueeze(-2) * spec % p.unsqueeze(-1).unsqueeze(-1)
-            mac = prod.sum(dim=2) % p.unsqueeze(-1)
-            total = mac if total is None else (total + mac) % p.unsqueeze(-1)
-        acc = ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, total.transpose(1, 2)))
-    return acc
+    return blind_rotate_plain(acc, exps, key)
 
 
 def _shoup_u32(vals: np.ndarray, p: np.ndarray) -> np.ndarray:
@@ -175,50 +195,76 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
     return _TABLES[dkey]
 
 
-def _launch_args(acc: torch.Tensor, exps: torch.Tensor, spectra: torch.Tensor,
-                 exps_shape: tuple, decomp, primes: tuple, order: str) -> tuple:
-    """Checks shared by the kernel wrappers; → (plan, tab, consts, out,
-    exps as int32, spectra), all contiguous on acc's device."""
-    P, J, R, n = spectra.shape[-4:]
+def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) -> tuple:
+    """Checks shared by the kernel wrappers on acc [B, R, N] and a key of
+    shape [..., P, J, R, N] with `variants` GGSWs per step (0 for the delta
+    step); → (plan, tab, consts)."""
+    P, J, R, n = key_shape[-4:]
     B = acc.shape[0]
     L, base_log = decomp.level, decomp.base_log
-    if order != "ct-bitrev":
-        raise ValueError(f"the kernel reads ct-bitrev spectra, not {order!r}")
-    if acc.shape != (B, R, n) or tuple(exps.shape) != exps_shape or J != L * R:
-        raise ValueError(f"shapes acc {tuple(acc.shape)}, exps {tuple(exps.shape)}, "
-                         f"key {tuple(spectra.shape)} disagree")
-    if acc.dtype != torch.int64 or spectra.dtype != torch.int32:
-        raise TypeError("acc must be int64 and the key spectra int32")
-    if spectra.device != acc.device or exps.device != acc.device:
-        raise ValueError("all operands must be on one device")
+    if tuple(acc.shape) != (B, R, n) or J != L * R:
+        raise ValueError(f"shapes acc {tuple(acc.shape)} and key {tuple(key_shape)} "
+                         f"disagree")
+    if acc.dtype != torch.int64:
+        raise TypeError("acc must be int64")
     if P > _MAXP or J > 15 or base_log > 24:
         raise ValueError(f"the kernel takes P <= {_MAXP}, J <= 15, base_log <= 24")
+    if variants:
+        g = variants.bit_length() - 1
+        if variants != 1 << g or not 1 <= g <= 4:
+            raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, "
+                             f"not {variants} variants")
+        if R > _MAXR:
+            raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
     smem = 8 * R * n + 4 * J * n + 4 * P * R * n
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a ciphertext's working set ({smem} B) exceeds one "
                          f"block's shared memory ({_SMEM_LIMIT} B)")
     plan = ntt.get_plan(n, P)
-    if tuple(primes) != plan.primes:
+    return (plan,) + _kernel_tables(plan, acc.device)
+
+
+def _check_key(key) -> None:
+    if key.order != "ct-bitrev":
+        raise ValueError(f"the kernels read ct-bitrev spectra, not {key.order!r}")
+    P, n = key.spectra.shape[-4], key.spectra.shape[-1]
+    if tuple(key.primes) != ntt.get_plan(n, P).primes:
         raise ValueError("key primes differ from primes_for(N)[:P]")
-    tab, cs = _kernel_tables(plan, acc.device)
+
+
+def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
+                 variants: int) -> tuple:
+    """Checks of the whole-rotation wrappers; → (plan, tab, consts, out,
+    exps as int32, spectra), all contiguous on acc's device."""
+    _check_key(key)
+    if tuple(exps.shape) != exps_shape:
+        raise ValueError(f"shapes acc {tuple(acc.shape)}, exps {tuple(exps.shape)}, "
+                         f"key {tuple(key.spectra.shape)} disagree")
+    if key.spectra.dtype != torch.int32:
+        raise TypeError("the key spectra must be int32")
+    if key.spectra.device != acc.device or exps.device != acc.device:
+        raise ValueError("all operands must be on one device")
+    plan, tab, cs = _kernel_setup(acc, key.spectra.shape, key.decomp, variants)
     return (plan, tab, cs, acc.contiguous().clone(), exps.to(torch.int32).contiguous(),
-            spectra.contiguous())
+            key.spectra.contiguous())
 
 
 def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
                        key: NttBootstrapKey) -> torch.Tensor:
     """K1's wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (or an error: there is no fallback).  Returns a new
-    rotated accumulator [B, R, N] int64."""
+    rotated accumulator [B, R, N] int64.  Takes delta keys only: a paired
+    key runs on the per-step route (`rotate_steps`)."""
+    if key.paired:
+        raise ValueError("K1 takes a delta key; a paired key runs rotate_steps")
     if acc.device.type == "cpu":
         return blind_rotate_plain(acc, exps, key)
     if acc.device.type != "cuda":
         raise ValueError(f"no blind-rotation kernel for device {acc.device}")
     global launches
     n_steps, P, J, R, n = key.spectra.shape
-    plan, tab, cs, out, e32, spectra = _launch_args(
-        acc, exps, key.spectra, (acc.shape[0], n_steps), key.decomp, key.primes,
-        key.order)
+    plan, tab, cs, out, e32, spectra = _launch_args(acc, exps, key,
+                                                    (acc.shape[0], n_steps), 0)
     lib = cuda_lib.library()
     code = lib.tfhe_blind_rotate(out.data_ptr(), e32.data_ptr(), spectra.data_ptr(),
                                  tab.data_ptr(), cs.data_ptr(), out.shape[0], n_steps,
@@ -240,42 +286,118 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
         raise ValueError(f"no multi-bit blind-rotation kernel for device {acc.device}")
     global multi_bit_launches
     n_steps, V, P, J, R, n = key.spectra.shape
-    g = key.grouping_factor
-    if V != 1 << g or not 1 <= g <= 4:
-        raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, not "
-                         f"g={g} with {V}")
-    if R > _MAXR:
-        raise ValueError(f"the multi-bit kernel takes k+1 <= {_MAXR}, not {R}")
+    if V != 1 << key.grouping_factor:
+        raise ValueError(f"grouping {key.grouping_factor} has {1 << key.grouping_factor} "
+                         f"variants, the key {V}")
     plan, tab, cs, out, e32, spectra = _launch_args(
-        acc, exps, key.spectra, (acc.shape[0], n_steps, V - 1), key.decomp,
-        key.primes, key.order)
+        acc, exps, key, (acc.shape[0], n_steps, V - 1), V)
     lib = cuda_lib.library()
     code = lib.tfhe_blind_rotate_multi_bit(
         out.data_ptr(), e32.data_ptr(), spectra.data_ptr(), tab.data_ptr(),
         cs.data_ptr(), out.shape[0], n_steps, n, plan.log_n, P, R, key.decomp.level,
-        key.decomp.base_log, g, cuda_lib.stream_of(out))
+        key.decomp.base_log, key.grouping_factor, cuda_lib.stream_of(out))
     multi_bit_launches += 1
     cuda_lib.check(code, "tfhe_blind_rotate_multi_bit")
     return out
 
 
+def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.Tensor,
+                      mode: str, decomp) -> torch.Tensor:
+    """One blind-rotation step over the batch, in place on acc [B, R, N]
+    int64; returns acc.  Counterpart of `blind_rotate_step_pallas_mxu`
+    (pallas_ntt.py:1018, B4), `blind_rotate_step_pallas_mxu_lanes` (:955,
+    B5: B4 with the batch in TPU lanes) and `blind_rotate_step_pallas`
+    (:494, B6: paired classic or multi-bit, DIF butterflies); the port takes
+    exponents, not pre-gathered phases, and builds the phase in the kernel.
+
+      mode="delta":    exps_j [B] in [0, 2N), key_slice [P, J, R, N]:
+                       acc += (X^e - 1) * (GGSW(s_j) [x] acc)       (K4)
+      mode="variants": exps_j [B, 2^g - 1] (c_v, v >= 1), key_slice
+                       [2^g, P, J, R, N], g = 1..4 (g = 1 is a paired key):
+                       acc = sum_v X^{c_v} * (GGSW_{j,v} [x] acc)   (K5)
+
+    key_slice holds residues mod primes_for(N)[:P] in the ct-bitrev order.
+    CPU tensors take `blind_rotate_step_plain`; CUDA tensors launch K4 or K5
+    (or raise: there is no fallback).  On the card exps_j must be int32; a
+    strided view (a column of the [B, n] table) is read in place, through
+    its batch stride."""
+    if acc.device.type == "cpu":
+        return blind_rotate_step_plain(acc, exps_j, key_slice, mode, decomp)
+    if acc.device.type != "cuda":
+        raise ValueError(f"no blind-rotation step kernel for device {acc.device}")
+    global step_launches, step_variant_launches
+    if mode not in ("delta", "variants"):
+        raise ValueError(f"mode is 'delta' or 'variants', not {mode!r}")
+    variants = key_slice.shape[0] if mode == "variants" else 0
+    if key_slice.ndim != (5 if variants else 4):
+        raise ValueError(f"a {mode} step takes a key slice of {5 if variants else 4} "
+                         f"axes, not {tuple(key_slice.shape)}")
+    plan, tab, cs = _kernel_setup(acc, key_slice.shape, decomp, variants)
+    B, R, n = acc.shape
+    P = key_slice.shape[-4]
+    e_shape = (B, variants - 1) if variants else (B,)
+    if tuple(exps_j.shape) != e_shape or exps_j.dtype != torch.int32:
+        raise ValueError(f"exps_j must be int32 {e_shape}, not {exps_j.dtype} "
+                         f"{tuple(exps_j.shape)}")
+    if key_slice.dtype != torch.int32:
+        raise TypeError("the key slice must be int32")
+    if key_slice.device != acc.device or exps_j.device != acc.device:
+        raise ValueError("all operands must be on one device")
+    if not acc.is_contiguous():
+        raise ValueError("the step updates acc in place: it must be contiguous")
+    if variants and exps_j.stride(1) != 1:
+        exps_j = exps_j.contiguous()
+    key_slice = key_slice.contiguous()
+    lib = cuda_lib.library()
+    common = (tab.data_ptr(), cs.data_ptr(), B, n, plan.log_n, P, R, decomp.level,
+              decomp.base_log)
+    if variants:
+        code = lib.tfhe_blind_rotate_step_variants(
+            acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
+            *common, variants.bit_length() - 1, cuda_lib.stream_of(acc))
+        step_variant_launches += 1
+        cuda_lib.check(code, "tfhe_blind_rotate_step_variants")
+    else:
+        code = lib.tfhe_blind_rotate_step(
+            acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
+            *common, cuda_lib.stream_of(acc))
+        step_launches += 1
+        cuda_lib.check(code, "tfhe_blind_rotate_step")
+    return acc
+
+
+def rotate_steps(acc: torch.Tensor, exps: torch.Tensor, key) -> torch.Tensor:
+    """The per-step rotation: acc [B, R, N] int64 rotated in place, one
+    `blind_rotate_step` per step, and returned.  exps [B, n] in [0, 2N) for
+    a classic key (delta: K4; paired: K5 with g = 1), [B, n/g, 2^g - 1]
+    (`variant_exponents`) for a multi-bit key (K5).  The exponents are
+    converted to int32 once; each step reads its column in place."""
+    _check_key(key)
+    mode, exps = _step_mode(key, exps)
+    e32 = exps.to(torch.int32).contiguous()
+    for j in range(key.spectra.shape[0]):
+        blind_rotate_step(acc, e32[:, j], key.spectra[j], mode, key.decomp)
+    return acc
+
+
 def _switch_and_prerotate(lut_data: torch.Tensor, lwe_data: torch.Tensor, n: int):
-    """Modulus switch and LUT pre-rotation shared by both rotations →
-    (batch shape, mask exponents [B, n_in] in [0, 2N), acc [B, R, N])."""
+    """Modulus switch and LUT pre-rotation shared by all rotations →
+    (batch shape, mask exponents [B, n_in] in [0, 2N), acc [B, R, N], a new
+    contiguous tensor)."""
     batch = tuple(lwe_data.shape[:-1])
     flat = lwe_data.reshape(-1, lwe_data.shape[-1])
     switched = modulus_switch(flat, n)                           # [B, n+1] in [0, 2N]
     exps = switched[:, :-1] & (2 * n - 1)
     acc = monomial_mul(_lut_full(lut_data, batch, flat.shape[0]),
                        (2 * n - switched[:, -1]).unsqueeze(-1))
-    return batch, exps, acc
+    return batch, exps, acc.contiguous()
 
 
 def blind_rotate_fused(lut_data: torch.Tensor, lwe_data: torch.Tensor,
                        key: NttBootstrapKey) -> torch.Tensor:
-    """Full blind rotation, classic key (mode="delta").  lut_data: shared
-    [R, N] or per-element [..., R, N] LUT(s); lwe_data [..., n+1].  Returns
-    the rotated accumulator [..., R, N] int64."""
+    """Full blind rotation, classic key (mode="delta"), in one K1 launch.
+    lut_data: shared [R, N] or per-element [..., R, N] LUT(s); lwe_data
+    [..., n+1].  Returns the rotated accumulator [..., R, N] int64."""
     batch, exps, acc = _switch_and_prerotate(lut_data, lwe_data, key.polynomial_size)
     out = rotate_accumulator(acc, exps, key)
     return out.reshape(batch + tuple(out.shape[-2:]))
@@ -284,9 +406,34 @@ def blind_rotate_fused(lut_data: torch.Tensor, lwe_data: torch.Tensor,
 def blind_rotate_fused_multi_bit(lut_data: torch.Tensor, lwe_data: torch.Tensor,
                                  key: NttMultiBitBootstrapKey) -> torch.Tensor:
     """Full blind rotation, multi-bit key (mode="multibit", grouping =
-    key.grouping_factor); arguments and result as `blind_rotate_fused`."""
+    key.grouping_factor), in one K3 launch; arguments and result as
+    `blind_rotate_fused`."""
     n = key.polynomial_size
     batch, exps, acc = _switch_and_prerotate(lut_data, lwe_data, n)
     out = rotate_accumulator_multi_bit(
         acc, variant_exponents(exps, key.grouping_factor, n), key)
+    return out.reshape(batch + tuple(out.shape[-2:]))
+
+
+def blind_rotate_steps(lut_data: torch.Tensor, lwe_data: torch.Tensor,
+                       key: NttBootstrapKey) -> torch.Tensor:
+    """Full blind rotation, classic key, on the per-step route: one K4
+    launch per step for a delta key, one K5 launch (g = 1) per step for a
+    paired key (counterpart of `blind_rotate_pallas`, pallas_ntt.py:1742,
+    with mxu=True, lanes=True or mxu=False).  Arguments and result as
+    `blind_rotate_fused`; the accumulator is updated in place across
+    steps."""
+    batch, exps, acc = _switch_and_prerotate(lut_data, lwe_data, key.polynomial_size)
+    out = rotate_steps(acc, exps, key)
+    return out.reshape(batch + tuple(out.shape[-2:]))
+
+
+def multi_bit_blind_rotate_steps(lut_data: torch.Tensor, lwe_data: torch.Tensor,
+                                 key: NttMultiBitBootstrapKey) -> torch.Tensor:
+    """Full blind rotation, multi-bit key, on the per-step route: one K5
+    launch per step (counterpart of `multi_bit_blind_rotate_pallas`,
+    pallas_ntt.py:1853, with any of its mxu and lanes settings)."""
+    n = key.polynomial_size
+    batch, exps, acc = _switch_and_prerotate(lut_data, lwe_data, n)
+    out = rotate_steps(acc, variant_exponents(exps, key.grouping_factor, n), key)
     return out.reshape(batch + tuple(out.shape[-2:]))

@@ -1,10 +1,19 @@
-// Whole blind rotation for a batch of LWE ciphertexts: K1 (delta form,
-// classic keys) and K3 (multi-bit keys), one kernel body with the mode as a
-// template parameter.
+// The blind rotation for a batch of LWE ciphertexts, one kernel body with
+// the step's form as a template parameter, launched two ways:
+//
+//   whole rotation, the step loop inside the block:
+//     K1 tfhe_blind_rotate            delta steps, classic keys
+//     K3 tfhe_blind_rotate_multi_bit  variant steps, multi-bit keys
+//   one step per launch, the accumulator in global memory between launches:
+//     K4 tfhe_blind_rotate_step           one delta step
+//     K5 tfhe_blind_rotate_step_variants  one variant step (g = 1..4; g = 1
+//                                         is a paired classic key)
 //
 // K1 replaces the TPU kernel `_make_rotation_kernel_mxu` run through
 // `blind_rotate_fused(mode="delta")` (tfhe_tpu/core/poly/pallas_ntt.py:1073,
-// :1537).  For each of the n_steps mask elements, with e_j = a~_j mod 2N:
+// :1537), and its step loop is also the counterpart of that kernel's
+// `kernel_loop` (:1462, TFHE_TPU_ROTATION_LOOP=1).  For each of the n_steps
+// mask elements, with e_j = a~_j mod 2N:
 //
 //   acc += (X^e_j - 1) * sum_{l,r} decomp_l(acc_r) * GGSW(s_j)[l, r]
 //
@@ -19,40 +28,59 @@
 // with c_0 = 0 and c_v = sum of the a~ of the group selected by v's bits
 // (the MSB of v is the group's first element; the wrapper computes c_v).
 //
-// Both are computed mod (X^N + 1, 2^64), exactly, over P NTT primes below
-// 2^30 and lifted back with Garner (signed lift, then mod 2^64), so the
-// result is bit-identical to the JAX kernel whatever the transform's order.
+// K4 replaces the per-step TPU kernels in delta mode: `_make_step_kernel_mxu`
+// (pallas_ntt.py:601, via `blind_rotate_step_pallas_mxu` :1018, the
+// TFHE_TPU_FUSED=0 route) and `_make_step_kernel_mxu_lanes` (:778, via :955,
+// the same step with the batch folded into the TPU's lanes, a layout with no
+// meaning here).  K5 replaces the same two in multibit mode and
+// `_make_step_kernel` (:221, via `blind_rotate_step_pallas` :494, the
+// TFHE_TPU_MXU=0 route): the DIF-butterfly step over a multi-bit key or over
+// the paired classic key [GGSW(1 - s), GGSW(s)], which is the variant step
+// with g = 1 (c_1 = e_j).  K4 is K1's body run for one step, K5 K3's; the
+// exponents are read through a batch stride, so a column of the [B, n]
+// table needs no copy.
 //
-// Design.  One block per ciphertext; the step loop runs inside the block
-// (it takes the place of the TPU's sequential grid axis) and the
-// accumulator stays in shared memory for the whole rotation.  Per step and
+// All compute mod (X^N + 1, 2^64), exactly, over P NTT primes below 2^30 and
+// lift back with Garner (signed lift, then mod 2^64), so every result is
+// bit-identical to the JAX kernel it replaces whatever the transform's order.
+//
+// Design.  One block per ciphertext.  K1/K3 run the step loop inside the
+// block (it takes the place of the TPU's sequential grid axis) and keep the
+// accumulator in shared memory for the whole rotation; K4/K5 load it from
+// global memory, run one step and store it back in place.  Per step and
 // prime: balanced digits of acc -> forward Cooley-Tukey NTT (psi merged,
 // bit-reversed out) of the J digit polys -> MAC against the step's key
 // spectra with the phase -> Gentleman-Sande inverse of the R products.
-// Then Garner adds the delta into acc (K1) or replaces acc (K3).  Modular
-// products of residues use 32-bit Shoup multiplies with the native
+// Then Garner adds the delta into acc (delta) or replaces acc (variants).
+// Modular products of residues use 32-bit Shoup multiplies with the native
 // __umulhi (twiddles, phases, Garner constants).
-//   K1's MAC sums J 60-bit products in 64 bits and reduces once (Barrett),
-//   then multiplies by (X^e - 1)/N from a 2N-entry table per prime.
-//   K3's MAC runs one thread per spectral slot k: for each variant v >= 1 it
-//   turns the J digit residues into d_j * psi^(c_v (2 brv(k) + 1)) (a
-//   2N-entry psi-power table, one Shoup multiply per (v, j), shared by the R
-//   outputs), sums the products with the key in 64 bits, and reduces with
-//   Barrett after at most 16 products (each is below p^2 < 2^60, so 16 fit
-//   in 64 bits: at g = 3, J = 2 that is one reduction per output).  The
+//   The delta MAC sums J 60-bit products in 64 bits and reduces once
+//   (Barrett), then multiplies by (X^e - 1)/N from a 2N-entry table per prime.
+//   The variant MAC runs one thread per spectral slot k: for each variant
+//   v >= 1 it turns the J digit residues into d_j * psi^(c_v (2 brv(k) + 1))
+//   (a 2N-entry psi-power table, one Shoup multiply per (v, j), shared by
+//   the R outputs), sums the products with the key in 64 bits, and reduces
+//   with Barrett after at most 16 products (each is below p^2 < 2^60, so 16
+//   fit in 64 bits: at g = 3, J = 2 that is one reduction per output).  The
 //   v = 0 term has no phase, so 1/N is one Shoup multiply per output.
 //
-// Bounds on the card.  At PARAM_MESSAGE_2_CARRY_2 (N=2048, P=4, J=R=2) a K1
-// step is ~2.5e5 modular multiplies per ciphertext, so K1 is bound by
+// Bounds on the card.  At PARAM_MESSAGE_2_CARRY_2 (N=2048, P=4, J=R=2) a
+// delta step is ~2.5e5 modular multiplies per ciphertext, so K1 is bound by
 // 32-bit integer multiply throughput; and each block reads the step's key
 // slice (P*J*R*N*4 B = 128 KB; 97 MB for all 742 steps, more than the 50 MB
 // L2) once per ciphertext.  K3 at GROUP_3 (296 steps of 8 variants) does
 // about 0.7x K1's multiplies per ciphertext, with fewer steps and barriers,
-// but reads 2^g times the key per step (1 MB; 310 MB in all): bound by
-// integer multiplies unless the key stream misses L2.  Shared memory per
-// block, for both, is 8RN + 4JN + 4PRN bytes (112 KB at 2_2: two blocks per
-// SM).  Sharing a key slice among several ciphertexts of a block is left to
-// later work.
+// but reads 2^g times the key per step (1 MB; 310 MB in all): its time
+// tracks the key loads per slot.  K4/K5 add, per step, the accumulator's
+// round trip through global memory (2*B*R*N*8 B: 33.5 MB at batch 512,
+// inside the 50 MB L2) and one launch with its gap, 742 of each per classic
+// rotation; the multiplies are K1's/K3's.  Shared memory per block, for all
+// four, is 8RN + 4JN + 4PRN bytes (112 KB at 2_2: two blocks per SM).
+//
+// Left to later work: sharing a key slice among several ciphertexts of a
+// block (the TPU tile was 8), staging it in shared memory (TMA or cp.async),
+// a faster NTT, N >= 8192 (a thread-block cluster or global staging), and
+// for K4/K5 the launch gaps (a CUDA graph, or the fused route).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -172,14 +200,15 @@ __device__ __forceinline__ uint64_t garner(const uint32_t* res, int i, int strid
 
 // tab (u32): psi_rev [P][N], its Shoup twin, psi_inv_rev [P][N], its twin,
 // phase [P][2N] = (psi^m - 1) / N mod p, its twin, pw [P][2N] = psi^m, its
-// twin.  K1: bsk [steps][P][J][R][N], exps [B][steps].  K3: bsk
-// [steps][V][P][J][R][N], exps [B][steps][V-1] (c_v for v = 1..V-1).
+// twin.  Delta: bsk [steps][P][J][R][N], exps [B][steps] (row stride
+// e_stride).  Variants: bsk [steps][V][P][J][R][N], exps [B][steps][V-1] (c_v
+// for v = 1..V-1; row stride e_stride).  acc [B][R][N] is updated in place.
 template <bool kMultiBit>
 __global__ void __launch_bounds__(THREADS, 2)
 blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
-                    const uint32_t* __restrict__ bsk, const uint32_t* __restrict__ tab,
-                    const u64* __restrict__ cs, int n_steps, int log_n, int P,
-                    int R, int L, int base_log, int V) {
+                    long long e_stride, const uint32_t* __restrict__ bsk,
+                    const uint32_t* __restrict__ tab, const u64* __restrict__ cs,
+                    int n_steps, int log_n, int P, int R, int L, int base_log, int V) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 1 << log_n, J = L * R, RN = R * n;
   uint64_t* acc = reinterpret_cast<uint64_t*>(smem);            // [R][N]
@@ -197,7 +226,7 @@ blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exp
 
   const int e_per_step = kMultiBit ? V - 1 : 1;
   int64_t* acc_b = acc_g + (size_t)blockIdx.x * RN;
-  const int32_t* e_b = exps + (size_t)blockIdx.x * n_steps * e_per_step;
+  const int32_t* e_b = exps + (long long)blockIdx.x * e_stride;
   for (int i = threadIdx.x; i < RN; i += blockDim.x) acc[i] = (uint64_t)acc_b[i];
   __syncthreads();
 
@@ -310,12 +339,13 @@ blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exp
 }
 
 template <bool kMultiBit>
-int launch(void* acc, const void* exps, const void* bsk, const void* tab,
-           const void* consts, int batch, int n_steps, int n, int log_n, int P, int R,
-           int L, int base_log, int V, void* stream) {
+int launch(void* acc, const void* exps, long long e_stride, const void* bsk,
+           const void* tab, const void* consts, int batch, int n_steps, int n, int log_n,
+           int P, int R, int L, int base_log, int V, void* stream) {
   const int J = L * R;
   if (P < 1 || P > MAXP || J < 1 || J > 15 || (1 << log_n) != n || log_n < 2 ||
-      base_log < 1 || base_log > 24 || base_log * L > 64 || batch < 1 || n_steps < 1)
+      base_log < 1 || base_log > 24 || base_log * L > 64 || batch < 1 || n_steps < 1 ||
+      (batch > 1 && e_stride < (long long)n_steps * (kMultiBit ? V - 1 : 1)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)8 * R * n + (size_t)4 * J * n + (size_t)4 * P * R * n;
   cudaError_t err = cudaFuncSetAttribute(
@@ -323,7 +353,7 @@ int launch(void* acc, const void* exps, const void* bsk, const void* tab,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   blind_rotate_kernel<kMultiBit><<<batch, THREADS, smem, (cudaStream_t)stream>>>(
-      (int64_t*)acc, (const int32_t*)exps, (const uint32_t*)bsk,
+      (int64_t*)acc, (const int32_t*)exps, e_stride, (const uint32_t*)bsk,
       (const uint32_t*)tab, (const u64*)consts, n_steps, log_n, P, R, L,
       base_log, V);
   return (int)cudaGetLastError();
@@ -339,8 +369,8 @@ extern "C" int tfhe_blind_rotate(void* acc, const void* exps, const void* bsk,
                                  const void* tab, const void* consts, int batch,
                                  int n_steps, int n, int log_n, int P, int R, int L,
                                  int base_log, void* stream) {
-  return launch<false>(acc, exps, bsk, tab, consts, batch, n_steps, n, log_n, P, R, L,
-                       base_log, 1, stream);
+  return launch<false>(acc, exps, n_steps, bsk, tab, consts, batch, n_steps, n, log_n, P,
+                       R, L, base_log, 1, stream);
 }
 
 extern "C" int tfhe_blind_rotate_multi_bit(void* acc, const void* exps, const void* bsk,
@@ -349,6 +379,31 @@ extern "C" int tfhe_blind_rotate_multi_bit(void* acc, const void* exps, const vo
                                            int P, int R, int L, int base_log,
                                            int grouping, void* stream) {
   if (grouping < 1 || grouping > 4 || R > MAXR) return (int)cudaErrorInvalidValue;
-  return launch<true>(acc, exps, bsk, tab, consts, batch, n_steps, n, log_n, P, R, L,
+  const int V = 1 << grouping;
+  return launch<true>(acc, exps, (long long)n_steps * (V - 1), bsk, tab, consts, batch,
+                      n_steps, n, log_n, P, R, L, base_log, V, stream);
+}
+
+// K4: one delta step.  exps points at the step's exponent of ciphertext 0;
+// ciphertext b's is exps[b * e_stride].  bsk is the step's [P][J][R][N].
+extern "C" int tfhe_blind_rotate_step(void* acc, const void* exps, long long e_stride,
+                                      const void* bsk, const void* tab, const void* consts,
+                                      int batch, int n, int log_n, int P, int R, int L,
+                                      int base_log, void* stream) {
+  return launch<false>(acc, exps, e_stride, bsk, tab, consts, batch, 1, n, log_n, P, R, L,
+                       base_log, 1, stream);
+}
+
+// K5: one variant step.  exps points at c_1 of ciphertext 0, ciphertext b's
+// c_1..c_{V-1} are exps[b * e_stride + v - 1].  bsk is the step's
+// [V][P][J][R][N].
+extern "C" int tfhe_blind_rotate_step_variants(void* acc, const void* exps,
+                                               long long e_stride, const void* bsk,
+                                               const void* tab, const void* consts,
+                                               int batch, int n, int log_n, int P, int R,
+                                               int L, int base_log, int grouping,
+                                               void* stream) {
+  if (grouping < 1 || grouping > 4 || R > MAXR) return (int)cudaErrorInvalidValue;
+  return launch<true>(acc, exps, e_stride, bsk, tab, consts, batch, 1, n, log_n, P, R, L,
                       base_log, 1 << grouping, stream);
 }

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `csrc/` have a plain C interface.  At first use they are
-compiled with `nvcc` for `sm_90a` into one shared library under `build/`
-(named by a hash of the sources and flags) and loaded with ctypes; nothing
-is built when the package is imported.  If `nvcc` is missing or the build
-fails, `library()` raises with the compiler's output: there is no fallback.
+The sources under `csrc/` have a plain C interface.  At first use each is
+compiled with `nvcc` for `sm_90a` into an object, all at once in parallel,
+and the objects are linked into one shared library under `build/` (named by
+a hash of the sources and flags), loaded with ctypes; nothing is built when
+the package is imported.  If `nvcc` is missing or the build fails,
+`library()` raises with the compiler's output: there is no fallback.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises on a non-zero code.
@@ -24,15 +25,19 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("rotation.cu", "keyswitch.cu")
+SOURCES = ("rotation.cu", "keyswitch.cu", "probe.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "tfhe_blind_rotate": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "tfhe_blind_rotate_multi_bit": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "tfhe_blind_rotate_step": [_P, _P, _L, _P, _P, _P] + [_I] * 7 + [_P],
+    "tfhe_blind_rotate_step_variants": [_P, _P, _L, _P, _P, _P] + [_I] * 8 + [_P],
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tfhe_smem_probe": [_I, _P, _P],
+    "tfhe_smem_optin": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 
 _lib = None
@@ -54,7 +59,8 @@ def find_nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/ unless a library of the same sources
-    and flags is there already; returns its path."""
+    and flags is there already; returns its path.  One nvcc per source, all
+    started together, then one link."""
     nvcc = find_nvcc()
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(" ".join(FLAGS).encode())
@@ -65,17 +71,28 @@ def build() -> Path:
         build_info.update(path=str(out), cached=True)
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD / f"{s.stem}.{tag}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    cmds = [[nvcc, *FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    for cmd, proc, one in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{one}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
     if proc.returncode != 0:
-        raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise BuildError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                         f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    build_info.update(path=str(out), cached=False, seconds=seconds,
-                      command=" ".join(cmd), log=log)
+    build_info.update(path=str(out), cached=False, seconds=time.perf_counter() - t0,
+                      command="\n".join(" ".join(c) for c in cmds + [link]), log=log)
     return out
 
 

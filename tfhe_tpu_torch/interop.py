@@ -13,6 +13,10 @@ keys.  Nothing here imports jax.
                                               → the port's NttMultiBitBootstrapKey
   NttMultiBitBootstrapKey.data [n/g, 2^g, P, J, R, N] u64 residues, DIF order
                                               → the port's NttMultiBitBootstrapKey
+                                                (also the DIF key of the JAX
+                                                per-step route, MXU off)
+  bootstrap_key_to_ntt_paired output [n, 2, P, J, R, N] u32, DIF order
+                                              → the port's paired NttBootstrapKey
 
 The DIF residues are inverted with the port's copy of the JAX plan tables
 and Garner (signed lift, exact: |coefficient| < 2^64 < M/2), back to the
@@ -26,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.algorithms.encryption import bootstrap_key_to_ntt
+from .core.algorithms.encryption import (bootstrap_key_to_ntt, bootstrap_key_to_ntt_paired,
+                                         trivial_ggsw_one_ntt)
 from .core.algorithms.multi_bit import multi_bit_bootstrap_key_to_ntt
 from .core.entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
                             LweMultiBitBootstrapKey, LweSecretKey, NttBootstrapKey,
@@ -58,6 +63,15 @@ def bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
     std = LweBootstrapKey(data=from_numpy_u64(data, resolve_device(device)),
                           decomp=decomp)
     return bootstrap_key_to_ntt(std, num_primes)
+
+
+def paired_bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
+                                       device="cuda") -> NttBootstrapKey:
+    """Standard BSK [n, l, k+1, k+1, N] u64 → the port's paired key, spectra
+    [n, 2, P, J, R, N] of [GGSW(1 - s_i), GGSW(s_i)], whatever the
+    switches say."""
+    return bootstrap_key_to_ntt_paired(bootstrap_key_from_standard(data, decomp, num_primes,
+                                                                   device))
 
 
 def multi_bit_bootstrap_key_from_standard(data, decomp: DecompParams,
@@ -93,6 +107,26 @@ def bootstrap_key_from_dif(data, primes, decomp: DecompParams,
     n_in, J, R, n = std.shape
     std = std.reshape(n_in, J // R, R, R, n)
     return bootstrap_key_from_standard(std, decomp, np.asarray(data).shape[1], device)
+
+
+def paired_bootstrap_key_from_dif(data, primes, decomp: DecompParams,
+                                  device="cuda") -> NttBootstrapKey:
+    """JAX `bootstrap_key_to_ntt_paired` output [n, 2, P, J, R, N] (DIF-order
+    residues of [GGSW_trivial(1) - GGSW(s_i), GGSW(s_i)]) → the port's
+    paired key.  pair1 crosses through the standard coefficients; pair0 is
+    checked to be GGSW_trivial(1) - pair1 slot by slot (the trivial GGSW's
+    spectrum is the same in every order) and rebuilt in the port's order.
+    Raises unless `primes` equal primes_for(N)[:P] and pair0 checks."""
+    data = np.asarray(data).astype(np.int64)
+    n_in, two, P, J, R, n = data.shape
+    if two != 2:
+        raise ValueError(f"a paired key has 2 GGSWs per step, not {two}")
+    std = standard_from_dif(data[:, 1], primes).reshape(n_in, J // R, R, R, n)
+    g1 = trivial_ggsw_one_ntt(n, R, decomp, P).numpy()
+    p = np.asarray([int(q) for q in primes], dtype=np.int64).reshape(P, 1, 1, 1)
+    if not np.array_equal(data[:, 0], (g1 + p - data[:, 1]) % p):
+        raise ValueError("pair0 of the paired key is not GGSW_trivial(1) - pair1")
+    return paired_bootstrap_key_from_standard(std, decomp, P, device)
 
 
 def multi_bit_bootstrap_key_from_dif(data, primes, decomp: DecompParams,

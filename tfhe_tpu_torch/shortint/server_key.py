@@ -13,7 +13,8 @@ Op families (reference semantics):
   *            the default ops: smart, then a message extract of the result
                (what the high-level API uses).
 The ops are linear glue and lookup tables over `apply_lookup_table`, whose
-PBS is the CUDA kernel K1 (classic keys) or K3 (multi-bit keys) on the card.
+PBS is the CUDA kernel K1 (classic keys) or K3 (multi-bit keys) on the card,
+or K4 / K5 once per step on the per-step routes (`config.py`).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import config
 from ..core import rng
 from ..core.algorithms import (bootstrap_key_to_ntt, external_product_num_primes,
                                generate_bootstrap_key, generate_keyswitch_key,
@@ -34,6 +36,7 @@ from ..core.entities import (GlweCiphertext, LweCiphertext, LweKeyswitchKey,
                              NttBootstrapKey, NttMultiBitBootstrapKey)
 from ..core.numeric import as_i64, from_numpy_u64
 from ..core.params import EncryptionKeyChoice, MultiBitPBSParameters, PBSOrder
+from ..core.poly.rotation import multi_bit_blind_rotate_steps
 from .ciphertext import CheckError, Ciphertext, MaxNoiseLevel, NoiseLevel
 from .client_key import ClientKey, delta_for
 
@@ -124,9 +127,18 @@ class ServerKey:
 
     def _pbs(self, lwe: LweCiphertext, acc: GlweCiphertext) -> LweCiphertext:
         """Classic or multi-bit bootstrap, by the key's type (the reference's
-        ShortintBootstrappingKey::Classic | MultiBit)."""
+        ShortintBootstrappingKey::Classic | MultiBit), on the route the key
+        and the switches choose, as tfhe_tpu shortint/server_key.py:127-154
+        chooses it: a multi-bit key converted for the fused route runs K3
+        while `use_fused_rotation()` is on, else one K5 launch per step; a
+        classic key routes in `programmable_bootstrap`."""
         if isinstance(self.bsk, NttMultiBitBootstrapKey):
-            return sample_extract(multi_bit_blind_rotate(acc, lwe, self.bsk), 0)
+            if self.bsk.route == "fused" and config.use_fused_rotation():
+                rotated = multi_bit_blind_rotate(acc, lwe, self.bsk)
+            else:
+                rotated = GlweCiphertext(data=multi_bit_blind_rotate_steps(
+                    acc.data, lwe.data, self.bsk))
+            return sample_extract(rotated, 0)
         return programmable_bootstrap(lwe, acc, self.bsk)
 
     def apply_lookup_table(self, ct: Ciphertext, lut: LookupTable) -> Ciphertext:
