@@ -12,29 +12,41 @@ of 3, N=2048), and the per-step routes the rotation switches select
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5 in rotation.cu, K2
      in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
      source, in parallel) and prints ptxas's register, shared-memory and
-     spill lines;
+     spill lines (K3/K5 once for each cluster size C and output count R);
   3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
      against their plain PyTorch versions on the card at the classic
      path's shapes (K1 at batch 1, 6, 8 and 512 over all 742 steps, K2 at
      batch 512), and times both versions at batch 512 with CUDA events;
   3b. holds K3 the same way at the GROUP_2 and GROUP_3 widths (batch 1, 6,
-     8 and 512, all steps, random keys) and times it and its plain version
-     at batch 512; holds and times K2 at both multi-bit keyswitch shapes;
+     8, 512 and 513, all steps, random keys; 1, 6 and 513 leave padding
+     blocks in the last cluster) at the default cluster size and times it
+     and its plain version at batch 512; holds and times K2 at both
+     multi-bit keyswitch shapes;
+  3b'. the cluster sweep: K3 at GROUP_3, batch 512, for each cluster size
+     the device can schedule, in turns (C = 1, 4, 2, 8, 1; C = 1 is the
+     design with one ciphertext per block, the in-call baseline), 3 reps
+     each by CUDA events, every output held bit for bit against the plain
+     version; prints C, ms, ms per step and the model's key bytes per step,
+     and checks that the default C is the fastest (within the spread) and
+     never slower than C = 1; times K3 for each C at the batch the device
+     holds at once (one round of blocks, no partial last round); then the
+     same turns for K5's GROUP_3 and paired per-step rotations;
   3c. holds the step kernels at full widths: K4 (one delta step) at batch
      1, 6, 8 and 512 and K5 (one variant step) on a paired 2_2 key and a
-     GROUP_3 key at the same batches; then the whole per-step rotations at
-     batch 512 (K4 over 742 steps against the plain version and against
-     K1's output on the same inputs; K5 over the 742 steps of a paired key,
-     built as GGSW_trivial(1) - pair1, against the plain paired rotation;
-     K5 over the 296 GROUP_3 steps against the plain version and K3's
-     output), each timed with CUDA events;
+     GROUP_3 key at the same batches and 513; then the whole per-step
+     rotations at batch 512 (K4 over 742 steps against the plain version
+     and against K1's output on the same inputs; K5 over the 742 steps of a
+     paired key, built as GGSW_trivial(1) - pair1, against the plain paired
+     rotation; K5 over the 296 GROUP_3 steps against the plain version and
+     K3's output), each timed with CUDA events;
   4. classic path: counts to 0, gen_keys on the card, encrypts 512
      messages, serves three requests (a LUT, a second LUT on its output, a
      bivariate LUT), reads the counts, decrypts all 3 x 512 results against
      the clear model, and holds the first results bit for bit against the
      plain path on CPU tensors;
   4b. multi-bit path, GROUP_3: the same with four requests (a LUT, add,
-     mul, greater);
+     mul, greater); then one KS+PBS call under torch.profiler (device time
+     by kernel and the device's idle share);
   4c. the per-step routes: for each of TFHE_TPU_FUSED=0 (classic and
      GROUP_3), TFHE_TPU_MXU_LANES=1 (classic) and TFHE_TPU_MXU=0 (paired
      classic and GROUP_3) it sets the port's switches, runs gen_keys on the
@@ -51,7 +63,8 @@ of 3, N=2048), and the per-step routes the rotation switches select
      at batch 512 for 2_2, GROUP_3 and GROUP_2, and prints the kernels
      line: each kernel's time beside its bound (the larger of its 32-bit
      integer multiplies over the card's INT32 issue rate and its bytes over
-     3.35 TB/s) and its plain version's time.
+     3.35 TB/s) and its plain version's time; K3 and K5 also per shape
+     (GROUP_3 and GROUP_2; paired and GROUP_3).
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -77,6 +90,9 @@ GROUP_2 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_KS_PBS"
 GROUP_3 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS"
 B = 512
 STEP_BATCHES = (1, 6, 8, B)
+K5_BATCHES = STEP_BATCHES + (B + 1,)   # 513: one cluster holds a single real ciphertext
+SWEEP_TURNS = (1, 4, 2, 8, 1)          # cluster sizes, in the order they are timed
+SWEEP_REPS = 3
 
 
 def smi(query: str) -> str:
@@ -94,6 +110,33 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms_reps(fn, reps: int) -> list:
+    """Milliseconds of each of reps runs of fn(), by CUDA events."""
+    return [cuda_ms(fn, 1) for _ in range(reps)]
+
+
+def profile_window(fn) -> tuple:
+    """One call of fn() under torch.profiler (after a warm call) → (wall ms
+    on the host clock, synchronised; {kernel name: device ms} from
+    key_averages())."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    return wall_ms, kernels
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -201,13 +244,88 @@ def main() -> int:
         P = external_product_num_primes(N, R, params.pbs_decomp)
         return n, N, R, J, P, ntt.get_plan(N, P)
 
+    def steps_at(acc, exps, key, cluster):
+        """The per-step rotation of `rotation.rotate_steps` (K5 on a paired
+        or multi-bit key), each launch at the given cluster size."""
+        mode, exps = rotation._step_mode(key, exps)
+        out, e32 = acc.clone(), exps.to(torch.int32).contiguous()
+        for j in range(key.spectra.shape[0]):
+            rotation.blind_rotate_step(out, e32[:, j], key.spectra[j], mode, key.decomp,
+                                       _cluster=cluster)
+        return out
+
+    def sweep(label, run, ref, steps, R, J, P, N, key_words_per_step, check_default,
+              one_round=None):
+        """Times run(C) for each cluster size the device schedules, in the
+        turns SWEEP_TURNS, SWEEP_REPS runs each, holding every output
+        against ref; prints the table and → {C: [ms of each run]}.  With
+        one_round, also times one_round(C, rows) on the first `rows`
+        ciphertexts, as many as the device holds at once in clusters of C
+        (one round of blocks, so no partial last round), against ref[:rows]."""
+        times, fit = {}, {}
+        for c in dict.fromkeys(SWEEP_TURNS):
+            active = rotation._active_clusters(rotation._variant_launch_plan(B, N, R, J, P, c),
+                                               R, dev)
+            print(f"{label}: clusters of {c} blocks at {rotation._working_set(N, R, J, P)} B "
+                  f"each: {active} fit on the device at once")
+            if active >= 1:
+                times[c], fit[c] = [], min(active * c, B)
+        for c in SWEEP_TURNS:
+            if c not in times:
+                continue
+            out = {}
+            times[c] += cuda_ms_reps(lambda: out.update(got=run(c)), SWEEP_REPS)
+            hold(f"{label}, cluster {c}, batch {B}", out["got"], ref)
+        mean = {c: sum(t) / len(t) for c, t in times.items()}
+        spread = {c: max(t) - min(t) for c, t in times.items()}
+        print(f"{tag} {label} cluster sweep, batch {B} ({SWEEP_REPS} runs per turn, turns "
+              f"{SWEEP_TURNS}):")
+        print("    C | ms (mean) | spread ms | ms per step | key MB per step (model)")
+        for c in sorted(times):
+            print(f"  {c:3d} | {mean[c]:9.3f} | {spread[c]:9.3f} | {mean[c] / steps:11.4f} | "
+                  f"{key_words_per_step * 4 * B / c / 1e6:10.1f}")
+        print(f"{label} runs (ms): {json.dumps(times)}")
+        if one_round:
+            rounds = {c: [] for c in times}
+            for c in SWEEP_TURNS:
+                if c not in times:
+                    continue
+                out = {}
+                rounds[c] += cuda_ms_reps(lambda: out.update(got=one_round(c, fit[c])),
+                                          SWEEP_REPS)
+                hold(f"{label}, cluster {c}, batch {fit[c]} (one round)", out["got"],
+                     ref[:fit[c]])
+            print(f"{tag} {label}, one round of blocks per cluster size (the batch the "
+                  f"device holds at once):")
+            print("    C | batch | ms (mean) | spread ms | us per ciphertext and step")
+            for c in sorted(rounds):
+                t = rounds[c]
+                m = sum(t) / len(t)
+                print(f"  {c:3d} | {fit[c]:5d} | {m:9.3f} | {max(t) - min(t):9.3f} | "
+                      f"{m * 1e3 / fit[c] / steps:10.5f}")
+            print(f"{label} one-round runs (ms): {json.dumps(rounds)}")
+        if check_default:
+            d, best = rotation._CLUSTER, min(mean, key=mean.get)
+            if d not in mean:
+                raise AssertionError(f"the default cluster {d} cannot be scheduled")
+            if mean[d] > mean[best] + max(spread[d], spread[best]):
+                raise AssertionError(f"the default cluster {d} ({mean[d]:.3f} ms) is slower "
+                                     f"than cluster {best} ({mean[best]:.3f} ms)")
+            if mean[d] > mean[1] + spread[1]:
+                raise AssertionError(f"the default cluster {d} is slower than C = 1")
+            print(f"{label}: the default cluster {d} is the fastest measured, within the "
+                  f"spread ({mean[d]:.3f} ms against C = {best}'s {mean[best]:.3f} ms; "
+                  f"C = 1 {mean[1]:.3f} ms)")
+        return times
+
     def random_spectra(plan, shape, axis):
         return torch.stack([torch.randint(0, p, shape, generator=g, device=dev,
                                           dtype=torch.int32) for p in plan.primes], dim=axis)
 
     def hold_steps(label, acc, exps, key_slice, mode, decomp):
-        """One step kernel launch (K4 or K5) against the plain step on the
-        same inputs; the exponent table is read through its batch stride."""
+        """One step kernel launch (K4 or K5, at the default cluster size)
+        against the plain step on the same inputs; the exponent table is
+        read through its batch stride."""
         e32 = exps.to(torch.int32)
         got = rotation.blind_rotate_step(acc.clone(), e32, key_slice, mode, decomp)
         torch.cuda.synchronize()
@@ -261,10 +379,11 @@ def main() -> int:
     # ---- 3c (classic). K4 and the paired K5 at full 2_2 widths --------------
     k4_err = k5_err = 0
     pkey = bootstrap_key_to_ntt_paired(key)
-    for batch in STEP_BATCHES:
+    for batch in K5_BATCHES:
         a1, e1 = rot_inputs(batch)
-        k4_err = max(k4_err, hold_steps(f"K4 delta step, batch {batch}", a1, e1[:, 5],
-                                        key.spectra[5], "delta", key.decomp))
+        if batch in STEP_BATCHES:
+            k4_err = max(k4_err, hold_steps(f"K4 delta step, batch {batch}", a1, e1[:, 5],
+                                            key.spectra[5], "delta", key.decomp))
         k5_err = max(k5_err, hold_steps(f"K5 paired step, batch {batch}", a1, e1[:, 5:6],
                                         pkey.spectra[5], "variants", key.decomp))
     k4_ms = cuda_ms(lambda: outs.update(steps=rotation.rotate_steps(acc.clone(), exps, key)), 3)
@@ -286,6 +405,8 @@ def main() -> int:
                      step_bytes(n, 1, P, J, R, N, 1) + 8 * P * N * 4, clock_hz, sms)
     k5p_bound = bound(k3_mults(B, n, 2, P, J, R, N),
                       step_bytes(n, 2, P, J, R, N, 1) + 12 * P * N * 4, clock_hz, sms)
+    sweep("K5 paired per-step rotation", lambda c: steps_at(acc, exps, pkey, c),
+          outs["paired_plain"], n, R, J, P, N, 2 * P * J * R * N, False)
     del key, pkey, acc, exps, digits, kmat, body, got, outs
 
     # ---- 3b. K3 against its plain version, GROUP_2 and GROUP_3 widths -------
@@ -306,7 +427,7 @@ def main() -> int:
             return (rng.uniform_torus(g, (batch, R, N)),
                     rotation.variant_exponents(exps, gf, N))
 
-        for batch in (1, 6, 8):
+        for batch in (1, 6, 8, B + 1):
             acc, cexp = mb_inputs(batch)
             got = rotation.rotate_accumulator_multi_bit(acc, cexp, mkey)
             torch.cuda.synchronize()
@@ -326,7 +447,15 @@ def main() -> int:
             mkey.spectra.numel() * 4 + 2 * B * R * N * 8 + B * (n // gf) * (V - 1) * 4
             + 12 * P * N * 4, clock_hz, sms))
         if gf == 3:
-            for batch in STEP_BATCHES:
+            # ---- 3b'. the cluster sweep ------------------------------------
+            sweep("K3 GROUP_3", lambda c: rotation.rotate_accumulator_multi_bit(
+                acc, cexp, mkey, _cluster=c), outs["plain"], n // gf, R, J, P, N,
+                  V * P * J * R * N, True,
+                  lambda c, rows: rotation.rotate_accumulator_multi_bit(
+                      acc[:rows], cexp[:rows], mkey, _cluster=c))
+            sweep("K5 GROUP_3 per-step rotation", lambda c: steps_at(acc, cexp, mkey, c),
+                  outs["plain"], n // gf, R, J, P, N, V * P * J * R * N, False)
+            for batch in K5_BATCHES:
                 a1, c1 = mb_inputs(batch)
                 k5_err = max(k5_err, hold_steps(f"K5 GROUP_3 step, batch {batch}", a1,
                                                 c1[:, 7], mkey.spectra[7], "variants",
@@ -343,6 +472,7 @@ def main() -> int:
             k5m_bound = bound(k3_mults(B, n // gf, V, P, J, R, N),
                               step_bytes(n // gf, V, P, J, R, N, V - 1) + 12 * P * N * 4,
                               clock_hz, sms)
+            k5m_plain_ms = plain_ms
         # K2 at this set's keyswitch shape
         Km, Mm = mp.big_lwe_dimension * mp.ks_level, n + 1
         half = 1 << (mp.ks_base_log - 1)
@@ -451,6 +581,15 @@ def main() -> int:
                    "multi-bit GROUP_3", serve_s)
     hold_cpu_path(sk, ca, f1, outs[0], "multi-bit GROUP_3")
     kspbs[GROUP_3] = cuda_ms(lambda: sk.apply_lookup_table(ca, lut_mb), 3)
+    # one KS+PBS call under the profiler: device time by kernel, idle share
+    wall_ms, by_kernel = profile_window(lambda: sk.apply_lookup_table(ca, lut_mb))
+    busy_ms = sum(by_kernel.values())
+    print(f"{tag} profiler, one GROUP_3 KS+PBS call at batch {B}: {wall_ms:.3f} ms on the "
+          f"host clock, device busy {busy_ms:.3f} ms "
+          + (f"(idle share {1 - busy_ms / wall_ms:.2%})" if busy_ms else
+             "(key_averages() shows no device time)"))
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:10.3f} ms  {name[:100]}")
     del ck, sk, ca, cb, outs
 
     # ---- 4c. the per-step routes, one LUT request each -----------------------
@@ -541,12 +680,17 @@ def main() -> int:
         print(f"{tag} KS+PBS {name} batch {B}: {ms:.3f} ms per call, "
               f"{B / (ms / 1e3):.2f} PBS/s")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, shapes=None):
         print(f"{tag} {name}: {ms:.3f} ms, bound {bnd[0]:.6f} ms by {bnd[1]} "
               f"(bound / time = {bnd[0] / ms:.1%}), plain {plain_ms:.3f} ms")
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        if shapes:
+            out["cluster"] = rotation._CLUSTER
+            out["shapes"] = [{"shape": sh, "ms": t, "plain_ms": pt, "bound_ms": b[0],
+                              "bound_by": b[1]} for sh, t, pt, b in shapes]
+        return out
 
     def route_total(kernel):
         return sum(c[kernel] for c in route_launches.values())
@@ -561,12 +705,18 @@ def main() -> int:
               + route_total("keyswitch_mac"), k2_err, k2_ms, k2_plain_ms, k2_bound),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
-              k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"]),
+              k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"],
+              [(f"GROUP_{gf} batch {B}, one launch", k3[gf]["ms"], k3[gf]["plain_ms"],
+                k3[gf]["bound"]) for gf in (3, 2)]),
         entry("blind_rotate_step", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:601",
               route_total("blind_rotate_step"), k4_err, k4_ms, k1_plain_ms, k4_bound),
         entry("blind_rotate_step_variants", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:221",
               route_total("blind_rotate_step_variants"), k5_err, k5p_ms, k5p_plain_ms,
-              k5p_bound),
+              k5p_bound,
+              [(f"paired 2_2 batch {B}, {steps_per_call[CLASSIC]} launches", k5p_ms,
+                k5p_plain_ms, k5p_bound),
+               (f"GROUP_3 batch {B}, {steps_per_call[GROUP_3]} launches", k5m_ms,
+                k5m_plain_ms, k5m_bound)]),
         entry("smem_probe", "tfhe_tpu_torch/csrc/probe.cu", "tools/vmem_probe.py:19",
               probe_launches, abs(largest - optin), probe_ms, optin_ms,
               bound(largest, 8, clock_hz, sms)),

@@ -15,14 +15,21 @@ glue here, as they are XLA glue there.  Every step is one of
   g = 1 over [GGSW(1 - s_j), GGSW(s_j)]), K3's loop body and K5:
     acc = sum_{v < 2^g} X^{c_v} * sum_{l,r} decomp_l(acc_r) * GGSW_{j,v}[l, r]
 
-All four kernels are in `csrc/rotation.cu` (one body; the source's header
-says what each replaces and what bounds it on the card), with
-`blind_rotate_step_plain` as the one plain step formula beside them.  All
-compute the exact product mod 2^64, so all are bit-identical to the JAX
-functions.  The JAX wrappers' batch bucketing (`_padded_flat_batch`) only
-caps TPU compiles and has no counterpart: the kernels take any batch.
+All four kernels are in `csrc/rotation.cu` (a delta body for K1/K4 and a
+variant body for K3/K5; the source's header says what each replaces and
+what bounds it on the card), with `blind_rotate_step_plain` as the one
+plain step formula beside them.  All compute the exact product mod 2^64,
+so all are bit-identical to the JAX functions.  K3 and K5 run in clusters
+of C blocks that share each key word among C ciphertexts; their grid,
+cluster, slot ranges, padding and shared memory come from
+`_variant_launch_plan`.  The JAX wrappers' batch bucketing
+(`_padded_flat_batch`) only caps TPU compiles and has no counterpart: the
+kernels take any batch.
 """
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -42,9 +49,12 @@ step_launches = 0
 step_variant_launches = 0
 
 _MAXP = 8
-_MAXR = 4              # K3 keeps one 64-bit sum per output component in registers
+_MAXR = 4              # K3/K5 are instantiated for k+1 = 1..4 outputs
 _SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
+_CLUSTERS = (1, 2, 4, 8)   # cluster sizes K3/K5 are instantiated for
+_CLUSTER = 2           # K3/K5's default cluster size (chip_smoke.py's sweep)
 _TABLES: dict = {}     # (N, P, device) → (tab, consts) for csrc/rotation.cu
+_ACTIVE: dict = {}     # (cluster, R, smem, device) → clusters the device holds
 
 
 def modulus_switch(x: torch.Tensor, polynomial_size: int) -> torch.Tensor:
@@ -195,6 +205,81 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
     return _TABLES[dkey]
 
 
+def _working_set(n: int, R: int, J: int, P: int) -> int:
+    """Shared memory of one block of csrc/rotation.cu: the accumulator
+    [R][N] u64, the J digit spectra and the R products of all P primes."""
+    smem = 8 * R * n + 4 * J * n + 4 * P * R * n
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a ciphertext's working set ({smem} B) exceeds one "
+                         f"block's shared memory ({_SMEM_LIMIT} B)")
+    return smem
+
+
+@dataclass(frozen=True)
+class VariantPlan:
+    """How K3/K5 are launched: `grid` blocks in clusters of `cluster`;
+    block b owns ciphertext b, and the blocks in `padding` (b >= batch) hold
+    a zero accumulator and only do their share of the MAC; in the MAC the
+    block of rank c computes the slots range(*slots[c]) for every
+    ciphertext of its cluster; each block has `smem` bytes of dynamic
+    shared memory."""
+    cluster: int
+    grid: int
+    slots: tuple
+    padding: range
+    smem: int
+
+
+def _cluster_size(cluster) -> int:
+    """The cluster size asked for (None: the default), checked."""
+    cluster = _CLUSTER if cluster is None else cluster
+    if cluster not in _CLUSTERS:
+        raise ValueError(f"K3/K5 take a cluster of {_CLUSTERS} blocks, not {cluster!r}")
+    return cluster
+
+
+def _variant_launch_plan(batch: int, n: int, R: int, J: int, P: int,
+                         cluster) -> VariantPlan:
+    """The launch plan of K3/K5 for `batch` ciphertexts of R polynomials of
+    N = n slots, J digit rows and P primes, in clusters of `cluster` blocks
+    (None: the default).  Raises where the kernel does not take it."""
+    cluster = _cluster_size(cluster)
+    if batch < 1:
+        raise ValueError(f"the batch must hold a ciphertext, not {batch}")
+    if n % cluster:
+        raise ValueError(f"a cluster of {cluster} blocks does not divide the {n} slots")
+    smem = _working_set(n, R, J, P)
+    grid = -(-batch // cluster) * cluster
+    span = n // cluster
+    return VariantPlan(cluster=cluster, grid=grid,
+                       slots=tuple((c * span, (c + 1) * span) for c in range(cluster)),
+                       padding=range(batch, grid), smem=smem)
+
+
+def _active_clusters(plan: VariantPlan, R: int, device) -> int:
+    """How many of the plan's clusters the device holds at once (blocks
+    for a cluster of 1): 0 means they cannot be scheduled.  Cached."""
+    dev = torch.device(device)
+    dkey = (plan.cluster, R, plan.smem, str(dev))
+    if dkey not in _ACTIVE:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = cuda_lib.library().tfhe_variant_active_clusters(
+                plan.cluster, R, plan.smem, ctypes.byref(out))
+        cuda_lib.check(code, "tfhe_variant_active_clusters")
+        _ACTIVE[dkey] = out.value
+    return _ACTIVE[dkey]
+
+
+def _schedulable(plan: VariantPlan, R: int, device) -> VariantPlan:
+    """The plan, after checking that the device can hold its clusters (it
+    raises where it cannot: there is no smaller cluster to fall back to)."""
+    if _active_clusters(plan, R, device) < 1:
+        raise RuntimeError(f"clusters of {plan.cluster} blocks with {plan.smem} B of shared "
+                           f"memory each cannot be scheduled on {torch.device(device)}")
+    return plan
+
+
 def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) -> tuple:
     """Checks shared by the kernel wrappers on acc [B, R, N] and a key of
     shape [..., P, J, R, N] with `variants` GGSWs per step (0 for the delta
@@ -216,10 +301,7 @@ def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) ->
                              f"not {variants} variants")
         if R > _MAXR:
             raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
-    smem = 8 * R * n + 4 * J * n + 4 * P * R * n
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a ciphertext's working set ({smem} B) exceeds one "
-                         f"block's shared memory ({_SMEM_LIMIT} B)")
+    _working_set(n, R, J, P)
     plan = ntt.get_plan(n, P)
     return (plan,) + _kernel_tables(plan, acc.device)
 
@@ -276,10 +358,14 @@ def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
 
 
 def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
-                                 key: NttMultiBitBootstrapKey) -> torch.Tensor:
+                                 key: NttMultiBitBootstrapKey, *,
+                                 _cluster: int | None = None) -> torch.Tensor:
     """K3's wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (or an error: there is no fallback).  exps [B, n/g, 2^g-1]
-    from `variant_exponents`.  Returns a new rotated accumulator [B, R, N]."""
+    from `variant_exponents`.  Returns a new rotated accumulator [B, R, N].
+    `_cluster` sets the kernel's cluster size (default `_CLUSTER`); it does
+    not change the result."""
+    cluster = _cluster_size(_cluster)
     if acc.device.type == "cpu":
         return blind_rotate_multi_bit_plain(acc, exps, key)
     if acc.device.type != "cuda":
@@ -291,18 +377,21 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
                          f"variants, the key {V}")
     plan, tab, cs, out, e32, spectra = _launch_args(
         acc, exps, key, (acc.shape[0], n_steps, V - 1), V)
+    launch = _schedulable(_variant_launch_plan(out.shape[0], n, R, J, P, cluster), R,
+                          out.device)
     lib = cuda_lib.library()
     code = lib.tfhe_blind_rotate_multi_bit(
         out.data_ptr(), e32.data_ptr(), spectra.data_ptr(), tab.data_ptr(),
         cs.data_ptr(), out.shape[0], n_steps, n, plan.log_n, P, R, key.decomp.level,
-        key.decomp.base_log, key.grouping_factor, cuda_lib.stream_of(out))
+        key.decomp.base_log, key.grouping_factor, launch.grid, launch.cluster, launch.smem,
+        cuda_lib.stream_of(out))
     multi_bit_launches += 1
     cuda_lib.check(code, "tfhe_blind_rotate_multi_bit")
     return out
 
 
 def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.Tensor,
-                      mode: str, decomp) -> torch.Tensor:
+                      mode: str, decomp, *, _cluster: int | None = None) -> torch.Tensor:
     """One blind-rotation step over the batch, in place on acc [B, R, N]
     int64; returns acc.  Counterpart of `blind_rotate_step_pallas_mxu`
     (pallas_ntt.py:1018, B4), `blind_rotate_step_pallas_mxu_lanes` (:955,
@@ -320,7 +409,11 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     CPU tensors take `blind_rotate_step_plain`; CUDA tensors launch K4 or K5
     (or raise: there is no fallback).  On the card exps_j must be int32; a
     strided view (a column of the [B, n] table) is read in place, through
-    its batch stride."""
+    its batch stride.  `_cluster` sets K5's cluster size (default
+    `_CLUSTER`; K4 takes none); it does not change the result."""
+    if mode == "delta" and _cluster is not None:
+        raise ValueError("K4, the delta step, runs without a cluster")
+    cluster = _cluster_size(_cluster)
     if acc.device.type == "cpu":
         return blind_rotate_step_plain(acc, exps_j, key_slice, mode, decomp)
     if acc.device.type != "cuda":
@@ -352,9 +445,12 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     common = (tab.data_ptr(), cs.data_ptr(), B, n, plan.log_n, P, R, decomp.level,
               decomp.base_log)
     if variants:
+        launch = _schedulable(_variant_launch_plan(B, n, R, key_slice.shape[-3], P, cluster),
+                              R, acc.device)
         code = lib.tfhe_blind_rotate_step_variants(
             acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
-            *common, variants.bit_length() - 1, cuda_lib.stream_of(acc))
+            *common, variants.bit_length() - 1, launch.grid, launch.cluster, launch.smem,
+            cuda_lib.stream_of(acc))
         step_variant_launches += 1
         cuda_lib.check(code, "tfhe_blind_rotate_step_variants")
     else:
