@@ -12,11 +12,19 @@ of 3, N=2048), and the per-step routes the rotation switches select
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5 in rotation.cu, K2
      in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
      source, in parallel) and prints ptxas's register, shared-memory and
-     spill lines (K3/K5 once for each cluster size C and output count R);
+     spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
+     compiled for N = 2048 and P = 4, K3/K5 once for each cluster size C
+     and output count R);
   3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
      against their plain PyTorch versions on the card at the classic
-     path's shapes (K1 at batch 1, 6, 8 and 512 over all 742 steps, K2 at
-     batch 512), and times both versions at batch 512 with CUDA events;
+     path's shapes (K1 at batch 1, 6, 8, 512 and 513 over all 742 steps, K2
+     at batch 512), and K1 at batch 8 at the other delta shapes
+     (PARAM_MESSAGE_2_CARRY_1_KS_PBS, PARAM_MESSAGE_1_CARRY_1_KS_PBS, the
+     boolean DEFAULT_PARAMETERS_KS_PBS with J = 9, and
+     PARAM_MESSAGE_2_CARRY_3_KS_PBS at N = 4096; random keys) and times
+     K1 at batch 512 at each of them; times K1, K2 and their plain versions
+     at batch 512 with CUDA events, and K1 on one round of blocks (the
+     batch the device holds at once) and on 16;
   3b. holds K3 the same way at the GROUP_2 and GROUP_3 widths (batch 1, 6,
      8, 512 and 513, all steps, random keys; 1, 6 and 513 leave padding
      blocks in the last cluster) at the default cluster size and times it
@@ -32,8 +40,9 @@ of 3, N=2048), and the per-step routes the rotation switches select
      holds at once (one round of blocks, no partial last round); then the
      same turns for K5's GROUP_3 and paired per-step rotations;
   3c. holds the step kernels at full widths: K4 (one delta step) at batch
-     1, 6, 8 and 512 and K5 (one variant step) on a paired 2_2 key and a
-     GROUP_3 key at the same batches and 513; then the whole per-step
+     1, 6, 8, 512 and 513 (and 8 at the 1_1 shape) and K5 (one variant
+     step) on a paired 2_2 key and a GROUP_3 key at the same batches; then
+     the whole per-step
      rotations at batch 512 (K4 over 742 steps against the plain version
      and against K1's output on the same inputs; K5 over the 742 steps of a
      paired key, built as GGSW_trivial(1) - pair1, against the plain paired
@@ -54,7 +63,9 @@ of 3, N=2048), and the per-step routes the rotation switches select
      set to 0 just before and read just after (K4 742 per classic call, K5
      742 per paired and 296 per GROUP_3 call, K1 and K3 none), decrypts
      512/512 and holds the first results against the plain CPU path; it
-     times KS+PBS on the FUSED=0 classic and the paired routes;
+     times KS+PBS on the FUSED=0 classic and the paired routes, and traces
+     one FUSED=0 classic call under torch.profiler (the device's idle share
+     and the mean gap between K4 launches);
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -77,8 +88,10 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -93,6 +106,12 @@ STEP_BATCHES = (1, 6, 8, B)
 K5_BATCHES = STEP_BATCHES + (B + 1,)   # 513: one cluster holds a single real ciphertext
 SWEEP_TURNS = (1, 4, 2, 8, 1)          # cluster sizes, in the order they are timed
 SWEEP_REPS = 3
+# the other delta shapes K1 is held at (batch 8) and timed at (batch 512)
+K1_SHAPES = ("PARAM_MESSAGE_2_CARRY_1_KS_PBS", "PARAM_MESSAGE_1_CARRY_1_KS_PBS",
+             "DEFAULT_PARAMETERS_KS_PBS", "PARAM_MESSAGE_2_CARRY_3_KS_PBS")
+# K1 and K4 at 2_2, batch 512, with the earlier radix-2 delta body (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
+EARLIER_K1_MS, EARLIER_K4_MS = 233.376, 258.335
 
 
 def smi(query: str) -> str:
@@ -120,7 +139,8 @@ def cuda_ms_reps(fn, reps: int) -> list:
 def profile_window(fn) -> tuple:
     """One call of fn() under torch.profiler (after a warm call) → (wall ms
     on the host clock, synchronised; {kernel name: device ms} from
-    key_averages())."""
+    key_averages(); the device kernels [(name, start us, length us)] in
+    start order, from the exported trace)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -136,7 +156,40 @@ def profile_window(fn) -> tuple:
             if us is None:
                 us = ev.self_cuda_time_total
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
-    return wall_ms, kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    timeline = sorted((e["name"], e["ts"], e["dur"]) for e in events
+                      if e.get("cat") == "kernel" and "ts" in e and "dur" in e)
+    return wall_ms, kernels, sorted(timeline, key=lambda e: e[1])
+
+
+def busy_ms(timeline: list) -> float:
+    """Device time covered by at least one kernel: the union of the
+    kernels' intervals.  K4 launches overlap (programmatic dependent
+    launch: the next one starts and waits while this one ends), so their
+    lengths overstate it."""
+    total, end = 0.0, -math.inf
+    for _, ts, dur in timeline:
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total / 1e3
+
+
+def print_profile(label: str, wall_ms: float, by_kernel: dict, timeline: list) -> float:
+    """Print a profiled call's device busy time (the union of its kernels'
+    intervals), idle share and top kernels by summed length; → the busy ms."""
+    busy = busy_ms(timeline)
+    print(f"{label}: {wall_ms:.3f} ms on the host clock, device busy {busy:.3f} ms "
+          + (f"(idle share {1 - busy / wall_ms:.2%}; kernel lengths sum to "
+             f"{sum(by_kernel.values()):.3f} ms)" if busy else
+             "(the trace shows no device time)"))
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:10.3f} ms  {name[:100]}")
+    return busy
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -166,8 +219,12 @@ def garner_mults(P: int) -> int:
     return sum(3 * a + 3 + 3 for a in range(1, P))
 
 
-def k1_mults(batch, steps, P, J, R, n) -> int:
-    per_prime = J * ntt_mults(n) + R * n * (J + 7 + 1 + 3) + R * ntt_mults(n)
+def k1_mults(batch, steps, P, J, R, n, chunks) -> int:
+    """K1/K4: the NTTs; per output J products, Barrett and the phase's
+    Shoup multiply; one phase index per slot and MAC chunk; the last two
+    forward stages again for each chunk after the first; Garner."""
+    mac = R * n * (J + 7 + 3) + chunks * n + (chunks - 1) * J * 3 * n
+    per_prime = J * ntt_mults(n) + mac + R * ntt_mults(n)
     return batch * steps * (P * per_prime + R * n * garner_mults(P))
 
 
@@ -211,7 +268,7 @@ def main() -> int:
     from tfhe_tpu_torch.core.algorithms.encryption import bootstrap_key_to_ntt_paired
     from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
                                               NttBootstrapKey, NttMultiBitBootstrapKey)
-    from tfhe_tpu_torch.core.params import shortint_params
+    from tfhe_tpu_torch.core.params import boolean_params, shortint_params
     from tfhe_tpu_torch.core.poly import ntt, rotation
 
     # ---- 1. the card ---------------------------------------------------------
@@ -239,7 +296,7 @@ def main() -> int:
     g = rng.generator(args.seed, 7, device=dev)
 
     def widths(params):
-        n, N, R = params.lwe_dimension, params.polynomial_size, params.glwe_size
+        n, N, R = params.lwe_dimension, params.polynomial_size, params.glwe_dimension + 1
         J = params.pbs_level * R
         P = external_product_num_primes(N, R, params.pbs_decomp)
         return n, N, R, J, P, ntt.get_plan(N, P)
@@ -343,12 +400,34 @@ def main() -> int:
                 torch.randint(0, 2 * N, (batch, n), generator=g, device=dev))
 
     k1_err = 0
-    for batch in (1, 6, 8):
+    for batch in (1, 6, 8, B + 1):
         acc, exps = rot_inputs(batch)
         got = rotation.rotate_accumulator(acc, exps, key)
         torch.cuda.synchronize()
         k1_err = max(k1_err, hold(f"K1 blind rotation, batch {batch}, {n} steps", got,
                                   rotation.blind_rotate_plain(acc, exps, key)))
+    for name in K1_SHAPES:
+        sp = boolean_params(name) if name.startswith("DEFAULT") else shortint_params(name)
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        skey = NttBootstrapKey(spectra=random_spectra(splan, (sn, sJ, sR, sN), 1),
+                               decomp=sp.pbs_decomp, primes=splan.primes)
+        sacc = rng.uniform_torus(g, (8, sR, sN))
+        sexps = torch.randint(0, 2 * sN, (8, sn), generator=g, device=dev)
+        lay = rotation._delta_layout(sN, sR, sJ, sP)
+        got = rotation.rotate_accumulator(sacc, sexps, skey)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, hold(
+            f"K1 blind rotation {name} (N={sN}, R={sR}, J={sJ}, P={sP}; head {lay.head}, "
+            f"tail {lay.tail}, rt {lay.rt}), batch 8, {sn} steps", got,
+            rotation.blind_rotate_plain(sacc, sexps, skey)))
+        if name == "PARAM_MESSAGE_1_CARRY_1_KS_PBS":
+            k4_1_1 = (f"K4 delta step {name}, batch 8", sacc, sexps[:, 5], skey.spectra[5],
+                      skey.decomp)
+        bacc = rng.uniform_torus(g, (B, sR, sN))
+        bexps = torch.randint(0, 2 * sN, (B, sn), generator=g, device=dev)
+        t = cuda_ms(lambda: rotation.rotate_accumulator(bacc, bexps, skey), 3)
+        print(f"K1 {name} batch {B}: kernel {t:.3f} ms, {t / sn:.5f} ms a step")
+        del skey, sacc, sexps, got, bacc, bexps
 
     K, M = params.big_lwe_dimension * params.ks_level, n + 1
     digits = torch.randint(-(1 << (params.ks_base_log - 1)), (1 << (params.ks_base_log - 1)) + 1,
@@ -368,9 +447,21 @@ def main() -> int:
                               outs["plain"]))
     k2_ms = cuda_ms(lambda: keyswitch.neg_digit_mac(digits, kmat, body), 10)
     k2_plain_ms = cuda_ms(lambda: keyswitch.neg_digit_mac_plain(digits, kmat, body), 3)
-    print(f"{tag} K1 batch {B}: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
+    print(f"{tag} K1 batch {B}: kernel {k1_ms:.3f} ms ({k1_ms / n:.5f} ms per step), plain "
+          f"{k1_plain_ms:.3f} ms (the earlier radix-2 body: {EARLIER_K1_MS} ms)")
     print(f"{tag} K2 batch {B}: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
-    k1_bound = bound(k1_mults(B, n, P, J, R, N),
+    lay = rotation._delta_layout(N, R, J, P)
+    held = rotation._delta_active_blocks(lay, dev)
+    print(f"{tag} K1, one round of blocks ({held} blocks of {lay.smem} B fit on the device "
+          f"at once; K3's rows are in phase 3b'):")
+    print("    batch | ms (mean) | spread ms | us per ciphertext and step")
+    for rows in (min(held, B), 16):
+        t = cuda_ms_reps(lambda: outs.update(round=rotation.rotate_accumulator(
+            acc[:rows], exps[:rows], key)), SWEEP_REPS)
+        hold(f"K1 one round, batch {rows}", outs["round"], outs["plain"][:rows])
+        m = sum(t) / len(t)
+        print(f"    {rows:5d} | {m:9.3f} | {max(t) - min(t):9.3f} | {m * 1e3 / rows / n:10.5f}")
+    k1_bound = bound(k1_mults(B, n, P, J, R, N, lay.chunks),
                      key.spectra.numel() * 4 + 2 * B * R * N * 8 + B * n * 4 + 8 * P * N * 4,
                      clock_hz, sms)
     k2_bound = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
@@ -381,11 +472,13 @@ def main() -> int:
     pkey = bootstrap_key_to_ntt_paired(key)
     for batch in K5_BATCHES:
         a1, e1 = rot_inputs(batch)
-        if batch in STEP_BATCHES:
-            k4_err = max(k4_err, hold_steps(f"K4 delta step, batch {batch}", a1, e1[:, 5],
-                                            key.spectra[5], "delta", key.decomp))
+        k4_err = max(k4_err, hold_steps(f"K4 delta step, batch {batch}", a1, e1[:, 5],
+                                        key.spectra[5], "delta", key.decomp))
         k5_err = max(k5_err, hold_steps(f"K5 paired step, batch {batch}", a1, e1[:, 5:6],
                                         pkey.spectra[5], "variants", key.decomp))
+    label, a1, e1, kslice, kdecomp = k4_1_1
+    k4_err = max(k4_err, hold_steps(label, a1, e1, kslice, "delta", kdecomp))
+    del k4_1_1, a1, e1, kslice
     k4_ms = cuda_ms(lambda: outs.update(steps=rotation.rotate_steps(acc.clone(), exps, key)), 3)
     k4_err = max(k4_err, hold(f"K4 per-step rotation, batch {B}, {n} launches", outs["steps"],
                               outs["plain"]))
@@ -397,11 +490,12 @@ def main() -> int:
         paired_plain=rotation.blind_rotate_plain(acc, exps, pkey)), 1)
     k5_err = max(k5_err, hold(f"K5 paired per-step rotation, batch {B}, {n} launches",
                               outs["paired"], outs["paired_plain"]))
-    print(f"{tag} K4 per-step rotation batch {B}: {k4_ms:.3f} ms ({k4_ms / n:.4f} ms per "
-          f"launch), plain {k1_plain_ms:.3f} ms (the plain rotation, timed above)")
+    print(f"{tag} K4 per-step rotation batch {B}: {k4_ms:.3f} ms ({k4_ms / n:.5f} ms per "
+          f"launch; the earlier radix-2 body: {EARLIER_K4_MS} ms), plain {k1_plain_ms:.3f} ms (the "
+          f"plain rotation, timed above)")
     print(f"{tag} K5 paired per-step rotation batch {B}: {k5p_ms:.3f} ms "
           f"({k5p_ms / n:.4f} ms per launch), plain {k5p_plain_ms:.3f} ms")
-    k4_bound = bound(k1_mults(B, n, P, J, R, N),
+    k4_bound = bound(k1_mults(B, n, P, J, R, N, lay.chunks),
                      step_bytes(n, 1, P, J, R, N, 1) + 8 * P * N * 4, clock_hz, sms)
     k5p_bound = bound(k3_mults(B, n, 2, P, J, R, N),
                       step_bytes(n, 2, P, J, R, N, 1) + 12 * P * N * 4, clock_hz, sms)
@@ -582,14 +676,9 @@ def main() -> int:
     hold_cpu_path(sk, ca, f1, outs[0], "multi-bit GROUP_3")
     kspbs[GROUP_3] = cuda_ms(lambda: sk.apply_lookup_table(ca, lut_mb), 3)
     # one KS+PBS call under the profiler: device time by kernel, idle share
-    wall_ms, by_kernel = profile_window(lambda: sk.apply_lookup_table(ca, lut_mb))
-    busy_ms = sum(by_kernel.values())
-    print(f"{tag} profiler, one GROUP_3 KS+PBS call at batch {B}: {wall_ms:.3f} ms on the "
-          f"host clock, device busy {busy_ms:.3f} ms "
-          + (f"(idle share {1 - busy_ms / wall_ms:.2%})" if busy_ms else
-             "(key_averages() shows no device time)"))
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {ms:10.3f} ms  {name[:100]}")
+    wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ca, lut_mb))
+    print_profile(f"{tag} profiler, one GROUP_3 KS+PBS call at batch {B}", wall_ms, by_kernel,
+                  timeline)
     del ck, sk, ca, cb, outs
 
     # ---- 4c. the per-step routes, one LUT request each -----------------------
@@ -634,6 +723,22 @@ def main() -> int:
         hold_cpu_path(sk, ct, f1, out, label)
         if timed:
             route_kspbs[label] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+        if label == "FUSED=0 classic":
+            wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ct, lut))
+            print_profile(f"{tag} profiler, one {label} KS+PBS call at batch {B}", wall_ms,
+                          by_kernel, timeline)
+            k4_events = [e for e in timeline if "delta_kernel" in e[0]]
+            gaps = [b[1] - (a[1] + a[2]) for a, b in zip(k4_events, k4_events[1:])]
+            ends = [b[1] + b[2] - (a[1] + a[2]) for a, b in zip(k4_events, k4_events[1:])]
+            if len(k4_events) != steps_per_call[CLASSIC] or not gaps:
+                raise AssertionError(f"the trace shows {len(k4_events)} K4 launches")
+            print(f"{tag} {label} trace: {len(k4_events)} K4 launches; one ends every "
+                  f"{sum(ends) / len(ends) / 1e3:.5f} ms; K4 covers "
+                  f"{busy_ms(k4_events):.3f} ms of the device; a launch's traced length "
+                  f"{sum(e[2] for e in k4_events) / len(k4_events) / 1e3:.5f} ms (with its "
+                  f"wait for the previous one); the next starts {-sum(gaps) / len(gaps):.3f} us "
+                  f"before it ends (mean; min {-max(gaps):.3f}, max {-min(gaps):.3f}; "
+                  f"negative: a gap)")
         del ck, sk, ct, out
     config.set_use_mxu_ntt(True)
     config.set_use_mxu_lanes(False)

@@ -19,9 +19,14 @@ All four kernels are in `csrc/rotation.cu` (a delta body for K1/K4 and a
 variant body for K3/K5; the source's header says what each replaces and
 what bounds it on the card), with `blind_rotate_step_plain` as the one
 plain step formula beside them.  All compute the exact product mod 2^64,
-so all are bit-identical to the JAX functions.  K3 and K5 run in clusters
-of C blocks that share each key word among C ciphertexts; their grid,
-cluster, slot ranges, padding and shared memory come from
+so all are bit-identical to the JAX functions.  K1 and K4 run a
+register-resident NTT in passes of up to 8 coefficients a thread, with the
+digits fused into the first forward pass, the MAC between the last forward
+and the first inverse pass, and Garner in the last inverse pass; their pass
+schedule and MAC split come from `_delta_layout`, their twiddle and phase
+tables (values beside their Shoup twins) from `_delta_tables`.  K3 and K5
+run in clusters of C blocks that share each key word among C ciphertexts;
+their grid, cluster, slot ranges, padding and shared memory come from
 `_variant_launch_plan`.  The JAX wrappers' batch bucketing
 (`_padded_flat_batch`) only caps TPU compiles and has no counterpart: the
 kernels take any batch.
@@ -53,7 +58,10 @@ _MAXR = 4              # K3/K5 are instantiated for k+1 = 1..4 outputs
 _SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
 _CLUSTERS = (1, 2, 4, 8)   # cluster sizes K3/K5 are instantiated for
 _CLUSTER = 2           # K3/K5's default cluster size (chip_smoke.py's sweep)
-_TABLES: dict = {}     # (N, P, device) → (tab, consts) for csrc/rotation.cu
+_DELTA_THREADS = 256   # threads of a K1/K4 block (DELTA_THREADS in csrc/rotation.cu)
+_TABLES: dict = {}     # (N, P, device) → (tab, consts) for the variant body
+_DELTA_TABLES: dict = {}   # (N, P, device) → tab for the delta body
+_CONSTS: dict = {}     # (N, P) → the constants buffer in host memory
 _ACTIVE: dict = {}     # (cluster, R, smem, device) → clusters the device holds
 
 
@@ -170,22 +178,33 @@ def _shoup_u32(vals: np.ndarray, p: np.ndarray) -> np.ndarray:
 
 
 def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
-    """(tab, consts) for csrc/rotation.cu, cached per plan and device:
-    tab u32 [psi_rev, twin, psi_inv_rev, twin] [P, N] then
-    [phase, twin, pw, twin] [P, 2N] with phase[m] = (psi^m - 1)/N mod p
-    (K1's) and pw[m] = psi^m (K3's); consts the u64 layout of the kernel's
-    C_* enum."""
+    """(tab, consts) for the variant body (K3/K5), cached per plan and
+    device: tab its u32 tables [psi_rev, twin, psi_inv_rev, twin] [P, N],
+    then [P, 2N] rows it does not read (zeros that keep its offsets until it
+    takes the delta body's NTT), then [pw, twin] [P, 2N] with pw[m] = psi^m;
+    consts `_host_consts` on the device.  The delta body (K1/K4) takes its
+    tables from `_delta_tables` and its constants from `_host_consts`."""
     dkey = (plan.n, plan.num_primes, str(torch.device(device)))
     if dkey not in _TABLES:
         P, n = plan.num_primes, plan.n
         assert P <= _MAXP
         p = plan.p64                                             # [P, 1]
-        n_inv = np.array(plan.n_inv, dtype=np.int64).reshape(-1, 1)
-        phase = (plan.psi_pow - 1) % p * n_inv % p
         parts = []
-        for vals in (plan.psi_rev, plan.psi_inv_rev, phase, plan.psi_pow):
+        for vals in (plan.psi_rev, plan.psi_inv_rev):
             parts += [vals.astype(np.uint64), _shoup_u32(vals, p)]
+        parts += [np.zeros(2 * 2 * P * n, dtype=np.uint64)]
+        parts += [plan.psi_pow.astype(np.uint64), _shoup_u32(plan.psi_pow, p)]
         tab = np.concatenate([a.reshape(-1) for a in parts]).astype(np.uint32)
+        _TABLES[dkey] = (torch.from_numpy(tab.view(np.int32).copy()).to(device),
+                         torch.from_numpy(_host_consts(plan).view(np.int64).copy()).to(device))
+    return _TABLES[dkey]
+
+
+def _host_consts(plan: ntt.NttPlan) -> np.ndarray:
+    """The constants buffer (u64, the kernel's C_* layout) in host memory,
+    cached per plan: the delta kernel takes it by value."""
+    dkey = (plan.n, plan.num_primes)
+    if dkey not in _CONSTS:
         cs = np.zeros(193, dtype=np.uint64)
         for i, pi in enumerate(plan.primes):
             cs[0 + i] = pi
@@ -200,9 +219,118 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
             cs[177 + i] = plan.n_inv[i]
             cs[185 + i] = (plan.n_inv[i] << 32) // pi
         cs[176] = plan.M_mod
-        _TABLES[dkey] = (torch.from_numpy(tab.view(np.int32).copy()).to(device),
-                         torch.from_numpy(cs.view(np.int64).copy()).to(device))
-    return _TABLES[dkey]
+        _CONSTS[dkey] = cs
+    return _CONSTS[dkey]
+
+
+def _swizzle(pos):
+    """Where the delta body keeps coefficient or slot `pos` of a polynomial
+    in shared memory: bits 2-4 (the 4-word group within a 32-word row)
+    XORed with bits 5-7 (the row within 256 words).  A 4-slot group stays
+    whole, and each pass's warp access falls in 32 banks."""
+    return pos ^ (((pos >> 5) & 7) << 2)
+
+
+def _pack(radices: tuple) -> int:
+    """A pass list as the kernel reads it: the count in bits 0-3, then one
+    radix log per 4 bits, the first pass lowest."""
+    code = len(radices)
+    for i, r in enumerate(radices):
+        code |= r << (4 + 4 * i)
+    return code
+
+
+@dataclass(frozen=True)
+class DeltaLayout:
+    """How the delta body (K1/K4) transforms one ciphertext.  The forward
+    transform's stages run top down (t = N/2 first) in passes; a pass of
+    radix log r holds 2^r coefficients of one polynomial in a thread's
+    registers for r stages.  `head` passes (radix logs, top pass first)
+    span the whole polynomial and end in a block barrier; the first reads
+    the accumulator and decomposes it.  `tail` passes work in regions of
+    2^log_w coefficients, one warp per region, with warp barriers only.
+    The MAC runs the last two stages (t = 2, 1) on groups of 4 slots for
+    every digit polynomial, the R/`chunks` outputs of one chunk per thread
+    (`rt`), and the inverse's first two; the inverse mirrors the rest, and
+    its top pass on the last prime adds the Garner lift into acc.  Where
+    every warp has a region of its own (N/2^log_w regions, at least
+    threads/32), one warp runs a region's tails in every polynomial and its
+    MAC, with warp barriers only.  `smem` bytes of shared memory, `threads`
+    per block."""
+    log_n: int
+    head: tuple
+    tail: tuple
+    log_w: int
+    rt: int
+    chunks: int
+    threads: int
+    smem: int
+
+    @property
+    def head_code(self) -> int:
+        return _pack(self.head)
+
+    @property
+    def tail_code(self) -> int:
+        return _pack(self.tail)
+
+
+def _split(stages: int, top_first: bool) -> tuple:
+    """Radix logs of at most 3 covering `stages` stages, as few passes as
+    can be, the remainder spread (head) or last (tail)."""
+    if stages == 0:
+        return ()
+    count = -(-stages // 3)
+    if top_first:
+        return tuple([3] * (stages // 3) + ([stages % 3] if stages % 3 else []))
+    return tuple(stages // count + (i < stages % count) for i in range(count))
+
+
+def _delta_layout(n: int, R: int, J: int, P: int) -> DeltaLayout:
+    """The delta body's layout for polynomials of N = n slots, R outputs,
+    J = L*R digit rows and P primes; raises where the kernel does not take
+    the shape (the working set above one block's shared memory, P > 8,
+    J > 15)."""
+    log_n = n.bit_length() - 1
+    if n < 4 or n != 1 << log_n:
+        raise ValueError(f"the delta kernel takes N a power of two >= 4, not {n}")
+    if not 1 <= P <= _MAXP or not 1 <= J <= 15 or R < 1 or J % R:
+        raise ValueError(f"the delta kernel takes P <= {_MAXP}, J = L*R <= 15, "
+                         f"not P={P}, R={R}, J={J}")
+    smem = _working_set(n, R, J, P)
+    # head: the stages above a warp's region of at most 256 coefficients
+    # (at least one stage, so that the first pass decomposes; none at N = 4,
+    # where a pass of radix 1 decomposes and the MAC runs both stages)
+    h = 0 if log_n == 2 else max(log_n - 8, 1)
+    head = _split(h, False) or (0,)
+    log_w = log_n - h
+    # outputs per MAC thread: the fewest chunks (R/rt of them, rt <= 4)
+    # that give every thread a group of 4 slots, else the most
+    chunks = [c for c in range(1, R + 1) if R % c == 0 and R // c <= 4]
+    full = [c for c in chunks if c * n // 4 >= _DELTA_THREADS]
+    c = full[0] if full else chunks[-1]
+    return DeltaLayout(log_n=log_n, head=head, tail=_split(log_w - 2, True), log_w=log_w,
+                       rt=R // c, chunks=c, threads=_DELTA_THREADS, smem=smem)
+
+
+def _delta_tables(plan: ntt.NttPlan, device) -> torch.Tensor:
+    """The delta body's tables, cached per plan and device: u32 pairs
+    (value, Shoup twin) of psi_rev [P][N], psi_inv_rev [P][N] and the phase
+    [P][2N] = (psi^m - 1)/N.  The twiddles stay in the heap order of
+    ntt.py (stage with m blocks at [m, 2m)), so a pass's 2^r - 1 twiddles
+    at heap node q are q, 2q..2q+1, 4q..4q+3: with their twins beside
+    them, one 8-byte and one or two 16-byte loads.  One 8-byte gather
+    gives a slot's phase and its twin."""
+    dkey = (plan.n, plan.num_primes, str(torch.device(device)))
+    if dkey not in _DELTA_TABLES:
+        p = plan.p64
+        n_inv = np.array(plan.n_inv, dtype=np.int64).reshape(-1, 1)
+        phase = (plan.psi_pow - 1) % p * n_inv % p
+        parts = [np.stack([vals.astype(np.uint64), _shoup_u32(vals, p)], axis=-1).reshape(-1)
+                 for vals in (plan.psi_rev, plan.psi_inv_rev, phase)]
+        tab = np.concatenate(parts).astype(np.uint32)
+        _DELTA_TABLES[dkey] = torch.from_numpy(tab.view(np.int32).copy()).to(device)
+    return _DELTA_TABLES[dkey]
 
 
 def _working_set(n: int, R: int, J: int, P: int) -> int:
@@ -271,6 +399,15 @@ def _active_clusters(plan: VariantPlan, R: int, device) -> int:
     return _ACTIVE[dkey]
 
 
+def _delta_active_blocks(lay: DeltaLayout, device) -> int:
+    """How many K1/K4 blocks of this layout the device holds at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        code = cuda_lib.library().tfhe_delta_active_blocks(lay.rt, lay.smem, ctypes.byref(out))
+    cuda_lib.check(code, "tfhe_delta_active_blocks")
+    return out.value
+
+
 def _schedulable(plan: VariantPlan, R: int, device) -> VariantPlan:
     """The plan, after checking that the device can hold its clusters (it
     raises where it cannot: there is no smaller cluster to fall back to)."""
@@ -283,7 +420,10 @@ def _schedulable(plan: VariantPlan, R: int, device) -> VariantPlan:
 def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) -> tuple:
     """Checks shared by the kernel wrappers on acc [B, R, N] and a key of
     shape [..., P, J, R, N] with `variants` GGSWs per step (0 for the delta
-    step); → (plan, tab, consts)."""
+    step); → (plan, tab, consts, layout): for a delta key the delta body's
+    tables (`_delta_tables`), the constants in host memory (`_host_consts`)
+    and its layout (`_delta_layout`); for the others the variant body's
+    tables and constants (`_kernel_tables`) and None."""
     P, J, R, n = key_shape[-4:]
     B = acc.shape[0]
     L, base_log = decomp.level, decomp.base_log
@@ -294,16 +434,23 @@ def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) ->
         raise TypeError("acc must be int64")
     if P > _MAXP or J > 15 or base_log > 24:
         raise ValueError(f"the kernel takes P <= {_MAXP}, J <= 15, base_log <= 24")
-    if variants:
-        g = variants.bit_length() - 1
-        if variants != 1 << g or not 1 <= g <= 4:
-            raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, "
-                             f"not {variants} variants")
-        if R > _MAXR:
-            raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
-    _working_set(n, R, J, P)
     plan = ntt.get_plan(n, P)
-    return (plan,) + _kernel_tables(plan, acc.device)
+    if not variants:
+        return (plan, _delta_tables(plan, acc.device), _host_consts(plan),
+                _delta_layout(n, R, J, P))
+    g = variants.bit_length() - 1
+    if variants != 1 << g or not 1 <= g <= 4:
+        raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, "
+                         f"not {variants} variants")
+    if R > _MAXR:
+        raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
+    _working_set(n, R, J, P)
+    return (plan,) + _kernel_tables(plan, acc.device) + (None,)
+
+
+def _delta_args(lay: DeltaLayout) -> tuple:
+    """The layout's arguments of tfhe_blind_rotate and tfhe_blind_rotate_step."""
+    return lay.rt, lay.head_code, lay.tail_code, lay.log_w, lay.smem
 
 
 def _check_key(key) -> None:
@@ -316,8 +463,8 @@ def _check_key(key) -> None:
 
 def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
                  variants: int) -> tuple:
-    """Checks of the whole-rotation wrappers; → (plan, tab, consts, out,
-    exps as int32, spectra), all contiguous on acc's device."""
+    """Checks of the whole-rotation wrappers; → (plan, tab, consts, layout,
+    out, exps as int32, spectra), all contiguous on acc's device."""
     _check_key(key)
     if tuple(exps.shape) != exps_shape:
         raise ValueError(f"shapes acc {tuple(acc.shape)}, exps {tuple(exps.shape)}, "
@@ -326,8 +473,8 @@ def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
         raise TypeError("the key spectra must be int32")
     if key.spectra.device != acc.device or exps.device != acc.device:
         raise ValueError("all operands must be on one device")
-    plan, tab, cs = _kernel_setup(acc, key.spectra.shape, key.decomp, variants)
-    return (plan, tab, cs, acc.contiguous().clone(), exps.to(torch.int32).contiguous(),
+    plan, tab, cs, lay = _kernel_setup(acc, key.spectra.shape, key.decomp, variants)
+    return (plan, tab, cs, lay, acc.contiguous().clone(), exps.to(torch.int32).contiguous(),
             key.spectra.contiguous())
 
 
@@ -345,13 +492,13 @@ def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
         raise ValueError(f"no blind-rotation kernel for device {acc.device}")
     global launches
     n_steps, P, J, R, n = key.spectra.shape
-    plan, tab, cs, out, e32, spectra = _launch_args(acc, exps, key,
-                                                    (acc.shape[0], n_steps), 0)
+    plan, tab, cs, lay, out, e32, spectra = _launch_args(acc, exps, key,
+                                                         (acc.shape[0], n_steps), 0)
     lib = cuda_lib.library()
     code = lib.tfhe_blind_rotate(out.data_ptr(), e32.data_ptr(), spectra.data_ptr(),
-                                 tab.data_ptr(), cs.data_ptr(), out.shape[0], n_steps,
-                                 n, plan.log_n, P, R, key.decomp.level,
-                                 key.decomp.base_log, cuda_lib.stream_of(out))
+                                 tab.data_ptr(), cs.ctypes.data, out.shape[0], n_steps, n,
+                                 plan.log_n, P, R, key.decomp.level, key.decomp.base_log,
+                                 *_delta_args(lay), cuda_lib.stream_of(out))
     launches += 1
     cuda_lib.check(code, "tfhe_blind_rotate")
     return out
@@ -375,7 +522,7 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
     if V != 1 << key.grouping_factor:
         raise ValueError(f"grouping {key.grouping_factor} has {1 << key.grouping_factor} "
                          f"variants, the key {V}")
-    plan, tab, cs, out, e32, spectra = _launch_args(
+    plan, tab, cs, _, out, e32, spectra = _launch_args(
         acc, exps, key, (acc.shape[0], n_steps, V - 1), V)
     launch = _schedulable(_variant_launch_plan(out.shape[0], n, R, J, P, cluster), R,
                           out.device)
@@ -425,7 +572,7 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     if key_slice.ndim != (5 if variants else 4):
         raise ValueError(f"a {mode} step takes a key slice of {5 if variants else 4} "
                          f"axes, not {tuple(key_slice.shape)}")
-    plan, tab, cs = _kernel_setup(acc, key_slice.shape, decomp, variants)
+    plan, tab, cs, lay = _kernel_setup(acc, key_slice.shape, decomp, variants)
     B, R, n = acc.shape
     P = key_slice.shape[-4]
     e_shape = (B, variants - 1) if variants else (B,)
@@ -442,21 +589,20 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
         exps_j = exps_j.contiguous()
     key_slice = key_slice.contiguous()
     lib = cuda_lib.library()
-    common = (tab.data_ptr(), cs.data_ptr(), B, n, plan.log_n, P, R, decomp.level,
-              decomp.base_log)
+    shape = (B, n, plan.log_n, P, R, decomp.level, decomp.base_log)
     if variants:
         launch = _schedulable(_variant_launch_plan(B, n, R, key_slice.shape[-3], P, cluster),
                               R, acc.device)
         code = lib.tfhe_blind_rotate_step_variants(
             acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
-            *common, variants.bit_length() - 1, launch.grid, launch.cluster, launch.smem,
-            cuda_lib.stream_of(acc))
+            tab.data_ptr(), cs.data_ptr(), *shape, variants.bit_length() - 1, launch.grid,
+            launch.cluster, launch.smem, cuda_lib.stream_of(acc))
         step_variant_launches += 1
         cuda_lib.check(code, "tfhe_blind_rotate_step_variants")
     else:
         code = lib.tfhe_blind_rotate_step(
             acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
-            *common, cuda_lib.stream_of(acc))
+            tab.data_ptr(), cs.ctypes.data, *shape, *_delta_args(lay), cuda_lib.stream_of(acc))
         step_launches += 1
         cuda_lib.check(code, "tfhe_blind_rotate_step")
     return acc

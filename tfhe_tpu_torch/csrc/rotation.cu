@@ -58,10 +58,53 @@
 // (variants).  Modular products of residues use 32-bit Shoup multiplies
 // with the native __umulhi (twiddles, phases, Garner constants).
 //
-// K1/K4, the delta MAC: one thread per output (r, k); J 60-bit products in
-// 64 bits, one Barrett reduction, then (X^e - 1)/N from a 2N-entry table per
-// prime.  Their time sits in the NTTs and the ~97 __syncthreads of a step,
-// not in the 4 key loads per slot and prime.
+// K1/K4, the delta body, and what bounded its first design.  That design
+// (radix-2 stages, one thread per butterfly, the tables read with scalar
+// __ldg) took 0.316 ms a step at 2_2, batch 512.  Probes on the H100
+// (PERF.md, Findings) split it: the twiddle loads (two per
+// butterfly) 20%, the phase gathers (two per output) 11%, the key loads 8%,
+// the 88 stage barriers only 4%, and 60% the rest: 22 shared-memory round
+// trips per transform and the index arithmetic around each.  A block alone
+// on an SM took 0.106 ms a step however empty the card was, so one block's
+// chain of dependent work, not a resource the blocks share, set the pace.
+//
+// This body does, per step and prime (at N = 2048; the schedule is
+// rotation.py _delta_layout's, the same code takes every N from 4 to what
+// one block's shared memory holds):
+//  - passes of radix 8: a thread holds 8 coefficients of one polynomial in
+//    registers for 3 stages.  One head pass over the whole polynomial (a
+//    block barrier after it), then two tail passes in regions of 256 that
+//    one warp owns; the MAC runs the last two stages; the inverse mirrors
+//    it.  Where every warp has a region of its own (N >= 2048), one warp
+//    runs a region's tails in every polynomial and its MAC between them
+//    with warp barriers only: 2 block barriers a prime, 8 a step (97 before).
+//  - the digits fused into the first pass: a thread reads its accumulator
+//    words and splits each into its L digits there.  The Garner lift fused
+//    into the last inverse pass of the last prime: the thread that lifts a
+//    coefficient wrote its residues for every prime and reads it for the next
+//    step's digits, so neither needs a barrier.
+//  - the MAC fused between the transforms: a thread owns 4 slots of every
+//    digit polynomial, runs the last two forward stages, the J products of
+//    each output (key words as 16-byte loads), one Barrett reduction, the
+//    phase (X^e - 1)/N (one 8-byte gather per slot for all outputs), and the
+//    first two inverse stages, in registers.
+//  - twiddles beside their Shoup twins in heap order (rotation.py
+//    _delta_tables): a radix-8 item's 7 are one 8-byte and two 16-byte loads.
+//  - lazy reduction (Harvey): residues in [0, 4p) forward, [0, 2p) inverse.
+//  - a shared-memory swizzle (bits 2-4 XOR bits 5-7) under which every
+//    pass's warp access hits 32 banks, folded into each lane's addresses.
+//  - the primes' constants (p, the Barrett factor, Garner's) as one kernel
+//    parameter (operands, not loads), and for N = 2048 at P = 4 under the
+//    layout of one head pass and the 256-coefficient tail a kernel with N
+//    and P fixed at compile time (timed against the general kernel at 2_2
+//    only, where it was faster: PERF.md's design steps); every other shape
+//    runs the general kernel.
+//  - K4 launched with programmatic stream serialization, so a step's blocks
+//    are scheduled while the previous step drains.
+// 256 threads a block (128 registers at most: 2_2's kernel does not spill,
+// the general ones at rt 3 and 4 spill a few bytes, PERF.md); two blocks
+// per SM, as shared memory allows at 2_2.  What bounds it now is again one block's
+// chain of dependent work: see PERF.md for the rounds.
 //
 // K3/K5, the variant MAC, and what bounds it.  Per slot k and prime it
 // reads 2^g * J * R key words (32 at GROUP_3): one 4-byte __ldg each, and
@@ -106,12 +149,14 @@
 // a time, so the key loads stay 4-byte loads, coalesced across the warp: a
 // 16-byte load would need four slots per thread, 4*C*R sums.
 //
-// Left to later work: what bounds a full round (above), for all four
-// kernels; K1/K4's intercept (a faster NTT, fewer barriers); K4/K5's
-// per-launch cost (a CUDA graph, or the fused route); the phase gathers
-// (2(V-1) per slot and ciphertext, one interleaved 8-byte gather would halve
-// them); and N >= 8192, whose working set exceeds one block's shared memory
-// (the same cluster machinery, with a ciphertext spread over C blocks).
+// Left to later work: for K1/K4, more independent work per SM than two
+// blocks of 256 threads give (shared memory holds two ciphertexts at 2_2);
+// for K3/K5, this body's NTT (they keep the radix-2 ntt_forward and
+// ntt_inverse below) and what bounds a full round; K5's per-launch cost;
+// the variant phase gathers (2(V-1) per slot and ciphertext, one
+// interleaved 8-byte gather would halve them); and N >= 8192, whose working
+// set exceeds one block's shared memory (the cluster machinery, with a
+// ciphertext spread over C blocks).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -122,7 +167,8 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 512;        // a variant block
+constexpr int DELTA_THREADS = 256;  // a delta block
 constexpr int MAXP = 8;
 constexpr int MAX_PRODUCTS = 16;  // 60-bit products one 64-bit sum can hold
 
@@ -252,69 +298,581 @@ __device__ __forceinline__ uint64_t garner(const uint32_t* res, int i, int strid
   return (ge || eq) ? c - __ldg(cs + C_MMOD) : c;
 }
 
-// tab (u32): psi_rev [P][N], its Shoup twin, psi_inv_rev [P][N], its twin,
-// phase [P][2N] = (psi^m - 1) / N mod p, its twin, pw [P][2N] = psi^m, its
-// twin.
+// tab (u32), the variant body's tables: psi_rev [P][N], its Shoup twin,
+// psi_inv_rev [P][N], its twin, [P][2N] rows it does not read, pw [P][2N] =
+// psi^m, its twin.
+
+// ---- the delta body (K1/K4) ------------------------------------------------
+//
+// dtab (u32 pairs: a value and its Shoup twin), from rotation.py
+// _delta_tables: psi_rev [P][N], psi_inv_rev [P][N] and the phase [P][2N]
+// = (psi^m - 1)/N, so that a pass's twiddles at heap node q (q, 2q..2q+1,
+// 4q..4q+3) are one 8-byte and one or two 16-byte loads, and a slot's phase
+// one 8-byte gather.  The pass lists (`head`, `tail`) are rotation.py
+// _delta_layout's: the count in bits 0-3, one radix log per 4 bits above.
+
+// Where a polynomial keeps coefficient or slot `pos` in shared memory (bits
+// 2-4 XOR bits 5-7): a 4-slot group stays whole and aligned, and each
+// pass's warp access (strides 32 and 4 in the tail, 1 in the head, the
+// MAC's 16-byte groups) falls in 32 banks.
+__device__ __forceinline__ int swz(int pos) { return pos ^ (((pos >> 5) & 7) << 2); }
+
+__device__ __forceinline__ int pass_count(unsigned code) { return (int)(code & 15u); }
+__device__ __forceinline__ int pass_radix(unsigned code, int i) {
+  return (int)((code >> (4 + 4 * i)) & 15u);
+}
+
+// The 2^RL - 1 twiddles of heap node q, at heap-relative index 1 (q), 2-3
+// (2q, 2q+1) and 4-7 (4q..4q+3).
+template <int RL>
+__device__ __forceinline__ void load_twiddles(uint2 (&tw)[8], const uint2* __restrict__ t,
+                                              int q) {
+  if constexpr (RL >= 1) tw[1] = __ldg(t + q);
+  if constexpr (RL >= 2) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(t + 2 * q));
+    tw[2] = make_uint2(a.x, a.y);
+    tw[3] = make_uint2(a.z, a.w);
+  }
+  if constexpr (RL >= 3) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(t + 4 * q));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(t + 4 * q + 2));
+    tw[4] = make_uint2(a.x, a.y);
+    tw[5] = make_uint2(a.z, a.w);
+    tw[6] = make_uint2(b.x, b.y);
+    tw[7] = make_uint2(b.z, b.w);
+  }
+}
+
+// The delta body's butterflies reduce lazily (Harvey): the forward
+// transform keeps residues in [0, 4p), the inverse in [0, 2p), which p <
+// 2^30 lets a u32 hold; the MAC and the last inverse pass reduce fully.
+// x - m if x >= m, for x < 2^32 - m: one subtraction and an unsigned min.
+__device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t m) { return min(x, x - m); }
+
+// a * w mod p plus 0 or p, for any a < 2^32 (Shoup, without the correction).
+__device__ __forceinline__ uint32_t mul_lazy(uint32_t a, uint32_t w, uint32_t ws,
+                                             uint32_t p) {
+  return a * w - __umulhi(a, ws) * p;
+}
+
+// RL forward (Cooley-Tukey) stages on a thread's 2^RL coefficients at
+// base + s*2^lo, the widest stride first: [0, 4p) in and out.
+template <int RL>
+__device__ __forceinline__ void ct_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[8],
+                                          uint32_t p) {
+#pragma unroll
+  for (int i = RL - 1; i >= 0; --i) {
+#pragma unroll
+    for (int s = 0; s < (1 << RL); ++s) {
+      if (s & (1 << i)) continue;
+      const uint2 w = tw[(1 << (RL - 1 - i)) + (s >> (i + 1))];
+      const uint32_t u = csub(a[s], 2 * p), v = mul_lazy(a[s + (1 << i)], w.x, w.y, p);
+      a[s] = u + v;
+      a[s + (1 << i)] = u - v + 2 * p;
+    }
+  }
+}
+
+// RL inverse (Gentleman-Sande) stages, the narrowest stride first: [0, 2p)
+// in and out.
+template <int RL>
+__device__ __forceinline__ void gs_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[8],
+                                          uint32_t p) {
+#pragma unroll
+  for (int i = 0; i < RL; ++i) {
+#pragma unroll
+    for (int s = 0; s < (1 << RL); ++s) {
+      if (s & (1 << i)) continue;
+      const uint2 w = tw[(1 << (RL - 1 - i)) + (s >> (i + 1))];
+      const uint32_t u = a[s], v = a[s + (1 << i)];
+      a[s] = csub(u + v, 2 * p);
+      a[s + (1 << i)] = mul_lazy(u - v + 2 * p, w.x, w.y, p);
+    }
+  }
+}
+
+// The word of coefficient base + k*2^lo in a swizzled polynomial.  A
+// stride of 256 or more leaves bits 0-7, and so the swizzle, alone: where
+// lo is a constant that makes one swizzle per item and a constant step per
+// coefficient.
+__device__ __forceinline__ int swz_at(int base, int k, int lo) {
+  return lo >= 8 ? swz(base) + (k << lo) : swz(base + (k << lo));
+}
+
+// One item of a pass: heap node q, coefficients base + s*2^lo of `poly`.
+template <int RL, bool FWD>
+__device__ __forceinline__ void pass_item(uint32_t* poly, int q, int base, int lo,
+                                          const uint2* __restrict__ t, uint32_t p) {
+  uint2 tw[8];
+  load_twiddles<RL>(tw, t, q);
+  uint32_t a[1 << RL];
+#pragma unroll
+  for (int s = 0; s < (1 << RL); ++s) a[s] = poly[swz_at(base, s, lo)];
+  if constexpr (FWD) ct_stages<RL>(a, tw, p); else gs_stages<RL>(a, tw, p);
+#pragma unroll
+  for (int s = 0; s < (1 << RL); ++s) poly[swz_at(base, s, lo)] = a[s];
+}
+
+// A head pass at stride 2^lo over `npoly` polynomials, items spread over
+// the block.
+template <int RL, bool FWD>
+__device__ void block_pass(uint32_t* arr, int npoly, int log_n, int lo,
+                           const uint2* __restrict__ t, uint32_t p) {
+  const int lg = log_n - RL;   // log2 of the items per polynomial
+  for (int f = threadIdx.x; f < (npoly << lg); f += blockDim.x) {
+    const int it = f & ((1 << lg) - 1), blk = it >> lo;
+    pass_item<RL, FWD>(arr + ((f >> lg) << log_n), (1 << (lg - lo)) + blk,
+                       (blk << (lo + RL)) + (it & ((1 << lo) - 1)), lo, t, p);
+  }
+}
+
+template <bool FWD>
+__device__ void block_pass_r(int r, uint32_t* arr, int npoly, int log_n, int lo,
+                             const uint2* __restrict__ t, uint32_t p) {
+  switch (r) {
+    case 1: block_pass<1, FWD>(arr, npoly, log_n, lo, t, p); break;
+    case 2: block_pass<2, FWD>(arr, npoly, log_n, lo, t, p); break;
+    default: block_pass<3, FWD>(arr, npoly, log_n, lo, t, p); break;
+  }
+}
+
+// A tail pass on one warp's region [base, base + 2^log_w) of `poly`.
+template <int RL, bool FWD>
+__device__ __forceinline__ void tail_pass(uint32_t* poly, int base, int log_n, int log_w,
+                                          int lo, const uint2* __restrict__ t, uint32_t p) {
+  for (int it = threadIdx.x & 31; it < (1 << (log_w - RL)); it += 32) {
+    const int blk = (base >> (lo + RL)) + (it >> lo);
+    pass_item<RL, FWD>(poly, (1 << (log_n - lo - RL)) + blk,
+                       (blk << (lo + RL)) + (it & ((1 << lo) - 1)), lo, t, p);
+  }
+}
+
+// The tail of N >= 512 (regions of 256, passes of radix 8 at strides 32 and
+// 4), one item per lane, the swizzle folded into each lane's addresses.
+// Stride 32: lane holds region[lane + 32s], row s, so its word is 32s +
+// (lane ^ 4s).  Stride 4: lane holds region[32(lane/4) + lane%4 + 4s], row
+// lane/4, so its word is 32(lane/4) + lane%4 + (4s ^ (lane & 28)).
+template <bool FWD>
+__device__ __forceinline__ void tail256_stride32(uint32_t* region, int q,
+                                                 const uint2* __restrict__ t, uint32_t p) {
+  const int lane = threadIdx.x & 31;
+  uint2 tw[8];
+  load_twiddles<3>(tw, t, q);
+  uint32_t a[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) a[s] = region[32 * s + (lane ^ (4 * s))];
+  if constexpr (FWD) ct_stages<3>(a, tw, p); else gs_stages<3>(a, tw, p);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) region[32 * s + (lane ^ (4 * s))] = a[s];
+}
+
+template <bool FWD>
+__device__ __forceinline__ void tail256_stride4(uint32_t* region, int q,
+                                                const uint2* __restrict__ t, uint32_t p) {
+  const int lane = threadIdx.x & 31, x = lane & 28;
+  uint32_t* b = region + 8 * x + (lane & 3);
+  uint2 tw[8];
+  load_twiddles<3>(tw, t, q);
+  uint32_t a[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) a[s] = b[(4 * s) ^ x];
+  if constexpr (FWD) ct_stages<3>(a, tw, p); else gs_stages<3>(a, tw, p);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) b[(4 * s) ^ x] = a[s];
+}
+
+// The tail's pass list at N >= 512 (rotation.py _delta_layout): radix 8, 8.
+constexpr unsigned TAIL256 = 2u | (3u << 4) | (3u << 8);
+
+// Both tail passes on region blk (256 coefficients) of `poly`, by one warp.
+template <bool FWD>
+__device__ __forceinline__ void tail256_region(uint32_t* poly, int blk, int log_n,
+                                               const uint2* __restrict__ t, uint32_t p) {
+  uint32_t* region = poly + (blk << 8);
+  const int q32 = (1 << (log_n - 8)) + blk;
+  const int q4 = (1 << (log_n - 5)) + 8 * blk + ((threadIdx.x & 31) >> 2);
+  if constexpr (FWD) tail256_stride32<FWD>(region, q32, t, p);
+  else tail256_stride4<FWD>(region, q4, t, p);
+  __syncwarp();
+  if constexpr (FWD) tail256_stride4<FWD>(region, q4, t, p);
+  else tail256_stride32<FWD>(region, q32, t, p);
+  __syncwarp();
+}
+
+// The tail of N >= 512 over `npoly` polynomials, one warp per region.
+template <bool FWD>
+__device__ void tail256_passes(uint32_t* arr, int npoly, int log_n,
+                               const uint2* __restrict__ t, uint32_t p) {
+  const int shift = log_n - 8;
+  for (int g = threadIdx.x >> 5; g < (npoly << shift); g += blockDim.x >> 5)
+    tail256_region<FWD>(arr + ((g >> shift) << log_n), g & ((1 << shift) - 1), log_n, t, p);
+}
+
+// The tail passes (top down forward, bottom up inverse) over `npoly`
+// polynomials, one warp per region, warp barriers between passes.
+template <bool FWD>
+__device__ void tail_passes(uint32_t* arr, int npoly, int log_n, int log_w, unsigned code,
+                            const uint2* __restrict__ t, uint32_t p) {
+  const int shift = log_n - log_w, count = pass_count(code);
+  if (log_w == 8 && code == TAIL256) {
+    tail256_passes<FWD>(arr, npoly, log_n, t, p);
+    return;
+  }
+  for (int g = threadIdx.x >> 5; g < (npoly << shift); g += blockDim.x >> 5) {
+    uint32_t* poly = arr + ((g >> shift) << log_n);
+    const int base = (g & ((1 << shift) - 1)) << log_w;
+    int lo = FWD ? log_w : 2;
+    for (int i = 0; i < count; ++i) {
+      const int r = pass_radix(code, FWD ? i : count - 1 - i);
+      if (FWD) lo -= r;
+      switch (r) {
+        case 1: tail_pass<1, FWD>(poly, base, log_n, log_w, lo, t, p); break;
+        case 2: tail_pass<2, FWD>(poly, base, log_n, log_w, lo, t, p); break;
+        default: tail_pass<3, FWD>(poly, base, log_n, log_w, lo, t, p); break;
+      }
+      if (!FWD) lo += r;
+      __syncwarp();
+    }
+  }
+}
+
+// The first forward pass (the top RL stages, heap node 1 for every item):
+// each item (r, off) reads acc[r][off + s*N/2^RL], splits each word into its
+// L balanced digits, reduces them mod p and transforms each level in
+// registers into spec row j = l*R + r.
+template <int RL>
+__device__ void decompose_pass(const uint64_t* acc, uint32_t* spec, int R, int L, int log_n,
+                               int base_log, const uint2* __restrict__ t, uint32_t p) {
+  const int lo = log_n - RL, shift = 64 - base_log * L;
+  const uint64_t round = shift > 0 ? (1ull << (shift - 1)) : 0ull;
+  const uint64_t dmask = (1ull << base_log) - 1, dhalf = 1ull << (base_log - 1);
+  uint2 tw[8];
+  load_twiddles<RL>(tw, t, 1);
+  for (int f = threadIdx.x; f < (R << lo); f += blockDim.x) {
+    const int r = f >> lo, off = f & ((1 << lo) - 1);
+    uint64_t s[1 << RL];
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) {
+      const uint64_t a = acc[(r << log_n) + off + (k << lo)];
+      s[k] = shift > 0 ? (a + round) >> shift : a;
+    }
+    for (int l = L - 1; l >= 0; --l) {
+      uint32_t d[1 << RL];
+      if (shift >= 33) {   // the rounded value and its carries fit 32 bits
+#pragma unroll
+        for (int k = 0; k < (1 << RL); ++k) {
+          const uint32_t raw = (uint32_t)s[k] & (uint32_t)dmask;
+          const uint32_t carry = (raw + (uint32_t)dhalf) >> base_log;
+          const int32_t v = (int32_t)raw - (int32_t)(carry << base_log);
+          s[k] = ((uint32_t)s[k] >> base_log) + carry;
+          d[k] = v < 0 ? (uint32_t)(v + (int32_t)p) : (uint32_t)v;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < (1 << RL); ++k) {
+          const uint64_t raw = s[k] & dmask;
+          const uint64_t carry = (raw + dhalf) >> base_log;
+          const int64_t v = (int64_t)raw - (int64_t)(carry << base_log);
+          s[k] = (s[k] >> base_log) + carry;
+          d[k] = v < 0 ? (uint32_t)(v + p) : (uint32_t)v;
+        }
+      }
+      ct_stages<RL>(d, tw, p);
+      uint32_t* poly = spec + ((l * R + r) << log_n);
+#pragma unroll
+      for (int k = 0; k < (1 << RL); ++k) poly[swz_at(off, k, lo)] = d[k];
+    }
+  }
+}
+
+__device__ void decompose_pass_r(int r, const uint64_t* acc, uint32_t* spec, int R, int L,
+                                 int log_n, int base_log, const uint2* __restrict__ t,
+                                 uint32_t p) {
+  switch (r) {
+    case 0: decompose_pass<0>(acc, spec, R, L, log_n, base_log, t, p); break;
+    case 1: decompose_pass<1>(acc, spec, R, L, log_n, base_log, t, p); break;
+    case 2: decompose_pass<2>(acc, spec, R, L, log_n, base_log, t, p); break;
+    default: decompose_pass<3>(acc, spec, R, L, log_n, base_log, t, p); break;
+  }
+}
+
+// The primes' constants the delta kernel reads (the C_* entries of the
+// constants buffer: p and mu for the MAC, the rest for Garner), passed by
+// value as one __grid_constant__ parameter: Garner's indices are constants
+// once the loops unroll, so the lift reads them as operands from the
+// kernel's parameter bank, not through loads.
+struct DeltaConsts {
+  uint32_t p[MAXP], gw[MAXP][MAXP], gw_sh[MAXP][MAXP], ginv[MAXP], ginv_sh[MAXP], half[MAXP];
+  u64 mu[MAXP], prefix[MAXP], mmod;
+};
+
+// garner() with the last prime's residue given: res[a * stride + i] for
+// a < P - 1, `last` for a = P - 1.  PT > 0 fixes P = PT at compile time.
+template <int PT>
+__device__ __forceinline__ uint64_t garner_last(const uint32_t* res, int i, int stride,
+                                                uint32_t last, int P, const DeltaConsts& g) {
+  if constexpr (PT > 0) P = PT;
+  uint32_t t[MAXP];
+  t[0] = P == 1 ? last : res[i];
+  uint64_t c = t[0];
+#pragma unroll
+  for (int a = 1; a < (PT > 0 ? PT : MAXP); ++a) {
+    if (a >= P) break;
+    const uint32_t pa = g.p[a];
+    uint32_t acc = 0;
+#pragma unroll
+    for (int b = 0; b < a; ++b)
+      acc = add_mod(acc, mul_shoup(t[b], g.gw[a][b], g.gw_sh[a][b], pa), pa);
+    const uint32_t v = a == P - 1 ? last : res[a * stride + i];
+    t[a] = mul_shoup(sub_mod(v, acc, pa), g.ginv[a], g.ginv_sh[a], pa);
+    c += (uint64_t)t[a] * g.prefix[a];
+  }
+  bool ge = false, eq = true;
+#pragma unroll
+  for (int a = (PT > 0 ? PT : MAXP) - 1; a >= 0; --a) {
+    if (a >= P) continue;
+    ge = ge || (eq && t[a] > g.half[a]);
+    eq = eq && (t[a] == g.half[a]);
+  }
+  return (ge || eq) ? c - g.mmod : c;
+}
+
+// The last inverse pass (the top RL stages) of prime pi's R products, item
+// (r, off) as decompose_pass maps it.  On the last prime (`lift`) it does
+// not store: it lifts the P residues of each coefficient with Garner and
+// adds the delta into acc, in shared memory or, on the last step, straight
+// to `acc_out` in device memory.  The thread that lifts a coefficient is
+// the one that wrote its residues for the earlier primes and that reads it
+// for the next step's digits, so neither needs a block barrier.
+template <int RL, int PT = 0>
+__device__ void top_inverse_pass(uint32_t* res, int pi, int P, int R, int log_n,
+                                 const uint2* __restrict__ t, uint32_t p, bool lift,
+                                 uint64_t* acc, int64_t* acc_out, const DeltaConsts& g) {
+  const int lo = log_n - RL, RN = R << log_n;
+  uint2 tw[8];
+  load_twiddles<RL>(tw, t, 1);
+  for (int f = threadIdx.x; f < (R << lo); f += blockDim.x) {
+    const int r = f >> lo, off = f & ((1 << lo) - 1);
+    uint32_t* poly = res + pi * RN + (r << log_n);
+    uint32_t a[1 << RL];
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) a[k] = poly[swz_at(off, k, lo)];
+    gs_stages<RL>(a, tw, p);
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) {
+      a[k] = csub(a[k], p);
+      const int at = swz_at(off, k, lo);
+      if (!lift) {
+        poly[at] = a[k];
+        continue;
+      }
+      const int i = (r << log_n) + off + (k << lo);
+      const uint64_t v = acc[i] + garner_last<PT>(res, (r << log_n) + at, RN, a[k], P, g);
+      if (acc_out != nullptr) acc_out[i] = (int64_t)v; else acc[i] = v;
+    }
+  }
+}
+
+__device__ void top_inverse_pass_r(int r, uint32_t* res, int pi, int P, int R, int log_n,
+                                   const uint2* __restrict__ t, uint32_t p, bool lift,
+                                   uint64_t* acc, int64_t* acc_out,
+                                   const DeltaConsts& g) {
+  switch (r) {
+    case 0: top_inverse_pass<0>(res, pi, P, R, log_n, t, p, lift, acc, acc_out, g); break;
+    case 1: top_inverse_pass<1>(res, pi, P, R, log_n, t, p, lift, acc, acc_out, g); break;
+    case 2: top_inverse_pass<2>(res, pi, P, R, log_n, t, p, lift, acc, acc_out, g); break;
+    default: top_inverse_pass<3>(res, pi, P, R, log_n, t, p, lift, acc, acc_out, g); break;
+  }
+}
+
+// The MAC of slots [4x, 4x+4) for outputs r0..r0+RT-1, fused between the
+// transforms: the last two forward stages of each digit polynomial in
+// registers, the J products of each output in one 64-bit sum (the key
+// words as 16-byte loads), one Barrett reduction, the phase (X^e - 1)/N
+// gathered once per slot for all outputs, the first two inverse stages,
+// and a 16-byte store of each output's 4 slots.
+template <int RT>
+__device__ __forceinline__ void mac_group(const uint32_t* spec, uint32_t* res_p,
+                                          const uint32_t* __restrict__ key_p, int x, int r0,
+                                          int J, int R, int log_n,
+                                          const uint2* __restrict__ fwd,
+                                          const uint2* __restrict__ inv,
+                                          const uint2* __restrict__ phase, uint32_t e,
+                                          uint32_t p, u64 mu) {
+  const int q = (1 << (log_n - 2)) + x, k0 = 4 * x, at = swz(k0);
+  uint2 fw[8], iw[8], ph[4];
+  load_twiddles<2>(fw, fwd, q);
+  uint64_t s[RT][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0;
+#pragma unroll 2
+  for (int j = 0; j < J; ++j) {
+    uint4 w[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+      w[r] = __ldg(reinterpret_cast<const uint4*>(
+          key_p + (((j * R + r0 + r) << log_n) + k0)));
+    const uint4 v = *reinterpret_cast<const uint4*>(spec + (j << log_n) + at);
+    uint32_t a[4] = {v.x, v.y, v.z, v.w};
+    ct_stages<2>(a, fw, p);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = csub(csub(a[c], 2 * p), p);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      s[r][0] += (uint64_t)a[0] * w[r].x;
+      s[r][1] += (uint64_t)a[1] * w[r].y;
+      s[r][2] += (uint64_t)a[2] * w[r].z;
+      s[r][3] += (uint64_t)a[3] * w[r].w;
+    }
+  }
+  load_twiddles<2>(iw, inv, q);
+  const uint32_t two_n_mask = (2u << log_n) - 1;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t odd = 2u * (__brev((unsigned)(k0 + c)) >> (32 - log_n)) + 1u;
+    ph[c] = __ldg(phase + ((e * odd) & two_n_mask));
+  }
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    uint32_t a[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = mul_lazy(barrett(s[r][c], p, mu), ph[c].x, ph[c].y, p);
+    gs_stages<2>(a, iw, p);
+    *reinterpret_cast<uint4*>(res_p + ((r0 + r) << log_n) + at) =
+        make_uint4(a[0], a[1], a[2], a[3]);
+  }
+}
+
+// Steps 2-4 of a prime where every warp has a 256-slot region of its own
+// (N >= 256 * warps): per region, one warp runs the forward tail of each
+// digit polynomial, the MAC of the region's 64 groups and the inverse tail
+// of each product, with warp barriers only.
+template <int RT>
+__device__ __forceinline__ void region_pipeline(const uint32_t* key_p, uint32_t* spec,
+                                                uint32_t* res_p, int J, int R, int log_n,
+                                                const uint2* __restrict__ fwd,
+                                                const uint2* __restrict__ inv,
+                                                const uint2* __restrict__ phase, uint32_t e,
+                                                uint32_t p, u64 mu) {
+  for (int g = threadIdx.x >> 5; g < (1 << (log_n - 8)); g += blockDim.x >> 5) {
+    for (int j = 0; j < J; ++j) tail256_region<true>(spec + (j << log_n), g, log_n, fwd, p);
+    for (int f = threadIdx.x & 31; f < (R / RT) * 64; f += 32)
+      mac_group<RT>(spec, res_p, key_p, (g << 6) + (f & 63), (f >> 6) * RT, J, R, log_n, fwd,
+                    inv, phase, e, p, mu);
+    __syncwarp();
+    for (int r = 0; r < R; ++r) tail256_region<false>(res_p + (r << log_n), g, log_n, inv, p);
+  }
+}
 
 // K1/K4.  bsk [steps][P][J][R][N], exps [B][steps] (row stride e_stride);
-// acc [B][R][N] is updated in place.
-__global__ void __launch_bounds__(THREADS, 2)
-blind_rotate_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
-                    long long e_stride, const uint32_t* __restrict__ bsk,
-                    const uint32_t* __restrict__ tab, const u64* __restrict__ cs,
-                    int n_steps, int log_n, int P, int R, int L, int base_log) {
+// acc [B][R][N] is updated in place.  Per step and prime: the head passes
+// (the first decomposes acc), a block barrier after each; the tail passes,
+// the MAC and the inverse tail, either one warp per 256-slot region with
+// warp barriers only (`regions`: 2 block barriers a prime) or with a block
+// barrier after the tail and after the MAC (4 a prime); a block barrier;
+// the inverse head passes (a block barrier between two), the top one
+// lifting into acc on the last prime.  RT outputs per MAC item, R/RT items
+// per 4-slot group.  When launched with programmatic stream serialization
+// (K4) the next launch may be scheduled as soon as every block has started,
+// and waits for this one's results.
+template <int RT, int LN, int PT>
+__global__ void __launch_bounds__(DELTA_THREADS, 2)
+delta_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
+             long long e_stride, const uint32_t* __restrict__ bsk,
+             const uint32_t* __restrict__ dtab, const __grid_constant__ DeltaConsts g,
+             int n_steps, int log_n, int P, int R, int L, int base_log, unsigned head,
+             unsigned tail, int log_w) {
+  // LN > 0: a kernel for N = 2^LN and P = PT under the layout of one head
+  // pass of radix log LN - 8 and the 256-coefficient tail, its shifts and
+  // the prime loop's counts constants
+  constexpr int TOP = LN > 0 ? LN - 8 : 0;
+  // every warp a 256-slot region of its own: steps 2-4 without block barriers
+  const bool regions = LN > 0 ? (1 << (LN - 8)) >= DELTA_THREADS / 32
+                              : log_w == 8 && tail == TAIL256 &&
+                                    (1 << (log_n - 8)) >= DELTA_THREADS / 32;
+  if constexpr (LN > 0) {
+    log_n = LN;
+    P = PT;
+  }
+  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 1 << log_n, J = L * R, RN = R * n;
   uint64_t* acc = reinterpret_cast<uint64_t*>(smem);            // [R][N]
-  uint32_t* spec = reinterpret_cast<uint32_t*>(acc + RN);       // [J][N]
-  uint32_t* res = spec + J * n;                                 // [P][R][N]
-
-  const uint32_t* psi = tab;
-  const uint32_t* psi_sh = tab + P * n;
-  const uint32_t* ipsi = tab + 2 * P * n;
-  const uint32_t* ipsi_sh = tab + 3 * P * n;
-  const uint32_t* phase = tab + 4 * P * n;
-  const uint32_t* phase_sh = tab + 6 * P * n;
+  uint32_t* spec = reinterpret_cast<uint32_t*>(acc + RN);       // [J][N], swizzled
+  uint32_t* res = spec + J * n;                                 // [P][R][N], swizzled
+  const uint2* fwd = reinterpret_cast<const uint2*>(dtab);      // [P][N]
+  const uint2* inv = fwd + P * n;                               // [P][N]
+  const uint2* phase = inv + P * n;                             // [P][2N]
 
   int64_t* acc_b = acc_g + (size_t)blockIdx.x * RN;
   const int32_t* e_b = exps + (long long)blockIdx.x * e_stride;
   for (int i = threadIdx.x; i < RN; i += blockDim.x) acc[i] = (uint64_t)acc_b[i];
   __syncthreads();
 
-  const uint32_t two_n_mask = 2u * n - 1;
+  const int nhead = pass_count(head), top = pass_radix(head, 0);
+  const int groups = n >> 2, items = (R / RT) * groups;
   const size_t step_stride = (size_t)P * J * RN;
-
   for (int step = 0; step < n_steps; ++step) {
     const uint32_t* key = bsk + step * step_stride;
+    const uint32_t e = (uint32_t)__ldg(e_b + step);
+#pragma unroll 1
     for (int pi = 0; pi < P; ++pi) {
-      const uint32_t p = (uint32_t)__ldg(cs + C_P + pi);
-      // 1. balanced digits of acc, 2. forward NTT of the J digit polynomials
-      decompose(acc, spec, R, log_n, L, base_log, p);
-      __syncthreads();
-      ntt_forward(spec, J, log_n, psi + pi * n, psi_sh + pi * n, p);
-      // 3. MAC with the key slice, times (X^e - 1)/N
+      const uint32_t p = g.p[pi];
+      const u64 mu = g.mu[pi];
+      const uint2* fwd_p = fwd + pi * n;
+      const uint2* inv_p = inv + pi * n;
+      uint32_t* res_p = res + pi * RN;
       const uint32_t* key_p = key + (size_t)pi * J * RN;
-      const u64 mu = __ldg(cs + C_MU + pi);
-      const uint32_t e = (uint32_t)__ldg(e_b + step);
-      for (int i = threadIdx.x; i < RN; i += blockDim.x) {
-        const int r = i >> log_n, k = i & (n - 1);
-        uint64_t s = 0;
-        for (int j = 0; j < J; ++j)
-          s += (uint64_t)spec[j * n + k] * __ldg(key_p + (size_t)(j * R + r) * n + k);
-        const uint32_t odd = 2u * (__brev((unsigned)k) >> (32 - log_n)) + 1u;
-        const uint32_t m = (e * odd) & two_n_mask;
-        res[pi * RN + i] = mul_shoup(barrett(s, p, mu), __ldg(phase + pi * 2 * n + m),
-                                     __ldg(phase_sh + pi * 2 * n + m), p);
+      const uint2* phase_p = phase + pi * 2 * n;
+      // 1. digits, in the first forward pass, and the other head passes
+      if constexpr (TOP > 0) {
+        decompose_pass<TOP>(acc, spec, R, L, log_n, base_log, fwd_p, p);
+      } else {
+        decompose_pass_r(top, acc, spec, R, L, log_n, base_log, fwd_p, p);
+        for (int i = 1, lo = log_n - top; i < nhead; ++i) {
+          const int r = pass_radix(head, i);
+          lo -= r;
+          __syncthreads();
+          block_pass_r<true>(r, spec, J, log_n, lo, fwd_p, p);
+        }
       }
       __syncthreads();
-      // 4. inverse NTT of the R products
-      ntt_inverse(res + pi * RN, R, log_n, ipsi + pi * n, ipsi_sh + pi * n, p);
+      if (regions) {
+        region_pipeline<RT>(key_p, spec, res_p, J, R, log_n, fwd_p, inv_p, phase_p, e, p, mu);
+      } else {
+        // 2. the forward tail; 3. the MAC, between the last two forward and
+        // the first two inverse stages; 4. the inverse tail
+        if constexpr (TOP > 0) tail256_passes<true>(spec, J, log_n, fwd_p, p);
+        else tail_passes<true>(spec, J, log_n, log_w, tail, fwd_p, p);
+        __syncthreads();
+        for (int f = threadIdx.x; f < items; f += blockDim.x)
+          mac_group<RT>(spec, res_p, key_p, f & (groups - 1), (f >> (log_n - 2)) * RT, J, R,
+                        log_n, fwd_p, inv_p, phase_p, e, p, mu);
+        __syncthreads();
+        if constexpr (TOP > 0) tail256_passes<false>(res_p, R, log_n, inv_p, p);
+        else tail_passes<false>(res_p, R, log_n, log_w, tail, inv_p, p);
+      }
+      __syncthreads();
+      // 5. the other inverse head passes, then the top one; on the last
+      // prime it lifts with Garner into acc
+      int64_t* acc_out = step == n_steps - 1 ? acc_b : nullptr;
+      if constexpr (TOP > 0) {
+        top_inverse_pass<TOP, PT>(res, pi, P, R, log_n, inv_p, p, pi == P - 1, acc, acc_out,
+                                  g);
+      } else {
+        for (int i = nhead - 1, lo = log_w; i >= 1; --i) {
+          const int r = pass_radix(head, i);
+          block_pass_r<false>(r, res_p, R, log_n, lo, inv_p, p);
+          lo += r;
+          __syncthreads();
+        }
+        top_inverse_pass_r(top, res, pi, P, R, log_n, inv_p, p, pi == P - 1, acc, acc_out, g);
+      }
     }
-    // 5. CRT back to the torus: accumulate the delta
-    for (int i = threadIdx.x; i < RN; i += blockDim.x) acc[i] += garner(res, i, RN, P, cs);
-    __syncthreads();
   }
-  for (int i = threadIdx.x; i < RN; i += blockDim.x) acc_b[i] = (int64_t)acc[i];
 }
 
 // Block c's dynamic shared memory, as this block sees it through the
@@ -460,19 +1018,98 @@ bool valid_shape(int n, int log_n, int P, int R, int L, int base_log) {
          log_n >= 2 && base_log >= 1 && base_log <= 24 && base_log * L <= 64;
 }
 
+typedef void (*DeltaKernel)(int64_t*, const int32_t*, long long, const uint32_t*,
+                            const uint32_t*, const DeltaConsts, int, int, int, int, int,
+                            int, unsigned, unsigned, int);
+
+// The kernel for rt outputs per MAC item: at N = 2048, P = 4 and rt = 2
+// under the layout of one head pass and the 256-coefficient tail (`fast`),
+// the one compiled for that N and P; the general one for every other shape.
+DeltaKernel delta_for(int rt, bool fast, int log_n, int P) {
+  if (fast && rt == 2 && log_n == 11 && P == 4) return delta_kernel<2, 11, 4>;
+  switch (rt) {
+    case 1: return delta_kernel<1, 0, 0>;
+    case 2: return delta_kernel<2, 0, 0>;
+    case 3: return delta_kernel<3, 0, 0>;
+    case 4: return delta_kernel<4, 0, 0>;
+    default: return nullptr;
+  }
+}
+
+// The sum of a pass list's radix logs, each in [min_r, 3]; -1 if it is not one.
+int pass_sum(unsigned code, int min_r) {
+  const int count = (int)(code & 15u);
+  if (count > 7 || code >> (4 + 4 * count) != 0) return -1;
+  int sum = 0;
+  for (int i = 0; i < count; ++i) {
+    const int r = (int)((code >> (4 + 4 * i)) & 15u);
+    if (r < min_r || r > 3) return -1;
+    sum += r;
+  }
+  return sum;
+}
+
+// The layout (rotation.py _delta_layout) covers the log_n stages: the head
+// passes (at least one; radix 1 only when it is the only one), the tail
+// passes and the MAC's two; R outputs in chunks of rt.
+bool valid_layout(int log_n, int R, int rt, unsigned head, unsigned tail, int log_w) {
+  const int h = pass_sum(head, (head & 15u) == 1 ? 0 : 1), t = pass_sum(tail, 1);
+  return rt >= 1 && rt <= 4 && R % rt == 0 && (head & 15u) >= 1 && h >= 0 && t >= 0 &&
+         log_w == log_n - h && h + t + 2 == log_n;
+}
+
+// The delta kernel's constants from the constants buffer in host memory.
+DeltaConsts delta_consts(const u64* cs) {
+  DeltaConsts g = {};
+  for (int a = 0; a < MAXP; ++a) {
+    g.p[a] = (uint32_t)cs[C_P + a];
+    g.mu[a] = cs[C_MU + a];
+    g.ginv[a] = (uint32_t)cs[C_GINV + a];
+    g.ginv_sh[a] = (uint32_t)cs[C_GINV_SH + a];
+    g.half[a] = (uint32_t)cs[C_HALF + a];
+    g.prefix[a] = cs[C_PREFIX + a];
+    for (int b = 0; b < MAXP; ++b) {
+      g.gw[a][b] = (uint32_t)cs[C_GW + a * 8 + b];
+      g.gw_sh[a][b] = (uint32_t)cs[C_GW_SH + a * 8 + b];
+    }
+  }
+  g.mmod = cs[C_MMOD];
+  return g;
+}
+
+// K1 (pdl false) and K4 (pdl true: programmatic stream serialization, so
+// that a step's launch is scheduled while the previous one drains).
 int launch_delta(void* acc, const void* exps, long long e_stride, const void* bsk,
-                 const void* tab, const void* consts, int batch, int n_steps, int n,
-                 int log_n, int P, int R, int L, int base_log, void* stream) {
-  if (!valid_shape(n, log_n, P, R, L, base_log) || batch < 1 || n_steps < 1 ||
-      (batch > 1 && e_stride < n_steps))
+                 const void* tab, const void* host_consts, int batch,
+                 int n_steps, int n, int log_n, int P, int R, int L, int base_log, int rt,
+                 int head, int tail, int log_w, int smem, bool pdl, void* stream) {
+  const bool fast = (head & 15) == 1 && (head >> 4) == (unsigned)(log_n - 8) && log_w == 8 &&
+                    (unsigned)tail == TAIL256;
+  const DeltaKernel kernel = delta_for(rt, fast, log_n, P);
+  if (kernel == nullptr || !valid_shape(n, log_n, P, R, L, base_log) ||
+      !valid_layout(log_n, R, rt, (unsigned)head, (unsigned)tail, log_w) ||
+      host_consts == nullptr || batch < 1 ||
+      n_steps < 1 || (batch > 1 && e_stride < n_steps) ||
+      (size_t)smem != working_set(n, R, L * R, P))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = working_set(n, R, L * R, P);
   cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  blind_rotate_kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(
-      (int64_t*)acc, (const int32_t*)exps, e_stride, (const uint32_t*)bsk,
-      (const uint32_t*)tab, (const u64*)consts, n_steps, log_n, P, R, L, base_log);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch);
+  cfg.blockDim = dim3(DELTA_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (int64_t*)acc, (const int32_t*)exps, e_stride,
+                           (const uint32_t*)bsk, (const uint32_t*)tab,
+                           delta_consts((const u64*)host_consts), n_steps, log_n, P, R, L,
+                           base_log, (unsigned)head, (unsigned)tail, log_w);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -551,12 +1188,16 @@ extern "C" const char* tfhe_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// K1: the whole delta rotation; exps [B][n_steps].  tab is rotation.py
+// _delta_tables' (on the device), host_consts the constants buffer in host
+// memory; rt, head, tail, log_w and smem are rotation.py _delta_layout's.
 extern "C" int tfhe_blind_rotate(void* acc, const void* exps, const void* bsk,
-                                 const void* tab, const void* consts, int batch,
+                                 const void* tab, const void* host_consts, int batch,
                                  int n_steps, int n, int log_n, int P, int R, int L,
-                                 int base_log, void* stream) {
-  return launch_delta(acc, exps, n_steps, bsk, tab, consts, batch, n_steps, n, log_n, P,
-                      R, L, base_log, stream);
+                                 int base_log, int rt, int head, int tail, int log_w,
+                                 int smem, void* stream) {
+  return launch_delta(acc, exps, n_steps, bsk, tab, host_consts, batch, n_steps, n,
+                      log_n, P, R, L, base_log, rt, head, tail, log_w, smem, false, stream);
 }
 
 // K3: the whole multi-bit rotation; exps [B][n_steps][V-1].
@@ -574,11 +1215,12 @@ extern "C" int tfhe_blind_rotate_multi_bit(void* acc, const void* exps, const vo
 // K4: one delta step.  exps points at the step's exponent of ciphertext 0;
 // ciphertext b's is exps[b * e_stride].  bsk is the step's [P][J][R][N].
 extern "C" int tfhe_blind_rotate_step(void* acc, const void* exps, long long e_stride,
-                                      const void* bsk, const void* tab, const void* consts,
-                                      int batch, int n, int log_n, int P, int R, int L,
-                                      int base_log, void* stream) {
-  return launch_delta(acc, exps, e_stride, bsk, tab, consts, batch, 1, n, log_n, P, R, L,
-                      base_log, stream);
+                                      const void* bsk, const void* tab,
+                                      const void* host_consts, int batch, int n, int log_n,
+                                      int P, int R, int L, int base_log, int rt, int head,
+                                      int tail, int log_w, int smem, void* stream) {
+  return launch_delta(acc, exps, e_stride, bsk, tab, host_consts, batch, 1, n,
+                      log_n, P, R, L, base_log, rt, head, tail, log_w, smem, true, stream);
 }
 
 // K5: one variant step.  exps points at c_1 of ciphertext 0, ciphertext b's
@@ -616,4 +1258,21 @@ extern "C" int tfhe_variant_active_clusters(int cluster, int R, int smem, int* o
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = variant_config(cluster, cluster, smem, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
+}
+
+// How many delta blocks (rt outputs per MAC item, `smem` bytes each) the
+// device holds at once.
+extern "C" int tfhe_delta_active_blocks(int rt, int smem, int* out) {
+  const DeltaKernel kernel = delta_for(rt, false, 0, 0);
+  if (kernel == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DELTA_THREADS, smem);
+  *out = per_sm * sms;
+  return (int)err;
 }

@@ -31,11 +31,12 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tfhe_blind_rotate": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "tfhe_blind_rotate": [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
     "tfhe_blind_rotate_multi_bit": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
-    "tfhe_blind_rotate_step": [_P, _P, _L, _P, _P, _P] + [_I] * 7 + [_P],
+    "tfhe_blind_rotate_step": [_P, _P, _L, _P, _P, _P] + [_I] * 12 + [_P],
     "tfhe_blind_rotate_step_variants": [_P, _P, _L, _P, _P, _P] + [_I] * 11 + [_P],
     "tfhe_variant_active_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "tfhe_delta_active_blocks": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tfhe_smem_probe": [_I, _P, _P],
     "tfhe_smem_optin": [_I, ctypes.POINTER(ctypes.c_int)],
