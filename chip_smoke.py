@@ -5,16 +5,18 @@ Drives the port's shortint keyswitch + PBS paths once each, through the
 entry points a user calls, and checks them: the classic path at the full
 PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the multi-bit path
 at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in 296 groups
-of 3, N=2048), and the per-step routes the rotation switches select
-(`tfhe_tpu_torch/config.py`), batch 512 each:
+of 3, N=2048), the per-step routes the rotation switches select
+(`tfhe_tpu_torch/config.py`), and the large-N paths through K6 (3_3 at
+N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
 
   1. card, power limit, SM clock, torch and CUDA versions;
-  2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5 in rotation.cu, K2
-     in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
+  2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5, K6 in rotation.cu,
+     K2 in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
      source, in parallel) and prints ptxas's register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
      compiled for N = 2048 and P = 4, K3/K5 once for each cluster size C
-     and output count R);
+     and output count R, K6's passes once for each radix and its region
+     kernel for each rt, delta and variants);
   3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
      against their plain PyTorch versions on the card at the classic
      path's shapes (K1 at batch 1, 6, 8, 512 and 513 over all 742 steps, K2
@@ -48,6 +50,21 @@ of 3, N=2048), and the per-step routes the rotation switches select
      paired key, built as GGSW_trivial(1) - pair1, against the plain paired
      rotation; K5 over the 296 GROUP_3 steps against the plain version and
      K3's output), each timed with CUDA events;
+  3d. holds K6, the staged step, bit for bit against the plain rotation at
+     full widths with random keys: PARAM_MESSAGE_1_CARRY_4_KS_PBS (N = 4096,
+     L = 2; batch 1, 6, 8, 512), 3_3 (N = 8192; 1, 6, 8, 512, 513),
+     PARAM_MESSAGE_2_CARRY_5_KS_PBS (N = 16384; 8), 4_4 (N = 32768; 1, 8),
+     PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS (N = 65536, J = 8; 1, 8, over
+     16 steps: its full key is 34 GB) and the 3_3 multi-bit sets (GROUP_3:
+     1, 6, 8, 512, 513; GROUP_2: 8); batch 8 runs every step, the others
+     32, each with K6's exact launch count; K6 for one step on the per-step
+     routes at 3_3 (delta, paired; batch 8 and 513); K6 forced
+     (`_staged=True`) at 2_2, batch 8, against K1 on the same inputs; times
+     K6 at batch 512 over every step at 3_3, 3_3 GROUP_3 and 4_4, and K6
+     against its plain version over 32 steps at 3_3 and 3_3 GROUP_3;
+  3e. more than 15 digit rows: K1 (every step at batch 8, 32 at batch
+     512), K4 and the paired K5 (one step) at AES_PARAMETERS_40 (J = 16) and
+     WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS (J = 18), K1 timed at batch 512;
   4. classic path: counts to 0, gen_keys on the card, encrypts 512
      messages, serves three requests (a LUT, a second LUT on its output, a
      bivariate LUT), reads the counts, decrypts all 3 x 512 results against
@@ -66,6 +83,12 @@ of 3, N=2048), and the per-step routes the rotation switches select
      times KS+PBS on the FUSED=0 classic and the paired routes, and traces
      one FUSED=0 classic call under torch.profiler (the device's idle share
      and the mean gap between K4 launches);
+  4d. the large-N paths: for 3_3, 3_3 GROUP_3 and 4_4, gen_keys on the
+     card, 512 messages encrypted, one LUT request with the counts set to 0
+     just before and read just after (K6's launches a step times the steps,
+     one K2, no K1/K3), 512/512 decrypted against the clear model, the 3_3
+     results held against the plain CPU path (one ciphertext), KS+PBS timed,
+     one call traced under torch.profiler (idle share, K6's time by pass);
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -75,7 +98,9 @@ of 3, N=2048), and the per-step routes the rotation switches select
      line: each kernel's time beside its bound (the larger of its 32-bit
      integer multiplies over the card's INT32 issue rate and its bytes over
      3.35 TB/s) and its plain version's time; K3 and K5 also per shape
-     (GROUP_3 and GROUP_2; paired and GROUP_3).
+     (GROUP_3 and GROUP_2; paired and GROUP_3), K6 (delta and variants) at
+     3_3 and 3_3 GROUP_3 over 32 steps against its plain version, and per
+     shape over every step (3_3, 4_4; 3_3 GROUP_3; no plain time there).
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -112,6 +137,23 @@ K1_SHAPES = ("PARAM_MESSAGE_2_CARRY_1_KS_PBS", "PARAM_MESSAGE_1_CARRY_1_KS_PBS",
 # K1 and K4 at 2_2, batch 512, with the earlier radix-2 delta body (NVIDIA H100
 # 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
 EARLIER_K1_MS, EARLIER_K4_MS = 233.376, 258.335
+# K6, the staged step: the classic sets it is held at (batch sizes; batch 8
+# runs every step, the others CUT_STEPS), the multi-bit ones, the cut of
+# 7_1's 34 GB key, and the large-N paths served end to end (name, batch,
+# held against the plain CPU path)
+CLASSIC_33 = "PARAM_MESSAGE_3_CARRY_3_KS_PBS"
+CLASSIC_44 = "PARAM_MESSAGE_4_CARRY_4_KS_PBS"
+GROUP_3_33 = "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS"
+GROUP_2_33 = "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_2_KS_PBS"
+K6_SETS = (("PARAM_MESSAGE_1_CARRY_4_KS_PBS", (1, 6, 8, B)), (CLASSIC_33, (1, 6, 8, B, B + 1)),
+           ("PARAM_MESSAGE_2_CARRY_5_KS_PBS", (8,)), (CLASSIC_44, (1, 8)),
+           ("PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS", (1, 8)))
+K6_MB_SETS = ((GROUP_3_33, (1, 6, 8, B, B + 1)), (GROUP_2_33, (8,)))
+CUT_STEPS = 32
+STEPS_7_1 = 16
+LARGE_PATHS = ((CLASSIC_33, B, True), (GROUP_3_33, B, True), (CLASSIC_44, B, False))
+# the J > 15 shapes: AES_PARAMETERS_40 (J = 16), the WoP-PBS sets (J = 18)
+WIDE_SETS = ("AES_PARAMETERS_40", "WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS")
 
 
 def smi(query: str) -> str:
@@ -179,6 +221,19 @@ def busy_ms(timeline: list) -> float:
     return total / 1e3
 
 
+def exclusive_ms(timeline: list) -> dict:
+    """{kernel name: device ms} where each kernel is charged only the part of
+    its interval after every earlier kernel has ended (the union of the
+    intervals, split by kernel): a launch that waits for the previous one
+    under programmatic dependent launch is not charged for the wait."""
+    out, end = {}, -math.inf
+    for name, ts, dur in timeline:
+        if ts + dur > end:
+            out[name] = out.get(name, 0.0) + (ts + dur - max(ts, end)) / 1e3
+            end = ts + dur
+    return out
+
+
 def print_profile(label: str, wall_ms: float, by_kernel: dict, timeline: list) -> float:
     """Print a profiled call's device busy time (the union of its kernels'
     intervals), idle share and top kernels by summed length; → the busy ms."""
@@ -220,17 +275,31 @@ def garner_mults(P: int) -> int:
 
 
 def k1_mults(batch, steps, P, J, R, n, chunks) -> int:
-    """K1/K4: the NTTs; per output J products, Barrett and the phase's
-    Shoup multiply; one phase index per slot and MAC chunk; the last two
-    forward stages again for each chunk after the first; Garner."""
-    mac = R * n * (J + 7 + 3) + chunks * n + (chunks - 1) * J * 3 * n
+    """K1/K4 (and K6's delta steps): the NTTs; per output J products, a
+    Barrett reduction per 16 and the phase's Shoup multiply; one phase
+    index per slot and MAC chunk; the last two forward stages again for
+    each chunk after the first; Garner."""
+    mac = R * n * (J + 7 * math.ceil(J / 16) + 3) + chunks * n + (chunks - 1) * J * 3 * n
     per_prime = J * ntt_mults(n) + mac + R * ntt_mults(n)
     return batch * steps * (P * per_prime + R * n * garner_mults(P))
 
 
+def variant_reductions(V, J) -> int:
+    """Barrett reductions of one variant MAC sum (csrc/rotation.cu): before
+    a run of at most 16 products that would take it past 16, and the last."""
+    count = reductions = 0
+    for _ in range(V):
+        for j0 in range(0, J, 16):
+            run = min(J, j0 + 16) - j0
+            if count + run > 16:
+                reductions, count = reductions + 1, 0
+            count += run
+    return reductions + 1
+
+
 def k3_mults(batch, steps, V, P, J, R, n) -> int:
-    chunks = math.ceil(V / (16 // J))           # Barrett reductions per output
-    mac = n * ((V - 1) * (1 + 3 * J) + R * V * J + R * 7 * chunks + R * 3)
+    """K3/K5 (and K6's variant steps)."""
+    mac = n * ((V - 1) * (1 + 3 * J) + R * V * J + R * 7 * variant_reductions(V, J) + R * 3)
     per_prime = J * ntt_mults(n) + mac + R * ntt_mults(n)
     return batch * steps * (P * per_prime + R * n * garner_mults(P))
 
@@ -268,7 +337,8 @@ def main() -> int:
     from tfhe_tpu_torch.core.algorithms.encryption import bootstrap_key_to_ntt_paired
     from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
                                               NttBootstrapKey, NttMultiBitBootstrapKey)
-    from tfhe_tpu_torch.core.params import boolean_params, shortint_params
+    from tfhe_tpu_torch.core.params import (boolean_params, gadget_params, shortint_params,
+                                            wopbs_params)
     from tfhe_tpu_torch.core.poly import ntt, rotation
 
     # ---- 1. the card ---------------------------------------------------------
@@ -582,36 +652,193 @@ def main() -> int:
         k2_mb[gf] = (kms, kplain)
         del mkey, acc, cexp, got, outs, dg, km, bd, o2
 
+    # ---- 3d. K6, the staged step, at the shapes beyond one block ------------
+    def staged_key(sp, steps):
+        """A random key of `steps` steps at the widths of set sp (classic or
+        multi-bit)."""
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        gf = getattr(sp, "grouping_factor", None)
+        if gf:
+            return NttMultiBitBootstrapKey(
+                spectra=random_spectra(splan, (steps, 1 << gf, sJ, sR, sN), 2),
+                decomp=sp.pbs_decomp, primes=splan.primes, grouping_factor=gf)
+        return NttBootstrapKey(spectra=random_spectra(splan, (steps, sJ, sR, sN), 1),
+                               decomp=sp.pbs_decomp, primes=splan.primes)
+
+    def rotation_inputs(key, batch, steps):
+        """(acc, exponents) for `steps` steps of key (variant exponents for a
+        multi-bit key)."""
+        sR, sN = key.spectra.shape[-2], key.spectra.shape[-1]
+        acc = rng.uniform_torus(g, (batch, sR, sN))
+        if isinstance(key, NttMultiBitBootstrapKey):
+            gf = key.grouping_factor
+            e = torch.randint(0, 2 * sN, (batch, steps * gf), generator=g, device=dev)
+            return acc, rotation.variant_exponents(e, gf, sN)
+        return acc, torch.randint(0, 2 * sN, (batch, steps), generator=g, device=dev)
+
+    def rotate(key, acc, exps, **kw):
+        """The whole-rotation wrapper for key's type (K1/K3, or K6 by shape)."""
+        if isinstance(key, NttMultiBitBootstrapKey):
+            return rotation.rotate_accumulator_multi_bit(acc, exps, key, **kw)
+        return rotation.rotate_accumulator(acc, exps, key, **kw)
+
+    def first_steps(key, steps):
+        return dataclasses.replace(key, spectra=key.spectra[:steps])
+
+    def hold_rotation(label, key, batch, steps, **kw):
+        """The wrapper over the key's first `steps` steps against the plain
+        rotation on the same inputs; → max_abs_err."""
+        sub = first_steps(key, steps)
+        acc, exps = rotation_inputs(sub, batch, steps)
+        got = rotate(sub, acc, exps, **kw)
+        torch.cuda.synchronize()
+        return hold(f"{label}, batch {batch}, {steps} steps", got,
+                    rotation.blind_rotate_plain(acc, exps, sub))
+
+    def staged_counts():
+        return rotation.staged_launches, rotation.staged_variant_launches
+
+    k6 = {"delta": {"err": 0, "shapes": []}, "variants": {"err": 0, "shapes": []}}
+    for name, batches in K6_SETS + K6_MB_SETS:
+        sp = shortint_params(name)
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        gf = getattr(sp, "grouping_factor", None)
+        steps = sn // gf if gf else sn
+        full = STEPS_7_1 if sN == 65536 else steps
+        cut = min(CUT_STEPS, full)
+        kind = "variants" if gf else "delta"
+        lay = rotation._staged_layout(sN, sR, sJ, sP)
+        if rotation._rotation_route(sN, sR, sJ, sP) != "staged":
+            raise AssertionError(f"{name} does not take K6")
+        key = staged_key(sp, full)
+        print(f"{tag} K6 {kind} {name} (N={sN}, R={sR}, J={sJ}, P={sP}; head {lay.head}, "
+              f"tail {lay.tail}, {lay.launches} launches a step, {lay.warps} regions a "
+              f"block, {lay.smem} B), key {key.spectra.numel() * 4 / 1e9:.2f} GB for {full} of "
+              f"{steps} steps" + (f" (cut: the full key is "
+                                  f"{steps * key.spectra[0].numel() * 4 / 1e9:.2f} GB)"
+                                  if full < steps else ""))
+        for batch in batches:
+            before = staged_counts()
+            depth = full if batch == 8 else cut
+            k6[kind]["err"] = max(k6[kind]["err"], hold_rotation(
+                f"K6 {kind} {name}", key, batch, depth))
+            ran = [a - b for a, b in zip(staged_counts(), before)]
+            count = depth * lay.launches * len(rotation._staged_tiles(batch, sN, sR, sJ, sP))
+            want = [0, count] if gf else [count, 0]
+            if ran != want:
+                raise AssertionError(f"K6 launches {ran}, expected {want}")
+        if name in (CLASSIC_33, GROUP_3_33, CLASSIC_44):
+            acc, exps = rotation_inputs(key, B, full)
+            rotate(key, acc, exps)
+            t = cuda_ms(lambda: rotate(key, acc, exps), 2 if name == CLASSIC_44 else 3)
+            sub = first_steps(key, cut)
+            bnd = bound(
+                (k3_mults(B, full, 1 << gf, sP, sJ, sR, sN) if gf else
+                 k1_mults(B, full, sP, sJ, sR, sN, lay.chunks)),
+                key.spectra.numel() * 4 + 2 * B * sR * sN * 8
+                + B * exps[0].numel() * 4 + 8 * sP * sN * 4, clock_hz, sms)
+            print(f"{tag} K6 {kind} {name} batch {B}: {t:.3f} ms over {full} steps "
+                  f"({t / full:.4f} ms a step), bound {bnd[0]:.3f} ms by {bnd[1]}")
+            k6[kind]["shapes"].append((f"{name} batch {B}, {full} steps", t, None, bnd))
+            if name != CLASSIC_44:
+                # the kernels line's numbers: K6 and plain on the same inputs, cut
+                acc, exps = acc, exps[:, :cut]
+                out = {}
+                ms = cuda_ms(lambda: out.update(kernel=rotate(sub, acc, exps)), 3)
+                plain_ms = cuda_ms(lambda: out.update(
+                    plain=rotation.blind_rotate_plain(acc, exps, sub)), 1)
+                k6[kind]["err"] = max(k6[kind]["err"], hold(
+                    f"K6 {kind} {name}, batch {B}, {cut} steps (timed)", out["kernel"],
+                    out["plain"]))
+                bnd = bound(
+                    (k3_mults(B, cut, 1 << gf, sP, sJ, sR, sN) if gf else
+                     k1_mults(B, cut, sP, sJ, sR, sN, lay.chunks)),
+                    sub.spectra.numel() * 4 + 2 * B * sR * sN * 8
+                    + B * exps[0].numel() * 4 + 8 * sP * sN * 4, clock_hz, sms)
+                print(f"{tag} K6 {kind} {name} batch {B}, {cut} steps: kernel {ms:.3f} ms, "
+                      f"plain {plain_ms:.3f} ms")
+                k6[kind].update(ms=ms, plain_ms=plain_ms, bound=bnd, label=(
+                    f"{name} batch {B}, {cut} steps (plain timed on the same cut)"))
+                k6[kind]["shapes"].append((k6[kind]["label"], ms, plain_ms, bnd))
+            del acc, exps, sub
+        if name == CLASSIC_33:
+            # K6 one step on the per-step routes: delta (K4's) and paired (K5's)
+            pk = bootstrap_key_to_ntt_paired(first_steps(key, 1))
+            for batch in (8, B + 1):
+                a1, e1 = rotation_inputs(key, batch, 1)
+                k6["delta"]["err"] = max(k6["delta"]["err"], hold_steps(
+                    f"K6 delta one step {name}, batch {batch}", a1, e1[:, 0],
+                    key.spectra[0], "delta", key.decomp))
+                k6["variants"]["err"] = max(k6["variants"]["err"], hold_steps(
+                    f"K6 paired one step {name}, batch {batch}", a1, e1[:, :1],
+                    pk.spectra[0], "variants", key.decomp))
+            del pk, a1, e1
+        del key
+    torch.cuda.empty_cache()
+
+    # K6 forced at 2_2 against block-resident K1 on the same inputs
+    key = staged_key(params, params.lwe_dimension)
+    acc, exps = rotation_inputs(key, 8, params.lwe_dimension)
+    hold(f"K6 forced (_staged=True) at {CLASSIC}, batch 8, {params.lwe_dimension} steps",
+         rotation.rotate_accumulator(acc, exps, key, _staged=True),
+         rotation.rotate_accumulator(acc, exps, key), "K1 on the same inputs")
+
+    # ---- 3e. more than 15 digit rows: K1, K4 and the paired K5 --------------
+    for name in WIDE_SETS:
+        sp = gadget_params(name) if name.startswith("AES") else wopbs_params(name)
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        if sJ <= 15:
+            raise AssertionError(f"{name} has J = {sJ}")
+        key = staged_key(sp, sn)
+        pk = bootstrap_key_to_ntt_paired(first_steps(key, 1))
+        lay = rotation._delta_layout(sN, sR, sJ, sP)
+        for batch in (8, B):
+            k1_err = max(k1_err, hold_rotation(f"K1 J={sJ} {name}", key, batch,
+                                               sn if batch == 8 else CUT_STEPS))
+            a1, e1 = rotation_inputs(key, batch, 1)
+            k4_err = max(k4_err, hold_steps(f"K4 J={sJ} {name}, batch {batch}", a1, e1[:, 0],
+                                            key.spectra[0], "delta", key.decomp))
+            k5_err = max(k5_err, hold_steps(f"K5 paired J={sJ} {name}, batch {batch}", a1,
+                                            e1[:, :1], pk.spectra[0], "variants", key.decomp))
+        acc, exps = rotation_inputs(key, B, sn)
+        t = cuda_ms(lambda: rotation.rotate_accumulator(acc, exps, key), 3)
+        print(f"{tag} K1 J={sJ} {name} (N={sN}, R={sR}, P={sP}, rt {lay.rt}) batch {B}: "
+              f"{t:.3f} ms over {sn} steps ({t / sn:.5f} ms a step)")
+        del key, pk, acc, exps, a1, e1
+    torch.cuda.empty_cache()
+
     def zero_counts():
         rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
         rotation.step_launches = rotation.step_variant_launches = 0
+        rotation.staged_launches = rotation.staged_variant_launches = 0
 
     def read_counts():
         return {"blind_rotate": rotation.launches,
                 "blind_rotate_multibit": rotation.multi_bit_launches,
                 "blind_rotate_step": rotation.step_launches,
                 "blind_rotate_step_variants": rotation.step_variant_launches,
+                "blind_rotate_staged": rotation.staged_launches,
+                "blind_rotate_staged_variants": rotation.staged_variant_launches,
                 "keyswitch_mac": keyswitch.launches}
 
-    def check_requests(ck, outs, expect, path, seconds):
+    def check_requests(ck, outs, expect, path, seconds, batch=B):
         right = 0
         for i, (out, want) in enumerate(zip(outs, expect)):
-            if tuple(out.lwe.data.shape) != (B, ck.params.big_lwe_dimension + 1):
+            if tuple(out.lwe.data.shape) != (batch, ck.params.big_lwe_dimension + 1):
                 raise AssertionError(f"{path} request {i + 1}: shape "
                                      f"{tuple(out.lwe.data.shape)}")
             ok = int((ck.decrypt(out).cpu() == want).sum())
             right += ok
-            print(f"{path} request {i + 1}: {ok}/{B} decrypt right")
-        print(f"{tag} {path} path: {right}/{len(outs) * B} right, {len(outs)} requests in "
+            print(f"{path} request {i + 1}: {ok}/{batch} decrypt right")
+        print(f"{tag} {path} path: {right}/{len(outs) * batch} right, {len(outs)} requests in "
               f"{seconds:.3f} s (first-call costs included)")
-        if right != len(outs) * B:
+        if right != len(outs) * batch:
             raise AssertionError(f"decryption mismatch on the {path} path")
 
-    def hold_cpu_path(sk, ct, lut_fn, out, path):
-        """The first request on 4 ciphertexts through the plain path on CPU
-        tensors (what the CPU tests hold against tfhe_tpu), with the same
+    def hold_cpu_path(sk, ct, lut_fn, out, path, small=4):
+        """The first request on `small` ciphertexts through the plain path on
+        CPU tensors (what the CPU tests hold against tfhe_tpu), with the same
         key on its recorded route and the same switches."""
-        small = 4
         sk_cpu = shortint.ServerKey(
             ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
             bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()), params=sk.params)
@@ -744,6 +971,66 @@ def main() -> int:
     config.set_use_mxu_lanes(False)
     config.set_use_fused_rotation(True)
 
+    # ---- 4d. the large-N paths through K6: 3_3, 3_3 GROUP_3, 4_4 ------------
+    large_launches, large_kspbs = {}, {}
+    for pname, batch, cpu_hold in LARGE_PATHS:
+        rp = shortint_params(pname)
+        t0 = time.perf_counter()
+        ck, sk = shortint.gen_keys(rp, seed=args.seed, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gf = getattr(rp, "grouping_factor", None)
+        steps = rp.lwe_dimension // gf if gf else rp.lwe_dimension
+        J, R = rp.pbs_level * rp.glwe_size, rp.glwe_size
+        lay = rotation._staged_layout(rp.polynomial_size, R, J, sk.bsk.spectra.shape[-4])
+        print(f"{tag} {pname}: gen_keys on the card {gen_s:.2f} s (key "
+              f"{sk.bsk.spectra.numel() * 4 / 1e9:.2f} GB, keyswitching key "
+              f"{sk.ksk.data.numel() * 8 / 1e9:.2f} GB), batch {batch}")
+        m = torch.randint(0, rp.message_modulus, (batch,),
+                          generator=rng.generator(args.seed, 11), dtype=torch.int64)
+        ct = ck.encrypt(m.to(dev), seed=args.seed + 6)
+        f33 = lambda x, q=rp.message_modulus: (3 * x + 1) % q
+        lut = sk.generate_lookup_table(f33)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = sk.apply_lookup_table(ct, lut)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"{pname} kernel launches: {json.dumps(counts)}")
+        want = {k: 0 for k in counts}
+        tiles = len(rotation._staged_tiles(batch, rp.polynomial_size, R, J,
+                                           sk.bsk.spectra.shape[-4]))
+        want.update({"blind_rotate_staged_variants" if gf else "blind_rotate_staged":
+                     steps * lay.launches * tiles, "keyswitch_mac": 1})
+        if counts != want:
+            raise AssertionError(f"{pname}: launches {counts}, expected {want}")
+        large_launches[pname] = counts
+        check_requests(ck, [out], [f33(m)], pname, serve_s, batch)
+        if cpu_hold:
+            t0 = time.perf_counter()
+            hold_cpu_path(sk, ct, f33, out, pname, small=1)
+            print(f"{pname} plain CPU path: {time.perf_counter() - t0:.1f} s")
+        large_kspbs[pname] = (cuda_ms(lambda: sk.apply_lookup_table(ct, lut),
+                                      2 if pname == CLASSIC_44 else 3), batch)
+        # one call under the profiler: the idle share, and K6's time by pass
+        wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ct, lut))
+        busy = print_profile(f"{tag} profiler, one {pname} KS+PBS call at batch {batch}",
+                             wall_ms, by_kernel, timeline)
+        passes = {}
+        for name, ms in exclusive_ms(timeline).items():
+            for kind in ("staged_first_pass", "staged_head_pass", "staged_region",
+                         "staged_last_pass"):
+                if kind in name:
+                    passes[kind] = passes.get(kind, 0.0) + ms
+        if not busy or not passes:
+            raise AssertionError(f"the {pname} trace shows no K6 time")
+        print(f"{tag} {pname} K6 device time by pass (ms, each kernel after the one "
+              f"before it ended; one call, {steps} steps): "
+              + ", ".join(f"{k} {v:.3f} ({v / busy:.1%} of busy)" for k, v in passes.items()))
+        del ck, sk, ct, out, lut
+        torch.cuda.empty_cache()
+
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
     largest = smem_probe.largest(dev)
@@ -764,10 +1051,15 @@ def main() -> int:
     # ---- 6. launch counts, throughput, the kernels line -----------------------
     print(f"classic path kernel launches: {json.dumps(classic_launches)}")
     print(f"multi-bit GROUP_3 path kernel launches: {json.dumps(multi_bit_launches)}")
+    for pname, counts in large_launches.items():
+        print(f"{pname} path kernel launches: {json.dumps(counts)}")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
                         ("keyswitch_mac", classic_launches["keyswitch_mac"]),
                         ("blind_rotate_multibit", multi_bit_launches["blind_rotate_multibit"]),
                         ("keyswitch_mac", multi_bit_launches["keyswitch_mac"]),
+                        ("blind_rotate_staged", large_launches[CLASSIC_33]["blind_rotate_staged"]),
+                        ("blind_rotate_staged_variants",
+                         large_launches[GROUP_3_33]["blind_rotate_staged_variants"]),
                         ("smem_probe", probe_launches)):
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by its path")
@@ -784,15 +1076,20 @@ def main() -> int:
     for name, ms in list(kspbs.items()) + list(route_kspbs.items()):
         print(f"{tag} KS+PBS {name} batch {B}: {ms:.3f} ms per call, "
               f"{B / (ms / 1e3):.2f} PBS/s")
+    for name, (ms, batch) in large_kspbs.items():
+        print(f"{tag} KS+PBS {name} batch {batch} (K6): {ms:.3f} ms per call, "
+              f"{batch / (ms / 1e3):.2f} PBS/s")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, shapes=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, shapes=None,
+              cluster=None):
         print(f"{tag} {name}: {ms:.3f} ms, bound {bnd[0]:.6f} ms by {bnd[1]} "
               f"(bound / time = {bnd[0] / ms:.1%}), plain {plain_ms:.3f} ms")
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        if cluster:
+            out["cluster"] = cluster
         if shapes:
-            out["cluster"] = rotation._CLUSTER
             out["shapes"] = [{"shape": sh, "ms": t, "plain_ms": pt, "bound_ms": b[0],
                               "bound_by": b[1]} for sh, t, pt, b in shapes]
         return out
@@ -812,7 +1109,7 @@ def main() -> int:
               multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
               k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"],
               [(f"GROUP_{gf} batch {B}, one launch", k3[gf]["ms"], k3[gf]["plain_ms"],
-                k3[gf]["bound"]) for gf in (3, 2)]),
+                k3[gf]["bound"]) for gf in (3, 2)], rotation._CLUSTER),
         entry("blind_rotate_step", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:601",
               route_total("blind_rotate_step"), k4_err, k4_ms, k1_plain_ms, k4_bound),
         entry("blind_rotate_step_variants", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:221",
@@ -821,7 +1118,15 @@ def main() -> int:
               [(f"paired 2_2 batch {B}, {steps_per_call[CLASSIC]} launches", k5p_ms,
                 k5p_plain_ms, k5p_bound),
                (f"GROUP_3 batch {B}, {steps_per_call[GROUP_3]} launches", k5m_ms,
-                k5m_plain_ms, k5m_bound)]),
+                k5m_plain_ms, k5m_bound)], rotation._CLUSTER),
+        entry("blind_rotate_staged", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              sum(c["blind_rotate_staged"] for c in large_launches.values()),
+              k6["delta"]["err"], k6["delta"]["ms"], k6["delta"]["plain_ms"],
+              k6["delta"]["bound"], k6["delta"]["shapes"]),
+        entry("blind_rotate_staged_variants", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              sum(c["blind_rotate_staged_variants"] for c in large_launches.values()),
+              k6["variants"]["err"], k6["variants"]["ms"], k6["variants"]["plain_ms"],
+              k6["variants"]["bound"], k6["variants"]["shapes"]),
         entry("smem_probe", "tfhe_tpu_torch/csrc/probe.cu", "tools/vmem_probe.py:19",
               probe_launches, abs(largest - optin), probe_ms, optin_ms,
               bound(largest, 8, clock_hz, sms)),

@@ -17,11 +17,12 @@
 #include <vector>
 
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __grid_constant__
 #define __restrict__
-#define __launch_bounds__(threads, blocks)
+#define __launch_bounds__(...)
 #define __align__(n)
 
 struct uint2 { unsigned x, y; };
@@ -89,28 +90,35 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t*)
   return cudaSuccess;
 }
 
-// Runs the grid: block after block, each as blockDim.x threads.
+// Runs the grid: block after block, each as blockDim.x threads (one
+// std::thread per CUDA thread, started once for the whole grid and held
+// between blocks by a barrier).
 template <class... Params, class... Args>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Params...),
                                Args&&... args) {
   if (cfg->dynamicSmemBytes > sizeof host_smem) return cudaErrorInvalidValue;
   const unsigned threads = cfg->blockDim.x;
   blockDim = dim3(threads);
-  for (unsigned b = 0; b < cfg->gridDim.x; ++b) {
-    blockIdx = dim3(b);
-    std::memset(host_smem, 0xA5, sizeof host_smem);   // stale data, as on the card
-    host_block_barrier = std::make_unique<std::barrier<>>(threads);
-    host_warp_barriers.clear();
-    for (unsigned w = 0; w < (threads + 31) / 32; ++w)
-      host_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([&, t] {
-        threadIdx = dim3(t);
+  host_block_barrier = std::make_unique<std::barrier<>>(threads);
+  host_warp_barriers.clear();
+  for (unsigned w = 0; w < (threads + 31) / 32; ++w)
+    host_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
+  std::barrier<> between_blocks(threads);
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned b = 0; b < cfg->gridDim.x; ++b) {
+        if (t == 0) {
+          blockIdx = dim3(b);
+          std::memset(host_smem, 0xA5, sizeof host_smem);   // stale data, as on the card
+        }
+        between_blocks.arrive_and_wait();
         kernel(args...);
-      });
-    for (auto& th : pool) th.join();
-  }
+        between_blocks.arrive_and_wait();
+      }
+    });
+  for (auto& th : pool) th.join();
   return cudaSuccess;
 }
 

@@ -9,23 +9,16 @@ indexing, pass schedule, barriers, lazy arithmetic and Garner lift, with
 the layout, tables and constants the wrapper passes; `chip_smoke.py` holds
 the same kernels on the card.  Skips where no C++20 host compiler is found.
 """
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-from tfhe_tpu_torch import cuda_lib
+from cuda_host import build_rotation_host
 from tfhe_tpu_torch.core.entities import NttBootstrapKey
 from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_u64
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.core.poly import ntt, rotation
 
-TESTS = Path(__file__).resolve().parent
 # (N, R, L, base_log, P): the main path's delta shapes (2_2, which takes the
 # kernel compiled for N = 2048 and P = 4, and on the general kernel 2_1, 1_1,
 # the boolean set, 2_3 at N = 4096, 1_0 with R = 6), and small and odd ones
@@ -36,30 +29,8 @@ SHAPES = [(2048, 2, 1, 23, 4), (1024, 3, 1, 23, 4), (512, 4, 1, 18, 4), (512, 3,
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ host compiler to build csrc/rotation.cu for the CPU")
-    src = (cuda_lib.CSRC / "rotation.cu").read_text()
-    src = src.replace("#include <cooperative_groups.h>", '#include "cuda_host_stub.h"')
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = re.sub(r"^\s*asm volatile\(.*\);\s*$", "", src, flags=re.M)
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = host_smem;")
-    out = tmp_path_factory.mktemp("host_rotation")
-    (out / "rotation.cpp").write_text(src)
-    lib = out / "librotation_host.so"
-    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                           "-Wno-unknown-pragmas", f"-I{TESTS}", "-o", str(lib),
-                           str(out / "rotation.cpp")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        if "barrier" in proc.stderr and "No such file" in proc.stderr:
-            pytest.skip(f"{cxx} has no C++20 <barrier>")
-        raise AssertionError(f"host build of rotation.cu failed:\n{proc.stderr[-4000:]}")
-    dll = ctypes.CDLL(str(lib))
-    for name in ("tfhe_blind_rotate", "tfhe_blind_rotate_step"):
-        getattr(dll, name).argtypes = cuda_lib._SIGNATURES[name]
-        getattr(dll, name).restype = ctypes.c_int
-    return dll
+    return build_rotation_host(tmp_path_factory.mktemp("host_rotation"),
+                               ("tfhe_blind_rotate", "tfhe_blind_rotate_step"))
 
 
 def inputs(n, R, L, base_log, P, batch, steps, seed):

@@ -446,7 +446,8 @@ def test_simulated_step_equals_the_plain_step(n, R, L, base_log, P):
 
 # ---- the wrapper's checks ---------------------------------------------------
 
-@pytest.mark.parametrize("n, R, L, P", SHAPES + [(4, 1, 1, 1), (8, 2, 1, 2), (8192, 1, 1, 1)])
+@pytest.mark.parametrize("n, R, L, P", SHAPES + [(4, 1, 1, 1), (8, 2, 1, 2), (8192, 1, 1, 1),
+                                           (2048, 2, 8, 4), (1024, 3, 6, 3)])
 def test_layout_accepts_the_shapes_k1_takes(n, R, L, P):
     lay = rotation._delta_layout(n, R, L * R, P)
     assert lay.threads == rotation._DELTA_THREADS
@@ -458,7 +459,7 @@ def test_layout_refuses_a_working_set_above_shared_memory(n, R, L, P):
         rotation._delta_layout(n, R, L * R, P)
 
 
-@pytest.mark.parametrize("n, R, J, P", [(2048, 2, 16, 4), (2048, 2, 2, 9), (12, 1, 1, 1),
+@pytest.mark.parametrize("n, R, J, P", [(2048, 2, 0, 4), (2048, 2, 2, 9), (12, 1, 1, 1),
                                         (2, 1, 1, 1), (2048, 2, 3, 4)])
 def test_layout_refuses_what_the_kernel_does_not_take(n, R, J, P):
     with pytest.raises(ValueError):

@@ -1,6 +1,7 @@
 """The blind rotation, classic (delta form), paired and multi-bit, on two
 routes: the whole rotation in one kernel launch (K1, K3) or one launch per
-step (K4, K5).
+step (K4, K5); where a ciphertext's working set exceeds one block's shared
+memory, both routes run K6, the staged step, instead.
 
 Counterpart of `tfhe_tpu/core/poly/pallas_ntt.py`: `blind_rotate_fused`
 (:1537, the fused route) and `blind_rotate_pallas` (:1742) /
@@ -15,11 +16,14 @@ glue here, as they are XLA glue there.  Every step is one of
   g = 1 over [GGSW(1 - s_j), GGSW(s_j)]), K3's loop body and K5:
     acc = sum_{v < 2^g} X^{c_v} * sum_{l,r} decomp_l(acc_r) * GGSW_{j,v}[l, r]
 
-All four kernels are in `csrc/rotation.cu` (a delta body for K1/K4 and a
-variant body for K3/K5; the source's header says what each replaces and
-what bounds it on the card), with `blind_rotate_step_plain` as the one
-plain step formula beside them.  All compute the exact product mod 2^64,
-so all are bit-identical to the JAX functions.  K1 and K4 run a
+All the kernels are in `csrc/rotation.cu` (a delta body for K1/K4, a
+variant body for K3/K5, and K6's passes over device memory, whose region
+kernel runs the delta body's MAC pipeline; the source's header says what
+each replaces and what bounds it on the card), with
+`blind_rotate_step_plain` as the one plain step formula beside them.  All
+compute the exact product mod 2^64, so all are bit-identical to the JAX
+functions.  The wrappers choose K1/K3/K4/K5 or K6 from the shape alone,
+before any launch (`_rotation_route`, `_shape_plan`).  K1 and K4 run a
 register-resident NTT in passes of up to 8 coefficients a thread, with the
 digits fused into the first forward pass, the MAC between the last forward
 and the first inverse pass, and Garner in the last inverse pass; their pass
@@ -27,7 +31,8 @@ schedule and MAC split come from `_delta_layout`, their twiddle and phase
 tables (values beside their Shoup twins) from `_delta_tables`.  K3 and K5
 run in clusters of C blocks that share each key word among C ciphertexts;
 their grid, cluster, slot ranges, padding and shared memory come from
-`_variant_launch_plan`.  The JAX wrappers' batch bucketing
+`_variant_launch_plan`.  K6's passes, region size and batch tiles come
+from `_staged_layout` and `_staged_tiles`.  The JAX wrappers' batch bucketing
 (`_padded_flat_batch`) only caps TPU compiles and has no counterpart: the
 kernels take any batch.
 """
@@ -47,11 +52,15 @@ from . import monomial_mul, ntt
 
 # Kernel launches, the CUDA branches only: `rotate_accumulator` (K1),
 # `rotate_accumulator_multi_bit` (K3) and `blind_rotate_step` (K4 in delta
-# mode, K5 in variants mode).
+# mode, K5 in variants mode) where a ciphertext's working set fits one
+# block; K6's kernels (2 per head pass + 1 a step) where it does not, delta
+# and variant steps counted apart.
 launches = 0
 multi_bit_launches = 0
 step_launches = 0
 step_variant_launches = 0
+staged_launches = 0
+staged_variant_launches = 0
 
 _MAXP = 8
 _MAXR = 4              # K3/K5 are instantiated for k+1 = 1..4 outputs
@@ -59,8 +68,11 @@ _SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
 _CLUSTERS = (1, 2, 4, 8)   # cluster sizes K3/K5 are instantiated for
 _CLUSTER = 2           # K3/K5's default cluster size (chip_smoke.py's sweep)
 _DELTA_THREADS = 256   # threads of a K1/K4 block (DELTA_THREADS in csrc/rotation.cu)
+_STAGED_WARPS = 8      # regions (warps) of a K6 region block, at most
+_STAGED_SCRATCH = 2 << 30   # bytes of K6 scratch a call holds at once (batch tiles)
+_PER_STEP_MAX_N = 8192  # the per-step routes' largest N (pallas_ntt.py:1809)
 _TABLES: dict = {}     # (N, P, device) → (tab, consts) for the variant body
-_DELTA_TABLES: dict = {}   # (N, P, device) → tab for the delta body
+_DELTA_TABLES: dict = {}   # (N, P, device, variants) → tab for the delta body and K6
 _CONSTS: dict = {}     # (N, P) → the constants buffer in host memory
 _ACTIVE: dict = {}     # (cluster, R, smem, device) → clusters the device holds
 
@@ -286,46 +298,147 @@ def _split(stages: int, top_first: bool) -> tuple:
     return tuple(stages // count + (i < stages % count) for i in range(count))
 
 
+def _check_shape(n: int, R: int, J: int, P: int) -> int:
+    """log2 N, after the checks every rotation kernel makes: N a power of
+    two >= 4, 1 <= P <= 8, J = L*R digit rows."""
+    log_n = n.bit_length() - 1
+    if n < 4 or n != 1 << log_n:
+        raise ValueError(f"the rotation kernels take N a power of two >= 4, not {n}")
+    if not 1 <= P <= _MAXP or R < 1 or J < 1 or J % R:
+        raise ValueError(f"the rotation kernels take P <= {_MAXP} and J = L*R >= 1, "
+                         f"not P={P}, R={R}, J={J}")
+    return log_n
+
+
+def _mac_chunks(R: int, slots: int, threads: int) -> int:
+    """Outputs per MAC item come in R/chunks (at most 4): the fewest chunks
+    that give each of `threads` threads a group of 4 of `slots` slots, else
+    the most."""
+    chunks = [c for c in range(1, R + 1) if R % c == 0 and R // c <= 4]
+    full = [c for c in chunks if c * slots // 4 >= threads]
+    return full[0] if full else chunks[-1]
+
+
 def _delta_layout(n: int, R: int, J: int, P: int) -> DeltaLayout:
     """The delta body's layout for polynomials of N = n slots, R outputs,
     J = L*R digit rows and P primes; raises where the kernel does not take
-    the shape (the working set above one block's shared memory, P > 8,
-    J > 15)."""
-    log_n = n.bit_length() - 1
-    if n < 4 or n != 1 << log_n:
-        raise ValueError(f"the delta kernel takes N a power of two >= 4, not {n}")
-    if not 1 <= P <= _MAXP or not 1 <= J <= 15 or R < 1 or J % R:
-        raise ValueError(f"the delta kernel takes P <= {_MAXP}, J = L*R <= 15, "
-                         f"not P={P}, R={R}, J={J}")
-    smem = _working_set(n, R, J, P)
+    the shape (P > 8, the working set above one block's shared memory:
+    that shape runs K6, `_staged_layout`)."""
+    log_n = _check_shape(n, R, J, P)
+    smem = _block_smem(n, R, J, P)
     # head: the stages above a warp's region of at most 256 coefficients
     # (at least one stage, so that the first pass decomposes; none at N = 4,
     # where a pass of radix 1 decomposes and the MAC runs both stages)
     h = 0 if log_n == 2 else max(log_n - 8, 1)
     head = _split(h, False) or (0,)
     log_w = log_n - h
-    # outputs per MAC thread: the fewest chunks (R/rt of them, rt <= 4)
-    # that give every thread a group of 4 slots, else the most
-    chunks = [c for c in range(1, R + 1) if R % c == 0 and R // c <= 4]
-    full = [c for c in chunks if c * n // 4 >= _DELTA_THREADS]
-    c = full[0] if full else chunks[-1]
+    c = _mac_chunks(R, n, _DELTA_THREADS)
     return DeltaLayout(log_n=log_n, head=head, tail=_split(log_w - 2, True), log_w=log_w,
                        rt=R // c, chunks=c, threads=_DELTA_THREADS, smem=smem)
 
 
-def _delta_tables(plan: ntt.NttPlan, device) -> torch.Tensor:
-    """The delta body's tables, cached per plan and device: u32 pairs
-    (value, Shoup twin) of psi_rev [P][N], psi_inv_rev [P][N] and the phase
-    [P][2N] = (psi^m - 1)/N.  The twiddles stay in the heap order of
-    ntt.py (stage with m blocks at [m, 2m)), so a pass's 2^r - 1 twiddles
-    at heap node q are q, 2q..2q+1, 4q..4q+3: with their twins beside
-    them, one 8-byte and one or two 16-byte loads.  One 8-byte gather
-    gives a slot's phase and its twin."""
-    dkey = (plan.n, plan.num_primes, str(torch.device(device)))
+@dataclass(frozen=True)
+class StagedLayout:
+    """How K6 runs one step of a ciphertext whose working set does not fit
+    one block.  The digit spectra and the products stay in device memory
+    (scratch [B, P, J, N] and [B, P, R, N] u32, swizzled as the delta body
+    keeps a polynomial in shared memory).  The forward transform's `head`
+    passes (radix logs, top pass first) run over device memory, one launch
+    each, the first decomposing acc for every prime; one launch runs, a
+    warp per region of 2^log_w slots, the forward `tail` passes, the MAC
+    (R outputs in `chunks` of rt) and the inverse tail, with the region in
+    shared memory (`warps` regions a block, `smem` bytes); the inverse head
+    passes mirror the forward ones, and the last lifts with Garner over the
+    primes into acc.  `launches` kernels a step."""
+    log_n: int
+    head: tuple
+    tail: tuple
+    log_w: int
+    rt: int
+    chunks: int
+    warps: int
+    smem: int
+
+    @property
+    def launches(self) -> int:
+        return 2 * len(self.head) + 1
+
+    @property
+    def head_code(self) -> int:
+        return _pack(self.head)
+
+    @property
+    def tail_code(self) -> int:
+        return _pack(self.tail)
+
+
+def _staged_layout(n: int, R: int, J: int, P: int) -> StagedLayout:
+    """K6's layout for N = n slots, R outputs, J = L*R digit rows and P
+    primes: the stages above a region of at most 256 slots (at least one)
+    are head passes of radix 8 at most; a region holds 32 slots or more
+    (N >= 64), so that the swizzle keeps its words together."""
+    log_n = _check_shape(n, R, J, P)
+    h = max(log_n - 8, 1)
+    log_w = log_n - h
+    if log_w < 5:
+        raise ValueError(f"the staged kernel takes N >= 64, not {n}")
+    per_warp = 4 * (J + R) << log_w
+    if per_warp > _SMEM_LIMIT:
+        raise ValueError(f"a region's {J + R} polynomials ({per_warp} B) exceed one "
+                         f"block's shared memory ({_SMEM_LIMIT} B)")
+    warps = _STAGED_WARPS
+    while warps * per_warp > _SMEM_LIMIT:
+        warps //= 2
+    c = _mac_chunks(R, 1 << log_w, 32)
+    return StagedLayout(log_n=log_n, head=_split(h, False), tail=_split(log_w - 2, True),
+                        log_w=log_w, rt=R // c, chunks=c, warps=warps, smem=warps * per_warp)
+
+
+def _staged_args(lay: StagedLayout) -> tuple:
+    """The layout's arguments of tfhe_staged_rotate."""
+    return lay.rt, lay.head_code, lay.tail_code, lay.log_w, lay.warps, lay.smem
+
+
+def _staged_tiles(batch: int, n: int, R: int, J: int, P: int) -> list:
+    """Row ranges [lo, hi) of the batch that K6 runs at once: as many
+    ciphertexts as keep its scratch (4 P (J + R) N bytes each) within
+    `_STAGED_SCRATCH`, at least one."""
+    rows = max(1, _STAGED_SCRATCH // (4 * P * (J + R) * n))
+    return [(lo, min(batch, lo + rows)) for lo in range(0, batch, rows)]
+
+
+def _rotation_route(n: int, R: int, J: int, P: int, per_step: bool = False,
+                    staged: bool = False) -> str:
+    """Which kernel a rotation of this shape takes, from the shape alone:
+    "block" (K1/K3, or K4/K5 per step: a ciphertext's working set 8RN + 4JN
+    + 4PRN bytes in one block's shared memory) or "staged" (K6; `staged`
+    asks for it at any N).  The per-step routes end at N = 8192, as the
+    JAX package's do (pallas_ntt.py:1809)."""
+    if per_step and n > _PER_STEP_MAX_N:
+        raise NotImplementedError(
+            f"N = {n} on the per-step route: \"factored phase tables (N >= "
+            f"fourstep.MONO_SPLIT_MIN_N) are only supported by the whole-rotation fused "
+            f"kernel (config.use_fused_rotation)\" (tfhe_tpu/core/poly/pallas_ntt.py:1809; "
+            f"MONO_SPLIT_MIN_N = 16384)")
+    if staged or _working_set(n, R, J, P) > _SMEM_LIMIT:
+        return "staged"
+    return "block"
+
+
+def _delta_tables(plan: ntt.NttPlan, device, variants: bool = False) -> torch.Tensor:
+    """The delta body's tables (and K6's), cached per plan and device: u32
+    pairs (value, Shoup twin) of psi_rev [P][N], psi_inv_rev [P][N] and the
+    phase [P][2N] = (psi^m - 1)/N (`variants`: psi^m / N, K6's variant
+    steps).  The twiddles stay in the heap order of ntt.py (stage with m
+    blocks at [m, 2m)), so a pass's 2^r - 1 twiddles at heap node q are q,
+    2q..2q+1, 4q..4q+3: with their twins beside them, one 8-byte and one or
+    two 16-byte loads.  One 8-byte gather gives a slot's phase and its
+    twin."""
+    dkey = (plan.n, plan.num_primes, str(torch.device(device)), variants)
     if dkey not in _DELTA_TABLES:
         p = plan.p64
         n_inv = np.array(plan.n_inv, dtype=np.int64).reshape(-1, 1)
-        phase = (plan.psi_pow - 1) % p * n_inv % p
+        phase = (plan.psi_pow - (0 if variants else 1)) % p * n_inv % p
         parts = [np.stack([vals.astype(np.uint64), _shoup_u32(vals, p)], axis=-1).reshape(-1)
                  for vals in (plan.psi_rev, plan.psi_inv_rev, phase)]
         tab = np.concatenate(parts).astype(np.uint32)
@@ -334,9 +447,15 @@ def _delta_tables(plan: ntt.NttPlan, device) -> torch.Tensor:
 
 
 def _working_set(n: int, R: int, J: int, P: int) -> int:
-    """Shared memory of one block of csrc/rotation.cu: the accumulator
-    [R][N] u64, the J digit spectra and the R products of all P primes."""
-    smem = 8 * R * n + 4 * J * n + 4 * P * R * n
+    """A ciphertext's working set in the block kernels (K1, K3, K4, K5):
+    the accumulator [R][N] u64, the J digit spectra and the R products of
+    all P primes, in one block's shared memory."""
+    return 8 * R * n + 4 * J * n + 4 * P * R * n
+
+
+def _block_smem(n: int, R: int, J: int, P: int) -> int:
+    """`_working_set`, raising where one block cannot hold it."""
+    smem = _working_set(n, R, J, P)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a ciphertext's working set ({smem} B) exceeds one "
                          f"block's shared memory ({_SMEM_LIMIT} B)")
@@ -376,7 +495,7 @@ def _variant_launch_plan(batch: int, n: int, R: int, J: int, P: int,
         raise ValueError(f"the batch must hold a ciphertext, not {batch}")
     if n % cluster:
         raise ValueError(f"a cluster of {cluster} blocks does not divide the {n} slots")
-    smem = _working_set(n, R, J, P)
+    smem = _block_smem(n, R, J, P)
     grid = -(-batch // cluster) * cluster
     span = n // cluster
     return VariantPlan(cluster=cluster, grid=grid,
@@ -417,13 +536,42 @@ def _schedulable(plan: VariantPlan, R: int, device) -> VariantPlan:
     return plan
 
 
-def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) -> tuple:
+def _shape_plan(n: int, R: int, L: int, base_log: int, P: int, variants: int,
+                per_step: bool = False, staged: bool = False) -> tuple:
+    """What a kernel wrapper does with a rotation of this shape, from the
+    shape alone (no launch): → (route, layout), route "block" or "staged"
+    (`_rotation_route`), layout `_delta_layout`'s for a block delta step,
+    None for a block variant step (K3/K5: `_variant_launch_plan` adds the
+    batch), `_staged_layout`'s for K6.  `variants` GGSWs a step, 0 for the
+    delta step.  Raises where no kernel takes the shape."""
+    J = L * R
+    if base_log > 24 or base_log < 1:
+        raise ValueError(f"the rotation kernels take base_log 1..24, not {base_log}")
+    _check_shape(n, R, J, P)
+    if variants:
+        g = variants.bit_length() - 1
+        if variants != 1 << g or not 1 <= g <= 4:
+            raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, "
+                             f"not {variants} variants")
+    route = _rotation_route(n, R, J, P, per_step, staged)
+    if route == "staged":
+        return route, _staged_layout(n, R, J, P)
+    if not variants:
+        return route, _delta_layout(n, R, J, P)
+    if R > _MAXR:
+        raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
+    return route, None
+
+
+def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int,
+                  per_step: bool = False, staged: bool = False) -> tuple:
     """Checks shared by the kernel wrappers on acc [B, R, N] and a key of
     shape [..., P, J, R, N] with `variants` GGSWs per step (0 for the delta
-    step); → (plan, tab, consts, layout): for a delta key the delta body's
-    tables (`_delta_tables`), the constants in host memory (`_host_consts`)
-    and its layout (`_delta_layout`); for the others the variant body's
-    tables and constants (`_kernel_tables`) and None."""
+    step); → (plan, tab, consts, layout): for K6 (a `StagedLayout`) and for
+    a block delta key the delta body's tables (`_delta_tables`, with the
+    variant phase for K6's variant steps), the constants in host memory
+    (`_host_consts`) and the layout; for a block variant key the variant
+    body's tables and constants (`_kernel_tables`) and None."""
     P, J, R, n = key_shape[-4:]
     B = acc.shape[0]
     L, base_log = decomp.level, decomp.base_log
@@ -432,19 +580,11 @@ def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int) ->
                          f"disagree")
     if acc.dtype != torch.int64:
         raise TypeError("acc must be int64")
-    if P > _MAXP or J > 15 or base_log > 24:
-        raise ValueError(f"the kernel takes P <= {_MAXP}, J <= 15, base_log <= 24")
+    route, lay = _shape_plan(n, R, L, base_log, P, variants, per_step, staged)
     plan = ntt.get_plan(n, P)
-    if not variants:
-        return (plan, _delta_tables(plan, acc.device), _host_consts(plan),
-                _delta_layout(n, R, J, P))
-    g = variants.bit_length() - 1
-    if variants != 1 << g or not 1 <= g <= 4:
-        raise ValueError(f"the kernel takes groupings 1..4 with 2^g variants, "
-                         f"not {variants} variants")
-    if R > _MAXR:
-        raise ValueError(f"the variants kernel takes k+1 <= {_MAXR}, not {R}")
-    _working_set(n, R, J, P)
+    if route == "staged" or not variants:
+        return (plan, _delta_tables(plan, acc.device, bool(variants)), _host_consts(plan),
+                lay)
     return (plan,) + _kernel_tables(plan, acc.device) + (None,)
 
 
@@ -462,7 +602,7 @@ def _check_key(key) -> None:
 
 
 def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
-                 variants: int) -> tuple:
+                 variants: int, staged: bool) -> tuple:
     """Checks of the whole-rotation wrappers; → (plan, tab, consts, layout,
     out, exps as int32, spectra), all contiguous on acc's device."""
     _check_key(key)
@@ -473,17 +613,53 @@ def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
         raise TypeError("the key spectra must be int32")
     if key.spectra.device != acc.device or exps.device != acc.device:
         raise ValueError("all operands must be on one device")
-    plan, tab, cs, lay = _kernel_setup(acc, key.spectra.shape, key.decomp, variants)
+    plan, tab, cs, lay = _kernel_setup(acc, key.spectra.shape, key.decomp, variants,
+                                       staged=staged)
     return (plan, tab, cs, lay, acc.contiguous().clone(), exps.to(torch.int32).contiguous(),
             key.spectra.contiguous())
 
 
+def _staged_rotate(acc: torch.Tensor, exps: torch.Tensor, e_step: int,
+                   spectra: torch.Tensor, decomp, grouping: int, n_steps: int,
+                   lay: StagedLayout, plan: ntt.NttPlan, tab: torch.Tensor,
+                   cs: np.ndarray) -> None:
+    """K6 over acc [B, R, N] (contiguous, updated in place) for n_steps
+    steps of `spectra` (delta: [steps, P, J, R, N], grouping 0; variants:
+    [steps, 2^g, P, J, R, N]), in batch tiles (`_staged_tiles`).  exps:
+    int32, ciphertext b's exponents of step s e_step words after exps[b]
+    (delta: e; variants: c_1..c_{2^g-1}), read through its batch stride.
+    Each launch adds one to `staged_launches` (delta) or
+    `staged_variant_launches` (variants)."""
+    global staged_launches, staged_variant_launches
+    B, R, n = acc.shape
+    P, L = plan.num_primes, decomp.level
+    tiles = _staged_tiles(B, n, R, L * R, P)
+    rows = tiles[0][1]
+    spec = torch.empty((rows, P, L * R, n), dtype=torch.int32, device=acc.device)
+    res = torch.empty((rows, P, R, n), dtype=torch.int32, device=acc.device)
+    lib = cuda_lib.library()
+    for lo, hi in tiles:
+        code = lib.tfhe_staged_rotate(
+            acc[lo].data_ptr(), exps[lo].data_ptr(), exps.stride(0), e_step,
+            spectra.data_ptr(), tab.data_ptr(), cs.ctypes.data, spec.data_ptr(),
+            res.data_ptr(), hi - lo, n_steps, n, plan.log_n, P, R, L, decomp.base_log,
+            grouping, *_staged_args(lay), cuda_lib.stream_of(acc))
+        if grouping:
+            staged_variant_launches += n_steps * lay.launches
+        else:
+            staged_launches += n_steps * lay.launches
+        cuda_lib.check(code, "tfhe_staged_rotate")
+
+
 def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
-                       key: NttBootstrapKey) -> torch.Tensor:
-    """K1's wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (or an error: there is no fallback).  Returns a new
-    rotated accumulator [B, R, N] int64.  Takes delta keys only: a paired
-    key runs on the per-step route (`rotate_steps`)."""
+                       key: NttBootstrapKey, *, _staged: bool = False) -> torch.Tensor:
+    """K1's wrapper: the plain version for CPU tensors, a CUDA kernel for
+    CUDA tensors (or an error: there is no fallback): K1 where a
+    ciphertext's working set fits one block, else K6's host step loop
+    (`_rotation_route`, from the shape).  Returns a new rotated accumulator
+    [B, R, N] int64.  Takes delta keys only: a paired key runs on the
+    per-step route (`rotate_steps`).  `_staged` runs K6 at any N; it does
+    not change the result."""
     if key.paired:
         raise ValueError("K1 takes a delta key; a paired key runs rotate_steps")
     if acc.device.type == "cpu":
@@ -493,7 +669,10 @@ def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
     global launches
     n_steps, P, J, R, n = key.spectra.shape
     plan, tab, cs, lay, out, e32, spectra = _launch_args(acc, exps, key,
-                                                         (acc.shape[0], n_steps), 0)
+                                                         (acc.shape[0], n_steps), 0, _staged)
+    if isinstance(lay, StagedLayout):
+        _staged_rotate(out, e32, 1, spectra, key.decomp, 0, n_steps, lay, plan, tab, cs)
+        return out
     lib = cuda_lib.library()
     code = lib.tfhe_blind_rotate(out.data_ptr(), e32.data_ptr(), spectra.data_ptr(),
                                  tab.data_ptr(), cs.ctypes.data, out.shape[0], n_steps, n,
@@ -506,12 +685,14 @@ def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
 
 def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
                                  key: NttMultiBitBootstrapKey, *,
-                                 _cluster: int | None = None) -> torch.Tensor:
-    """K3's wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (or an error: there is no fallback).  exps [B, n/g, 2^g-1]
-    from `variant_exponents`.  Returns a new rotated accumulator [B, R, N].
-    `_cluster` sets the kernel's cluster size (default `_CLUSTER`); it does
-    not change the result."""
+                                 _cluster: int | None = None,
+                                 _staged: bool = False) -> torch.Tensor:
+    """K3's wrapper: the plain version for CPU tensors, a CUDA kernel for
+    CUDA tensors (or an error: there is no fallback): K3 where a
+    ciphertext's working set fits one block, else K6's variant steps.  exps
+    [B, n/g, 2^g-1] from `variant_exponents`.  Returns a new rotated
+    accumulator [B, R, N].  `_cluster` sets K3's cluster size (default
+    `_CLUSTER`), `_staged` runs K6 at any N; neither changes the result."""
     cluster = _cluster_size(_cluster)
     if acc.device.type == "cpu":
         return blind_rotate_multi_bit_plain(acc, exps, key)
@@ -522,8 +703,12 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
     if V != 1 << key.grouping_factor:
         raise ValueError(f"grouping {key.grouping_factor} has {1 << key.grouping_factor} "
                          f"variants, the key {V}")
-    plan, tab, cs, _, out, e32, spectra = _launch_args(
-        acc, exps, key, (acc.shape[0], n_steps, V - 1), V)
+    plan, tab, cs, lay, out, e32, spectra = _launch_args(
+        acc, exps, key, (acc.shape[0], n_steps, V - 1), V, _staged)
+    if isinstance(lay, StagedLayout):
+        _staged_rotate(out, e32, V - 1, spectra, key.decomp, key.grouping_factor, n_steps,
+                       lay, plan, tab, cs)
+        return out
     launch = _schedulable(_variant_launch_plan(out.shape[0], n, R, J, P, cluster), R,
                           out.device)
     lib = cuda_lib.library()
@@ -538,7 +723,8 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
 
 
 def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.Tensor,
-                      mode: str, decomp, *, _cluster: int | None = None) -> torch.Tensor:
+                      mode: str, decomp, *, _cluster: int | None = None,
+                      _staged: bool = False) -> torch.Tensor:
     """One blind-rotation step over the batch, in place on acc [B, R, N]
     int64; returns acc.  Counterpart of `blind_rotate_step_pallas_mxu`
     (pallas_ntt.py:1018, B4), `blind_rotate_step_pallas_mxu_lanes` (:955,
@@ -554,13 +740,18 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
 
     key_slice holds residues mod primes_for(N)[:P] in the ct-bitrev order.
     CPU tensors take `blind_rotate_step_plain`; CUDA tensors launch K4 or K5
-    (or raise: there is no fallback).  On the card exps_j must be int32; a
+    where a ciphertext's working set fits one block, else K6 for one step
+    (or raise: there is no fallback).  N above 8192 raises on every device,
+    as the JAX per-step routes do.  On the card exps_j must be int32; a
     strided view (a column of the [B, n] table) is read in place, through
     its batch stride.  `_cluster` sets K5's cluster size (default
-    `_CLUSTER`; K4 takes none); it does not change the result."""
+    `_CLUSTER`; K4 takes none), `_staged` runs K6 at any N; neither changes
+    the result."""
     if mode == "delta" and _cluster is not None:
         raise ValueError("K4, the delta step, runs without a cluster")
     cluster = _cluster_size(_cluster)
+    P, J, R, n = key_slice.shape[-4:]
+    _rotation_route(n, R, J, P, per_step=True)
     if acc.device.type == "cpu":
         return blind_rotate_step_plain(acc, exps_j, key_slice, mode, decomp)
     if acc.device.type != "cuda":
@@ -572,9 +763,8 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     if key_slice.ndim != (5 if variants else 4):
         raise ValueError(f"a {mode} step takes a key slice of {5 if variants else 4} "
                          f"axes, not {tuple(key_slice.shape)}")
-    plan, tab, cs, lay = _kernel_setup(acc, key_slice.shape, decomp, variants)
-    B, R, n = acc.shape
-    P = key_slice.shape[-4]
+    plan, tab, cs, lay = _kernel_setup(acc, key_slice.shape, decomp, variants, True, _staged)
+    B = acc.shape[0]
     e_shape = (B, variants - 1) if variants else (B,)
     if tuple(exps_j.shape) != e_shape or exps_j.dtype != torch.int32:
         raise ValueError(f"exps_j must be int32 {e_shape}, not {exps_j.dtype} "
@@ -588,11 +778,14 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     if variants and exps_j.stride(1) != 1:
         exps_j = exps_j.contiguous()
     key_slice = key_slice.contiguous()
+    if isinstance(lay, StagedLayout):
+        _staged_rotate(acc, exps_j, 0, key_slice, decomp,
+                       variants.bit_length() - 1 if variants else 0, 1, lay, plan, tab, cs)
+        return acc
     lib = cuda_lib.library()
     shape = (B, n, plan.log_n, P, R, decomp.level, decomp.base_log)
     if variants:
-        launch = _schedulable(_variant_launch_plan(B, n, R, key_slice.shape[-3], P, cluster),
-                              R, acc.device)
+        launch = _schedulable(_variant_launch_plan(B, n, R, J, P, cluster), R, acc.device)
         code = lib.tfhe_blind_rotate_step_variants(
             acc.data_ptr(), exps_j.data_ptr(), exps_j.stride(0), key_slice.data_ptr(),
             tab.data_ptr(), cs.data_ptr(), *shape, variants.bit_length() - 1, launch.grid,

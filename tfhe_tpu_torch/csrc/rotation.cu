@@ -1,6 +1,8 @@
 // The blind rotation for a batch of LWE ciphertexts, in two kernel bodies:
 // the delta body (classic keys) and the variant body (multi-bit keys, and
-// paired classic keys as g = 1), each launched two ways:
+// paired classic keys as g = 1), each launched two ways, and a staged form
+// of both for ciphertexts whose working set exceeds one block's shared
+// memory:
 //
 //   whole rotation, the step loop inside the block:
 //     K1 tfhe_blind_rotate            delta steps, classic keys
@@ -9,6 +11,10 @@
 //     K4 tfhe_blind_rotate_step           one delta step
 //     K5 tfhe_blind_rotate_step_variants  one variant step (g = 1..4; g = 1
 //                                         is a paired classic key)
+//   the working set in global memory, 2 launches per head pass + 1 a step,
+//   the step loop on the host:
+//     K6 tfhe_staged_rotate   delta or variant steps: the whole rotation
+//                             (K1's and K3's route) or one step (K4's, K5's)
 //
 // K1 replaces the TPU kernel `_make_rotation_kernel_mxu` run through
 // `blind_rotate_fused(mode="delta")` (tfhe_tpu/core/poly/pallas_ntt.py:1073,
@@ -45,12 +51,14 @@
 // lift back with Garner (signed lift, then mod 2^64), so every result is
 // bit-identical to the JAX kernel it replaces whatever the transform's order.
 //
-// Common design.  Each block owns one ciphertext and keeps its accumulator
-// [R][N] u64, its J digit spectra and its R products (all P primes) in
-// shared memory: 8RN + 4JN + 4PRN bytes (114,688 B at N = 2048, R = J = 2,
-// P = 4: two blocks per SM).  K1/K3 run the step loop inside the block (it
-// takes the place of the TPU's sequential grid axis); K4/K5 load the
-// accumulator from global memory, run one step and store it back in place.
+// Common design of K1-K5.  Each block owns one ciphertext and keeps its
+// accumulator [R][N] u64, its J digit spectra and its R products (all P
+// primes) in shared memory: 8RN + 4JN + 4PRN bytes (114,688 B at N = 2048,
+// R = J = 2, P = 4: two blocks per SM).  K1/K3 run the step loop inside the
+// block (it takes the place of the TPU's sequential grid axis); K4/K5 load
+// the accumulator from global memory, run one step and store it back in
+// place.  Where the working set exceeds one block's 232,448 B (N = 4096 at
+// L = 2, every N >= 8192: 3_3, 4_4, the 3_3 multi-bit sets) K6 runs instead.
 // Per step and prime: balanced digits of acc -> forward Cooley-Tukey NTT
 // (psi merged, bit-reversed out) of the J digit polys -> MAC against the
 // step's key spectra with the phase -> Gentleman-Sande inverse of the R
@@ -149,14 +157,47 @@
 // a time, so the key loads stay 4-byte loads, coalesced across the warp: a
 // 16-byte load would need four slots per thread, 4*C*R sums.
 //
+// The MACs take any J = L*R: a 64-bit sum holds 16 products of reduced
+// residues (< p < 2^30, so 16 p^2 < 2^64) and is reduced before the 17th,
+// inside the j loop where J > 16 (J = 16 at AES_PARAMETERS_40, 18 at the
+// WoP-PBS sets).  K1/K4 take delta_kernel with WIDE false for J <= 16 (no
+// reduction in the loop: its code is kept from growing) and WIDE for J > 16.
+//
+// K6, the staged step, replaces the same TPU kernels at the shapes where
+// they raise the VMEM limit (pallas_ntt.py:1717-1724) or take the factored
+// phase stack (N >= 16384, :1135-1168): one block cannot hold a ciphertext
+// (4_4's accumulator alone is 512 KB), so its digit spectra [P][J][N] and
+// products [P][R][N] (u32) live in device memory, swizzled in 256-word
+// blocks as the delta body keeps a polynomial in shared memory.  Per step
+// (rotation.py _staged_layout, h = log2 N - 8 head stages):
+//  - the head passes run over device memory, radix 8 at most, one launch
+//    each: the first reads acc and splits it into digits for every prime
+//    (next_digits), the others are pass_item over the grid;
+//  - one launch, a warp per (prime, 256-slot region, ciphertext), copies
+//    the region's J digit polynomials to shared memory and runs K1's region
+//    pipeline on it: the forward tails, the MAC (delta: mac_group; variants:
+//    the last two forward stages, then mac_variants, the phase psi^m/N
+//    folded into the digits) and the inverse tails, and copies the R
+//    products back;
+//  - the inverse head passes mirror the forward ones; the last transforms
+//    every prime and lifts with Garner into acc (delta: adds; variants:
+//    replaces).
+// 2 ceil(h/3) + 1 launches a step: 5 at N = 4096..16384, 7 at 32768 and
+// 65536, launched with programmatic dependent launch.  What bounds it: the
+// scratch round trips through device memory (at N = 32768, batch 512, the
+// digit spectra alone are 1 GB a step, against 4 MB of key); the region
+// tasks run prime, region, then ciphertext, so that neighbouring warps read
+// the same key words from L2.  The batch is tiled where the scratch would
+// exceed 2 GB (rotation.py _staged_tiles).
+//
 // Left to later work: for K1/K4, more independent work per SM than two
 // blocks of 256 threads give (shared memory holds two ciphertexts at 2_2);
 // for K3/K5, this body's NTT (they keep the radix-2 ntt_forward and
 // ntt_inverse below) and what bounds a full round; K5's per-launch cost;
 // the variant phase gathers (2(V-1) per slot and ciphertext, one
-// interleaved 8-byte gather would halve them); and N >= 8192, whose working
-// set exceeds one block's shared memory (the cluster machinery, with a
-// ciphertext spread over C blocks).
+// interleaved 8-byte gather would halve them); for K6, fewer scratch round
+// trips (radix-16 head passes, one step's last pass fused with the next
+// step's first, TMA or clusters).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -317,8 +358,8 @@ __device__ __forceinline__ uint64_t garner(const uint32_t* res, int i, int strid
 // MAC's 16-byte groups) falls in 32 banks.
 __device__ __forceinline__ int swz(int pos) { return pos ^ (((pos >> 5) & 7) << 2); }
 
-__device__ __forceinline__ int pass_count(unsigned code) { return (int)(code & 15u); }
-__device__ __forceinline__ int pass_radix(unsigned code, int i) {
+__host__ __device__ __forceinline__ int pass_count(unsigned code) { return (int)(code & 15u); }
+__host__ __device__ __forceinline__ int pass_radix(unsigned code, int i) {
   return (int)((code >> (4 + 4 * i)) & 15u);
 }
 
@@ -399,18 +440,21 @@ __device__ __forceinline__ int swz_at(int base, int k, int lo) {
   return lo >= 8 ? swz(base) + (k << lo) : swz(base + (k << lo));
 }
 
-// One item of a pass: heap node q, coefficients base + s*2^lo of `poly`.
+// One item of a pass: heap node q, coefficients base + s*2^lo of a
+// polynomial whose swizzled words from `org` on are at `poly` (org = 0:
+// the whole polynomial; a region's first coefficient: that region).
 template <int RL, bool FWD>
 __device__ __forceinline__ void pass_item(uint32_t* poly, int q, int base, int lo,
-                                          const uint2* __restrict__ t, uint32_t p) {
+                                          const uint2* __restrict__ t, uint32_t p,
+                                          int org = 0) {
   uint2 tw[8];
   load_twiddles<RL>(tw, t, q);
   uint32_t a[1 << RL];
 #pragma unroll
-  for (int s = 0; s < (1 << RL); ++s) a[s] = poly[swz_at(base, s, lo)];
+  for (int s = 0; s < (1 << RL); ++s) a[s] = poly[swz_at(base, s, lo) - org];
   if constexpr (FWD) ct_stages<RL>(a, tw, p); else gs_stages<RL>(a, tw, p);
 #pragma unroll
-  for (int s = 0; s < (1 << RL); ++s) poly[swz_at(base, s, lo)] = a[s];
+  for (int s = 0; s < (1 << RL); ++s) poly[swz_at(base, s, lo) - org] = a[s];
 }
 
 // A head pass at stride 2^lo over `npoly` polynomials, items spread over
@@ -436,14 +480,16 @@ __device__ void block_pass_r(int r, uint32_t* arr, int npoly, int log_n, int lo,
   }
 }
 
-// A tail pass on one warp's region [base, base + 2^log_w) of `poly`.
+// A tail pass on one warp's region [base, base + 2^log_w) of a polynomial,
+// whose words are at `region` (the swizzle keeps a region of 32 or more
+// coefficients within its words).
 template <int RL, bool FWD>
-__device__ __forceinline__ void tail_pass(uint32_t* poly, int base, int log_n, int log_w,
+__device__ __forceinline__ void tail_pass(uint32_t* region, int base, int log_n, int log_w,
                                           int lo, const uint2* __restrict__ t, uint32_t p) {
   for (int it = threadIdx.x & 31; it < (1 << (log_w - RL)); it += 32) {
     const int blk = (base >> (lo + RL)) + (it >> lo);
-    pass_item<RL, FWD>(poly, (1 << (log_n - lo - RL)) + blk,
-                       (blk << (lo + RL)) + (it & ((1 << lo) - 1)), lo, t, p);
+    pass_item<RL, FWD>(region, (1 << (log_n - lo - RL)) + blk,
+                       (blk << (lo + RL)) + (it & ((1 << lo) - 1)), lo, t, p, base);
   }
 }
 
@@ -484,11 +530,11 @@ __device__ __forceinline__ void tail256_stride4(uint32_t* region, int q,
 // The tail's pass list at N >= 512 (rotation.py _delta_layout): radix 8, 8.
 constexpr unsigned TAIL256 = 2u | (3u << 4) | (3u << 8);
 
-// Both tail passes on region blk (256 coefficients) of `poly`, by one warp.
+// Both tail passes on region blk (256 coefficients, its words at
+// `region`), by one warp.
 template <bool FWD>
-__device__ __forceinline__ void tail256_region(uint32_t* poly, int blk, int log_n,
+__device__ __forceinline__ void tail256_region(uint32_t* region, int blk, int log_n,
                                                const uint2* __restrict__ t, uint32_t p) {
-  uint32_t* region = poly + (blk << 8);
   const int q32 = (1 << (log_n - 8)) + blk;
   const int q4 = (1 << (log_n - 5)) + 8 * blk + ((threadIdx.x & 31) >> 2);
   if constexpr (FWD) tail256_stride32<FWD>(region, q32, t, p);
@@ -505,33 +551,83 @@ __device__ void tail256_passes(uint32_t* arr, int npoly, int log_n,
                                const uint2* __restrict__ t, uint32_t p) {
   const int shift = log_n - 8;
   for (int g = threadIdx.x >> 5; g < (npoly << shift); g += blockDim.x >> 5)
-    tail256_region<FWD>(arr + ((g >> shift) << log_n), g & ((1 << shift) - 1), log_n, t, p);
+    tail256_region<FWD>(arr + ((g >> shift) << log_n) + ((g & ((1 << shift) - 1)) << 8),
+                        g & ((1 << shift) - 1), log_n, t, p);
 }
 
-// The tail passes (top down forward, bottom up inverse) over `npoly`
-// polynomials, one warp per region, warp barriers between passes.
+// The tail passes (top down forward, bottom up inverse) on one warp's
+// region [base, base + 2^log_w) of a polynomial, its words at `region`,
+// warp barriers between passes.
+template <bool FWD>
+__device__ __forceinline__ void region_tails(uint32_t* region, int base, int log_n, int log_w,
+                                             unsigned code, const uint2* __restrict__ t,
+                                             uint32_t p) {
+  if (log_w == 8 && code == TAIL256) {
+    tail256_region<FWD>(region, base >> 8, log_n, t, p);
+    return;
+  }
+  const int count = pass_count(code);
+  int lo = FWD ? log_w : 2;
+  for (int i = 0; i < count; ++i) {
+    const int r = pass_radix(code, FWD ? i : count - 1 - i);
+    if (FWD) lo -= r;
+    switch (r) {
+      case 1: tail_pass<1, FWD>(region, base, log_n, log_w, lo, t, p); break;
+      case 2: tail_pass<2, FWD>(region, base, log_n, log_w, lo, t, p); break;
+      default: tail_pass<3, FWD>(region, base, log_n, log_w, lo, t, p); break;
+    }
+    if (!FWD) lo += r;
+    __syncwarp();
+  }
+}
+
+// The tail passes over `npoly` polynomials, one warp per region.
 template <bool FWD>
 __device__ void tail_passes(uint32_t* arr, int npoly, int log_n, int log_w, unsigned code,
                             const uint2* __restrict__ t, uint32_t p) {
-  const int shift = log_n - log_w, count = pass_count(code);
+  const int shift = log_n - log_w;
   if (log_w == 8 && code == TAIL256) {
     tail256_passes<FWD>(arr, npoly, log_n, t, p);
     return;
   }
   for (int g = threadIdx.x >> 5; g < (npoly << shift); g += blockDim.x >> 5) {
-    uint32_t* poly = arr + ((g >> shift) << log_n);
     const int base = (g & ((1 << shift) - 1)) << log_w;
-    int lo = FWD ? log_w : 2;
-    for (int i = 0; i < count; ++i) {
-      const int r = pass_radix(code, FWD ? i : count - 1 - i);
-      if (FWD) lo -= r;
-      switch (r) {
-        case 1: tail_pass<1, FWD>(poly, base, log_n, log_w, lo, t, p); break;
-        case 2: tail_pass<2, FWD>(poly, base, log_n, log_w, lo, t, p); break;
-        default: tail_pass<3, FWD>(poly, base, log_n, log_w, lo, t, p); break;
-      }
-      if (!FWD) lo += r;
-      __syncwarp();
+    region_tails<FWD>(arr + ((g >> shift) << log_n) + base, base, log_n, log_w, code, t, p);
+  }
+}
+
+// The words a decomposition starts from: a torus word rounded to the top
+// base_log * L bits (signed_decompose's closest representable value).
+__device__ __forceinline__ uint64_t round_word(uint64_t a, int shift) {
+  return shift > 0 ? (a + (1ull << (shift - 1))) >> shift : a;
+}
+
+// The next balanced digit (least significant first) of each of 2^RL
+// rounded words: s[k] loses it, v[k] gets it, in (-B/2, B/2].  With
+// shift >= 33 the rounded value and its carries fit 32 bits.  K6's first
+// pass splits once for all primes; K1's decompose_pass keeps its own copy
+// of the split, which reduces for its prime in the same loop: calling this
+// one made K1 0.9% slower at 2_2 (same-call turns on the card, PERF.md).
+template <int RL>
+__device__ __forceinline__ void next_digits(uint64_t (&s)[1 << RL], int32_t (&v)[1 << RL],
+                                            int base_log, int shift) {
+  if (shift >= 33) {
+    const uint32_t dmask = (1u << base_log) - 1, dhalf = 1u << (base_log - 1);
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) {
+      const uint32_t raw = (uint32_t)s[k] & dmask;
+      const uint32_t carry = (raw + dhalf) >> base_log;
+      v[k] = (int32_t)raw - (int32_t)(carry << base_log);
+      s[k] = ((uint32_t)s[k] >> base_log) + carry;
+    }
+  } else {
+    const uint64_t dmask = (1ull << base_log) - 1, dhalf = 1ull << (base_log - 1);
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) {
+      const uint64_t raw = s[k] & dmask;
+      const uint64_t carry = (raw + dhalf) >> base_log;
+      v[k] = (int32_t)((int64_t)raw - (int64_t)(carry << base_log));
+      s[k] = (s[k] >> base_log) + carry;
     }
   }
 }
@@ -606,14 +702,13 @@ struct DeltaConsts {
   u64 mu[MAXP], prefix[MAXP], mmod;
 };
 
-// garner() with the last prime's residue given: res[a * stride + i] for
-// a < P - 1, `last` for a = P - 1.  PT > 0 fixes P = PT at compile time.
-template <int PT>
-__device__ __forceinline__ uint64_t garner_last(const uint32_t* res, int i, int stride,
-                                                uint32_t last, int P, const DeltaConsts& g) {
+// The signed lift (mod 2^64) of the residues get(a), a < P, each in [0, p_a).
+// PT > 0 fixes P = PT at compile time.
+template <int PT, class Get>
+__device__ __forceinline__ uint64_t garner_from(Get get, int P, const DeltaConsts& g) {
   if constexpr (PT > 0) P = PT;
   uint32_t t[MAXP];
-  t[0] = P == 1 ? last : res[i];
+  t[0] = get(0);
   uint64_t c = t[0];
 #pragma unroll
   for (int a = 1; a < (PT > 0 ? PT : MAXP); ++a) {
@@ -623,8 +718,7 @@ __device__ __forceinline__ uint64_t garner_last(const uint32_t* res, int i, int 
 #pragma unroll
     for (int b = 0; b < a; ++b)
       acc = add_mod(acc, mul_shoup(t[b], g.gw[a][b], g.gw_sh[a][b], pa), pa);
-    const uint32_t v = a == P - 1 ? last : res[a * stride + i];
-    t[a] = mul_shoup(sub_mod(v, acc, pa), g.ginv[a], g.ginv_sh[a], pa);
+    t[a] = mul_shoup(sub_mod(get(a), acc, pa), g.ginv[a], g.ginv_sh[a], pa);
     c += (uint64_t)t[a] * g.prefix[a];
   }
   bool ge = false, eq = true;
@@ -635,6 +729,16 @@ __device__ __forceinline__ uint64_t garner_last(const uint32_t* res, int i, int 
     eq = eq && (t[a] == g.half[a]);
   }
   return (ge || eq) ? c - g.mmod : c;
+}
+
+// garner_from with the last prime's residue given: res[a * stride + i] for
+// a < P - 1, `last` for a = P - 1.
+template <int PT>
+__device__ __forceinline__ uint64_t garner_last(const uint32_t* res, int i, int stride,
+                                                uint32_t last, int P, const DeltaConsts& g) {
+  const int np = PT > 0 ? PT : P;
+  return garner_from<PT>([&](int a) { return a == np - 1 ? last : res[a * stride + i]; }, np,
+                         g);
 }
 
 // The last inverse pass (the top RL stages) of prime pi's R products, item
@@ -685,21 +789,50 @@ __device__ void top_inverse_pass_r(int r, uint32_t* res, int pi, int P, int R, i
   }
 }
 
+// Each 64-bit MAC sum is reduced before its 17th product: digit residues
+// and key words are fully reduced (< p < 2^30), so 16 products stay below
+// 16 p^2 < 2^64, and so do 16 more beside a Barrett-reduced residue (< p).
+
+// s[r][c] <- s[r][c] mod p (Barrett), for RT outputs of 4 slots.
+template <int RT>
+__device__ __forceinline__ void reduce_sums(uint64_t (&s)[RT][4], uint32_t p, u64 mu) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = barrett(s[r][c], p, mu);
+}
+
+// s[r][c] += a[c] * w[r][c] for RT outputs of 4 slots.
+template <int RT>
+__device__ __forceinline__ void mac4(uint64_t (&s)[RT][4], const uint32_t (&a)[4],
+                                     const uint4 (&w)[RT]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    s[r][0] += (uint64_t)a[0] * w[r].x;
+    s[r][1] += (uint64_t)a[1] * w[r].y;
+    s[r][2] += (uint64_t)a[2] * w[r].z;
+    s[r][3] += (uint64_t)a[3] * w[r].w;
+  }
+}
+
 // The MAC of slots [4x, 4x+4) for outputs r0..r0+RT-1, fused between the
 // transforms: the last two forward stages of each digit polynomial in
-// registers, the J products of each output in one 64-bit sum (the key
-// words as 16-byte loads), one Barrett reduction, the phase (X^e - 1)/N
-// gathered once per slot for all outputs, the first two inverse stages,
-// and a 16-byte store of each output's 4 slots.
-template <int RT>
+// registers, the J products of each output in a 64-bit sum (the key words
+// as 16-byte loads; WIDE, for J > 16, reduces it after every 16), one
+// Barrett reduction, the phase (X^e - 1)/N gathered once per slot for all
+// outputs, the first two inverse stages, and a 16-byte store of each
+// output's 4 slots.  The digit and product polynomials in shared memory
+// are 2^log_s words apart, and the group's words start at `at` (swz(4x)
+// where they hold whole polynomials).
+template <int RT, bool WIDE>
 __device__ __forceinline__ void mac_group(const uint32_t* spec, uint32_t* res_p,
                                           const uint32_t* __restrict__ key_p, int x, int r0,
-                                          int J, int R, int log_n,
+                                          int J, int R, int log_n, int log_s, int at,
                                           const uint2* __restrict__ fwd,
                                           const uint2* __restrict__ inv,
                                           const uint2* __restrict__ phase, uint32_t e,
                                           uint32_t p, u64 mu) {
-  const int q = (1 << (log_n - 2)) + x, k0 = 4 * x, at = swz(k0);
+  const int q = (1 << (log_n - 2)) + x, k0 = 4 * x;
   uint2 fw[8], iw[8], ph[4];
   load_twiddles<2>(fw, fwd, q);
   uint64_t s[RT][4];
@@ -707,25 +840,28 @@ __device__ __forceinline__ void mac_group(const uint32_t* spec, uint32_t* res_p,
   for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = 0;
-#pragma unroll 2
-  for (int j = 0; j < J; ++j) {
+  const auto product = [&](int j) {
     uint4 w[RT];
 #pragma unroll
     for (int r = 0; r < RT; ++r)
-      w[r] = __ldg(reinterpret_cast<const uint4*>(
-          key_p + (((j * R + r0 + r) << log_n) + k0)));
-    const uint4 v = *reinterpret_cast<const uint4*>(spec + (j << log_n) + at);
+      w[r] = __ldg(reinterpret_cast<const uint4*>(key_p + (((j * R + r0 + r) << log_n) + k0)));
+    const uint4 v = *reinterpret_cast<const uint4*>(spec + (j << log_s) + at);
     uint32_t a[4] = {v.x, v.y, v.z, v.w};
     ct_stages<2>(a, fw, p);
 #pragma unroll
     for (int c = 0; c < 4; ++c) a[c] = csub(csub(a[c], 2 * p), p);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      s[r][0] += (uint64_t)a[0] * w[r].x;
-      s[r][1] += (uint64_t)a[1] * w[r].y;
-      s[r][2] += (uint64_t)a[2] * w[r].z;
-      s[r][3] += (uint64_t)a[3] * w[r].w;
+    mac4<RT>(s, a, w);
+  };
+  if constexpr (WIDE) {
+    for (int j0 = 0; j0 < J; j0 += MAX_PRODUCTS) {
+      if (j0 > 0) reduce_sums<RT>(s, p, mu);
+      const int j1 = min(J, j0 + MAX_PRODUCTS);
+#pragma unroll 2
+      for (int j = j0; j < j1; ++j) product(j);
     }
+  } else {
+#pragma unroll 2
+    for (int j = 0; j < J; ++j) product(j);
   }
   load_twiddles<2>(iw, inv, q);
   const uint32_t two_n_mask = (2u << log_n) - 1;
@@ -740,7 +876,7 @@ __device__ __forceinline__ void mac_group(const uint32_t* spec, uint32_t* res_p,
 #pragma unroll
     for (int c = 0; c < 4; ++c) a[c] = mul_lazy(barrett(s[r][c], p, mu), ph[c].x, ph[c].y, p);
     gs_stages<2>(a, iw, p);
-    *reinterpret_cast<uint4*>(res_p + ((r0 + r) << log_n) + at) =
+    *reinterpret_cast<uint4*>(res_p + ((r0 + r) << log_s) + at) =
         make_uint4(a[0], a[1], a[2], a[3]);
   }
 }
@@ -749,7 +885,7 @@ __device__ __forceinline__ void mac_group(const uint32_t* spec, uint32_t* res_p,
 // (N >= 256 * warps): per region, one warp runs the forward tail of each
 // digit polynomial, the MAC of the region's 64 groups and the inverse tail
 // of each product, with warp barriers only.
-template <int RT>
+template <int RT, bool WIDE>
 __device__ __forceinline__ void region_pipeline(const uint32_t* key_p, uint32_t* spec,
                                                 uint32_t* res_p, int J, int R, int log_n,
                                                 const uint2* __restrict__ fwd,
@@ -757,12 +893,16 @@ __device__ __forceinline__ void region_pipeline(const uint32_t* key_p, uint32_t*
                                                 const uint2* __restrict__ phase, uint32_t e,
                                                 uint32_t p, u64 mu) {
   for (int g = threadIdx.x >> 5; g < (1 << (log_n - 8)); g += blockDim.x >> 5) {
-    for (int j = 0; j < J; ++j) tail256_region<true>(spec + (j << log_n), g, log_n, fwd, p);
-    for (int f = threadIdx.x & 31; f < (R / RT) * 64; f += 32)
-      mac_group<RT>(spec, res_p, key_p, (g << 6) + (f & 63), (f >> 6) * RT, J, R, log_n, fwd,
-                    inv, phase, e, p, mu);
+    for (int j = 0; j < J; ++j)
+      tail256_region<true>(spec + (j << log_n) + (g << 8), g, log_n, fwd, p);
+    for (int f = threadIdx.x & 31; f < (R / RT) * 64; f += 32) {
+      const int x = (g << 6) + (f & 63);
+      mac_group<RT, WIDE>(spec, res_p, key_p, x, (f >> 6) * RT, J, R, log_n, log_n, swz(4 * x),
+                          fwd, inv, phase, e, p, mu);
+    }
     __syncwarp();
-    for (int r = 0; r < R; ++r) tail256_region<false>(res_p + (r << log_n), g, log_n, inv, p);
+    for (int r = 0; r < R; ++r)
+      tail256_region<false>(res_p + (r << log_n) + (g << 8), g, log_n, inv, p);
   }
 }
 
@@ -774,10 +914,12 @@ __device__ __forceinline__ void region_pipeline(const uint32_t* key_p, uint32_t*
 // barrier after the tail and after the MAC (4 a prime); a block barrier;
 // the inverse head passes (a block barrier between two), the top one
 // lifting into acc on the last prime.  RT outputs per MAC item, R/RT items
-// per 4-slot group.  When launched with programmatic stream serialization
-// (K4) the next launch may be scheduled as soon as every block has started,
-// and waits for this one's results.
-template <int RT, int LN, int PT>
+// per 4-slot group; WIDE for J > 16 digit rows (the MAC reduces inside its
+// j loop; the kernels for J <= 16 keep the loop without it).  When launched
+// with programmatic stream serialization (K4) the next launch may be
+// scheduled as soon as every block has started, and waits for this one's
+// results.
+template <int RT, int LN, int PT, bool WIDE>
 __global__ void __launch_bounds__(DELTA_THREADS, 2)
 delta_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
              long long e_stride, const uint32_t* __restrict__ bsk,
@@ -841,7 +983,8 @@ delta_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
       }
       __syncthreads();
       if (regions) {
-        region_pipeline<RT>(key_p, spec, res_p, J, R, log_n, fwd_p, inv_p, phase_p, e, p, mu);
+        region_pipeline<RT, WIDE>(key_p, spec, res_p, J, R, log_n, fwd_p, inv_p, phase_p, e, p,
+                                  mu);
       } else {
         // 2. the forward tail; 3. the MAC, between the last two forward and
         // the first two inverse stages; 4. the inverse tail
@@ -849,8 +992,9 @@ delta_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
         else tail_passes<true>(spec, J, log_n, log_w, tail, fwd_p, p);
         __syncthreads();
         for (int f = threadIdx.x; f < items; f += blockDim.x)
-          mac_group<RT>(spec, res_p, key_p, f & (groups - 1), (f >> (log_n - 2)) * RT, J, R,
-                        log_n, fwd_p, inv_p, phase_p, e, p, mu);
+          mac_group<RT, WIDE>(spec, res_p, key_p, f & (groups - 1), (f >> (log_n - 2)) * RT, J, R,
+                        log_n, log_n, swz(4 * (f & (groups - 1))), fwd_p, inv_p, phase_p, e,
+                        p, mu);
         __syncthreads();
         if constexpr (TOP > 0) tail256_passes<false>(res_p, R, log_n, inv_p, p);
         else tail_passes<false>(res_p, R, log_n, log_w, tail, inv_p, p);
@@ -950,13 +1094,6 @@ variant_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
           for (int r = 0; r < R; ++r) s[c][r] = 0;
         int count = 0;   // products in each sum since its last reduction
         for (int v = 0; v < V; ++v) {
-          if (count + J > MAX_PRODUCTS) {
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-#pragma unroll
-              for (int r = 0; r < R; ++r) s[c][r] = barrett(s[c][r], p, mu);
-            count = 0;
-          }
           uint32_t ph[C], ph_sh[C];
 #pragma unroll
           for (int c = 0; c < C; ++c) {
@@ -973,19 +1110,32 @@ variant_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
             }
           }
           const uint32_t* key_v = key_p + v * var_stride;
-          for (int j = 0; j < J; ++j) {
-            uint32_t w[R];
+          // the J products in runs of at most 16 (J > 16: several runs),
+          // each sum reduced before the product that would pass 16
+          for (int j0 = 0; j0 < J; j0 += MAX_PRODUCTS) {
+            const int j1 = min(J, j0 + MAX_PRODUCTS);
+            if (count + (j1 - j0) > MAX_PRODUCTS) {
 #pragma unroll
-            for (int r = 0; r < R; ++r) w[r] = __ldg(key_v + (size_t)(j * R + r) * n + k);
+              for (int c = 0; c < C; ++c)
 #pragma unroll
-            for (int c = 0; c < C; ++c) {
-              uint32_t d = reinterpret_cast<const uint32_t*>(peer<C>(smem, c) + spec_at)[j * n + k];
-              if (v > 0) d = mul_shoup(d, ph[c], ph_sh[c], p);
-#pragma unroll
-              for (int r = 0; r < R; ++r) s[c][r] += (uint64_t)d * w[r];
+                for (int r = 0; r < R; ++r) s[c][r] = barrett(s[c][r], p, mu);
+              count = 0;
             }
+            for (int j = j0; j < j1; ++j) {
+              uint32_t w[R];
+#pragma unroll
+              for (int r = 0; r < R; ++r) w[r] = __ldg(key_v + (size_t)(j * R + r) * n + k);
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                uint32_t d =
+                    reinterpret_cast<const uint32_t*>(peer<C>(smem, c) + spec_at)[j * n + k];
+                if (v > 0) d = mul_shoup(d, ph[c], ph_sh[c], p);
+#pragma unroll
+                for (int r = 0; r < R; ++r) s[c][r] += (uint64_t)d * w[r];
+              }
+            }
+            count += j1 - j0;
           }
-          count += J;
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
@@ -1008,13 +1158,278 @@ variant_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
     for (int i = threadIdx.x; i < RN; i += blockDim.x) acc_b[i] = (int64_t)acc[i];
 }
 
+// ---- K6, the staged step (rotation.py _staged_layout) ----------------------
+//
+// The working set of a ciphertext stays in device memory: spec [B][P][J][N]
+// and res [B][P][R][N] u32 scratch, each polynomial swizzled in 256-word
+// blocks as the delta body keeps one in shared memory, so that a head pass
+// is pass_item over device memory and a region is one contiguous run of
+// words.  Per step: the first forward pass (digits fused, all primes), the
+// other forward head passes, the region kernel (K1's region pipeline on
+// one warp's region), the inverse head passes, the last inverse pass with
+// Garner over the primes.  Each kernel waits for the one before it
+// (programmatic dependent launch: it is scheduled while that one drains).
+
+constexpr int STAGED_THREADS = 256;   // a head-pass block
+
+__device__ __forceinline__ long long global_thread() {
+  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+// Let the next launch be scheduled, then wait for the previous one's results.
+__device__ __forceinline__ void wait_for_previous_launch() {
+  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The first forward pass: item (b, r, off) reads acc[b][r][off + k*N/2^RL]
+// (k < 2^RL), splits each word into its L balanced digits and, for every
+// prime, takes them through the top RL stages into spec[b][pi][l*R + r].
+template <int RL>
+__global__ void __launch_bounds__(STAGED_THREADS, 2)
+staged_first_pass(const int64_t* __restrict__ acc, uint32_t* __restrict__ spec,
+                  const uint2* __restrict__ fwd, const __grid_constant__ DeltaConsts g,
+                  int batch, int log_n, int P, int R, int L, int base_log) {
+  wait_for_previous_launch();
+  const int lo = log_n - RL, J = L * R, shift = 64 - base_log * L;
+  const long long f = global_thread();
+  if (f >= ((long long)batch * R << lo)) return;
+  const long long br = f >> lo;   // b * R + r
+  const int off = (int)(f & ((1 << lo) - 1)), r = (int)(br % R);
+  const long long b = br / R;
+  uint64_t s[1 << RL];
+#pragma unroll
+  for (int k = 0; k < (1 << RL); ++k)
+    s[k] = round_word((uint64_t)acc[(br << log_n) + off + (k << lo)], shift);
+  for (int l = L - 1; l >= 0; --l) {
+    int32_t v[1 << RL];
+    next_digits<RL>(s, v, base_log, shift);
+    for (int pi = 0; pi < P; ++pi) {
+      const uint32_t p = g.p[pi];
+      uint2 tw[8];
+      load_twiddles<RL>(tw, fwd + ((size_t)pi << log_n), 1);
+      uint32_t d[1 << RL];
+#pragma unroll
+      for (int k = 0; k < (1 << RL); ++k)
+        d[k] = v[k] < 0 ? (uint32_t)(v[k] + (int32_t)p) : (uint32_t)v[k];
+      ct_stages<RL>(d, tw, p);
+      uint32_t* poly = spec + ((((size_t)b * P + pi) * J + l * R + r) << log_n);
+#pragma unroll
+      for (int k = 0; k < (1 << RL); ++k) poly[swz_at(off, k, lo)] = d[k];
+    }
+  }
+}
+
+// A head pass between the first and the last: item (b, pi, poly, it) takes
+// 2^RL coefficients at stride 2^lo of arr[b][pi][poly] through RL stages
+// (block_pass's items, spread over the grid).
+template <int RL, bool FWD>
+__global__ void __launch_bounds__(STAGED_THREADS, 4)
+staged_head_pass(uint32_t* __restrict__ arr, const uint2* __restrict__ tw,
+                 const __grid_constant__ DeltaConsts g, int batch, int log_n, int P, int npoly,
+                 int lo) {
+  wait_for_previous_launch();
+  const int lg = log_n - RL;
+  const long long f = global_thread();
+  if (f >= ((long long)batch * P * npoly << lg)) return;
+  const long long poly = f >> lg;
+  const int pi = (int)((poly / npoly) % P);
+  const int it = (int)(f & ((1 << lg) - 1)), blk = it >> lo;
+  pass_item<RL, FWD>(arr + (poly << log_n), (1 << (lg - lo)) + blk,
+                     (blk << (lo + RL)) + (it & ((1 << lo) - 1)), lo,
+                     tw + ((size_t)pi << log_n), g.p[pi]);
+}
+
+// The last two forward stages of slots [4x, 4x+4) of one digit polynomial
+// (its words at row + at), fully reduced, in place.
+__device__ __forceinline__ void finish_group(uint32_t* row, int x, int at, int log_n,
+                                             const uint2* __restrict__ fwd, uint32_t p) {
+  uint2 fw[8];
+  load_twiddles<2>(fw, fwd, (1 << (log_n - 2)) + x);
+  const uint4 v = *reinterpret_cast<const uint4*>(row + at);
+  uint32_t a[4] = {v.x, v.y, v.z, v.w};
+  ct_stages<2>(a, fw, p);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) a[c] = csub(csub(a[c], 2 * p), p);
+  *reinterpret_cast<uint4*>(row + at) = make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+// The variant MAC of slots [4x, 4x+4) for outputs r0..r0+RT-1 on fully
+// transformed digit spectra (rows 2^log_s words apart, the group's words at
+// `at`): the sum over v < V and j < J of digit_j * X^{c_v}/N * key[v][j][r],
+// the phase psi^(c_v (2 brv(k) + 1))/N gathered once per slot and variant
+// (c_0 = 0; e_b holds c_1..c_{V-1}), each sum reduced before its 17th
+// product; then one Barrett reduction and the first two inverse stages.
+template <int RT>
+__device__ __forceinline__ void mac_variants(const uint32_t* spec, uint32_t* res,
+                                             const uint32_t* __restrict__ key_p,
+                                             size_t var_stride, int x, int r0, int J, int R,
+                                             int V, int log_n, int log_s, int at,
+                                             const uint2* __restrict__ inv,
+                                             const uint2* __restrict__ phase,
+                                             const int32_t* __restrict__ e_b, uint32_t p,
+                                             u64 mu) {
+  const int q = (1 << (log_n - 2)) + x, k0 = 4 * x;
+  const uint32_t two_n_mask = (2u << log_n) - 1;
+  uint32_t odd[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) odd[c] = 2u * (__brev((unsigned)(k0 + c)) >> (32 - log_n)) + 1u;
+  uint64_t s[RT][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0;
+  int count = 0;   // products in each sum since its last reduction
+  for (int v = 0; v < V; ++v) {
+    const uint32_t e = v > 0 ? (uint32_t)__ldg(e_b + v - 1) : 0u;
+    uint2 ph[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ph[c] = __ldg(phase + ((e * odd[c]) & two_n_mask));
+    const uint32_t* key_v = key_p + v * var_stride;
+    for (int j0 = 0; j0 < J; j0 += MAX_PRODUCTS) {
+      const int j1 = min(J, j0 + MAX_PRODUCTS);
+      if (count + (j1 - j0) > MAX_PRODUCTS) {
+        reduce_sums<RT>(s, p, mu);
+        count = 0;
+      }
+      for (int j = j0; j < j1; ++j) {
+        uint4 w[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+          w[r] = __ldg(reinterpret_cast<const uint4*>(
+              key_v + (((j * R + r0 + r) << log_n) + k0)));
+        const uint4 d = *reinterpret_cast<const uint4*>(spec + (j << log_s) + at);
+        const uint32_t a[4] = {mul_shoup(d.x, ph[0].x, ph[0].y, p),
+                               mul_shoup(d.y, ph[1].x, ph[1].y, p),
+                               mul_shoup(d.z, ph[2].x, ph[2].y, p),
+                               mul_shoup(d.w, ph[3].x, ph[3].y, p)};
+        mac4<RT>(s, a, w);
+      }
+      count += j1 - j0;
+    }
+  }
+  uint2 iw[8];
+  load_twiddles<2>(iw, inv, q);
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    uint32_t a[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = barrett(s[r][c], p, mu);
+    gs_stages<2>(a, iw, p);
+    *reinterpret_cast<uint4*>(res + ((r0 + r) << log_s) + at) =
+        make_uint4(a[0], a[1], a[2], a[3]);
+  }
+}
+
+// The region kernel: one warp per task (pi, region, b), b fastest, so that
+// neighbouring warps read the same key words.  The warp copies the region's
+// J digit polynomials into its shared memory, runs their forward tail, the
+// MAC (delta: mac_group; variants: finish_group, then mac_variants) and the
+// inverse tail of the R products, and copies those out: K1's region
+// pipeline on one region of 2^log_w slots.  tab is _delta_tables' layout:
+// fwd [P][N], inv [P][N], phase [P][2N] (value, twin).
+template <int RT, bool VAR>
+__global__ void __launch_bounds__(256, 2)
+staged_region(const uint32_t* __restrict__ spec_g, uint32_t* __restrict__ res_g,
+              const uint32_t* __restrict__ bsk, const int32_t* __restrict__ exps,
+              long long e_stride, const uint2* __restrict__ tab,
+              const __grid_constant__ DeltaConsts g, int batch, int log_n, int P, int R, int J,
+              int V, unsigned tail, int log_w) {
+  wait_for_previous_launch();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, log_r = log_n - log_w;
+  const long long task = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (task >= ((long long)batch * P << log_r)) return;
+  const long long b = task % batch, rest = task / batch;
+  const int gi = (int)(rest & ((1 << log_r) - 1)), pi = (int)(rest >> log_r);
+  const int W = 1 << log_w, base = gi << log_w, groups = W >> 2, x0 = base >> 2;
+  uint32_t* spec = reinterpret_cast<uint32_t*>(smem) + (size_t)warp * (J + R) * W;   // [J][W]
+  uint32_t* res = spec + (size_t)J * W;                                              // [R][W]
+  const uint32_t p = g.p[pi];
+  const u64 mu = g.mu[pi];
+  const uint2* fwd = tab + ((size_t)pi << log_n);
+  const uint2* inv = tab + ((size_t)(P + pi) << log_n);
+  const uint2* phase = tab + ((size_t)(2 * P + 2 * pi) << log_n);
+  const uint32_t* key_p = bsk + ((size_t)pi * J * R << log_n);
+  const uint32_t* src = spec_g + ((((size_t)b * P + pi) * J) << log_n) + base;
+  for (int j = 0; j < J; ++j)
+    for (int i = 4 * lane; i < W; i += 128)
+      *reinterpret_cast<uint4*>(spec + j * W + i) =
+          *reinterpret_cast<const uint4*>(src + ((size_t)j << log_n) + i);
+  __syncwarp();
+  for (int j = 0; j < J; ++j) region_tails<true>(spec + j * W, base, log_n, log_w, tail, fwd, p);
+  if constexpr (VAR) {
+    for (int j = 0; j < J; ++j)
+      for (int f = lane; f < groups; f += 32)
+        finish_group(spec + j * W, x0 + f, swz(4 * (x0 + f)) - base, log_n, fwd, p);
+    __syncwarp();
+    for (int f = lane; f < (R / RT) * groups; f += 32) {
+      const int x = x0 + f % groups;
+      mac_variants<RT>(spec, res, key_p, (size_t)P * J * R << log_n, x, (f / groups) * RT, J,
+                       R, V, log_n, log_w, swz(4 * x) - base, inv, phase,
+                       exps + b * e_stride, p, mu);
+    }
+  } else {
+    const uint32_t e = (uint32_t)__ldg(exps + b * e_stride);
+    for (int f = lane; f < (R / RT) * groups; f += 32) {
+      const int x = x0 + f % groups;
+      mac_group<RT, true>(spec, res, key_p, x, (f / groups) * RT, J, R, log_n, log_w,
+                    swz(4 * x) - base, fwd, inv, phase, e, p, mu);
+    }
+  }
+  __syncwarp();
+  for (int r = 0; r < R; ++r) region_tails<false>(res + r * W, base, log_n, log_w, tail, inv, p);
+  uint32_t* dst = res_g + ((((size_t)b * P + pi) * R) << log_n) + base;
+  for (int r = 0; r < R; ++r)
+    for (int i = 4 * lane; i < W; i += 128)
+      *reinterpret_cast<uint4*>(dst + ((size_t)r << log_n) + i) =
+          *reinterpret_cast<const uint4*>(res + r * W + i);
+}
+
+// The last inverse pass: the top RL stages of item (b, r, off) for every
+// prime, then Garner over the primes; acc[b][r][off + k*N/2^RL] gains the
+// lifted value (delta) or becomes it (variants).
+template <int RL, bool VAR>
+__global__ void __launch_bounds__(STAGED_THREADS, 2)
+staged_last_pass(int64_t* __restrict__ acc, const uint32_t* __restrict__ res,
+                 const uint2* __restrict__ inv, const __grid_constant__ DeltaConsts g,
+                 int batch, int log_n, int P, int R) {
+  wait_for_previous_launch();
+  const int lo = log_n - RL;
+  const long long f = global_thread();
+  if (f >= ((long long)batch * R << lo)) return;
+  const long long br = f >> lo;   // b * R + r
+  const int off = (int)(f & ((1 << lo) - 1)), r = (int)(br % R);
+  const long long b = br / R;
+  uint32_t a[MAXP][1 << RL];
+#pragma unroll
+  for (int pi = 0; pi < MAXP; ++pi) {
+    if (pi >= P) break;
+    const uint32_t p = g.p[pi];
+    uint2 tw[8];
+    load_twiddles<RL>(tw, inv + ((size_t)pi << log_n), 1);
+    const uint32_t* poly = res + ((((size_t)b * P + pi) * R + r) << log_n);
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) a[pi][k] = poly[swz_at(off, k, lo)];
+    gs_stages<RL>(a[pi], tw, p);
+#pragma unroll
+    for (int k = 0; k < (1 << RL); ++k) a[pi][k] = csub(a[pi][k], p);
+  }
+#pragma unroll
+  for (int k = 0; k < (1 << RL); ++k) {
+    const uint64_t v = garner_from<0>([&](int i) { return a[i][k]; }, P, g);
+    int64_t* w = acc + (br << log_n) + off + (k << lo);
+    *w = VAR ? (int64_t)v : (int64_t)((uint64_t)*w + v);
+  }
+}
+
 size_t working_set(int n, int R, int J, int P) {
   return (size_t)8 * R * n + (size_t)4 * J * n + (size_t)4 * P * R * n;
 }
 
 bool valid_shape(int n, int log_n, int P, int R, int L, int base_log) {
   const int J = L * R;
-  return P >= 1 && P <= MAXP && R >= 1 && J >= 1 && J <= 15 && (1 << log_n) == n &&
+  return P >= 1 && P <= MAXP && R >= 1 && J >= 1 && (1 << log_n) == n &&
          log_n >= 2 && base_log >= 1 && base_log <= 24 && base_log * L <= 64;
 }
 
@@ -1022,18 +1437,24 @@ typedef void (*DeltaKernel)(int64_t*, const int32_t*, long long, const uint32_t*
                             const uint32_t*, const DeltaConsts, int, int, int, int, int,
                             int, unsigned, unsigned, int);
 
-// The kernel for rt outputs per MAC item: at N = 2048, P = 4 and rt = 2
-// under the layout of one head pass and the 256-coefficient tail (`fast`),
-// the one compiled for that N and P; the general one for every other shape.
-DeltaKernel delta_for(int rt, bool fast, int log_n, int P) {
-  if (fast && rt == 2 && log_n == 11 && P == 4) return delta_kernel<2, 11, 4>;
+template <bool WIDE>
+DeltaKernel delta_general(int rt) {
   switch (rt) {
-    case 1: return delta_kernel<1, 0, 0>;
-    case 2: return delta_kernel<2, 0, 0>;
-    case 3: return delta_kernel<3, 0, 0>;
-    case 4: return delta_kernel<4, 0, 0>;
+    case 1: return delta_kernel<1, 0, 0, WIDE>;
+    case 2: return delta_kernel<2, 0, 0, WIDE>;
+    case 3: return delta_kernel<3, 0, 0, WIDE>;
+    case 4: return delta_kernel<4, 0, 0, WIDE>;
     default: return nullptr;
   }
+}
+
+// The kernel for rt outputs per MAC item: at N = 2048, P = 4, rt = 2 and
+// J <= 16 under the layout of one head pass and the 256-coefficient tail
+// (`fast`), the one compiled for that N and P; the general one for every
+// other shape, `wide` where J > 16.
+DeltaKernel delta_for(int rt, bool fast, int log_n, int P, bool wide) {
+  if (fast && !wide && rt == 2 && log_n == 11 && P == 4) return delta_kernel<2, 11, 4, false>;
+  return wide ? delta_general<true>(rt) : delta_general<false>(rt);
 }
 
 // The sum of a pass list's radix logs, each in [min_r, 3]; -1 if it is not one.
@@ -1085,7 +1506,7 @@ int launch_delta(void* acc, const void* exps, long long e_stride, const void* bs
                  int head, int tail, int log_w, int smem, bool pdl, void* stream) {
   const bool fast = (head & 15) == 1 && (head >> 4) == (unsigned)(log_n - 8) && log_w == 8 &&
                     (unsigned)tail == TAIL256;
-  const DeltaKernel kernel = delta_for(rt, fast, log_n, P);
+  const DeltaKernel kernel = delta_for(rt, fast, log_n, P, L * R > MAX_PRODUCTS);
   if (kernel == nullptr || !valid_shape(n, log_n, P, R, L, base_log) ||
       !valid_layout(log_n, R, rt, (unsigned)head, (unsigned)tail, log_w) ||
       host_consts == nullptr || batch < 1 ||
@@ -1182,6 +1603,150 @@ int launch_variants(void* acc, const void* exps, long long e_stride, const void*
   return (int)cudaGetLastError();
 }
 
+
+// K6's layout (rotation.py _staged_layout) covers the log_n stages: head
+// passes of radix logs 1..3 (one at least), tail passes of 1..3 within
+// regions of 2^log_w (5 <= log_w <= 8: the swizzle keeps a region's words
+// together) and the MAC's two; R outputs in chunks of rt; `warps` regions a
+// region block, each with (J + R) 2^log_w words of shared memory.
+bool valid_staged_layout(int log_n, int R, int J, int rt, unsigned head, unsigned tail,
+                         int log_w, int warps, int smem) {
+  const int h = pass_sum(head, 1), t = pass_sum(tail, 1);
+  return rt >= 1 && rt <= 4 && R % rt == 0 && (head & 15u) >= 1 && h >= 1 && t >= 1 &&
+         log_w >= 5 && log_w <= 8 && log_w == log_n - h && h + t + 2 == log_n && warps >= 1 &&
+         warps <= 8 && (size_t)smem == ((size_t)warps * 4 * (J + R) << log_w);
+}
+
+typedef void (*StagedFirst)(const int64_t*, uint32_t*, const uint2*, const DeltaConsts, int, int,
+                            int, int, int, int);
+typedef void (*StagedHead)(uint32_t*, const uint2*, const DeltaConsts, int, int, int, int, int);
+typedef void (*StagedRegion)(const uint32_t*, uint32_t*, const uint32_t*, const int32_t*,
+                             long long, const uint2*, const DeltaConsts, int, int, int, int, int,
+                             int, unsigned, int);
+typedef void (*StagedLast)(int64_t*, const uint32_t*, const uint2*, const DeltaConsts, int, int,
+                           int, int);
+
+StagedFirst staged_first_for(int rl) {
+  switch (rl) {
+    case 1: return staged_first_pass<1>;
+    case 2: return staged_first_pass<2>;
+    case 3: return staged_first_pass<3>;
+    default: return nullptr;
+  }
+}
+
+StagedHead staged_head_for(int rl, bool fwd) {
+  switch (rl) {
+    case 1: return fwd ? staged_head_pass<1, true> : staged_head_pass<1, false>;
+    case 2: return fwd ? staged_head_pass<2, true> : staged_head_pass<2, false>;
+    case 3: return fwd ? staged_head_pass<3, true> : staged_head_pass<3, false>;
+    default: return nullptr;
+  }
+}
+
+template <bool VAR>
+StagedRegion staged_region_var(int rt) {
+  switch (rt) {
+    case 1: return staged_region<1, VAR>;
+    case 2: return staged_region<2, VAR>;
+    case 3: return staged_region<3, VAR>;
+    case 4: return staged_region<4, VAR>;
+    default: return nullptr;
+  }
+}
+
+StagedLast staged_last_for(int rl, bool var) {
+  switch (rl) {
+    case 1: return var ? staged_last_pass<1, true> : staged_last_pass<1, false>;
+    case 2: return var ? staged_last_pass<2, true> : staged_last_pass<2, false>;
+    case 3: return var ? staged_last_pass<3, true> : staged_last_pass<3, false>;
+    default: return nullptr;
+  }
+}
+
+// One K6 launch over `threads` threads in blocks of `block`, with
+// programmatic stream serialization.
+template <class... Params, class... Args>
+cudaError_t launch_staged_kernel(void (*kernel)(Params...), long long threads, int block,
+                                 int smem, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((threads + block - 1) / block));
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// K6: n_steps steps over acc [B][R][N], 2 * (head passes) + 1 launches a
+// step.  grouping 0: delta steps, bsk [steps][P][J][R][N], exponent e of
+// ciphertext b and step s at exps[b * e_stride + s * e_step]; grouping g =
+// 1..4: variant steps, bsk [steps][2^g][P][J][R][N], c_1..c_{2^g-1} from
+// there on.  spec [B][P][J][N] and res [B][P][R][N] are the scratch.
+int launch_staged(void* acc, const void* exps, long long e_stride, int e_step, const void* bsk,
+                  const void* tab, const void* host_consts, void* spec, void* res, int batch,
+                  int n_steps, int n, int log_n, int P, int R, int L, int base_log,
+                  int grouping, int rt, int head, int tail, int log_w, int warps, int smem,
+                  void* stream) {
+  const int J = L * R, V = grouping > 0 ? 1 << grouping : 0, per_e = V > 0 ? V - 1 : 1;
+  const bool var = grouping > 0;
+  const int nhead = head & 15, top = pass_radix((unsigned)head, 0);
+  const StagedFirst first = staged_first_for(top);
+  const StagedLast last = staged_last_for(top, var);
+  const StagedRegion region = var ? staged_region_var<true>(rt) : staged_region_var<false>(rt);
+  if (first == nullptr || last == nullptr || region == nullptr || grouping < 0 ||
+      grouping > 4 || !valid_shape(n, log_n, P, R, L, base_log) ||
+      !valid_staged_layout(log_n, R, J, rt, (unsigned)head, (unsigned)tail, log_w, warps,
+                           smem) ||
+      host_consts == nullptr || spec == nullptr || res == nullptr || batch < 1 ||
+      n_steps < 1 || e_step < 0 ||
+      (batch > 1 && e_stride < (long long)(n_steps - 1) * e_step + per_e))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)region, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const DeltaConsts g = delta_consts((const u64*)host_consts);
+  const uint2* fwd = reinterpret_cast<const uint2*>(tab);
+  const uint2* inv = fwd + ((size_t)P << log_n);
+  const size_t step_words = ((size_t)(var ? V : 1) * P * J * R) << log_n;
+  const long long items = (long long)batch * R << (log_n - top);
+  const long long tasks = (long long)batch * P << (log_n - log_w);
+  for (int step = 0; step < n_steps; ++step) {
+    const uint32_t* key = reinterpret_cast<const uint32_t*>(bsk) + step * step_words;
+    const int32_t* e = reinterpret_cast<const int32_t*>(exps) + (long long)step * e_step;
+    err = launch_staged_kernel(first, items, STAGED_THREADS, 0, stream, (const int64_t*)acc,
+                               (uint32_t*)spec, fwd, g, batch, log_n, P, R, L, base_log);
+    int lo = log_n - top;
+    for (int i = 1; i < nhead && err == cudaSuccess; ++i) {
+      const int r = pass_radix((unsigned)head, i);
+      lo -= r;
+      err = launch_staged_kernel(staged_head_for(r, true), (long long)batch * P * J << (log_n - r),
+                                 STAGED_THREADS, 0, stream, (uint32_t*)spec, fwd, g, batch,
+                                 log_n, P, J, lo);
+    }
+    if (err == cudaSuccess)
+      err = launch_staged_kernel(region, tasks * 32, warps * 32, smem, stream,
+                                 (const uint32_t*)spec, (uint32_t*)res, key, e, e_stride,
+                                 fwd, g, batch, log_n, P, R, J, V, (unsigned)tail, log_w);
+    for (int i = nhead - 1; i >= 1 && err == cudaSuccess; --i) {
+      const int r = pass_radix((unsigned)head, i);
+      err = launch_staged_kernel(staged_head_for(r, false), (long long)batch * P * R << (log_n - r),
+                                 STAGED_THREADS, 0, stream, (uint32_t*)res, inv, g, batch,
+                                 log_n, P, R, lo);
+      lo += r;
+    }
+    if (err == cudaSuccess)
+      err = launch_staged_kernel(last, items, STAGED_THREADS, 0, stream, (int64_t*)acc,
+                                 (const uint32_t*)res, inv, g, batch, log_n, P, R);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* tfhe_cuda_error_string(int code) {
@@ -1263,7 +1828,7 @@ extern "C" int tfhe_variant_active_clusters(int cluster, int R, int smem, int* o
 // How many delta blocks (rt outputs per MAC item, `smem` bytes each) the
 // device holds at once.
 extern "C" int tfhe_delta_active_blocks(int rt, int smem, int* out) {
-  const DeltaKernel kernel = delta_for(rt, false, 0, 0);
+  const DeltaKernel kernel = delta_for(rt, false, 0, 0, false);
   if (kernel == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1275,4 +1840,20 @@ extern "C" int tfhe_delta_active_blocks(int rt, int smem, int* out) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DELTA_THREADS, smem);
   *out = per_sm * sms;
   return (int)err;
+}
+
+// K6: the staged blind rotation, n_steps steps (the whole rotation, or one
+// step on the per-step route); see launch_staged.  tab is rotation.py
+// _delta_tables' (the delta or the variant phase), host_consts the
+// constants buffer in host memory; rt, head, tail, log_w, warps and smem
+// are rotation.py _staged_layout's.
+extern "C" int tfhe_staged_rotate(void* acc, const void* exps, long long e_stride, int e_step,
+                                  const void* bsk, const void* tab, const void* host_consts,
+                                  void* spec, void* res, int batch, int n_steps, int n,
+                                  int log_n, int P, int R, int L, int base_log, int grouping,
+                                  int rt, int head, int tail, int log_w, int warps, int smem,
+                                  void* stream) {
+  return launch_staged(acc, exps, e_stride, e_step, bsk, tab, host_consts, spec, res, batch,
+                       n_steps, n, log_n, P, R, L, base_log, grouping, rt, head, tail, log_w,
+                       warps, smem, stream);
 }
