@@ -15,8 +15,9 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      source, in parallel) and prints ptxas's register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
      compiled for N = 2048 and P = 4, K3/K5 once for each cluster size C
-     and output count R, K6's passes once for each radix and its region
-     kernel for each rt, delta and variants);
+     and output count R, K6's cluster step once for each C, R and delta or
+     variants, K6's passes form once for each radix and its region kernel
+     for each rt);
   3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
      against their plain PyTorch versions on the card at the classic
      path's shapes (K1 at batch 1, 6, 8, 512 and 513 over all 742 steps, K2
@@ -50,18 +51,33 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      paired key, built as GGSW_trivial(1) - pair1, against the plain paired
      rotation; K5 over the 296 GROUP_3 steps against the plain version and
      K3's output), each timed with CUDA events;
-  3d. holds K6, the staged step, bit for bit against the plain rotation at
-     full widths with random keys: PARAM_MESSAGE_1_CARRY_4_KS_PBS (N = 4096,
-     L = 2; batch 1, 6, 8, 512), 3_3 (N = 8192; 1, 6, 8, 512, 513),
+  3d. holds K6 bit for bit against the plain rotation at full widths with
+     random keys, in the form the shape rule gives (the cluster step, one
+     launch a step, or the passes form where no cluster holds a
+     ciphertext's step): PARAM_MESSAGE_1_CARRY_4_KS_PBS (N = 4096, L = 2;
+     batch 1, 6, 8, 512), 3_3 (N = 8192; 1, 6, 8, 512, 513),
      PARAM_MESSAGE_2_CARRY_5_KS_PBS (N = 16384; 8), 4_4 (N = 32768; 1, 8),
-     PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS (N = 65536, J = 8; 1, 8, over
-     16 steps: its full key is 34 GB) and the 3_3 multi-bit sets (GROUP_3:
-     1, 6, 8, 512, 513; GROUP_2: 8); batch 8 runs every step, the others
-     32, each with K6's exact launch count; K6 for one step on the per-step
-     routes at 3_3 (delta, paired; batch 8 and 513); K6 forced
-     (`_staged=True`) at 2_2, batch 8, against K1 on the same inputs; times
-     K6 at batch 512 over every step at 3_3, 3_3 GROUP_3 and 4_4, and K6
-     against its plain version over 32 steps at 3_3 and 3_3 GROUP_3;
+     PARAM_MESSAGE_2_CARRY_6_COMPACT_PK_PBS_KS (N = 65536, J = 4: clusters
+     of 16; 1, 8, over 16 steps),
+     PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS (N = 65536, J = 8: the
+     passes form; 1, 8, over 16 steps: its full key is 34 GB) and the 3_3
+     multi-bit sets (GROUP_3: 1, 6, 8, 512, 513; GROUP_2: 8); batch 8 runs
+     every step, the others 32, each with K6's exact launch count; K6 for
+     one step on the per-step routes at 3_3 (delta, paired; batch 8 and
+     513), held, then timed at batch 512 (32 launches) beside its bound;
+     K6 forced (`_staged=True`) at 2_2, batch 8, against K1 on the same
+     inputs; times K6 at batch 512 over every step at 3_3, 3_3 GROUP_3 and
+     4_4, and K6 against its plain version over 32 steps at 3_3 and 3_3
+     GROUP_3;
+  3d'. the cluster sweep of K6: at 3_3 (32 steps), 3_3 GROUP_3 (16), 4_4
+     (8), PARAM_MESSAGE_2_CARRY_6_KS_PBS (N = 32768, J = 6; 8 steps),
+     PARAM_MESSAGE_4_CARRY_4_COMPACT_PK_PBS_KS (N = 65536, J = 6; 4) and
+     PARAM_MESSAGE_2_CARRY_6_COMPACT_PK_PBS_KS (N = 65536, J = 4; 4),
+     batch 512, cluster sizes and prime groups that fit and the passes form
+     (delta), in turns there and back (SWEEP_REPS runs a turn), the first
+     output held bit for bit against the plain rotation and every other
+     against it; prints each form's time and where the rule's form ranks
+     (a timing, not a hold: it fails nothing);
   3e. more than 15 digit rows: K1 (every step at batch 8, 32 at batch
      512), K4 and the paired K5 (one step) at AES_PARAMETERS_40 (J = 16) and
      WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS (J = 18), K1 timed at batch 512;
@@ -85,10 +101,11 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      and the mean gap between K4 launches);
   4d. the large-N paths: for 3_3, 3_3 GROUP_3 and 4_4, gen_keys on the
      card, 512 messages encrypted, one LUT request with the counts set to 0
-     just before and read just after (K6's launches a step times the steps,
-     one K2, no K1/K3), 512/512 decrypted against the clear model, the 3_3
-     results held against the plain CPU path (one ciphertext), KS+PBS timed,
-     one call traced under torch.profiler (idle share, K6's time by pass);
+     just before and read just after (one cluster-step launch a step, one
+     K2, no K1/K3 and no passes form), 512/512 decrypted against the clear
+     model, the 3_3 results held against the plain CPU path (one
+     ciphertext), KS+PBS timed, one call traced under torch.profiler (idle
+     share, device time by kernel, K6's launches and their cadence);
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -98,14 +115,31 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      line: each kernel's time beside its bound (the larger of its 32-bit
      integer multiplies over the card's INT32 issue rate and its bytes over
      3.35 TB/s) and its plain version's time; K3 and K5 also per shape
-     (GROUP_3 and GROUP_2; paired and GROUP_3), K6 (delta and variants) at
-     3_3 and 3_3 GROUP_3 over 32 steps against its plain version, and per
-     shape over every step (3_3, 4_4; 3_3 GROUP_3; no plain time there).
+     (GROUP_3 and GROUP_2; paired and GROUP_3), K6's cluster step (delta
+     and variants) at 3_3 and 3_3 GROUP_3 over 32 steps against its plain
+     version, and per shape over every step (3_3, 4_4; 3_3 GROUP_3; no
+     plain time there) and one step a launch on the per-step routes; K6's
+     passes form at the shape it serves (no path serves that set, so its
+     launches on the paths are 0).
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
 
     python3 chip_smoke.py [--seed S]
+
+With --against DIR it runs no smoke: it times this checkout against the
+one at DIR (for example the parent commit, unpacked with `git archive`)
+on the same card, in turns other, this, this, other (--turns, 4), each
+turn a process of its own that imports and builds its tree's port.  Each
+turn measures at batch 512, by CUDA events, with the same seeded random
+keys and inputs: the whole rotation at PARAM_MESSAGE_2_CARRY_2_KS_PBS (K1)
+and, through K6, at 3_3, 3_3 GROUP_3 and 4_4, and KS+PBS at those three
+sets (gen_keys on the card, 512 messages, one LUT request decrypted
+against the clear function).  Every output's checksum must agree across
+all turns (the pipeline is exact) and every KS+PBS output must decrypt
+right; it raises otherwise.  It prints each turn, then each tree's mean:
+
+    python3 chip_smoke.py --against DIR [--turns 4] [--seed S]
 """
 from __future__ import annotations
 
@@ -145,13 +179,22 @@ CLASSIC_33 = "PARAM_MESSAGE_3_CARRY_3_KS_PBS"
 CLASSIC_44 = "PARAM_MESSAGE_4_CARRY_4_KS_PBS"
 GROUP_3_33 = "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS"
 GROUP_2_33 = "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_2_KS_PBS"
+SET_2_6 = "PARAM_MESSAGE_2_CARRY_6_COMPACT_PK_PBS_KS"
 K6_SETS = (("PARAM_MESSAGE_1_CARRY_4_KS_PBS", (1, 6, 8, B)), (CLASSIC_33, (1, 6, 8, B, B + 1)),
-           ("PARAM_MESSAGE_2_CARRY_5_KS_PBS", (8,)), (CLASSIC_44, (1, 8)),
+           ("PARAM_MESSAGE_2_CARRY_5_KS_PBS", (8,)), (CLASSIC_44, (1, 8)), (SET_2_6, (1, 8)),
            ("PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS", (1, 8)))
 K6_MB_SETS = ((GROUP_3_33, (1, 6, 8, B, B + 1)), (GROUP_2_33, (8,)))
 CUT_STEPS = 32
-STEPS_7_1 = 16
+STEPS_65536 = 16                       # of the N = 65536 sets' 2048
 LARGE_PATHS = ((CLASSIC_33, B, True), (GROUP_3_33, B, True), (CLASSIC_44, B, False))
+# K6's cluster sweep: (set, steps, forms in the order timed: the rule's
+# first, then back); "passes" is the passes form
+K6_SWEEP = ((CLASSIC_33, 32, ((8, 4), (4, 4), (2, 1), (16, 4), "passes")),
+            (GROUP_3_33, 16, ((8, 4), (4, 4), (16, 4))),
+            (CLASSIC_44, 8, ((16, 4), (16, 2), (8, 1), "passes")),
+            ("PARAM_MESSAGE_2_CARRY_6_KS_PBS", 8, ((16, 2), (16, 1), "passes")),
+            ("PARAM_MESSAGE_4_CARRY_4_COMPACT_PK_PBS_KS", 4, ((16, 1), "passes")),
+            (SET_2_6, 4, ((16, 1), "passes")))
 # the J > 15 shapes: AES_PARAMETERS_40 (J = 16), the WoP-PBS sets (J = 18)
 WIDE_SETS = ("AES_PARAMETERS_40", "WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS")
 
@@ -322,14 +365,143 @@ def bound(mults: int, nbytes: int, sm_clock_hz: float, sms: int) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+COMPARED = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS", "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS",
+            "PARAM_MESSAGE_4_CARRY_4_KS_PBS")
+
+
+def measure_turn(seed: int) -> dict:
+    """One turn of --against in the port first on sys.path: {label: {"ms",
+    "check", ...}}."""
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.algorithms import external_product_num_primes
+    from tfhe_tpu_torch.core.entities import NttBootstrapKey, NttMultiBitBootstrapKey
+    from tfhe_tpu_torch.core.params import shortint_params
+    from tfhe_tpu_torch.core.poly import ntt, rotation
+
+    dev = torch.device("cuda", 0)
+
+    def checksum(t):
+        w = t.to(torch.int64).reshape(-1)
+        idx = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+        return int(((w * (2 * idx + 1)).sum()).item())
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        return cuda_ms(fn, reps)
+
+    out = {}
+    g = rng.generator(seed, 7, device=dev)
+    for name in (CLASSIC,) + COMPARED:
+        p = shortint_params(name)
+        n, N, R = p.lwe_dimension, p.polynomial_size, p.glwe_dimension + 1
+        J, gf = p.pbs_level * R, getattr(p, "grouping_factor", None)
+        P = external_product_num_primes(N, R, p.pbs_decomp)
+        plan = ntt.get_plan(N, P)
+        steps = n // gf if gf else n
+        shape = (steps, 1 << gf, J, R, N) if gf else (steps, J, R, N)
+        spectra = torch.stack([torch.randint(0, q, shape, generator=g, device=dev,
+                                             dtype=torch.int32) for q in plan.primes],
+                              dim=2 if gf else 1)
+        acc = rng.uniform_torus(g, (B, R, N))
+        exps = torch.randint(0, 2 * N, (B, n), generator=g, device=dev)
+        res = {}
+        if gf:
+            key = NttMultiBitBootstrapKey(spectra=spectra, decomp=p.pbs_decomp,
+                                          primes=plan.primes, grouping_factor=gf)
+            cexp = rotation.variant_exponents(exps, gf, N)
+            run = lambda: res.update(o=rotation.rotate_accumulator_multi_bit(acc, cexp, key))
+        else:
+            key = NttBootstrapKey(spectra=spectra, decomp=p.pbs_decomp, primes=plan.primes)
+            run = lambda: res.update(o=rotation.rotate_accumulator(acc, exps, key))
+        ms = timed(run, 2 if N >= 32768 else 3)
+        out[f"rotation {name}"] = {"ms": ms, "steps": steps, "check": checksum(res["o"])}
+        del spectra, key, acc, exps, res
+        torch.cuda.empty_cache()
+    for name in COMPARED:
+        p = shortint_params(name)
+        t0 = time.perf_counter()
+        ck, sk = shortint.gen_keys(p, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        q = p.message_modulus
+        m = torch.randint(0, q, (B,), generator=rng.generator(seed, 11), dtype=torch.int64)
+        ct = ck.encrypt(m.to(dev), seed=seed + 6)
+        lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % q)
+        res = {}
+        ms = timed(lambda: res.update(o=sk.apply_lookup_table(ct, lut)),
+                   2 if p.polynomial_size >= 32768 else 3)
+        right = int((ck.decrypt(res["o"]).cpu() == (3 * m + 1) % q).sum())
+        out[f"KS+PBS {name}"] = {"ms": ms, "pbs_per_s": B / ms * 1e3, "right": right,
+                                 "gen_keys_s": gen_s, "check": checksum(res["o"].lwe.data)}
+        del ck, sk, ct, lut, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare(other: str, turns: int, seed: int) -> int:
+    """--against: this checkout and `other` in turns on one card."""
+    this = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    card = smi("name,power.limit")
+    print(f"card: {card}; this tree {this}, other {other}")
+    pattern = [("other", other), ("this", this), ("this", this), ("other", other)]
+    runs = {"other": [], "this": []}
+    for i in range(turns):
+        label, tree = pattern[i % 4]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn-in", tree,
+                               "--seed", str(seed)], cwd=tree, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn {i + 1} ({label}) failed:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[label].append(got)
+        print(f"turn {i + 1} ({label}, {time.perf_counter() - t0:.1f} s): {json.dumps(got)}",
+              flush=True)
+    first = runs["other"][0] if runs["other"] else runs["this"][0]
+    for label, done in runs.items():
+        for got in done:
+            for k, v in got.items():
+                if v["check"] != first[k]["check"]:
+                    raise AssertionError(f"{k}: the {label} tree's output differs")
+                if "right" in v and v["right"] != B:
+                    raise AssertionError(f"{k}: {v['right']}/{B} decrypt right ({label})")
+    print(f"every output agrees across the {turns} turns; every KS+PBS output decrypts "
+          f"{B}/{B} right")
+    print(f"[{card}] means over the turns, batch {B} (other -> this):")
+    for k in first:
+        mean = {lab: sum(t[k]["ms"] for t in done) / len(done)
+                for lab, done in runs.items() if done}
+        each = {lab: [round(t[k]["ms"], 3) for t in done] for lab, done in runs.items()}
+        line = f"    {k}: " + " -> ".join(f"{mean[lab]:.3f} ms" for lab in mean)
+        if len(mean) == 2:
+            line += f" ({mean['this'] / mean['other'] - 1:+.2%})"
+            if k.startswith("KS+PBS"):
+                line += (f"; {B / mean['other'] * 1e3:.2f} -> {B / mean['this'] * 1e3:.2f} "
+                         f"PBS/s")
+        print(line + f"; runs {json.dumps(each)}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--against", metavar="DIR", help="time this checkout against DIR's")
+    ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
+    if args.turn_in:
+        sys.path.insert(0, args.turn_in)
+        print(json.dumps(measure_turn(args.seed)))
+        return 0
+    if args.against:
+        return compare(args.against, args.turns, args.seed)
 
     from tfhe_tpu_torch import config, cuda_lib, shortint, smem_probe
     from tfhe_tpu_torch.core import rng
@@ -352,6 +524,9 @@ def main() -> int:
     tag = f"[{card}]"
     clock_hz = clock_mhz * 1e6
     t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"{tag} phase {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -459,6 +634,7 @@ def main() -> int:
         return hold(label, got, rotation.blind_rotate_step_plain(acc.clone(), exps, key_slice,
                                                                  mode, decomp))
 
+    lap("3")
     # ---- 3. K1 and K2 against their plain versions, full 2_2 widths ---------
     params = shortint_params(CLASSIC)
     n, N, R, J, P, plan = widths(params)
@@ -537,6 +713,7 @@ def main() -> int:
     k2_bound = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
                      clock_hz, sms)
 
+    lap("3c classic")
     # ---- 3c (classic). K4 and the paired K5 at full 2_2 widths --------------
     k4_err = k5_err = 0
     pkey = bootstrap_key_to_ntt_paired(key)
@@ -573,6 +750,7 @@ def main() -> int:
           outs["paired_plain"], n, R, J, P, N, 2 * P * J * R * N, False)
     del key, pkey, acc, exps, digits, kmat, body, got, outs
 
+    lap("3b")
     # ---- 3b. K3 against its plain version, GROUP_2 and GROUP_3 widths -------
     # ---- 3c (GROUP_3). K5 over a multi-bit key; K2 at the multi-bit shapes ---
     k3, k2_mb = {}, {}
@@ -652,6 +830,7 @@ def main() -> int:
         k2_mb[gf] = (kms, kplain)
         del mkey, acc, cexp, got, outs, dg, km, bd, o2
 
+    lap("3d")
     # ---- 3d. K6, the staged step, at the shapes beyond one block ------------
     def staged_key(sp, steps):
         """A random key of `steps` steps at the widths of set sp (classic or
@@ -685,6 +864,22 @@ def main() -> int:
     def first_steps(key, steps):
         return dataclasses.replace(key, spectra=key.spectra[:steps])
 
+    def rotate_form(key, acc, exps, form):
+        """K6 over every step of key in the form asked for ("passes", or
+        (C, group) for the cluster step), through `_staged_rotate` as the
+        wrappers call it; → a new accumulator."""
+        gf = getattr(key, "grouping_factor", None)
+        P, J, R, N = key.spectra.shape[-4:]
+        lay = rotation._k6_layout(N, R, J, P, 1 << gf if gf else 0, form)
+        plan = ntt.get_plan(N, P)
+        out = acc.contiguous().clone()
+        rotation._staged_rotate(out, exps.to(torch.int32).contiguous(),
+                                (1 << gf) - 1 if gf else 1, key.spectra.contiguous(),
+                                key.decomp, gf or 0, key.spectra.shape[0], lay, plan,
+                                rotation._delta_tables(plan, acc.device, bool(gf)),
+                                rotation._host_consts(plan))
+        return out
+
     def hold_rotation(label, key, batch, steps, **kw):
         """The wrapper over the key's first `steps` steps against the plain
         rotation on the same inputs; → max_abs_err."""
@@ -695,48 +890,83 @@ def main() -> int:
         return hold(f"{label}, batch {batch}, {steps} steps", got,
                     rotation.blind_rotate_plain(acc, exps, sub))
 
-    def staged_counts():
-        return rotation.staged_launches, rotation.staged_variant_launches
+    def k6_counts():
+        return (rotation.cluster_launches, rotation.cluster_variant_launches,
+                rotation.staged_launches)
 
-    k6 = {"delta": {"err": 0, "shapes": []}, "variants": {"err": 0, "shapes": []}}
+    def k6_layout(sp):
+        """K6's form for set sp, by the shape rule: its layout and its name."""
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        gf = getattr(sp, "grouping_factor", None)
+        lay = rotation._k6_layout(sN, sR, sJ, sP, 1 << gf if gf else 0)
+        if isinstance(lay, rotation.ClusterLayout):
+            return lay, (f"the cluster step: clusters of {lay.cluster}, primes in groups of "
+                         f"{lay.group}, region head {lay.head}, tail {lay.tail}, {lay.smem} B "
+                         f"a block")
+        return lay, (f"the passes form: head {lay.head}, tail {lay.tail}, {lay.launches} "
+                     f"launches a step, {lay.warps} regions a block, {lay.smem} B")
+
+    def k6_bound(batch, steps, gf, sP, sJ, sR, sN, key_words, e_words):
+        """K6's bound over `steps` steps, the same for both forms: the key
+        once, the accumulator in and out once, the exponents, the tables."""
+        return bound((k3_mults(batch, steps, 1 << gf, sP, sJ, sR, sN) if gf else
+                      k1_mults(batch, steps, sP, sJ, sR, sN, 1)),
+                     key_words * 4 + 2 * batch * sR * sN * 8 + e_words * 4 + 8 * sP * sN * 4,
+                     clock_hz, sms)
+
+    # kinds: the cluster step's delta and variant steps, the passes form
+    k6 = {kind: {"err": 0, "shapes": []} for kind in ("delta", "variants", "passes")}
     for name, batches in K6_SETS + K6_MB_SETS:
         sp = shortint_params(name)
         sn, sN, sR, sJ, sP, splan = widths(sp)
         gf = getattr(sp, "grouping_factor", None)
         steps = sn // gf if gf else sn
-        full = STEPS_7_1 if sN == 65536 else steps
+        full = STEPS_65536 if sN == 65536 else steps
         cut = min(CUT_STEPS, full)
-        kind = "variants" if gf else "delta"
-        lay = rotation._staged_layout(sN, sR, sJ, sP)
         if rotation._rotation_route(sN, sR, sJ, sP) != "staged":
             raise AssertionError(f"{name} does not take K6")
+        lay, form = k6_layout(sp)
+        cluster = isinstance(lay, rotation.ClusterLayout)
+        kind = ("variants" if gf else "delta") if cluster else "passes"
         key = staged_key(sp, full)
-        print(f"{tag} K6 {kind} {name} (N={sN}, R={sR}, J={sJ}, P={sP}; head {lay.head}, "
-              f"tail {lay.tail}, {lay.launches} launches a step, {lay.warps} regions a "
-              f"block, {lay.smem} B), key {key.spectra.numel() * 4 / 1e9:.2f} GB for {full} of "
-              f"{steps} steps" + (f" (cut: the full key is "
-                                  f"{steps * key.spectra[0].numel() * 4 / 1e9:.2f} GB)"
-                                  if full < steps else ""))
+        print(f"{tag} K6 {kind} {name} (N={sN}, R={sR}, J={sJ}, P={sP}; {form}), key "
+              f"{key.spectra.numel() * 4 / 1e9:.2f} GB for {full} of {steps} steps"
+              + (f" (cut: the full key is {steps * key.spectra[0].numel() * 4 / 1e9:.2f} GB)"
+                 if full < steps else ""))
         for batch in batches:
-            before = staged_counts()
+            before = k6_counts()
             depth = full if batch == 8 else cut
             k6[kind]["err"] = max(k6[kind]["err"], hold_rotation(
                 f"K6 {kind} {name}", key, batch, depth))
-            ran = [a - b for a, b in zip(staged_counts(), before)]
-            count = depth * lay.launches * len(rotation._staged_tiles(batch, sN, sR, sJ, sP))
-            want = [0, count] if gf else [count, 0]
+            ran = [a - b for a, b in zip(k6_counts(), before)]
+            if cluster:
+                want = [0, depth, 0] if gf else [depth, 0, 0]
+            else:
+                want = [0, 0, depth * lay.launches
+                        * len(rotation._staged_tiles(batch, sN, sR, sJ, sP))]
             if ran != want:
                 raise AssertionError(f"K6 launches {ran}, expected {want}")
+        if not cluster:
+            # the passes form at the one set it serves: batch 8, every step held above
+            acc, exps = rotation_inputs(key, 8, full)
+            out = {}
+            ms = cuda_ms(lambda: out.update(kernel=rotate(key, acc, exps)), 3)
+            plain_ms = cuda_ms(lambda: out.update(
+                plain=rotation.blind_rotate_plain(acc, exps, key)), 1)
+            k6[kind]["err"] = max(k6[kind]["err"], hold(
+                f"K6 passes {name}, batch 8, {full} steps (timed)", out["kernel"], out["plain"]))
+            bnd = k6_bound(8, full, 0, sP, sJ, sR, sN, key.spectra.numel(), exps.numel())
+            print(f"{tag} K6 passes {name} batch 8, {full} steps: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]}")
+            k6[kind].update(ms=ms, plain_ms=plain_ms, bound=bnd)
+            k6[kind]["shapes"].append((f"{name} batch 8, {full} steps", ms, plain_ms, bnd))
+            del acc, exps, out
         if name in (CLASSIC_33, GROUP_3_33, CLASSIC_44):
             acc, exps = rotation_inputs(key, B, full)
             rotate(key, acc, exps)
             t = cuda_ms(lambda: rotate(key, acc, exps), 2 if name == CLASSIC_44 else 3)
             sub = first_steps(key, cut)
-            bnd = bound(
-                (k3_mults(B, full, 1 << gf, sP, sJ, sR, sN) if gf else
-                 k1_mults(B, full, sP, sJ, sR, sN, lay.chunks)),
-                key.spectra.numel() * 4 + 2 * B * sR * sN * 8
-                + B * exps[0].numel() * 4 + 8 * sP * sN * 4, clock_hz, sms)
+            bnd = k6_bound(B, full, gf, sP, sJ, sR, sN, key.spectra.numel(), exps.numel())
             print(f"{tag} K6 {kind} {name} batch {B}: {t:.3f} ms over {full} steps "
                   f"({t / full:.4f} ms a step), bound {bnd[0]:.3f} ms by {bnd[1]}")
             k6[kind]["shapes"].append((f"{name} batch {B}, {full} steps", t, None, bnd))
@@ -750,11 +980,7 @@ def main() -> int:
                 k6[kind]["err"] = max(k6[kind]["err"], hold(
                     f"K6 {kind} {name}, batch {B}, {cut} steps (timed)", out["kernel"],
                     out["plain"]))
-                bnd = bound(
-                    (k3_mults(B, cut, 1 << gf, sP, sJ, sR, sN) if gf else
-                     k1_mults(B, cut, sP, sJ, sR, sN, lay.chunks)),
-                    sub.spectra.numel() * 4 + 2 * B * sR * sN * 8
-                    + B * exps[0].numel() * 4 + 8 * sP * sN * 4, clock_hz, sms)
+                bnd = k6_bound(B, cut, gf, sP, sJ, sR, sN, sub.spectra.numel(), exps.numel())
                 print(f"{tag} K6 {kind} {name} batch {B}, {cut} steps: kernel {ms:.3f} ms, "
                       f"plain {plain_ms:.3f} ms")
                 k6[kind].update(ms=ms, plain_ms=plain_ms, bound=bnd, label=(
@@ -762,8 +988,9 @@ def main() -> int:
                 k6[kind]["shapes"].append((k6[kind]["label"], ms, plain_ms, bnd))
             del acc, exps, sub
         if name == CLASSIC_33:
-            # K6 one step on the per-step routes: delta (K4's) and paired (K5's)
-            pk = bootstrap_key_to_ntt_paired(first_steps(key, 1))
+            # K6 one step on the per-step routes: delta (K4's) and paired (K5's),
+            # held, then timed over `cut` launches beside its bound
+            pk = bootstrap_key_to_ntt_paired(first_steps(key, cut))
             for batch in (8, B + 1):
                 a1, e1 = rotation_inputs(key, batch, 1)
                 k6["delta"]["err"] = max(k6["delta"]["err"], hold_steps(
@@ -772,7 +999,32 @@ def main() -> int:
                 k6["variants"]["err"] = max(k6["variants"]["err"], hold_steps(
                     f"K6 paired one step {name}, batch {batch}", a1, e1[:, :1],
                     pk.spectra[0], "variants", key.decomp))
-            del pk, a1, e1
+            acc, exps = rotation_inputs(key, B, cut)
+            for kk, label, skey, V in (("delta", "delta", first_steps(key, cut), 1),
+                                        ("variants", "paired", pk, 2)):
+                out = {}
+                before = k6_counts()
+                ms = cuda_ms(lambda: out.update(got=rotation.rotate_steps(acc.clone(), exps,
+                                                                          skey)), 3)
+                ran = [a - b for a, b in zip(k6_counts(), before)]
+                if ran != ([0, 3 * cut, 0] if V == 2 else [3 * cut, 0, 0]):
+                    raise AssertionError(f"K6 one step {label}: launches {ran}")
+                plain_ms = cuda_ms(lambda: out.update(
+                    plain=rotation.blind_rotate_plain(acc, exps, skey)), 1)
+                k6[kk]["err"] = max(k6[kk]["err"], hold(
+                    f"K6 {label} one step a launch {name}, batch {B}, {cut} launches (timed)",
+                    out["got"], out["plain"]))
+                bnd = bound((k3_mults(B, cut, V, sP, sJ, sR, sN) if V == 2 else
+                             k1_mults(B, cut, sP, sJ, sR, sN, 1)),
+                            step_bytes(cut, V, sP, sJ, sR, sN, 1) + 8 * sP * sN * 4, clock_hz,
+                            sms)
+                print(f"{tag} K6 {label} one step a launch (per-step route) {name} batch {B}: "
+                      f"{ms:.3f} ms over {cut} launches ({ms / cut:.4f} ms a launch), plain "
+                      f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]}")
+                k6[kk]["shapes"].append((f"{name} {label}, one step a launch (per-step "
+                                         f"route), batch {B}, {cut} launches", ms, plain_ms,
+                                         bnd))
+            del pk, a1, e1, acc, exps, out
         del key
     torch.cuda.empty_cache()
 
@@ -782,7 +1034,52 @@ def main() -> int:
     hold(f"K6 forced (_staged=True) at {CLASSIC}, batch 8, {params.lwe_dimension} steps",
          rotation.rotate_accumulator(acc, exps, key, _staged=True),
          rotation.rotate_accumulator(acc, exps, key), "K1 on the same inputs")
+    del key, acc, exps
 
+    lap("3d'")
+    # ---- 3d'. K6's cluster sweep ----------------------------------------------
+    k6_sweep = {}
+    for name, steps, forms in K6_SWEEP:
+        sp = shortint_params(name)
+        sn, sN, sR, sJ, sP, splan = widths(sp)
+        gf = getattr(sp, "grouping_factor", None)
+        lay, _ = k6_layout(sp)
+        rule = (lay.cluster, lay.group) if isinstance(lay, rotation.ClusterLayout) else "passes"
+        if rule != forms[0]:
+            raise AssertionError(f"{name}: the rule gives {rule}, the sweep starts at {forms[0]}")
+        key = staged_key(sp, steps)
+        acc, exps = rotation_inputs(key, B, steps)
+        rows = 8 if sN == 65536 else B   # the plain rotation's memory at N = 65536
+        ref = rotation.blind_rotate_plain(acc[:rows], exps[:rows], key)
+        times, first = {f: [] for f in forms}, {}
+        for f in list(forms) + list(forms[::-1]):
+            out = {}
+            times[f] += cuda_ms_reps(lambda: out.update(got=rotate_form(key, acc, exps, f)),
+                                     SWEEP_REPS)
+            hold(f"K6 {name} form {f}, batch {B}, {steps} steps", out["got"][:rows], ref)
+            if "got" in first:
+                hold(f"K6 {name} form {f}, batch {B}, {steps} steps", out["got"],
+                     first["got"], f"form {forms[0]}")
+            else:
+                first["got"] = out["got"]
+        mean = {f: sum(t) / len(t) for f, t in times.items()}
+        spread = {f: max(t) - min(t) for f, t in times.items()}
+        print(f"{tag} K6 {name} forms, batch {B}, {steps} steps ({SWEEP_REPS} runs a turn, "
+              f"turns there and back; the rule gives {rule}):")
+        print("    form      | smem B a block | ms (mean) | spread ms | ms a step")
+        for f in forms:
+            smem = rotation._k6_layout(sN, sR, sJ, sP, 1 << gf if gf else 0, f).smem
+            print(f"    {str(f):9s} | {smem:14d} | {mean[f]:9.3f} | {spread[f]:9.3f} | "
+                  f"{mean[f] / steps:9.4f}")
+        ranked = sorted(mean, key=mean.get)
+        print(f"    fastest first: {', '.join(str(f) for f in ranked)}; the rule's form "
+              f"{rule} ranks {ranked.index(rule) + 1} of {len(ranked)}")
+        k6_sweep[name] = {str(f): t for f, t in times.items()}
+        print(f"K6 {name} sweep runs (ms): {json.dumps(k6_sweep[name])}")
+        del key, acc, exps, ref, first, out
+    torch.cuda.empty_cache()
+
+    lap("3e")
     # ---- 3e. more than 15 digit rows: K1, K4 and the paired K5 --------------
     for name in WIDE_SETS:
         sp = gadget_params(name) if name.startswith("AES") else wopbs_params(name)
@@ -810,15 +1107,17 @@ def main() -> int:
     def zero_counts():
         rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
         rotation.step_launches = rotation.step_variant_launches = 0
-        rotation.staged_launches = rotation.staged_variant_launches = 0
+        rotation.cluster_launches = rotation.cluster_variant_launches = 0
+        rotation.staged_launches = 0
 
     def read_counts():
         return {"blind_rotate": rotation.launches,
                 "blind_rotate_multibit": rotation.multi_bit_launches,
                 "blind_rotate_step": rotation.step_launches,
                 "blind_rotate_step_variants": rotation.step_variant_launches,
+                "blind_rotate_cluster_step": rotation.cluster_launches,
+                "blind_rotate_cluster_step_variants": rotation.cluster_variant_launches,
                 "blind_rotate_staged": rotation.staged_launches,
-                "blind_rotate_staged_variants": rotation.staged_variant_launches,
                 "keyswitch_mac": keyswitch.launches}
 
     def check_requests(ck, outs, expect, path, seconds, batch=B):
@@ -850,6 +1149,7 @@ def main() -> int:
         if not same:
             raise AssertionError(f"{path} card path disagrees with the plain CPU path")
 
+    lap("4")
     # ---- 4. the classic path: keygen, encrypt, three requests, decrypt ------
     zero_counts()
     t0 = time.perf_counter()
@@ -878,6 +1178,7 @@ def main() -> int:
     kspbs = {CLASSIC: cuda_ms(lambda: sk.apply_lookup_table(ct, lut1), 3)}
     del ck, sk, ct, out1, out2, out3
 
+    lap("4b")
     # ---- 4b. the multi-bit path, GROUP_3: four requests ----------------------
     zero_counts()
     mp3 = shortint_params(GROUP_3)
@@ -908,6 +1209,7 @@ def main() -> int:
                   timeline)
     del ck, sk, ca, cb, outs
 
+    lap("4c")
     # ---- 4c. the per-step routes, one LUT request each -----------------------
     steps_per_call = {CLASSIC: params.lwe_dimension,
                       GROUP_3: mp3.lwe_dimension // mp3.grouping_factor}
@@ -971,6 +1273,7 @@ def main() -> int:
     config.set_use_mxu_lanes(False)
     config.set_use_fused_rotation(True)
 
+    lap("4d")
     # ---- 4d. the large-N paths through K6: 3_3, 3_3 GROUP_3, 4_4 ------------
     large_launches, large_kspbs = {}, {}
     for pname, batch, cpu_hold in LARGE_PATHS:
@@ -981,11 +1284,12 @@ def main() -> int:
         gen_s = time.perf_counter() - t0
         gf = getattr(rp, "grouping_factor", None)
         steps = rp.lwe_dimension // gf if gf else rp.lwe_dimension
-        J, R = rp.pbs_level * rp.glwe_size, rp.glwe_size
-        lay = rotation._staged_layout(rp.polynomial_size, R, J, sk.bsk.spectra.shape[-4])
+        lay, form = k6_layout(rp)
+        if not isinstance(lay, rotation.ClusterLayout):
+            raise AssertionError(f"{pname} does not take the cluster step")
         print(f"{tag} {pname}: gen_keys on the card {gen_s:.2f} s (key "
               f"{sk.bsk.spectra.numel() * 4 / 1e9:.2f} GB, keyswitching key "
-              f"{sk.ksk.data.numel() * 8 / 1e9:.2f} GB), batch {batch}")
+              f"{sk.ksk.data.numel() * 8 / 1e9:.2f} GB), batch {batch}; K6: {form}")
         m = torch.randint(0, rp.message_modulus, (batch,),
                           generator=rng.generator(args.seed, 11), dtype=torch.int64)
         ct = ck.encrypt(m.to(dev), seed=args.seed + 6)
@@ -999,10 +1303,8 @@ def main() -> int:
         counts = read_counts()
         print(f"{pname} kernel launches: {json.dumps(counts)}")
         want = {k: 0 for k in counts}
-        tiles = len(rotation._staged_tiles(batch, rp.polynomial_size, R, J,
-                                           sk.bsk.spectra.shape[-4]))
-        want.update({"blind_rotate_staged_variants" if gf else "blind_rotate_staged":
-                     steps * lay.launches * tiles, "keyswitch_mac": 1})
+        want.update({"blind_rotate_cluster_step_variants" if gf else "blind_rotate_cluster_step":
+                     steps, "keyswitch_mac": 1})
         if counts != want:
             raise AssertionError(f"{pname}: launches {counts}, expected {want}")
         large_launches[pname] = counts
@@ -1013,24 +1315,29 @@ def main() -> int:
             print(f"{pname} plain CPU path: {time.perf_counter() - t0:.1f} s")
         large_kspbs[pname] = (cuda_ms(lambda: sk.apply_lookup_table(ct, lut),
                                       2 if pname == CLASSIC_44 else 3), batch)
-        # one call under the profiler: the idle share, and K6's time by pass
+        # one call under the profiler: the idle share, device time by kernel, and
+        # K6's launches and their cadence
         wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ct, lut))
         busy = print_profile(f"{tag} profiler, one {pname} KS+PBS call at batch {batch}",
                              wall_ms, by_kernel, timeline)
-        passes = {}
-        for name, ms in exclusive_ms(timeline).items():
-            for kind in ("staged_first_pass", "staged_head_pass", "staged_region",
-                         "staged_last_pass"):
-                if kind in name:
-                    passes[kind] = passes.get(kind, 0.0) + ms
-        if not busy or not passes:
-            raise AssertionError(f"the {pname} trace shows no K6 time")
-        print(f"{tag} {pname} K6 device time by pass (ms, each kernel after the one "
-              f"before it ended; one call, {steps} steps): "
-              + ", ".join(f"{k} {v:.3f} ({v / busy:.1%} of busy)" for k, v in passes.items()))
+        k6_events = [e for e in timeline if "cluster_step" in e[0]]
+        if not busy or len(k6_events) != steps:
+            raise AssertionError(f"the {pname} trace shows {len(k6_events)} K6 launches, "
+                                 f"not {steps}")
+        k6_busy = busy_ms(k6_events)
+        ends = [b[1] + b[2] - (a[1] + a[2]) for a, b in zip(k6_events, k6_events[1:])]
+        excl = exclusive_ms(timeline)
+        others = sorted(((v, k) for k, v in excl.items() if "cluster_step" not in k),
+                        reverse=True)[:3]
+        print(f"{tag} {pname} trace by kernel (each charged after the one before it ended): "
+              f"K6 {len(k6_events)} launches cover {k6_busy:.3f} ms ({k6_busy / busy:.1%} of "
+              f"busy), one ends every {sum(ends) / len(ends) / 1e3:.5f} ms, a launch's traced "
+              f"length {sum(e[2] for e in k6_events) / len(k6_events) / 1e3:.5f} ms; then "
+              + ", ".join(f"{k[:60]} {v:.3f} ms" for v, k in others))
         del ck, sk, ct, out, lut
         torch.cuda.empty_cache()
 
+    lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
     largest = smem_probe.largest(dev)
@@ -1048,6 +1355,7 @@ def main() -> int:
                              "disagree")
     probe_ms = cuda_ms(lambda: smem_probe.probe(largest, dev), 10)
 
+    lap("6")
     # ---- 6. launch counts, throughput, the kernels line -----------------------
     print(f"classic path kernel launches: {json.dumps(classic_launches)}")
     print(f"multi-bit GROUP_3 path kernel launches: {json.dumps(multi_bit_launches)}")
@@ -1057,9 +1365,10 @@ def main() -> int:
                         ("keyswitch_mac", classic_launches["keyswitch_mac"]),
                         ("blind_rotate_multibit", multi_bit_launches["blind_rotate_multibit"]),
                         ("keyswitch_mac", multi_bit_launches["keyswitch_mac"]),
-                        ("blind_rotate_staged", large_launches[CLASSIC_33]["blind_rotate_staged"]),
-                        ("blind_rotate_staged_variants",
-                         large_launches[GROUP_3_33]["blind_rotate_staged_variants"]),
+                        ("blind_rotate_cluster_step",
+                         large_launches[CLASSIC_33]["blind_rotate_cluster_step"]),
+                        ("blind_rotate_cluster_step_variants",
+                         large_launches[GROUP_3_33]["blind_rotate_cluster_step_variants"]),
                         ("smem_probe", probe_launches)):
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by its path")
@@ -1119,14 +1428,19 @@ def main() -> int:
                 k5p_plain_ms, k5p_bound),
                (f"GROUP_3 batch {B}, {steps_per_call[GROUP_3]} launches", k5m_ms,
                 k5m_plain_ms, k5m_bound)], rotation._CLUSTER),
-        entry("blind_rotate_staged", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              sum(c["blind_rotate_staged"] for c in large_launches.values()),
+        entry("blind_rotate_cluster_step", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              sum(c["blind_rotate_cluster_step"] for c in large_launches.values()),
               k6["delta"]["err"], k6["delta"]["ms"], k6["delta"]["plain_ms"],
               k6["delta"]["bound"], k6["delta"]["shapes"]),
-        entry("blind_rotate_staged_variants", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              sum(c["blind_rotate_staged_variants"] for c in large_launches.values()),
+        entry("blind_rotate_cluster_step_variants", rot_src,
+              "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              sum(c["blind_rotate_cluster_step_variants"] for c in large_launches.values()),
               k6["variants"]["err"], k6["variants"]["ms"], k6["variants"]["plain_ms"],
               k6["variants"]["bound"], k6["variants"]["shapes"]),
+        entry("blind_rotate_staged", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
+              sum(c["blind_rotate_staged"] for c in large_launches.values()),
+              k6["passes"]["err"], k6["passes"]["ms"], k6["passes"]["plain_ms"],
+              k6["passes"]["bound"], k6["passes"]["shapes"]),
         entry("smem_probe", "tfhe_tpu_torch/csrc/probe.cu", "tools/vmem_probe.py:19",
               probe_launches, abs(largest - optin), probe_ms, optin_ms,
               bound(largest, 8, clock_hz, sms)),

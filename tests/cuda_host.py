@@ -25,6 +25,13 @@ def build_rotation_host(out: Path, entries) -> ctypes.CDLL:
     src = (cuda_lib.CSRC / "rotation.cu").read_text()
     src = src.replace("#include <cooperative_groups.h>", '#include "cuda_host_stub.h"')
     src = src.replace("#include <cuda_runtime.h>", "")
+    # the cluster barrier's halves, which the stand-in models; other inline
+    # PTX (programmatic dependent launch) has no meaning on the host
+    for asm, call in (("barrier.cluster.arrive.relaxed.aligned;", "host_cluster_arrive();"),
+                      ("barrier.cluster.wait.aligned;", "host_cluster_wait();")):
+        line = f'asm volatile("{asm}" ::: "memory");'
+        assert src.count(line) == 1, f"rotation.cu no longer has {line!r} once"
+        src = src.replace(line, call)
     src = re.sub(r"^\s*asm volatile\(.*\);\s*$", "", src, flags=re.M)
     src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
                       "unsigned char* smem = host_smem;")

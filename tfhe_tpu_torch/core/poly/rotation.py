@@ -1,7 +1,9 @@
 """The blind rotation, classic (delta form), paired and multi-bit, on two
 routes: the whole rotation in one kernel launch (K1, K3) or one launch per
 step (K4, K5); where a ciphertext's working set exceeds one block's shared
-memory, both routes run K6, the staged step, instead.
+memory, both routes run K6 instead: the cluster step (one launch a step, a
+cluster of blocks per ciphertext) where a cluster holds the step, else its
+passes form over device memory.
 
 Counterpart of `tfhe_tpu/core/poly/pallas_ntt.py`: `blind_rotate_fused`
 (:1537, the fused route) and `blind_rotate_pallas` (:1742) /
@@ -17,8 +19,8 @@ glue here, as they are XLA glue there.  Every step is one of
     acc = sum_{v < 2^g} X^{c_v} * sum_{l,r} decomp_l(acc_r) * GGSW_{j,v}[l, r]
 
 All the kernels are in `csrc/rotation.cu` (a delta body for K1/K4, a
-variant body for K3/K5, and K6's passes over device memory, whose region
-kernel runs the delta body's MAC pipeline; the source's header says what
+variant body for K3/K5, and K6, whose cluster step and whose passes form
+both run the delta body's region pipeline; the source's header says what
 each replaces and what bounds it on the card), with
 `blind_rotate_step_plain` as the one plain step formula beside them.  All
 compute the exact product mod 2^64, so all are bit-identical to the JAX
@@ -31,8 +33,10 @@ schedule and MAC split come from `_delta_layout`, their twiddle and phase
 tables (values beside their Shoup twins) from `_delta_tables`.  K3 and K5
 run in clusters of C blocks that share each key word among C ciphertexts;
 their grid, cluster, slot ranges, padding and shared memory come from
-`_variant_launch_plan`.  K6's passes, region size and batch tiles come
-from `_staged_layout` and `_staged_tiles`.  The JAX wrappers' batch bucketing
+`_variant_launch_plan`.  K6's form comes from `_k6_layout` (the rule over
+the shape, `_cluster_rule`): the cluster step's cluster size, prime groups
+and passes from `_cluster_layout`; the passes form's passes, region size
+and batch tiles from `_staged_layout` and `_staged_tiles`.  The JAX wrappers' batch bucketing
 (`_padded_flat_batch`) only caps TPU compiles and has no counterpart: the
 kernels take any batch.
 """
@@ -53,14 +57,16 @@ from . import monomial_mul, ntt
 # Kernel launches, the CUDA branches only: `rotate_accumulator` (K1),
 # `rotate_accumulator_multi_bit` (K3) and `blind_rotate_step` (K4 in delta
 # mode, K5 in variants mode) where a ciphertext's working set fits one
-# block; K6's kernels (2 per head pass + 1 a step) where it does not, delta
-# and variant steps counted apart.
+# block; where it does not, K6: the cluster step (one launch a step; delta
+# and variant steps counted apart) or the passes form's kernels (2 per head
+# pass + 1 a step; delta steps only).
 launches = 0
 multi_bit_launches = 0
 step_launches = 0
 step_variant_launches = 0
+cluster_launches = 0
+cluster_variant_launches = 0
 staged_launches = 0
-staged_variant_launches = 0
 
 _MAXP = 8
 _MAXR = 4              # K3/K5 are instantiated for k+1 = 1..4 outputs
@@ -68,13 +74,15 @@ _SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
 _CLUSTERS = (1, 2, 4, 8)   # cluster sizes K3/K5 are instantiated for
 _CLUSTER = 2           # K3/K5's default cluster size (chip_smoke.py's sweep)
 _DELTA_THREADS = 256   # threads of a K1/K4 block (DELTA_THREADS in csrc/rotation.cu)
-_STAGED_WARPS = 8      # regions (warps) of a K6 region block, at most
-_STAGED_SCRATCH = 2 << 30   # bytes of K6 scratch a call holds at once (batch tiles)
+_STAGED_WARPS = 8      # regions (warps) of a K6 passes-form region block, at most
+_STAGED_SCRATCH = 2 << 30   # bytes of K6 passes-form scratch a call holds at once
+_CLUSTER_SIZES = (2, 4, 8, 16)   # blocks a ciphertext in K6's cluster step
+_CLUSTER_MAXP = 4      # primes the cluster step's lift holds in registers
 _PER_STEP_MAX_N = 8192  # the per-step routes' largest N (pallas_ntt.py:1809)
 _TABLES: dict = {}     # (N, P, device) → (tab, consts) for the variant body
 _DELTA_TABLES: dict = {}   # (N, P, device, variants) → tab for the delta body and K6
 _CONSTS: dict = {}     # (N, P) → the constants buffer in host memory
-_ACTIVE: dict = {}     # (cluster, R, smem, device) → clusters the device holds
+_ACTIVE: dict = {}     # (kernel, cluster, ..., smem, device) → clusters the device holds
 
 
 def modulus_switch(x: torch.Tensor, polynomial_size: int) -> torch.Tensor:
@@ -339,10 +347,11 @@ def _delta_layout(n: int, R: int, J: int, P: int) -> DeltaLayout:
 
 @dataclass(frozen=True)
 class StagedLayout:
-    """How K6 runs one step of a ciphertext whose working set does not fit
-    one block.  The digit spectra and the products stay in device memory
-    (scratch [B, P, J, N] and [B, P, R, N] u32, swizzled as the delta body
-    keeps a polynomial in shared memory).  The forward transform's `head`
+    """How K6's passes form runs one step of a ciphertext whose working set
+    does not fit one block, where no cluster holds it (`_cluster_rule`).
+    The digit spectra and the products stay in device memory (scratch
+    [B, P, J, N] and [B, P, R, N] u32, swizzled as the delta body keeps a
+    polynomial in shared memory).  The forward transform's `head`
     passes (radix logs, top pass first) run over device memory, one launch
     each, the first decomposing acc for every prime; one launch runs, a
     warp per region of 2^log_w slots, the forward `tail` passes, the MAC
@@ -373,7 +382,7 @@ class StagedLayout:
 
 
 def _staged_layout(n: int, R: int, J: int, P: int) -> StagedLayout:
-    """K6's layout for N = n slots, R outputs, J = L*R digit rows and P
+    """K6's passes form's layout for N = n slots, R outputs, J = L*R digit rows and P
     primes: the stages above a region of at most 256 slots (at least one)
     are head passes of radix 8 at most; a region holds 32 slots or more
     (N >= 64), so that the swizzle keeps its words together."""
@@ -400,11 +409,115 @@ def _staged_args(lay: StagedLayout) -> tuple:
 
 
 def _staged_tiles(batch: int, n: int, R: int, J: int, P: int) -> list:
-    """Row ranges [lo, hi) of the batch that K6 runs at once: as many
+    """Row ranges [lo, hi) of the batch that K6's passes form runs at once: as many
     ciphertexts as keep its scratch (4 P (J + R) N bytes each) within
     `_STAGED_SCRATCH`, at least one."""
     rows = max(1, _STAGED_SCRATCH // (4 * P * (J + R) * n))
     return [(lo, min(batch, lo + rows)) for lo in range(0, batch, rows)]
+
+
+@dataclass(frozen=True)
+class ClusterLayout:
+    """How K6's cluster step runs one step of a ciphertext: a cluster of
+    `cluster` = C blocks, one launch a step, cluster b owning ciphertext b.
+    Block q keeps the region [q*W, (q+1)*W), W = N/C = 2^log_w, of every
+    polynomial of the transform.  The top log2 C forward stages run across
+    the cluster (the exchange: each block reads its share of the
+    accumulator's columns, splits the digits and writes each output into
+    the owning block's shared memory), the bottom log2 C inverse stages the
+    same way (the gather, with Garner into acc).  Inside a block, K1's
+    passes on the region: `head` passes (radix logs, over the block) down
+    to tail regions of 2^log_t slots, one warp per (prime, tail region) for
+    the `tail` passes, the MAC and the inverse tails.  The primes run in
+    groups of `group`: a block holds one group's J digit spectra and every
+    prime's R products, `smem` = 4 (group J + P R) W bytes."""
+    log_n: int
+    cluster: int
+    group: int
+    head: tuple
+    tail: tuple
+    log_t: int
+    smem: int
+
+    launches = 1
+
+    @property
+    def log_w(self) -> int:
+        return self.log_n - (self.cluster.bit_length() - 1)
+
+    @property
+    def head_code(self) -> int:
+        return _pack(self.head)
+
+    @property
+    def tail_code(self) -> int:
+        return _pack(self.tail)
+
+
+def _cluster_smem(n: int, R: int, J: int, P: int, cluster: int, group: int) -> int:
+    """A cluster-step block's shared memory: a group of primes' J digit
+    spectra and every prime's R products of its region of N/C slots."""
+    return 4 * (group * J + P * R) * n // cluster
+
+
+def _cluster_layout(n: int, R: int, J: int, P: int, cluster: int, group: int
+                    ) -> ClusterLayout:
+    """The cluster step's layout for N = n slots, R outputs, J = L*R digit
+    rows, P primes, in clusters of `cluster` blocks and prime groups of
+    `group`; raises where the kernel does not take it."""
+    log_n = _check_shape(n, R, J, P)
+    if cluster not in _CLUSTER_SIZES:
+        raise ValueError(f"the cluster step takes clusters of {_CLUSTER_SIZES} blocks, "
+                         f"not {cluster!r}")
+    if P > _CLUSTER_MAXP or R > _MAXR or group < 1 or P % group:
+        raise ValueError(f"the cluster step takes P <= {_CLUSTER_MAXP}, R <= {_MAXR} and a "
+                         f"prime group dividing P, not P={P}, R={R}, group={group}")
+    log_w = log_n - (cluster.bit_length() - 1)
+    if log_w < 5:
+        raise ValueError(f"a block's region of N/C = {n // cluster} slots is below 32")
+    smem = _cluster_smem(n, R, J, P, cluster, group)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a cluster-step block's {smem} B exceed one block's shared memory "
+                         f"({_SMEM_LIMIT} B)")
+    log_t = min(log_w, 8)
+    return ClusterLayout(log_n=log_n, cluster=cluster, group=group,
+                         head=_split(log_w - log_t, False), tail=_split(log_t - 2, True),
+                         log_t=log_t, smem=smem)
+
+
+def _cluster_rule(n: int, R: int, J: int, P: int):
+    """(C, group) of the cluster step for a shape that takes K6, or None
+    where no cluster holds it (K6's passes form runs).  From the sweeps on
+    the H100 (`chip_smoke.py` phase 3d', PERF.md): every prime in one group
+    (3 cluster barriers a step, the accumulator read once), at the smallest
+    C of at most 8 whose blocks fit two to a SM; else at the smallest C
+    that holds it; else the largest group that fits, at the smallest C."""
+    if P > _CLUSTER_MAXP or R > _MAXR:
+        return None
+    fits = [(c, group) for group in range(P, 0, -1) if P % group == 0 for c in _CLUSTER_SIZES
+            if n // c >= 32 and _cluster_smem(n, R, J, P, c, group) <= _SMEM_LIMIT]
+    two = [(c, group) for c, group in fits if group == P and c <= 8
+           and 2 * _cluster_smem(n, R, J, P, c, group) <= _SMEM_LIMIT]
+    return (two or fits or [None])[0]
+
+
+def _k6_layout(n: int, R: int, J: int, P: int, variants: int, form=None):
+    """K6's layout for a shape: the cluster step's (`ClusterLayout`) where
+    `_cluster_rule` gives a cluster, else the passes form's
+    (`StagedLayout`, delta steps only).  `form` asks for one: "passes", or
+    (C, group) for the cluster step."""
+    if form == "passes":
+        choice = None
+    elif form is None:
+        choice = _cluster_rule(n, R, J, P)
+    else:
+        choice = tuple(form)
+    if choice is not None:
+        return _cluster_layout(n, R, J, P, *choice)
+    if variants:
+        raise ValueError(f"no cluster holds a variant step of N={n}, R={R}, J={J}, P={P}, "
+                         f"and K6's passes form takes delta steps only")
+    return _staged_layout(n, R, J, P)
 
 
 def _rotation_route(n: int, R: int, J: int, P: int, per_step: bool = False,
@@ -412,8 +525,9 @@ def _rotation_route(n: int, R: int, J: int, P: int, per_step: bool = False,
     """Which kernel a rotation of this shape takes, from the shape alone:
     "block" (K1/K3, or K4/K5 per step: a ciphertext's working set 8RN + 4JN
     + 4PRN bytes in one block's shared memory) or "staged" (K6; `staged`
-    asks for it at any N).  The per-step routes end at N = 8192, as the
-    JAX package's do (pallas_ntt.py:1809)."""
+    asks for it at any N; its form, the cluster step or the passes, comes
+    from the shape too, `_k6_layout`).  The per-step routes end at N = 8192,
+    as the JAX package's do (pallas_ntt.py:1809)."""
     if per_step and n > _PER_STEP_MAX_N:
         raise NotImplementedError(
             f"N = {n} on the per-step route: \"factored phase tables (N >= "
@@ -507,13 +621,28 @@ def _active_clusters(plan: VariantPlan, R: int, device) -> int:
     """How many of the plan's clusters the device holds at once (blocks
     for a cluster of 1): 0 means they cannot be scheduled.  Cached."""
     dev = torch.device(device)
-    dkey = (plan.cluster, R, plan.smem, str(dev))
+    dkey = ("K3", plan.cluster, R, plan.smem, str(dev))
     if dkey not in _ACTIVE:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
             code = cuda_lib.library().tfhe_variant_active_clusters(
                 plan.cluster, R, plan.smem, ctypes.byref(out))
         cuda_lib.check(code, "tfhe_variant_active_clusters")
+        _ACTIVE[dkey] = out.value
+    return _ACTIVE[dkey]
+
+
+def _cluster_step_active(lay: ClusterLayout, variants: bool, device) -> int:
+    """How many of the cluster step's clusters the device holds at once: 0
+    means they cannot be scheduled.  Cached."""
+    dev = torch.device(device)
+    dkey = ("K6", lay.cluster, variants, lay.smem, str(dev))
+    if dkey not in _ACTIVE:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = cuda_lib.library().tfhe_cluster_step_active(
+                lay.cluster, int(variants), lay.smem, ctypes.byref(out))
+        cuda_lib.check(code, "tfhe_cluster_step_active")
         _ACTIVE[dkey] = out.value
     return _ACTIVE[dkey]
 
@@ -542,8 +671,9 @@ def _shape_plan(n: int, R: int, L: int, base_log: int, P: int, variants: int,
     shape alone (no launch): → (route, layout), route "block" or "staged"
     (`_rotation_route`), layout `_delta_layout`'s for a block delta step,
     None for a block variant step (K3/K5: `_variant_launch_plan` adds the
-    batch), `_staged_layout`'s for K6.  `variants` GGSWs a step, 0 for the
-    delta step.  Raises where no kernel takes the shape."""
+    batch), `_k6_layout`'s for K6.  `variants`
+    GGSWs a step, 0 for the delta step.  Raises where no kernel takes the
+    shape."""
     J = L * R
     if base_log > 24 or base_log < 1:
         raise ValueError(f"the rotation kernels take base_log 1..24, not {base_log}")
@@ -555,7 +685,7 @@ def _shape_plan(n: int, R: int, L: int, base_log: int, P: int, variants: int,
                              f"not {variants} variants")
     route = _rotation_route(n, R, J, P, per_step, staged)
     if route == "staged":
-        return route, _staged_layout(n, R, J, P)
+        return route, _k6_layout(n, R, J, P, variants)
     if not variants:
         return route, _delta_layout(n, R, J, P)
     if R > _MAXR:
@@ -567,11 +697,12 @@ def _kernel_setup(acc: torch.Tensor, key_shape: tuple, decomp, variants: int,
                   per_step: bool = False, staged: bool = False) -> tuple:
     """Checks shared by the kernel wrappers on acc [B, R, N] and a key of
     shape [..., P, J, R, N] with `variants` GGSWs per step (0 for the delta
-    step); → (plan, tab, consts, layout): for K6 (a `StagedLayout`) and for
-    a block delta key the delta body's tables (`_delta_tables`, with the
-    variant phase for K6's variant steps), the constants in host memory
-    (`_host_consts`) and the layout; for a block variant key the variant
-    body's tables and constants (`_kernel_tables`) and None."""
+    step); → (plan, tab, consts, layout): for K6 (a `ClusterLayout` or a
+    `StagedLayout`) and for a block delta key the delta body's tables
+    (`_delta_tables`, with the variant phase for K6's variant steps), the
+    constants in host memory (`_host_consts`) and the layout; for a block
+    variant key the variant body's tables and constants (`_kernel_tables`)
+    and None."""
     P, J, R, n = key_shape[-4:]
     B = acc.shape[0]
     L, base_log = decomp.level, decomp.base_log
@@ -620,34 +751,48 @@ def _launch_args(acc: torch.Tensor, exps: torch.Tensor, key, exps_shape: tuple,
 
 
 def _staged_rotate(acc: torch.Tensor, exps: torch.Tensor, e_step: int,
-                   spectra: torch.Tensor, decomp, grouping: int, n_steps: int,
-                   lay: StagedLayout, plan: ntt.NttPlan, tab: torch.Tensor,
-                   cs: np.ndarray) -> None:
+                   spectra: torch.Tensor, decomp, grouping: int, n_steps: int, lay,
+                   plan: ntt.NttPlan, tab: torch.Tensor, cs: np.ndarray) -> None:
     """K6 over acc [B, R, N] (contiguous, updated in place) for n_steps
     steps of `spectra` (delta: [steps, P, J, R, N], grouping 0; variants:
-    [steps, 2^g, P, J, R, N]), in batch tiles (`_staged_tiles`).  exps:
-    int32, ciphertext b's exponents of step s e_step words after exps[b]
-    (delta: e; variants: c_1..c_{2^g-1}), read through its batch stride.
-    Each launch adds one to `staged_launches` (delta) or
-    `staged_variant_launches` (variants)."""
-    global staged_launches, staged_variant_launches
+    [steps, 2^g, P, J, R, N]).  exps: int32, ciphertext b's exponents of
+    step s e_step words after exps[b] (delta: e; variants:
+    c_1..c_{2^g-1}), read through its batch stride.  A `ClusterLayout`
+    runs the cluster step, one launch a step, each adding one to
+    `cluster_launches` (delta) or `cluster_variant_launches` (variants),
+    after checking that the device schedules its clusters; a
+    `StagedLayout` runs the passes form (delta) in batch tiles
+    (`_staged_tiles`), each launch adding one to `staged_launches`."""
+    global staged_launches, cluster_launches, cluster_variant_launches
     B, R, n = acc.shape
     P, L = plan.num_primes, decomp.level
+    lib = cuda_lib.library()
+    if isinstance(lay, ClusterLayout):
+        if _cluster_step_active(lay, bool(grouping), acc.device) < 1:
+            raise RuntimeError(f"clusters of {lay.cluster} blocks with {lay.smem} B of shared "
+                               f"memory each cannot be scheduled on {acc.device}")
+        code = lib.tfhe_cluster_step(
+            acc.data_ptr(), exps.data_ptr(), exps.stride(0), e_step, spectra.data_ptr(),
+            tab.data_ptr(), cs.ctypes.data, B, n_steps, n, plan.log_n, P, R, L,
+            decomp.base_log, grouping, lay.cluster, lay.group, lay.head_code, lay.tail_code,
+            lay.log_t, lay.smem, cuda_lib.stream_of(acc))
+        if grouping:
+            cluster_variant_launches += n_steps
+        else:
+            cluster_launches += n_steps
+        cuda_lib.check(code, "tfhe_cluster_step")
+        return
     tiles = _staged_tiles(B, n, R, L * R, P)
     rows = tiles[0][1]
     spec = torch.empty((rows, P, L * R, n), dtype=torch.int32, device=acc.device)
     res = torch.empty((rows, P, R, n), dtype=torch.int32, device=acc.device)
-    lib = cuda_lib.library()
     for lo, hi in tiles:
         code = lib.tfhe_staged_rotate(
             acc[lo].data_ptr(), exps[lo].data_ptr(), exps.stride(0), e_step,
             spectra.data_ptr(), tab.data_ptr(), cs.ctypes.data, spec.data_ptr(),
             res.data_ptr(), hi - lo, n_steps, n, plan.log_n, P, R, L, decomp.base_log,
-            grouping, *_staged_args(lay), cuda_lib.stream_of(acc))
-        if grouping:
-            staged_variant_launches += n_steps * lay.launches
-        else:
-            staged_launches += n_steps * lay.launches
+            *_staged_args(lay), cuda_lib.stream_of(acc))
+        staged_launches += n_steps * lay.launches
         cuda_lib.check(code, "tfhe_staged_rotate")
 
 
@@ -670,7 +815,7 @@ def rotate_accumulator(acc: torch.Tensor, exps: torch.Tensor,
     n_steps, P, J, R, n = key.spectra.shape
     plan, tab, cs, lay, out, e32, spectra = _launch_args(acc, exps, key,
                                                          (acc.shape[0], n_steps), 0, _staged)
-    if isinstance(lay, StagedLayout):
+    if isinstance(lay, (ClusterLayout, StagedLayout)):
         _staged_rotate(out, e32, 1, spectra, key.decomp, 0, n_steps, lay, plan, tab, cs)
         return out
     lib = cuda_lib.library()
@@ -705,7 +850,7 @@ def rotate_accumulator_multi_bit(acc: torch.Tensor, exps: torch.Tensor,
                          f"variants, the key {V}")
     plan, tab, cs, lay, out, e32, spectra = _launch_args(
         acc, exps, key, (acc.shape[0], n_steps, V - 1), V, _staged)
-    if isinstance(lay, StagedLayout):
+    if isinstance(lay, ClusterLayout):
         _staged_rotate(out, e32, V - 1, spectra, key.decomp, key.grouping_factor, n_steps,
                        lay, plan, tab, cs)
         return out
@@ -740,8 +885,9 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
 
     key_slice holds residues mod primes_for(N)[:P] in the ct-bitrev order.
     CPU tensors take `blind_rotate_step_plain`; CUDA tensors launch K4 or K5
-    where a ciphertext's working set fits one block, else K6 for one step
-    (or raise: there is no fallback).  N above 8192 raises on every device,
+    where a ciphertext's working set fits one block, else K6 for one step:
+    one cluster-step launch, or the passes form (or raise: there is no
+    fallback).  N above 8192 raises on every device,
     as the JAX per-step routes do.  On the card exps_j must be int32; a
     strided view (a column of the [B, n] table) is read in place, through
     its batch stride.  `_cluster` sets K5's cluster size (default
@@ -778,7 +924,7 @@ def blind_rotate_step(acc: torch.Tensor, exps_j: torch.Tensor, key_slice: torch.
     if variants and exps_j.stride(1) != 1:
         exps_j = exps_j.contiguous()
     key_slice = key_slice.contiguous()
-    if isinstance(lay, StagedLayout):
+    if isinstance(lay, (ClusterLayout, StagedLayout)):
         _staged_rotate(acc, exps_j, 0, key_slice, decomp,
                        variants.bit_length() - 1 if variants else 0, 1, lay, plan, tab, cs)
         return acc

@@ -1,8 +1,7 @@
 // The blind rotation for a batch of LWE ciphertexts, in two kernel bodies:
 // the delta body (classic keys) and the variant body (multi-bit keys, and
-// paired classic keys as g = 1), each launched two ways, and a staged form
-// of both for ciphertexts whose working set exceeds one block's shared
-// memory:
+// paired classic keys as g = 1), each launched two ways, and K6 for
+// ciphertexts whose working set exceeds one block's shared memory:
 //
 //   whole rotation, the step loop inside the block:
 //     K1 tfhe_blind_rotate            delta steps, classic keys
@@ -11,10 +10,14 @@
 //     K4 tfhe_blind_rotate_step           one delta step
 //     K5 tfhe_blind_rotate_step_variants  one variant step (g = 1..4; g = 1
 //                                         is a paired classic key)
-//   the working set in global memory, 2 launches per head pass + 1 a step,
-//   the step loop on the host:
-//     K6 tfhe_staged_rotate   delta or variant steps: the whole rotation
-//                             (K1's and K3's route) or one step (K4's, K5's)
+//   K6, the step loop on the host: the whole rotation (K1's and K3's route)
+//   or one step (K4's, K5's):
+//     tfhe_cluster_step    the cluster step: a cluster of C blocks owns a
+//                          ciphertext's step, one launch a step; delta or
+//                          variant steps
+//     tfhe_staged_rotate   the passes form, where no cluster holds a step:
+//                          the working set in global memory, 2 launches per
+//                          head pass + 1 a step; delta steps
 //
 // K1 replaces the TPU kernel `_make_rotation_kernel_mxu` run through
 // `blind_rotate_fused(mode="delta")` (tfhe_tpu/core/poly/pallas_ntt.py:1073,
@@ -163,41 +166,82 @@
 // WoP-PBS sets).  K1/K4 take delta_kernel with WIDE false for J <= 16 (no
 // reduction in the loop: its code is kept from growing) and WIDE for J > 16.
 //
-// K6, the staged step, replaces the same TPU kernels at the shapes where
-// they raise the VMEM limit (pallas_ntt.py:1717-1724) or take the factored
-// phase stack (N >= 16384, :1135-1168): one block cannot hold a ciphertext
-// (4_4's accumulator alone is 512 KB), so its digit spectra [P][J][N] and
-// products [P][R][N] (u32) live in device memory, swizzled in 256-word
-// blocks as the delta body keeps a polynomial in shared memory.  Per step
-// (rotation.py _staged_layout, h = log2 N - 8 head stages):
-//  - the head passes run over device memory, radix 8 at most, one launch
-//    each: the first reads acc and splits it into digits for every prime
-//    (next_digits), the others are pass_item over the grid;
-//  - one launch, a warp per (prime, 256-slot region, ciphertext), copies
-//    the region's J digit polynomials to shared memory and runs K1's region
-//    pipeline on it: the forward tails, the MAC (delta: mac_group; variants:
-//    the last two forward stages, then mac_variants, the phase psi^m/N
-//    folded into the digits) and the inverse tails, and copies the R
-//    products back;
-//  - the inverse head passes mirror the forward ones; the last transforms
-//    every prime and lifts with Garner into acc (delta: adds; variants:
-//    replaces).
-// 2 ceil(h/3) + 1 launches a step: 5 at N = 4096..16384, 7 at 32768 and
-// 65536, launched with programmatic dependent launch.  What bounds it: the
-// scratch round trips through device memory (at N = 32768, batch 512, the
-// digit spectra alone are 1 GB a step, against 4 MB of key); the region
-// tasks run prime, region, then ciphertext, so that neighbouring warps read
-// the same key words from L2.  The batch is tiled where the scratch would
-// exceed 2 GB (rotation.py _staged_tiles).
+// K6 replaces the same TPU kernels at the shapes where they raise the VMEM
+// limit (pallas_ntt.py:1717-1724) or take the factored phase stack (N >=
+// 16384, :1135-1168): one block cannot hold a ciphertext (4_4's
+// accumulator alone is 512 KB).  It has two forms; rotation.py _k6_layout
+// chooses one from the shape alone (_cluster_rule).
+//
+// The cluster step (cluster_step, rotation.py _cluster_layout).  A cluster
+// of C = 2, 4, 8 or 16 blocks (16 with the non-portable attribute) owns one
+// (ciphertext, step); the grid is B clusters, one launch a step, with
+// programmatic dependent launch.  Block q keeps the region [q*W, (q+1)*W),
+// W = N/C, of every polynomial: the slots the top log2 C forward stages
+// give it, in the delta body's swizzled layout.  Per group of ps primes
+// (ps divides P <= 4):
+//  - the exchange: for its share of the columns (W/C offsets), a block
+//    reads the accumulator words off + k*W (k < C) from device memory,
+//    splits them into digits (next_digits), runs the top log2 C stages in
+//    registers (heap node 1, radix up to 16) and writes output k into
+//    block k's shared memory (map_shared_rank), after the wait of a
+//    cluster barrier that each block arrives at as it starts (no block
+//    writes a peer that has not started); a cluster barrier;
+//  - the region, with K1's machinery on a region of the large transform
+//    (heap-node twiddles of the whole transform): head passes over the
+//    block, each item's twiddles taken through every polynomial of its
+//    prime; then one warp per (prime, 256-slot tail region): the forward
+//    tails (twiddles once for the J polynomials), the MAC (delta:
+//    mac_group; variants: finish_group, then mac_variants), the inverse
+//    tails; the inverse head passes.
+// After the last group a cluster barrier, then the gather: for its column
+// share a block reads every prime's products at slot off of every block,
+// runs the bottom log2 C inverse stages in registers and lifts with Garner
+// (garner_from) into acc (delta: adds; variants: replaces); a last cluster
+// barrier keeps a block's shared memory alive while its peers read it.  At
+// C = 16 a block has more threads than column items, and several share an
+// item: in the exchange each takes a share of the primes; in the gather
+// each takes a share of the primes through the inverse stages into the
+// block's spectra buffer, free by then, and after a block barrier lifts a
+// share of the coefficients (4_4: 4.0 to 3.4 ms a step on the H100, PERF.md).
+// Device memory per step: the accumulator read (once per group) and
+// written once, the exponents, the key slice, the tables: no scratch.
+// Shared memory 4 (ps J + P R) W bytes.  256 threads a block, two blocks
+// a SM where shared memory allows (C <= 8); 512 at C = 16 (cluster_threads).
+// The kernel is compiled per C and delta or variants; R is a parameter,
+// the MAC compiled for R = 2 and run in chunks of one output otherwise
+// (region_mac).  On the H100 (PERF.md) every prime in one group (3
+// cluster barriers a step) beat one prime a group, and two blocks a SM of
+// half the region beat one: 3_3 runs at C = 8 (98,304 B), 4_4 at C = 16
+// (196,608 B).  What bounds it (timed with phases left out of a scratch
+// build): most of a step is the per-warp region work (tails, MAC), a
+// chain of dependent L2 loads (twiddles, key words, phases) with too few
+// warps a SM to hide them, then the exchange and the gather at C = 16.
+//
+// The passes form (rotation.py _staged_layout), for the shapes no cluster
+// holds (PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS: N = 65536, J = 8;
+// P > 4; R > 4): the digit spectra [P][J][N] and products [P][R][N] (u32)
+// live in device memory, swizzled in 256-word blocks as the delta body
+// keeps a polynomial in shared memory.  Per step (h = log2 N - 8 head
+// stages): the head passes run over device memory, radix 8 at most, one
+// launch each (the first reads acc and splits it into digits for every
+// prime, next_digits); one launch, a warp per (prime, 256-slot region,
+// ciphertext), runs K1's region pipeline (mac_group) on a copy of the
+// region in shared memory; the inverse head passes mirror the forward
+// ones, the last lifting with Garner into acc.  2 ceil(h/3) + 1 launches a
+// step.  Bound by the scratch round trips through device memory; the batch
+// is tiled where the scratch would exceed 2 GB (rotation.py _staged_tiles).
 //
 // Left to later work: for K1/K4, more independent work per SM than two
 // blocks of 256 threads give (shared memory holds two ciphertexts at 2_2);
 // for K3/K5, this body's NTT (they keep the radix-2 ntt_forward and
 // ntt_inverse below) and what bounds a full round; K5's per-launch cost;
 // the variant phase gathers (2(V-1) per slot and ciphertext, one
-// interleaved 8-byte gather would halve them); for K6, fewer scratch round
-// trips (radix-16 head passes, one step's last pass fused with the next
-// step's first, TMA or clusters).
+// interleaved 8-byte gather would halve them); for K6's cluster step, the
+// L2 latency of its region work (more warps a SM, or the next task's
+// loads issued early), the exchange and gather at C = 16, and each key
+// word shared by two ciphertexts of a cluster for the variant MAC (its
+// key slice, 8.4 MB a step at 3_3 GROUP_3, is read from L2 by every
+// ciphertext).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -364,10 +408,12 @@ __host__ __device__ __forceinline__ int pass_radix(unsigned code, int i) {
 }
 
 // The 2^RL - 1 twiddles of heap node q, at heap-relative index 1 (q), 2-3
-// (2q, 2q+1) and 4-7 (4q..4q+3).
-template <int RL>
-__device__ __forceinline__ void load_twiddles(uint2 (&tw)[8], const uint2* __restrict__ t,
+// (2q, 2q+1), 4-7 (4q..4q+3) and, for RL = 4 (the cluster step's exchange
+// at 16 blocks), 8-15 (8q..8q+7).
+template <int RL, int NT>
+__device__ __forceinline__ void load_twiddles(uint2 (&tw)[NT], const uint2* __restrict__ t,
                                               int q) {
+  static_assert(NT >= (1 << RL) && RL <= 4, "a twiddle array of 2^RL entries");
   if constexpr (RL >= 1) tw[1] = __ldg(t + q);
   if constexpr (RL >= 2) {
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(t + 2 * q));
@@ -381,6 +427,14 @@ __device__ __forceinline__ void load_twiddles(uint2 (&tw)[8], const uint2* __res
     tw[5] = make_uint2(a.z, a.w);
     tw[6] = make_uint2(b.x, b.y);
     tw[7] = make_uint2(b.z, b.w);
+  }
+  if constexpr (RL >= 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(t + 8 * q + 2 * i));
+      tw[8 + 2 * i] = make_uint2(a.x, a.y);
+      tw[9 + 2 * i] = make_uint2(a.z, a.w);
+    }
   }
 }
 
@@ -398,8 +452,8 @@ __device__ __forceinline__ uint32_t mul_lazy(uint32_t a, uint32_t w, uint32_t ws
 
 // RL forward (Cooley-Tukey) stages on a thread's 2^RL coefficients at
 // base + s*2^lo, the widest stride first: [0, 4p) in and out.
-template <int RL>
-__device__ __forceinline__ void ct_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[8],
+template <int RL, int NT>
+__device__ __forceinline__ void ct_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[NT],
                                           uint32_t p) {
 #pragma unroll
   for (int i = RL - 1; i >= 0; --i) {
@@ -416,8 +470,8 @@ __device__ __forceinline__ void ct_stages(uint32_t (&a)[1 << RL], const uint2 (&
 
 // RL inverse (Gentleman-Sande) stages, the narrowest stride first: [0, 2p)
 // in and out.
-template <int RL>
-__device__ __forceinline__ void gs_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[8],
+template <int RL, int NT>
+__device__ __forceinline__ void gs_stages(uint32_t (&a)[1 << RL], const uint2 (&tw)[NT],
                                           uint32_t p) {
 #pragma unroll
   for (int i = 0; i < RL; ++i) {
@@ -1158,7 +1212,7 @@ variant_kernel(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps,
     for (int i = threadIdx.x; i < RN; i += blockDim.x) acc_b[i] = (int64_t)acc[i];
 }
 
-// ---- K6, the staged step (rotation.py _staged_layout) ----------------------
+// ---- K6's passes form (rotation.py _staged_layout) ------------------------
 //
 // The working set of a ciphertext stays in device memory: spec [B][P][J][N]
 // and res [B][P][R][N] u32 scratch, each polynomial swizzled in 256-word
@@ -1180,6 +1234,17 @@ __device__ __forceinline__ long long global_thread() {
 __device__ __forceinline__ void wait_for_previous_launch() {
   asm volatile("griddepcontrol.launch_dependents;");
   asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The cluster barrier in two halves.  A block arrives as it starts
+// (relaxed: the arrival orders no memory) and waits before it first
+// writes a peer's shared memory: after the wait every block of the
+// cluster has started, which distributed shared memory requires.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // The first forward pass: item (b, r, off) reads acc[b][r][off + k*N/2^RL]
@@ -1240,18 +1305,24 @@ staged_head_pass(uint32_t* __restrict__ arr, const uint2* __restrict__ tw,
                      tw + ((size_t)pi << log_n), g.p[pi]);
 }
 
-// The last two forward stages of slots [4x, 4x+4) of one digit polynomial
-// (its words at row + at), fully reduced, in place.
-__device__ __forceinline__ void finish_group(uint32_t* row, int x, int at, int log_n,
-                                             const uint2* __restrict__ fwd, uint32_t p) {
+// The last two forward stages of slots [4x, 4x+4) of `npoly` digit
+// polynomials (their words at row + at, `stride` apart), fully reduced, in
+// place; the twiddles loaded once for all of them.
+__device__ __forceinline__ void finish_group(uint32_t* row, int stride, int npoly, int x, int at,
+                                             int log_n, const uint2* __restrict__ fwd,
+                                             uint32_t p) {
   uint2 fw[8];
   load_twiddles<2>(fw, fwd, (1 << (log_n - 2)) + x);
-  const uint4 v = *reinterpret_cast<const uint4*>(row + at);
-  uint32_t a[4] = {v.x, v.y, v.z, v.w};
-  ct_stages<2>(a, fw, p);
+#pragma unroll 2
+  for (int j = 0; j < npoly; ++j) {
+    uint32_t* v4 = row + j * stride + at;
+    const uint4 v = *reinterpret_cast<const uint4*>(v4);
+    uint32_t a[4] = {v.x, v.y, v.z, v.w};
+    ct_stages<2>(a, fw, p);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) a[c] = csub(csub(a[c], 2 * p), p);
-  *reinterpret_cast<uint4*>(row + at) = make_uint4(a[0], a[1], a[2], a[3]);
+    for (int c = 0; c < 4; ++c) a[c] = csub(csub(a[c], 2 * p), p);
+    *reinterpret_cast<uint4*>(v4) = make_uint4(a[0], a[1], a[2], a[3]);
+  }
 }
 
 // The variant MAC of slots [4x, 4x+4) for outputs r0..r0+RT-1 on fully
@@ -1274,17 +1345,24 @@ __device__ __forceinline__ void mac_variants(const uint32_t* spec, uint32_t* res
   uint32_t odd[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) odd[c] = 2u * (__brev((unsigned)(k0 + c)) >> (32 - log_n)) + 1u;
+  uint2 iw[8];
+  load_twiddles<2>(iw, inv, q);
   uint64_t s[RT][4];
 #pragma unroll
   for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = 0;
+  // the phases of variant v + 1 are loaded while variant v's products run
+  uint2 ph[4], next[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ph[c] = __ldg(phase);   // c_0 = 0: psi^0 / N
   int count = 0;   // products in each sum since its last reduction
   for (int v = 0; v < V; ++v) {
-    const uint32_t e = v > 0 ? (uint32_t)__ldg(e_b + v - 1) : 0u;
-    uint2 ph[4];
+    if (v + 1 < V) {
+      const uint32_t e = (uint32_t)__ldg(e_b + v);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) ph[c] = __ldg(phase + ((e * odd[c]) & two_n_mask));
+      for (int c = 0; c < 4; ++c) next[c] = __ldg(phase + ((e * odd[c]) & two_n_mask));
+    }
     const uint32_t* key_v = key_p + v * var_stride;
     for (int j0 = 0; j0 < J; j0 += MAX_PRODUCTS) {
       const int j1 = min(J, j0 + MAX_PRODUCTS);
@@ -1292,6 +1370,7 @@ __device__ __forceinline__ void mac_variants(const uint32_t* spec, uint32_t* res
         reduce_sums<RT>(s, p, mu);
         count = 0;
       }
+#pragma unroll 4
       for (int j = j0; j < j1; ++j) {
         uint4 w[RT];
 #pragma unroll
@@ -1307,9 +1386,9 @@ __device__ __forceinline__ void mac_variants(const uint32_t* spec, uint32_t* res
       }
       count += j1 - j0;
     }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ph[c] = next[c];
   }
-  uint2 iw[8];
-  load_twiddles<2>(iw, inv, q);
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     uint32_t a[4];
@@ -1324,17 +1403,16 @@ __device__ __forceinline__ void mac_variants(const uint32_t* spec, uint32_t* res
 // The region kernel: one warp per task (pi, region, b), b fastest, so that
 // neighbouring warps read the same key words.  The warp copies the region's
 // J digit polynomials into its shared memory, runs their forward tail, the
-// MAC (delta: mac_group; variants: finish_group, then mac_variants) and the
-// inverse tail of the R products, and copies those out: K1's region
-// pipeline on one region of 2^log_w slots.  tab is _delta_tables' layout:
-// fwd [P][N], inv [P][N], phase [P][2N] (value, twin).
-template <int RT, bool VAR>
+// MAC (mac_group) and the inverse tail of the R products, and copies those
+// out: K1's region pipeline on one region of 2^log_w slots.  tab is
+// _delta_tables' layout: fwd [P][N], inv [P][N], phase [P][2N] (value, twin).
+template <int RT>
 __global__ void __launch_bounds__(256, 2)
 staged_region(const uint32_t* __restrict__ spec_g, uint32_t* __restrict__ res_g,
               const uint32_t* __restrict__ bsk, const int32_t* __restrict__ exps,
               long long e_stride, const uint2* __restrict__ tab,
               const __grid_constant__ DeltaConsts g, int batch, int log_n, int P, int R, int J,
-              int V, unsigned tail, int log_w) {
+              unsigned tail, int log_w) {
   wait_for_previous_launch();
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, log_r = log_n - log_w;
@@ -1358,24 +1436,11 @@ staged_region(const uint32_t* __restrict__ spec_g, uint32_t* __restrict__ res_g,
           *reinterpret_cast<const uint4*>(src + ((size_t)j << log_n) + i);
   __syncwarp();
   for (int j = 0; j < J; ++j) region_tails<true>(spec + j * W, base, log_n, log_w, tail, fwd, p);
-  if constexpr (VAR) {
-    for (int j = 0; j < J; ++j)
-      for (int f = lane; f < groups; f += 32)
-        finish_group(spec + j * W, x0 + f, swz(4 * (x0 + f)) - base, log_n, fwd, p);
-    __syncwarp();
-    for (int f = lane; f < (R / RT) * groups; f += 32) {
-      const int x = x0 + f % groups;
-      mac_variants<RT>(spec, res, key_p, (size_t)P * J * R << log_n, x, (f / groups) * RT, J,
-                       R, V, log_n, log_w, swz(4 * x) - base, inv, phase,
-                       exps + b * e_stride, p, mu);
-    }
-  } else {
-    const uint32_t e = (uint32_t)__ldg(exps + b * e_stride);
-    for (int f = lane; f < (R / RT) * groups; f += 32) {
-      const int x = x0 + f % groups;
-      mac_group<RT, true>(spec, res, key_p, x, (f / groups) * RT, J, R, log_n, log_w,
-                    swz(4 * x) - base, fwd, inv, phase, e, p, mu);
-    }
+  const uint32_t e = (uint32_t)__ldg(exps + b * e_stride);
+  for (int f = lane; f < (R / RT) * groups; f += 32) {
+    const int x = x0 + f % groups;
+    mac_group<RT, true>(spec, res, key_p, x, (f / groups) * RT, J, R, log_n, log_w,
+                        swz(4 * x) - base, fwd, inv, phase, e, p, mu);
   }
   __syncwarp();
   for (int r = 0; r < R; ++r) region_tails<false>(res + r * W, base, log_n, log_w, tail, inv, p);
@@ -1388,8 +1453,8 @@ staged_region(const uint32_t* __restrict__ spec_g, uint32_t* __restrict__ res_g,
 
 // The last inverse pass: the top RL stages of item (b, r, off) for every
 // prime, then Garner over the primes; acc[b][r][off + k*N/2^RL] gains the
-// lifted value (delta) or becomes it (variants).
-template <int RL, bool VAR>
+// lifted value.
+template <int RL>
 __global__ void __launch_bounds__(STAGED_THREADS, 2)
 staged_last_pass(int64_t* __restrict__ acc, const uint32_t* __restrict__ res,
                  const uint2* __restrict__ inv, const __grid_constant__ DeltaConsts g,
@@ -1419,8 +1484,420 @@ staged_last_pass(int64_t* __restrict__ acc, const uint32_t* __restrict__ res,
   for (int k = 0; k < (1 << RL); ++k) {
     const uint64_t v = garner_from<0>([&](int i) { return a[i][k]; }, P, g);
     int64_t* w = acc + (br << log_n) + off + (k << lo);
-    *w = VAR ? (int64_t)v : (int64_t)((uint64_t)*w + v);
+    *w = (int64_t)((uint64_t)*w + v);
   }
+}
+
+// ---- K6, the cluster step (rotation.py _cluster_layout) --------------------
+//
+// A cluster of C = 2^CL blocks owns one ciphertext's step, one cluster per
+// ciphertext, one launch a step.  Block q keeps the region [q*W, (q+1)*W),
+// W = N/C, of every polynomial of the transform: the slots the top CL
+// forward stages give it.  Its shared memory holds a group of ps primes'
+// J digit spectra [ps][J][W] and every prime's R products [P][R][W] of its
+// region; the accumulator stays in device memory and is read for the
+// digits and written by the lift, each word by the one block whose column
+// share holds it.  Per group of primes: the exchange (the top CL stages
+// across the cluster, the digits fused), a cluster barrier, K1's passes on
+// the region (in-block head passes, then one warp per (prime, tail region):
+// the forward tails, the MAC, the inverse tails; the inverse head passes),
+// a cluster barrier; then the gather (the bottom CL inverse stages across
+// the cluster) with Garner into acc, and a last cluster barrier that keeps
+// a block's shared memory alive while its peers read it.
+
+// The threads of a cluster-step block, for clusters of 2^cl blocks: 256
+// (two blocks a SM where shared memory allows), 512 at 16 blocks, whose
+// radix-16 exchange and gather hold one block to a SM: on the H100, 16
+// warps at 128 registers (a few hundred bytes of spills) ran 4_4 faster
+// than 8 warps without spills.
+__host__ __device__ constexpr int cluster_threads(int cl) { return cl >= 4 ? 512 : 256; }
+constexpr int CLUSTER_MAXP = 4;   // primes the lift holds in registers
+
+// Where block k keeps slot `off` of its region of a polynomial: the delta
+// body's swizzle of the slot's place in the whole transform, relative to
+// the region (a region of 32 slots or more keeps its words).
+__device__ __forceinline__ int region_word(int off, int k, int log_w) {
+  return swz(off + (k << log_w)) - (k << log_w);
+}
+
+// A head pass at stride 2^lo over the block's region [base, base + 2^log_w)
+// of a transform of 2^log_n, for `ps` primes from p0 with `npoly`
+// polynomials each (prime p0 + i's polynomial j at arr + (i * npoly + j) *
+// 2^log_w): item (i, it) loads its twiddles once and takes them through
+// every polynomial of its prime.
+template <int RL, bool FWD>
+__device__ void region_pass(uint32_t* arr, int ps, int npoly, int log_n, int log_w, int base,
+                            int lo, const uint2* __restrict__ t, int p0, const DeltaConsts& g) {
+  const int lg = log_w - RL;   // log2 of the items per polynomial
+  for (int f = threadIdx.x; f < (ps << lg); f += blockDim.x) {
+    const int i = f >> lg, it = f & ((1 << lg) - 1), blk = (base >> (lo + RL)) + (it >> lo);
+    const int b0 = (blk << (lo + RL)) + (it & ((1 << lo) - 1));
+    const uint32_t p = g.p[p0 + i];
+    uint2 tw[8];
+    load_twiddles<RL>(tw, t + ((size_t)(p0 + i) << log_n), (1 << (log_n - lo - RL)) + blk);
+    uint32_t* poly = arr + ((size_t)i * npoly << log_w);
+#pragma unroll 2
+    for (int j = 0; j < npoly; ++j) {
+      uint32_t* v = poly + ((size_t)j << log_w);
+      uint32_t a[1 << RL];
+#pragma unroll
+      for (int s = 0; s < (1 << RL); ++s) a[s] = v[swz_at(b0, s, lo) - base];
+      if constexpr (FWD) ct_stages<RL>(a, tw, p); else gs_stages<RL>(a, tw, p);
+#pragma unroll
+      for (int s = 0; s < (1 << RL); ++s) v[swz_at(b0, s, lo) - base] = a[s];
+    }
+  }
+}
+
+template <bool FWD>
+__device__ void region_pass_r(int r, uint32_t* arr, int ps, int npoly, int log_n, int log_w,
+                              int base, int lo, const uint2* __restrict__ t, int p0,
+                              const DeltaConsts& g) {
+  switch (r) {
+    case 1: region_pass<1, FWD>(arr, ps, npoly, log_n, log_w, base, lo, t, p0, g); break;
+    case 2: region_pass<2, FWD>(arr, ps, npoly, log_n, log_w, base, lo, t, p0, g); break;
+    default: region_pass<3, FWD>(arr, ps, npoly, log_n, log_w, base, lo, t, p0, g); break;
+  }
+}
+
+// Both tail passes of the 256-slot region blk in `npoly` polynomials (their
+// region words `stride` apart from `region`), by one warp, each pass's
+// twiddles loaded once for all of them; the lanes' items as
+// tail256_stride32 and tail256_stride4 take them.
+template <bool FWD>
+__device__ __forceinline__ void tail256_polys(uint32_t* region, int stride, int npoly, int blk,
+                                              int log_n, const uint2* __restrict__ t,
+                                              uint32_t p) {
+  const int lane = threadIdx.x & 31, x = lane & 28;
+  uint2 t32[8], t4[8];
+  load_twiddles<3>(t32, t, (1 << (log_n - 8)) + blk);
+  load_twiddles<3>(t4, t, (1 << (log_n - 5)) + 8 * blk + (lane >> 2));
+  const auto wide = [&](uint32_t* r) {   // stride 32: lane holds r[lane + 32s]
+    uint32_t a[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) a[s] = r[32 * s + (lane ^ (4 * s))];
+    if constexpr (FWD) ct_stages<3>(a, t32, p); else gs_stages<3>(a, t32, p);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) r[32 * s + (lane ^ (4 * s))] = a[s];
+  };
+  const auto narrow = [&](uint32_t* r) {   // stride 4
+    uint32_t* b = r + 8 * x + (lane & 3);
+    uint32_t a[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) a[s] = b[(4 * s) ^ x];
+    if constexpr (FWD) ct_stages<3>(a, t4, p); else gs_stages<3>(a, t4, p);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) b[(4 * s) ^ x] = a[s];
+  };
+#pragma unroll 2
+  for (int j = 0; j < npoly; ++j) {
+    if constexpr (FWD) wide(region + j * stride); else narrow(region + j * stride);
+  }
+  __syncwarp();
+#pragma unroll 2
+  for (int j = 0; j < npoly; ++j) {
+    if constexpr (FWD) narrow(region + j * stride); else wide(region + j * stride);
+  }
+  __syncwarp();
+}
+
+// The tail passes of one warp's tail region (2^log_t slots from tb, its
+// words at `region` in each of `npoly` polynomials `stride` apart).
+template <bool FWD>
+__device__ __forceinline__ void tail_polys(uint32_t* region, int stride, int npoly, int tb,
+                                           int log_n, int log_t, unsigned tail,
+                                           const uint2* __restrict__ t, uint32_t p) {
+  if (log_t == 8 && tail == TAIL256) {
+    tail256_polys<FWD>(region, stride, npoly, tb >> 8, log_n, t, p);
+    return;
+  }
+  for (int j = 0; j < npoly; ++j)
+    region_tails<FWD>(region + j * stride, tb, log_n, log_t, tail, t, p);
+}
+
+// The exchange: the top CL forward stages, across the cluster.  Item (r,
+// off), off in block q's column share [q*W/C, (q+1)*W/C), reads acc[r][off
+// + k*W] (k < C), splits each word into its L balanced digits and, for
+// each prime of the group from p0, takes them through the CL stages in
+// registers (heap node 1) and writes output k into block k's spectra, row
+// (prime - p0, l*R + r), slot off.  Where the block has `split` threads
+// for each item (at C = 16), thread s of an item takes every split-th
+// prime from s.
+template <int CL, class Cluster>
+__device__ void cluster_exchange(Cluster& cluster, const int64_t* acc, unsigned char* smem,
+                                 int q, int p0, int ps, int split, int J, int R, int L,
+                                 int log_n, int base_log, const uint2* __restrict__ fwd,
+                                 const DeltaConsts& g) {
+  constexpr int C = 1 << CL;
+  const int log_w = log_n - CL, log_s = log_w - CL, shift = 64 - base_log * L;
+  const int items = R << log_s;
+  if constexpr (CL < 4) split = 1;   // the kernels for C <= 8 keep one thread an item
+  for (int f = threadIdx.x; f < items * split; f += blockDim.x) {
+    const int first = split > 1 ? f / items : 0, it = split > 1 ? f % items : f;
+    const int r = it >> log_s, off = (q << log_s) + (it & ((1 << log_s) - 1));
+    uint64_t s[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      s[k] = round_word((uint64_t)acc[(r << log_n) + off + (k << log_w)], shift);
+    for (int l = L - 1; l >= 0; --l) {
+      int32_t v[C];
+      next_digits<CL>(s, v, base_log, shift);
+      for (int i = first; i < ps; i += split) {
+        const uint32_t p = g.p[p0 + i];
+        uint2 tw[C];
+        load_twiddles<CL>(tw, fwd + ((size_t)(p0 + i) << log_n), 1);
+        uint32_t d[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+          d[k] = v[k] < 0 ? (uint32_t)(v[k] + (int32_t)p) : (uint32_t)v[k];
+        ct_stages<CL>(d, tw, p);
+        const int row = (i * J + l * R + r) << log_w;
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+          reinterpret_cast<uint32_t*>(cluster.map_shared_rank(smem, (unsigned)k))
+              [row + region_word(off, k, log_w)] = d[k];
+      }
+    }
+  }
+}
+
+// The gather: the bottom CL inverse stages, across the cluster, and the
+// lift.  Item (r, off) of block q's column share reads, for each of the PT
+// primes, slot off of every block k's products (the residues of
+// coefficient off + k*W), takes them through the CL stages (heap node 1),
+// and lifts the residues of each coefficient with Garner into acc (delta:
+// adds; VAR: replaces).  res_at: the products' byte offset in a block's
+// shared memory.
+template <int CL, int PT, bool VAR, class Cluster>
+__device__ void cluster_gather(Cluster& cluster, int64_t* acc, unsigned char* smem,
+                               size_t res_at, int q, int R, int log_n,
+                               const uint2* __restrict__ inv, const DeltaConsts& g) {
+  constexpr int C = 1 << CL;
+  const int log_w = log_n - CL, log_s = log_w - CL;
+  for (int f = threadIdx.x; f < (R << log_s); f += blockDim.x) {
+    const int r = f >> log_s, off = (q << log_s) + (f & ((1 << log_s) - 1));
+    uint32_t a[PT][C];
+#pragma unroll
+    for (int pi = 0; pi < PT; ++pi) {
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        a[pi][k] = reinterpret_cast<const uint32_t*>(
+            cluster.map_shared_rank(smem, (unsigned)k) + res_at)
+            [((pi * R + r) << log_w) + region_word(off, k, log_w)];
+    }
+#pragma unroll
+    for (int pi = 0; pi < PT; ++pi) {
+      const uint32_t p = g.p[pi];
+      uint2 tw[C];
+      load_twiddles<CL>(tw, inv + ((size_t)pi << log_n), 1);
+      gs_stages<CL>(a[pi], tw, p);
+#pragma unroll
+      for (int k = 0; k < C; ++k) a[pi][k] = csub(a[pi][k], p);
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const uint64_t v = garner_from<PT>([&](int i) { return a[i][k]; }, PT, g);
+      int64_t* w = acc + (r << log_n) + off + (k << log_w);
+      *w = VAR ? (int64_t)v : (int64_t)((uint64_t)*w + v);
+    }
+  }
+}
+
+// The MAC of one warp's tail region (groups 4-slot groups from x0) for
+// outputs r0..r0+RT-1 of R: mac_group (delta; e_b[0] the exponent) or
+// mac_variants (VAR; e_b holds c_1..c_{V-1}, the digits already through
+// their last two stages).  The kernel runs R = 2 (every named set) as one
+// chunk and any other R as R chunks of one output, so that it carries two
+// widths of the MAC and not four: on the H100 a kernel with all four ran
+// 4_4 slower at 128 registers, and a kernel per R more than doubled the
+// build.
+template <int RT, bool VAR>
+__device__ __forceinline__ void region_mac(const uint32_t* sp, uint32_t* rp,
+                                           const uint32_t* __restrict__ key_p,
+                                           size_t var_stride, int x0, int groups, int r0, int J,
+                                           int R, int V, int log_n, int log_w, int base,
+                                           const uint2* __restrict__ fwd,
+                                           const uint2* __restrict__ inv,
+                                           const uint2* __restrict__ phase,
+                                           const int32_t* __restrict__ e_b, uint32_t p, u64 mu) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (VAR) {
+    for (int f = lane; f < groups; f += 32)
+      mac_variants<RT>(sp, rp, key_p, var_stride, x0 + f, r0, J, R, V, log_n, log_w,
+                       swz(4 * (x0 + f)) - base, inv, phase, e_b, p, mu);
+  } else {
+    const uint32_t e = (uint32_t)__ldg(e_b);
+    for (int f = lane; f < groups; f += 32)
+      mac_group<RT, true>(sp, rp, key_p, x0 + f, r0, J, R, log_n, log_w,
+                          swz(4 * (x0 + f)) - base, fwd, inv, phase, e, p, mu);
+  }
+}
+
+// The gather in two rounds, where the block has `split` threads for each
+// item (at C = 16) and its own spectra buffer, unused by then, holds every
+// prime's residues of its column share (`scratch`, [P][C][items] words).
+// Round one: thread s of item (r, off) takes every split-th prime from s
+// through the bottom CL inverse stages into scratch; after a block barrier,
+// round two: it lifts coefficients off + k*W, k in its C/split, from the
+// PT residues (Garner) into acc.  It halves each thread's chain of remote
+// loads and its registers against cluster_gather (PERF.md).
+template <int CL, int PT, bool VAR, class Cluster>
+__device__ void cluster_gather_split(Cluster& cluster, int64_t* acc, unsigned char* smem,
+                                     size_t res_at, uint32_t* scratch, int split, int q, int R,
+                                     int log_n, const uint2* __restrict__ inv,
+                                     const DeltaConsts& g) {
+  constexpr int C = 1 << CL;
+  const int log_w = log_n - CL, log_s = log_w - CL, items = R << log_s;
+  for (int f = threadIdx.x; f < items * split; f += blockDim.x) {
+    const int first = f / items, it = f % items;
+    const int r = it >> log_s, off = (q << log_s) + (it & ((1 << log_s) - 1));
+    for (int pi = first; pi < PT; pi += split) {
+      uint32_t a[C];
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        a[k] = reinterpret_cast<const uint32_t*>(
+            cluster.map_shared_rank(smem, (unsigned)k) + res_at)
+            [((pi * R + r) << log_w) + region_word(off, k, log_w)];
+      uint2 tw[C];
+      load_twiddles<CL>(tw, inv + ((size_t)pi << log_n), 1);
+      gs_stages<CL>(a, tw, g.p[pi]);
+#pragma unroll
+      for (int k = 0; k < C; ++k) scratch[(pi * C + k) * items + it] = csub(a[k], g.p[pi]);
+    }
+  }
+  __syncthreads();
+  const int per = C / split;
+  for (int f = threadIdx.x; f < items * split; f += blockDim.x) {
+    const int first = f / items, it = f % items;
+    const int r = it >> log_s, off = (q << log_s) + (it & ((1 << log_s) - 1));
+    for (int k = first * per; k < (first + 1) * per; ++k) {
+      const uint64_t v = garner_from<PT>(
+          [&](int i) { return scratch[(i * C + k) * items + it]; }, PT, g);
+      int64_t* w = acc + (r << log_n) + off + (k << log_w);
+      *w = VAR ? (int64_t)v : (int64_t)((uint64_t)*w + v);
+    }
+  }
+}
+
+// K6's cluster step, one step: the grid is B clusters of C = 2^CL blocks,
+// cluster b owning ciphertext b.  exps points at the step's exponents
+// (ciphertext b's at exps[b * e_stride]: e for a delta step, c_1..c_{V-1}
+// for VAR), key at the step's [V][P][J][R][N] (V = 1 for delta), tab is
+// _delta_tables' (the variant phase psi^m/N for VAR).  head and tail are
+// the region's pass lists (rotation.py _cluster_layout), tail regions of
+// 2^log_t slots, the primes in groups of ps.
+template <int CL, bool VAR>
+__global__ void __launch_bounds__(cluster_threads(CL), CL <= 3 ? 2 : 1)
+cluster_step(int64_t* __restrict__ acc_g, const int32_t* __restrict__ exps, long long e_stride,
+             const uint32_t* __restrict__ key, const uint2* __restrict__ tab,
+             const __grid_constant__ DeltaConsts g, int log_n, int P, int R, int L, int base_log,
+             int V, int ps, unsigned head, unsigned tail, int log_t) {
+  cluster_arrive_relaxed();   // this block has started (waited for below)
+  wait_for_previous_launch();
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank(), b = blockIdx.x >> CL;
+  const int J = L * R, log_w = log_n - CL, base = q << log_w;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int nhead = pass_count(head), log_nreg = log_w - log_t, groups = 1 << (log_t - 2);
+  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);         // [ps][J][W]
+  uint32_t* res = spec + ((size_t)ps * J << log_w);           // [P][R][W]
+  const uint2* fwd = tab;                                     // [P][N]
+  const uint2* inv = tab + ((size_t)P << log_n);              // [P][N]
+  const uint2* phase = tab + ((size_t)2 * P << log_n);        // [P][2N]
+  int64_t* acc = acc_g + ((size_t)b * R << log_n);
+  const int32_t* e_b = exps + b * e_stride;
+  const size_t key_prime = (size_t)J * R << log_n;            // one prime's key words
+  // threads a column item at C = 16, where the block has more threads than
+  // items: for the exchange, a share of the primes each; for the gather,
+  // also where the spectra buffer holds every prime's residues (P R <= ps J)
+  const int items = R << (log_w - CL), spare = (int)blockDim.x / items;
+  int xsplit = 1, gsplit = 1;
+  if constexpr (CL >= 4) {
+    while (2 * xsplit <= spare && 2 * xsplit <= ps) xsplit *= 2;
+    while (2 * gsplit <= spare && P % (2 * gsplit) == 0 && P * R <= ps * J) gsplit *= 2;
+  }
+  for (int p0 = 0; p0 < P; p0 += ps) {
+    if (p0 == 0)
+      cluster_wait();   // every block has started: its shared memory may be written
+    else
+      cluster.sync();   // no block reads its spectra of the last group any more
+    cluster_exchange<CL>(cluster, acc, smem, q, p0, ps, xsplit, J, R, L, log_n, base_log, fwd,
+                         g);
+    cluster.sync();               // every block's spectra of this group written
+    for (int i = 0, lo = log_w; i < nhead; ++i) {
+      const int r = pass_radix(head, i);
+      lo -= r;
+      if (i > 0) __syncthreads();
+      region_pass_r<true>(r, spec, ps, J, log_n, log_w, base, lo, fwd, p0, g);
+    }
+    if (nhead > 0) __syncthreads();
+    // one warp per (prime, tail region): forward tails, MAC, inverse tails
+    for (int task = warp; task < (ps << log_nreg); task += warps) {
+      const int pl = task >> log_nreg, gi = task & ((1 << log_nreg) - 1), pi = p0 + pl;
+      const uint32_t p = g.p[pi];
+      const u64 mu = g.mu[pi];
+      const uint2* fwd_p = fwd + ((size_t)pi << log_n);
+      const uint2* inv_p = inv + ((size_t)pi << log_n);
+      const uint2* phase_p = phase + ((size_t)2 * pi << log_n);
+      const uint32_t* key_p = key + pi * key_prime;
+      uint32_t* sp = spec + ((size_t)pl * J << log_w);
+      uint32_t* rp = res + ((size_t)pi * R << log_w);
+      const int tb = base + (gi << log_t), x0 = tb >> 2;
+      tail_polys<true>(sp + (gi << log_t), 1 << log_w, J, tb, log_n, log_t, tail, fwd_p, p);
+      if constexpr (VAR) {
+        for (int f = lane; f < groups; f += 32)
+          finish_group(sp, 1 << log_w, J, x0 + f, swz(4 * (x0 + f)) - base, log_n, fwd_p, p);
+        __syncwarp();
+      }
+      if (R == 2) {
+        region_mac<2, VAR>(sp, rp, key_p, (size_t)P * key_prime, x0, groups, 0, J, R, V, log_n,
+                           log_w, base, fwd_p, inv_p, phase_p, e_b, p, mu);
+      } else {
+        for (int r0 = 0; r0 < R; ++r0)
+          region_mac<1, VAR>(sp, rp, key_p, (size_t)P * key_prime, x0, groups, r0, J, R, V,
+                             log_n, log_w, base, fwd_p, inv_p, phase_p, e_b, p, mu);
+      }
+      __syncwarp();
+      tail_polys<false>(rp + (gi << log_t), 1 << log_w, R, tb, log_n, log_t, tail, inv_p, p);
+    }
+    for (int i = nhead - 1, lo = log_t; i >= 0; --i) {
+      __syncthreads();
+      const int r = pass_radix(head, i);
+      region_pass_r<false>(r, res + ((size_t)p0 * R << log_w), ps, R, log_n, log_w, base, lo,
+                           inv, p0, g);
+      lo += r;
+    }
+  }
+  cluster.sync();   // every block's products written
+  const size_t res_at = (size_t)4 * ps * J << log_w;
+  bool lifted = false;
+  if constexpr (CL >= 4) {
+    if (gsplit > 1) {
+      if (P == 2)
+        cluster_gather_split<CL, 2, VAR>(cluster, acc, smem, res_at, spec, gsplit, q, R, log_n,
+                                         inv, g);
+      else
+        cluster_gather_split<CL, 4, VAR>(cluster, acc, smem, res_at, spec, gsplit, q, R, log_n,
+                                         inv, g);
+      lifted = true;
+    }
+  }
+  if (!lifted) {
+    switch (P) {
+      case 1: cluster_gather<CL, 1, VAR>(cluster, acc, smem, res_at, q, R, log_n, inv, g); break;
+      case 2: cluster_gather<CL, 2, VAR>(cluster, acc, smem, res_at, q, R, log_n, inv, g); break;
+      case 3: cluster_gather<CL, 3, VAR>(cluster, acc, smem, res_at, q, R, log_n, inv, g); break;
+      default: cluster_gather<CL, 4, VAR>(cluster, acc, smem, res_at, q, R, log_n, inv, g); break;
+    }
+  }
+  cluster.sync();   // no block reads this one's products any more
+}
+
+// The cluster step's shared memory: a group of ps primes' J digit spectra
+// and every prime's R products of a block's region of 2^log_w slots.
+size_t cluster_smem(int log_w, int P, int R, int J, int ps) {
+  return (size_t)4 * (ps * J + P * R) << log_w;
 }
 
 size_t working_set(int n, int R, int J, int P) {
@@ -1622,7 +2099,7 @@ typedef void (*StagedFirst)(const int64_t*, uint32_t*, const uint2*, const Delta
 typedef void (*StagedHead)(uint32_t*, const uint2*, const DeltaConsts, int, int, int, int, int);
 typedef void (*StagedRegion)(const uint32_t*, uint32_t*, const uint32_t*, const int32_t*,
                              long long, const uint2*, const DeltaConsts, int, int, int, int, int,
-                             int, unsigned, int);
+                             unsigned, int);
 typedef void (*StagedLast)(int64_t*, const uint32_t*, const uint2*, const DeltaConsts, int, int,
                            int, int);
 
@@ -1644,22 +2121,21 @@ StagedHead staged_head_for(int rl, bool fwd) {
   }
 }
 
-template <bool VAR>
-StagedRegion staged_region_var(int rt) {
+StagedRegion staged_region_for(int rt) {
   switch (rt) {
-    case 1: return staged_region<1, VAR>;
-    case 2: return staged_region<2, VAR>;
-    case 3: return staged_region<3, VAR>;
-    case 4: return staged_region<4, VAR>;
+    case 1: return staged_region<1>;
+    case 2: return staged_region<2>;
+    case 3: return staged_region<3>;
+    case 4: return staged_region<4>;
     default: return nullptr;
   }
 }
 
-StagedLast staged_last_for(int rl, bool var) {
+StagedLast staged_last_for(int rl) {
   switch (rl) {
-    case 1: return var ? staged_last_pass<1, true> : staged_last_pass<1, false>;
-    case 2: return var ? staged_last_pass<2, true> : staged_last_pass<2, false>;
-    case 3: return var ? staged_last_pass<3, true> : staged_last_pass<3, false>;
+    case 1: return staged_last_pass<1>;
+    case 2: return staged_last_pass<2>;
+    case 3: return staged_last_pass<3>;
     default: return nullptr;
   }
 }
@@ -1682,29 +2158,26 @@ cudaError_t launch_staged_kernel(void (*kernel)(Params...), long long threads, i
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// K6: n_steps steps over acc [B][R][N], 2 * (head passes) + 1 launches a
-// step.  grouping 0: delta steps, bsk [steps][P][J][R][N], exponent e of
-// ciphertext b and step s at exps[b * e_stride + s * e_step]; grouping g =
-// 1..4: variant steps, bsk [steps][2^g][P][J][R][N], c_1..c_{2^g-1} from
-// there on.  spec [B][P][J][N] and res [B][P][R][N] are the scratch.
+// K6's passes form: n_steps delta steps over acc [B][R][N], 2 * (head
+// passes) + 1 launches a step; bsk [steps][P][J][R][N], exponent e of
+// ciphertext b and step s at exps[b * e_stride + s * e_step].  spec
+// [B][P][J][N] and res [B][P][R][N] are the scratch.
 int launch_staged(void* acc, const void* exps, long long e_stride, int e_step, const void* bsk,
                   const void* tab, const void* host_consts, void* spec, void* res, int batch,
-                  int n_steps, int n, int log_n, int P, int R, int L, int base_log,
-                  int grouping, int rt, int head, int tail, int log_w, int warps, int smem,
-                  void* stream) {
-  const int J = L * R, V = grouping > 0 ? 1 << grouping : 0, per_e = V > 0 ? V - 1 : 1;
-  const bool var = grouping > 0;
+                  int n_steps, int n, int log_n, int P, int R, int L, int base_log, int rt,
+                  int head, int tail, int log_w, int warps, int smem, void* stream) {
+  const int J = L * R;
   const int nhead = head & 15, top = pass_radix((unsigned)head, 0);
   const StagedFirst first = staged_first_for(top);
-  const StagedLast last = staged_last_for(top, var);
-  const StagedRegion region = var ? staged_region_var<true>(rt) : staged_region_var<false>(rt);
-  if (first == nullptr || last == nullptr || region == nullptr || grouping < 0 ||
-      grouping > 4 || !valid_shape(n, log_n, P, R, L, base_log) ||
+  const StagedLast last = staged_last_for(top);
+  const StagedRegion region = staged_region_for(rt);
+  if (first == nullptr || last == nullptr || region == nullptr ||
+      !valid_shape(n, log_n, P, R, L, base_log) ||
       !valid_staged_layout(log_n, R, J, rt, (unsigned)head, (unsigned)tail, log_w, warps,
                            smem) ||
       host_consts == nullptr || spec == nullptr || res == nullptr || batch < 1 ||
       n_steps < 1 || e_step < 0 ||
-      (batch > 1 && e_stride < (long long)(n_steps - 1) * e_step + per_e))
+      (batch > 1 && e_stride < (long long)(n_steps - 1) * e_step + 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)region, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1712,7 +2185,7 @@ int launch_staged(void* acc, const void* exps, long long e_stride, int e_step, c
   const DeltaConsts g = delta_consts((const u64*)host_consts);
   const uint2* fwd = reinterpret_cast<const uint2*>(tab);
   const uint2* inv = fwd + ((size_t)P << log_n);
-  const size_t step_words = ((size_t)(var ? V : 1) * P * J * R) << log_n;
+  const size_t step_words = ((size_t)P * J * R) << log_n;
   const long long items = (long long)batch * R << (log_n - top);
   const long long tasks = (long long)batch * P << (log_n - log_w);
   for (int step = 0; step < n_steps; ++step) {
@@ -1731,7 +2204,7 @@ int launch_staged(void* acc, const void* exps, long long e_stride, int e_step, c
     if (err == cudaSuccess)
       err = launch_staged_kernel(region, tasks * 32, warps * 32, smem, stream,
                                  (const uint32_t*)spec, (uint32_t*)res, key, e, e_stride,
-                                 fwd, g, batch, log_n, P, R, J, V, (unsigned)tail, log_w);
+                                 fwd, g, batch, log_n, P, R, J, (unsigned)tail, log_w);
     for (int i = nhead - 1; i >= 1 && err == cudaSuccess; --i) {
       const int r = pass_radix((unsigned)head, i);
       err = launch_staged_kernel(staged_head_for(r, false), (long long)batch * P * R << (log_n - r),
@@ -1742,6 +2215,115 @@ int launch_staged(void* acc, const void* exps, long long e_stride, int e_step, c
     if (err == cudaSuccess)
       err = launch_staged_kernel(last, items, STAGED_THREADS, 0, stream, (int64_t*)acc,
                                  (const uint32_t*)res, inv, g, batch, log_n, P, R);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+typedef void (*ClusterKernel)(int64_t*, const int32_t*, long long, const uint32_t*,
+                              const uint2*, const DeltaConsts, int, int, int, int, int, int,
+                              int, unsigned, unsigned, int);
+
+template <bool VAR>
+ClusterKernel cluster_for_c(int cluster) {
+  switch (cluster) {
+    case 2: return cluster_step<1, VAR>;
+    case 4: return cluster_step<2, VAR>;
+    case 8: return cluster_step<3, VAR>;
+    case 16: return cluster_step<4, VAR>;
+    default: return nullptr;
+  }
+}
+
+ClusterKernel cluster_for(int cluster, bool var) {
+  return var ? cluster_for_c<true>(cluster) : cluster_for_c<false>(cluster);
+}
+
+int log2_of(int x) {
+  int l = 0;
+  while ((1 << l) < x) ++l;
+  return l;
+}
+
+// The cluster step's layout (rotation.py _cluster_layout): a block's region
+// of 2^log_w = N/C slots is 32 or more; its head passes (radix logs 1..3,
+// none or more) take it to tail regions of 2^log_t (5..8) slots, the tail
+// passes and the MAC's two stages cover those; the primes in groups of ps
+// (ps divides P <= 4); the shared memory holds a group's J digit spectra
+// and every prime's R products of the block's region.
+bool valid_cluster_layout(int log_n, int cluster, int P, int R, int J, int ps, unsigned head,
+                          unsigned tail, int log_t, int smem) {
+  const int log_w = log_n - log2_of(cluster);
+  const int h = pass_sum(head, 1), t = pass_sum(tail, 1);
+  return P >= 1 && P <= CLUSTER_MAXP && R <= 4 && ps >= 1 && P % ps == 0 && log_t >= 5 &&
+         log_t <= 8 &&
+         log_w >= log_t && h == log_w - log_t && t >= 1 && t + 2 == log_t &&
+         (size_t)smem == cluster_smem(log_w, P, R, J, ps) && smem <= 232448;
+}
+
+// The cluster step's launch: `grid` blocks in clusters of `cluster`, with
+// programmatic stream serialization where `pdl`.
+cudaLaunchConfig_t cluster_config(int grid, int cluster, int smem, void* stream, bool pdl,
+                                  cudaLaunchAttribute (&attrs)[2]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(cluster_threads(log2_of(cluster)));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = pdl ? 2 : 1;
+  return cfg;
+}
+
+// Lets the kernel take `smem` bytes and, for 16 blocks, a cluster beyond
+// the portable 8.
+cudaError_t prepare_cluster(ClusterKernel kernel, int cluster, int smem) {
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute((const void*)kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// K6's cluster step: n_steps steps over acc [B][R][N], one launch a step
+// of B clusters of C blocks.  grouping 0: delta steps, bsk
+// [steps][P][J][R][N], exponent e of ciphertext b and step s at exps[b *
+// e_stride + s * e_step]; grouping g = 1..4: variant steps, bsk
+// [steps][2^g][P][J][R][N], c_1..c_{2^g-1} from there on.
+int launch_cluster(void* acc, const void* exps, long long e_stride, int e_step, const void* bsk,
+                   const void* tab, const void* host_consts, int batch, int n_steps, int n,
+                   int log_n, int P, int R, int L, int base_log, int grouping, int cluster,
+                   int ps, int head, int tail, int log_t, int smem, void* stream) {
+  const int J = L * R, V = grouping > 0 ? 1 << grouping : 0, per_e = V > 0 ? V - 1 : 1;
+  const ClusterKernel kernel = cluster_for(cluster, grouping > 0);
+  if (kernel == nullptr || grouping < 0 || grouping > 4 ||
+      !valid_shape(n, log_n, P, R, L, base_log) ||
+      !valid_cluster_layout(log_n, cluster, P, R, J, ps, (unsigned)head, (unsigned)tail, log_t,
+                            smem) ||
+      host_consts == nullptr || batch < 1 || (long long)batch * cluster > 0x7fffffffLL ||
+      n_steps < 1 || e_step < 0 ||
+      (batch > 1 && e_stride < (long long)(n_steps - 1) * e_step + per_e))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_cluster(kernel, cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  const DeltaConsts g = delta_consts((const u64*)host_consts);
+  const size_t step_words = ((size_t)(V > 0 ? V : 1) * P * J * R) << log_n;
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg = cluster_config(batch * cluster, cluster, smem, stream, true,
+                                                attrs);
+  for (int step = 0; step < n_steps; ++step) {
+    err = cudaLaunchKernelEx(&cfg, kernel, (int64_t*)acc,
+                             reinterpret_cast<const int32_t*>(exps) + (long long)step * e_step,
+                             e_stride, reinterpret_cast<const uint32_t*>(bsk) + step * step_words,
+                             reinterpret_cast<const uint2*>(tab), g, log_n, P, R, L, base_log,
+                             V, ps, (unsigned)head, (unsigned)tail, log_t);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -1842,18 +2424,44 @@ extern "C" int tfhe_delta_active_blocks(int rt, int smem, int* out) {
   return (int)err;
 }
 
-// K6: the staged blind rotation, n_steps steps (the whole rotation, or one
-// step on the per-step route); see launch_staged.  tab is rotation.py
-// _delta_tables' (the delta or the variant phase), host_consts the
-// constants buffer in host memory; rt, head, tail, log_w, warps and smem
-// are rotation.py _staged_layout's.
+// K6's passes form: n_steps delta steps (the whole rotation, or one step
+// on the per-step route); see launch_staged.  tab is rotation.py
+// _delta_tables', host_consts the constants buffer in host memory; rt,
+// head, tail, log_w, warps and smem are rotation.py _staged_layout's.
 extern "C" int tfhe_staged_rotate(void* acc, const void* exps, long long e_stride, int e_step,
                                   const void* bsk, const void* tab, const void* host_consts,
                                   void* spec, void* res, int batch, int n_steps, int n,
-                                  int log_n, int P, int R, int L, int base_log, int grouping,
-                                  int rt, int head, int tail, int log_w, int warps, int smem,
-                                  void* stream) {
+                                  int log_n, int P, int R, int L, int base_log, int rt, int head,
+                                  int tail, int log_w, int warps, int smem, void* stream) {
   return launch_staged(acc, exps, e_stride, e_step, bsk, tab, host_consts, spec, res, batch,
-                       n_steps, n, log_n, P, R, L, base_log, grouping, rt, head, tail, log_w,
-                       warps, smem, stream);
+                       n_steps, n, log_n, P, R, L, base_log, rt, head, tail, log_w, warps,
+                       smem, stream);
+}
+
+// K6's cluster step: n_steps steps, one launch each (the whole rotation, or
+// one step on the per-step route); see launch_cluster.  tab is rotation.py
+// _delta_tables' (the delta or the variant phase), host_consts the
+// constants buffer in host memory; cluster, ps, head, tail, log_t and smem
+// are rotation.py _cluster_layout's.
+extern "C" int tfhe_cluster_step(void* acc, const void* exps, long long e_stride, int e_step,
+                                 const void* bsk, const void* tab, const void* host_consts,
+                                 int batch, int n_steps, int n, int log_n, int P, int R, int L,
+                                 int base_log, int grouping, int cluster, int ps, int head,
+                                 int tail, int log_t, int smem, void* stream) {
+  return launch_cluster(acc, exps, e_stride, e_step, bsk, tab, host_consts, batch, n_steps, n,
+                        log_n, P, R, L, base_log, grouping, cluster, ps, head, tail, log_t,
+                        smem, stream);
+}
+
+// How many clusters of the cluster step (C blocks, delta or variants,
+// `smem` bytes a block) the device holds at once; 0 means they cannot be
+// scheduled.
+extern "C" int tfhe_cluster_step_active(int cluster, int variants, int smem, int* out) {
+  const ClusterKernel kernel = cluster_for(cluster, variants != 0);
+  if (kernel == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_cluster(kernel, cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, smem, nullptr, false, attrs);
+  return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }

@@ -35,7 +35,9 @@ _SIGNATURES = {
     "tfhe_blind_rotate_multi_bit": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tfhe_blind_rotate_step": [_P, _P, _L, _P, _P, _P] + [_I] * 12 + [_P],
     "tfhe_blind_rotate_step_variants": [_P, _P, _L, _P, _P, _P] + [_I] * 11 + [_P],
-    "tfhe_staged_rotate": [_P, _P, _L, _I, _P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    "tfhe_staged_rotate": [_P, _P, _L, _I, _P, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    "tfhe_cluster_step": [_P, _P, _L, _I, _P, _P, _P] + [_I] * 15 + [_P],
+    "tfhe_cluster_step_active": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_variant_active_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_delta_active_blocks": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
