@@ -11,28 +11,38 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
 
   1. card, power limit, SM clock, torch and CUDA versions;
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5, K6 in rotation.cu,
-     K2 in keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
+     the keyswitch's decomposition pass, K2' and the wide form K2 in
+     keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
      source, in parallel) and prints ptxas's register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
      compiled for N = 2048 and P = 4, K3/K5 once for each cluster size C
      and output count R, K6's cluster step once for each C, R and delta or
      variants, K6's passes form once for each radix and its region kernel
      for each rt);
-  3. holds K1 and K2 bit for bit (tolerance 0: the arithmetic is exact)
-     against their plain PyTorch versions on the card at the classic
-     path's shapes (K1 at batch 1, 6, 8, 512 and 513 over all 742 steps, K2
-     at batch 512), and K1 at batch 8 at the other delta shapes
+  3. holds K1 and the keyswitch bit for bit (tolerance 0: the arithmetic is
+     exact) against their plain PyTorch versions on the card at the classic
+     path's shapes (K1 at batch 1, 6, 8, 512 and 513 over all 742 steps; the
+     decomposition pass against the torch decomposition, masks with the top
+     bit set included, and K2' against the plain contraction at batch 1, 8,
+     512 and 513, and at a worst case: every digit -2^(b-1), then
+     2^(b-1) - 1, against key bytes all 0xFF, at 2_2 and at b = 8 with the
+     deepest K the tensor-core form takes), and K1 at batch 8 at the other
+     delta shapes
      (PARAM_MESSAGE_2_CARRY_1_KS_PBS, PARAM_MESSAGE_1_CARRY_1_KS_PBS, the
      boolean DEFAULT_PARAMETERS_KS_PBS with J = 9, and
      PARAM_MESSAGE_2_CARRY_3_KS_PBS at N = 4096; random keys) and times
-     K1 at batch 512 at each of them; times K1, K2 and their plain versions
-     at batch 512 with CUDA events, and K1 on one round of blocks (the
-     batch the device holds at once) and on 16;
+     K1 at batch 512 at each of them; times K1, K2', the decomposition pass
+     and their plain versions at batch 512 with CUDA events beside their
+     bounds (and, at the same shape, the wide form, and torch._int_mm on
+     the same [B, K] x [K, 8M] int8 shape as a yardstick of the card's int8
+     GEMM rate: signed bytes with no recombination, not K2's function), and
+     K1 on one round of blocks (the batch the device holds at once) and on
+     16;
   3b. holds K3 the same way at the GROUP_2 and GROUP_3 widths (batch 1, 6,
      8, 512 and 513, all steps, random keys; 1, 6 and 513 leave padding
      blocks in the last cluster) at the default cluster size and times it
-     and its plain version at batch 512; holds and times K2 at both
-     multi-bit keyswitch shapes;
+     and its plain version at batch 512; holds and times the decomposition
+     pass and K2' as in phase 3 at both multi-bit keyswitch shapes;
   3b'. the cluster sweep: K3 at GROUP_3, batch 512, for each cluster size
      the device can schedule, in turns (C = 1, 4, 2, 8, 1; C = 1 is the
      design with one ciphertext per block, the in-call baseline), 3 reps
@@ -81,6 +91,10 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   3e. more than 15 digit rows: K1 (every step at batch 8, 32 at batch
      512), K4 and the paired K5 (one step) at AES_PARAMETERS_40 (J = 16) and
      WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS (J = 18), K1 timed at batch 512;
+  3f. the keyswitch at the large shapes: the pass and K2' held (batch 8 and
+     512) and timed at 3_3, 3_3 GROUP_3 and 4_4; the wide form K2 held and
+     timed at WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS (b = 11) and
+     PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS (b = 25);
   4. classic path: counts to 0, gen_keys on the card, encrypts 512
      messages, serves three requests (a LUT, a second LUT on its output, a
      bivariate LUT), reads the counts, decrypts all 3 x 512 results against
@@ -102,7 +116,8 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   4d. the large-N paths: for 3_3, 3_3 GROUP_3 and 4_4, gen_keys on the
      card, 512 messages encrypted, one LUT request with the counts set to 0
      just before and read just after (one cluster-step launch a step, one
-     K2, no K1/K3 and no passes form), 512/512 decrypted against the clear
+     decomposition pass and one K2', no wide form, no K1/K3 and no passes
+     form), 512/512 decrypted against the clear
      model, the 3_3 results held against the plain CPU path (one
      ciphertext), KS+PBS timed, one call traced under torch.profiler (idle
      share, device time by kernel, K6's launches and their cadence);
@@ -110,17 +125,20 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
      the rotation kernels size against;
-  6. checks each kernel's launch count on its path, measures KS+PBS PBS/s
-     at batch 512 for 2_2, GROUP_3 and GROUP_2, and prints the kernels
-     line: each kernel's time beside its bound (the larger of its 32-bit
-     integer multiplies over the card's INT32 issue rate and its bytes over
-     3.35 TB/s) and its plain version's time; K3 and K5 also per shape
+  6. checks each kernel's launch count on its path (on every path the
+     decomposition pass and K2' once per KS+PBS call, the wide form never),
+     measures KS+PBS PBS/s at batch 512 for 2_2, GROUP_3 and GROUP_2, and
+     prints the kernels line: each kernel's time beside its bound (the
+     larger of its 32-bit integer multiplies, or for K2' its int8
+     tensor-core operations, over the card's rate and its bytes over 3.35
+     TB/s) and its plain version's time; K3 and K5 also per shape
      (GROUP_3 and GROUP_2; paired and GROUP_3), K6's cluster step (delta
      and variants) at 3_3 and 3_3 GROUP_3 over 32 steps against its plain
      version, and per shape over every step (3_3, 4_4; 3_3 GROUP_3; no
      plain time there) and one step a launch on the per-step routes; K6's
      passes form at the shape it serves (no path serves that set, so its
-     launches on the paths are 0).
+     launches on the paths are 0); the keyswitch's three kernels per shape
+     (the wide form's launches on the paths are 0).
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -133,9 +151,11 @@ on the same card, in turns other, this, this, other (--turns, 4), each
 turn a process of its own that imports and builds its tree's port.  Each
 turn measures at batch 512, by CUDA events, with the same seeded random
 keys and inputs: the whole rotation at PARAM_MESSAGE_2_CARRY_2_KS_PBS (K1)
-and, through K6, at 3_3, 3_3 GROUP_3 and 4_4, and KS+PBS at those three
-sets (gen_keys on the card, 512 messages, one LUT request decrypted
-against the clear function).  Every output's checksum must agree across
+and, through K6, at 3_3, 3_3 GROUP_3 and 4_4; `keyswitch_lwe` alone at the
+2_2, 3_3 and 4_4 keyswitch shapes (the key built by
+`interop.keyswitch_key`); and KS+PBS at 2_2 and those three sets
+(gen_keys on the card, 512 messages, one LUT request decrypted against
+the clear function).  Every output's checksum must agree across
 all turns (the pipeline is exact) and every KS+PBS output must decrypt
 right; it raises otherwise.  It prints each turn, then each tree's mean:
 
@@ -157,6 +177,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA's data sheet)
 INT32_LANES_PER_SM = 64          # Hopper: INT32 multiply issue per SM per clock
+INT8_MACS_PER_SM = 4096          # Hopper: dense int8 tensor-core multiply-adds per SM per clock
 CLASSIC = "PARAM_MESSAGE_2_CARRY_2_KS_PBS"
 GROUP_2 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_KS_PBS"
 GROUP_3 = "PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS"
@@ -197,6 +218,12 @@ K6_SWEEP = ((CLASSIC_33, 32, ((8, 4), (4, 4), (2, 1), (16, 4), "passes")),
             (SET_2_6, 4, ((16, 1), "passes")))
 # the J > 15 shapes: AES_PARAMETERS_40 (J = 16), the WoP-PBS sets (J = 18)
 WIDE_SETS = ("AES_PARAMETERS_40", "WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS")
+# the keyswitch: the wide form's sets (base_log 11 and 25) and the large
+# tensor-core shapes (phase 3f)
+WIDE_KS_SETS = ("WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS", "PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS")
+LARGE_KS_SETS = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS",
+                 "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS",
+                 "PARAM_MESSAGE_4_CARRY_4_KS_PBS")
 
 
 def smi(query: str) -> str:
@@ -348,7 +375,26 @@ def k3_mults(batch, steps, V, P, J, R, n) -> int:
 
 
 def k2_mults(batch, K, M) -> int:
+    """The wide form: a u64 x u64 low product (3) a multiply-add."""
     return 3 * batch * K * M
+
+
+def decompose_ops(batch, n_in, levels) -> int:
+    """The decomposition pass's 32-bit integer operations, counted from
+    csrc/keyswitch.cu: the rounding add and shift of a 64-bit word (4),
+    then an and, add, shift, subtract and shift-add of 64 bits a digit (10)."""
+    return batch * n_in * (4 + 10 * levels)
+
+
+def tc_bound(batch, K, M, Kp, sm_clock_hz, sms) -> tuple:
+    """K2': (bound_ms, bound_by), the larger of its 8 limb products, 2·B·K·M
+    operations each, over the int8 tensor-core rate (INT8_MACS_PER_SM
+    multiply-adds a clock, 2 operations each) and its bytes (the digits and
+    the key bytes read, the body read and the words written, once) over the
+    memory rate."""
+    ops_ms = 16 * batch * K * M / (2 * INT8_MACS_PER_SM * sms * sm_clock_hz) * 1e3
+    bytes_ms = (batch * Kp + 8 * M * Kp + batch * 8 + batch * M * 8) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def step_bytes(steps, V, P, J, R, n, e_per_step) -> int:
@@ -372,10 +418,14 @@ COMPARED = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS", "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3
 def measure_turn(seed: int) -> dict:
     """One turn of --against in the port first on sys.path: {label: {"ms",
     "check", ...}}."""
-    from tfhe_tpu_torch import shortint
+    import numpy as np
+
+    from tfhe_tpu_torch import interop, shortint
     from tfhe_tpu_torch.core import rng
     from tfhe_tpu_torch.core.algorithms import external_product_num_primes
-    from tfhe_tpu_torch.core.entities import NttBootstrapKey, NttMultiBitBootstrapKey
+    from tfhe_tpu_torch.core.algorithms.keyswitch import keyswitch_lwe
+    from tfhe_tpu_torch.core.entities import (LweCiphertext, NttBootstrapKey,
+                                              NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import shortint_params
     from tfhe_tpu_torch.core.poly import ntt, rotation
 
@@ -419,7 +469,19 @@ def measure_turn(seed: int) -> dict:
         out[f"rotation {name}"] = {"ms": ms, "steps": steps, "check": checksum(res["o"])}
         del spectra, key, acc, exps, res
         torch.cuda.empty_cache()
-    for name in COMPARED:
+    for name in (CLASSIC, CLASSIC_33, CLASSIC_44):
+        # the keyswitch alone, the key carried in as a u64 array
+        p = shortint_params(name)
+        n_in, M = p.big_lwe_dimension, p.lwe_dimension + 1
+        data = rng.uniform_torus(g, (n_in, p.ks_level, M)).cpu().numpy().view(np.uint64)
+        ksk = interop.keyswitch_key(data, p.ks_decomp, device=dev)
+        ct = LweCiphertext(data=rng.uniform_torus(g, (B, n_in + 1)))
+        res = {}
+        ms = timed(lambda: res.update(o=keyswitch_lwe(ct, ksk)), 10)
+        out[f"keyswitch {name}"] = {"ms": ms, "check": checksum(res["o"].data)}
+        del data, ksk, ct, res
+        torch.cuda.empty_cache()
+    for name in (CLASSIC,) + COMPARED:
         p = shortint_params(name)
         t0 = time.perf_counter()
         ck, sk = shortint.gen_keys(p, seed=seed, device=dev)
@@ -507,6 +569,7 @@ def main() -> int:
     from tfhe_tpu_torch.core import rng
     from tfhe_tpu_torch.core.algorithms import external_product_num_primes, keyswitch
     from tfhe_tpu_torch.core.algorithms.encryption import bootstrap_key_to_ntt_paired
+    from tfhe_tpu_torch.core.decomposition import signed_decompose
     from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
                                               NttBootstrapKey, NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import (boolean_params, gadget_params, shortint_params,
@@ -634,8 +697,146 @@ def main() -> int:
         return hold(label, got, rotation.blind_rotate_step_plain(acc.clone(), exps, key_slice,
                                                                  mode, decomp))
 
+    top_bits = torch.tensor([-1, -(1 << 63), (1 << 63) - 1, 0], dtype=torch.int64, device=dev)
+
+    def ks_ciphertexts(n_in, batch):
+        """batch ciphertexts of n_in + 1 random words, the top-bit cases first."""
+        ct = rng.uniform_torus(g, (batch, n_in + 1))
+        ct.view(-1)[:4] = top_bits
+        return ct
+
+    def int_mm_ms(m, k, n):
+        """torch._int_mm on [m, k] x [k, n] int8 (the second column-major):
+        the card's int8 GEMM rate as PyTorch's library call gives it, a
+        yardstick only (signed bytes and no recombination: not K2's
+        function); None where it refuses the shape."""
+        a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8).t()
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError as e:
+            print(f"torch._int_mm [{m}, {k}] x [{k}, {n}]: not measured ({str(e)[:200]})")
+            return None
+        return cuda_ms(lambda: torch._int_mm(a, b), 10)
+
+    def hold_keyswitch(label, sp, batches, worst=False, reps=10):
+        """The decomposition pass and K2' at set sp's keyswitch shape (a
+        random key made by `keyswitch.keyswitch_key`, as keygen makes it):
+        held bit for bit at each batch (with worst, also every digit
+        -2^(b-1), then 2^(b-1) - 1, against key bytes all 0xFF), then timed
+        at batch B beside their bounds, with their plain versions, the wide
+        form at the same shape and torch._int_mm; → the numbers."""
+        n_in, L, M = sp.big_lwe_dimension, sp.ks_level, sp.lwe_dimension + 1
+        K, decomp = n_in * L, sp.ks_decomp
+        if not keyswitch.tensor_core_form(K, decomp.base_log):
+            raise AssertionError(f"{label} does not take the tensor-core form")
+        ksk = keyswitch.keyswitch_key(rng.uniform_torus(g, (n_in, L, M)), decomp)
+        key, Kp = ksk.data.reshape(K, M), ksk.limbs.shape[-1]
+        err = {"tc": 0, "dec": 0}
+        for batch in batches:
+            ct = ks_ciphertexts(n_in, batch)
+            mask, body = ct[:, :-1], ct[:, -1]
+            d = keyswitch.decompose_digits(mask, decomp)
+            torch.cuda.synchronize()
+            err["dec"] = max(err["dec"], hold(
+                f"decomposition pass {label}, batch {batch}, n_in {n_in}, base_log "
+                f"{decomp.base_log}, {L} levels", d, keyswitch.decompose_digits_plain(mask, decomp)))
+            per, splits = keyswitch._tc_plan(batch, M, Kp, sms)
+            got = keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body)
+            torch.cuda.synchronize()
+            err["tc"] = max(err["tc"], hold(
+                f"K2' {label}, batch {batch}, K={K}, M={M} (K in {splits} splits of {per} "
+                f"steps)", got, keyswitch.neg_digit_mac_plain(d[:, :K], key, body)))
+        if worst:
+            ones = keyswitch.keyswitch_key(torch.full_like(ksk.data, -1), decomp)
+            half, body = 1 << (decomp.base_log - 1), rng.uniform_torus(g, (B,))
+            for v in (-half, half - 1):
+                d = torch.full((B, Kp), v, dtype=torch.int8, device=dev)
+                d[:, K:] = 0
+                got = keyswitch.neg_digit_mac_tensor_core(d, ones.data.reshape(K, M), ones.limbs,
+                                                          body)
+                torch.cuda.synchronize()
+                err["tc"] = max(err["tc"], hold(
+                    f"K2' {label} worst case: every digit {v}, key bytes all 0xFF, batch {B}",
+                    got, keyswitch.neg_digit_mac_plain(d[:, :K], ones.data.reshape(K, M), body)))
+            del ones
+        ct = ks_ciphertexts(n_in, B)
+        mask, body = ct[:, :-1], ct[:, -1]
+        d = keyswitch.decompose_digits(mask, decomp)
+        d32 = signed_decompose(mask, decomp).reshape(B, K).to(torch.int32)
+        res = {}
+        tc_ms = cuda_ms(lambda: res.update(
+            tc=keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body)), reps)
+        dec_ms = cuda_ms(lambda: keyswitch.decompose_digits(mask, decomp), reps)
+        tc_plain_ms = cuda_ms(lambda: res.update(
+            plain=keyswitch.neg_digit_mac_plain(d32, key, body)), 1)
+        dec_plain_ms = cuda_ms(lambda: keyswitch.decompose_digits_plain(mask, decomp), 3)
+        wide_ms = cuda_ms(lambda: res.update(wide=keyswitch.neg_digit_mac(d32, key, body)), 3)
+        err["tc"] = max(err["tc"], hold(f"K2' {label}, batch {B} (timed)", res["tc"],
+                                        res["plain"]))
+        hold(f"the wide form at {label}'s keyswitch shape, batch {B}", res["wide"], res["plain"])
+        out = dict(err=err, tc_ms=tc_ms, tc_plain_ms=tc_plain_ms, dec_ms=dec_ms,
+                   dec_plain_ms=dec_plain_ms, wide_ms=wide_ms, int_mm_ms=int_mm_ms(B, Kp, 8 * M),
+                   tc_bound=tc_bound(B, K, M, Kp, clock_hz, sms),
+                   dec_bound=bound(decompose_ops(B, n_in, L), B * n_in * 8 + B * Kp, clock_hz,
+                                   sms),
+                   wide_bound=bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
+                                    clock_hz, sms),
+                   shape=f"{label} batch {B}, K={K}, M={M}")
+        mm = out["int_mm_ms"]
+        print(f"{tag} keyswitch {label} batch {B} (K={K}, M={M}, base_log {decomp.base_log}): "
+              f"K2' {tc_ms:.4f} ms (bound {out['tc_bound'][0]:.4f} ms by "
+              f"{out['tc_bound'][1]}), plain {tc_plain_ms:.3f} ms; decomposition pass "
+              f"{dec_ms:.4f} ms (bound {out['dec_bound'][0]:.4f} ms by {out['dec_bound'][1]}), "
+              f"plain {dec_plain_ms:.3f} ms; the wide form (K2 as before) at this shape "
+              f"{wide_ms:.3f} ms (bound {out['wide_bound'][0]:.4f}); torch._int_mm [{B}, {Kp}] x "
+              f"[{Kp}, {8 * M}] int8 " + (f"{mm:.4f} ms" if mm is not None else "not measured"))
+        return out
+
+    def hold_wide_keyswitch(label, sp, batches, reps=3):
+        """The wide form at set sp's keyswitch shape (base_log > 8): held
+        bit for bit at each batch, `keyswitch_lwe` once with a key made by
+        `keyswitch.keyswitch_key` (one wide launch, no pass, no K2'), then
+        timed at batch B beside its bound; → the numbers."""
+        n_in, L, M = sp.big_lwe_dimension, sp.ks_level, sp.lwe_dimension + 1
+        K, decomp = n_in * L, sp.ks_decomp
+        if keyswitch.tensor_core_form(K, decomp.base_log):
+            raise AssertionError(f"{label} takes the tensor-core form")
+        ksk = keyswitch.keyswitch_key(rng.uniform_torus(g, (n_in, L, M)), decomp)
+        key, err = ksk.data.reshape(K, M), 0
+        for batch in batches:
+            ct = ks_ciphertexts(n_in, batch)
+            d32 = signed_decompose(ct[:, :-1], decomp).reshape(batch, K).to(torch.int32)
+            got = keyswitch.neg_digit_mac(d32, key, ct[:, -1])
+            torch.cuda.synchronize()
+            err = max(err, hold(f"wide form {label}, batch {batch}, K={K}, M={M}, base_log "
+                                f"{decomp.base_log}", got,
+                                keyswitch.neg_digit_mac_plain(d32, key, ct[:, -1])))
+        before = (keyswitch.launches, keyswitch.decompose_launches, keyswitch.wide_launches)
+        got = keyswitch.keyswitch_lwe(LweCiphertext(data=ct), ksk)
+        ran = [a - b for a, b in zip((keyswitch.launches, keyswitch.decompose_launches,
+                                      keyswitch.wide_launches), before)]
+        if ksk.limbs is not None or ran != [0, 0, 1]:
+            raise AssertionError(f"{label}: keyswitch_lwe launched {ran} (K2', pass, wide)")
+        err = max(err, hold(f"keyswitch_lwe {label}, batch {ct.shape[0]} (the wide form)",
+                            got.data, keyswitch.neg_digit_mac_plain(d32, key, ct[:, -1])))
+        ct = ks_ciphertexts(n_in, B)
+        body = ct[:, -1]
+        d32 = signed_decompose(ct[:, :-1], decomp).reshape(B, K).to(torch.int32)
+        res = {}
+        ms = cuda_ms(lambda: res.update(got=keyswitch.neg_digit_mac(d32, key, body)), reps)
+        plain_ms = cuda_ms(lambda: res.update(plain=keyswitch.neg_digit_mac_plain(d32, key, body)),
+                           1)
+        err = max(err, hold(f"wide form {label}, batch {B} (timed)", res["got"], res["plain"]))
+        bnd = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8, clock_hz, sms)
+        print(f"{tag} keyswitch wide form {label} batch {B} (K={K}, M={M}, base_log "
+              f"{decomp.base_log}): {ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}), plain "
+              f"{plain_ms:.3f} ms")
+        return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                    shape=f"{label} batch {B}, K={K}, M={M}")
+
     lap("3")
-    # ---- 3. K1 and K2 against their plain versions, full 2_2 widths ---------
+    # ---- 3. K1 and the keyswitch against their plain versions, 2_2 widths ---
     params = shortint_params(CLASSIC)
     n, N, R, J, P, plan = widths(params)
     key = NttBootstrapKey(spectra=random_spectra(plan, (n, J, R, N), 1),
@@ -675,14 +876,22 @@ def main() -> int:
         print(f"K1 {name} batch {B}: kernel {t:.3f} ms, {t / sn:.5f} ms a step")
         del skey, sacc, sexps, got, bacc, bexps
 
-    K, M = params.big_lwe_dimension * params.ks_level, n + 1
-    digits = torch.randint(-(1 << (params.ks_base_log - 1)), (1 << (params.ks_base_log - 1)) + 1,
-                           (B, K), generator=g, device=dev, dtype=torch.int32)
-    kmat, body = rng.uniform_torus(g, (K, M)), rng.uniform_torus(g, (B,))
-    got = keyswitch.neg_digit_mac(digits, kmat, body)
-    torch.cuda.synchronize()
-    k2_err = hold(f"K2 keyswitch contraction, batch {B}, K={K}, M={M}", got,
-                  keyswitch.neg_digit_mac_plain(digits, kmat, body))
+    ks = {CLASSIC: hold_keyswitch(CLASSIC, params, (1, 8, B, B + 1), worst=True)}
+    # the b = 8 edge: the deepest K (in rows of 16 bytes) the tensor-core
+    # form takes, every limb sum 2^31 - 32768 in magnitude
+    K8, M8 = 65792, 65
+    if not keyswitch.tensor_core_form(K8, 8) or keyswitch.tensor_core_form(K8 + 16, 8):
+        raise AssertionError(f"K = {K8} is not the deepest tensor-core shape at b = 8")
+    key8 = torch.full((K8, M8), -1, dtype=torch.int64, device=dev)
+    limbs8, body8 = keyswitch.limb_layout(key8), rng.uniform_torus(g, (B + 1,))
+    for v in (-128, 127):
+        d8 = torch.full((B + 1, K8), v, dtype=torch.int8, device=dev)
+        got = keyswitch.neg_digit_mac_tensor_core(d8, key8, limbs8, body8)
+        torch.cuda.synchronize()
+        ks[CLASSIC]["err"]["tc"] = max(ks[CLASSIC]["err"]["tc"], hold(
+            f"K2' worst case at b = 8: every digit {v}, key bytes all 0xFF, K={K8}, M={M8}, "
+            f"batch {B + 1}", got, keyswitch.neg_digit_mac_plain(d8, key8, body8)))
+    del key8, limbs8, body8, d8
 
     acc, exps = rot_inputs(B)
     outs = {}
@@ -691,11 +900,8 @@ def main() -> int:
                           1)
     k1_err = max(k1_err, hold(f"K1 blind rotation, batch {B}, {n} steps", outs["kernel"],
                               outs["plain"]))
-    k2_ms = cuda_ms(lambda: keyswitch.neg_digit_mac(digits, kmat, body), 10)
-    k2_plain_ms = cuda_ms(lambda: keyswitch.neg_digit_mac_plain(digits, kmat, body), 3)
     print(f"{tag} K1 batch {B}: kernel {k1_ms:.3f} ms ({k1_ms / n:.5f} ms per step), plain "
           f"{k1_plain_ms:.3f} ms (the earlier radix-2 body: {EARLIER_K1_MS} ms)")
-    print(f"{tag} K2 batch {B}: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
     lay = rotation._delta_layout(N, R, J, P)
     held = rotation._delta_active_blocks(lay, dev)
     print(f"{tag} K1, one round of blocks ({held} blocks of {lay.smem} B fit on the device "
@@ -709,8 +915,6 @@ def main() -> int:
         print(f"    {rows:5d} | {m:9.3f} | {max(t) - min(t):9.3f} | {m * 1e3 / rows / n:10.5f}")
     k1_bound = bound(k1_mults(B, n, P, J, R, N, lay.chunks),
                      key.spectra.numel() * 4 + 2 * B * R * N * 8 + B * n * 4 + 8 * P * N * 4,
-                     clock_hz, sms)
-    k2_bound = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
                      clock_hz, sms)
 
     lap("3c classic")
@@ -748,12 +952,12 @@ def main() -> int:
                       step_bytes(n, 2, P, J, R, N, 1) + 12 * P * N * 4, clock_hz, sms)
     sweep("K5 paired per-step rotation", lambda c: steps_at(acc, exps, pkey, c),
           outs["paired_plain"], n, R, J, P, N, 2 * P * J * R * N, False)
-    del key, pkey, acc, exps, digits, kmat, body, got, outs
+    del key, pkey, acc, exps, got, outs
 
     lap("3b")
     # ---- 3b. K3 against its plain version, GROUP_2 and GROUP_3 widths -------
-    # ---- 3c (GROUP_3). K5 over a multi-bit key; K2 at the multi-bit shapes ---
-    k3, k2_mb = {}, {}
+    # ---- 3c (GROUP_3). K5 over a multi-bit key; the keyswitch at the multi-bit shapes
+    k3 = {}
     for name in (GROUP_2, GROUP_3):
         mp = shortint_params(name)
         n, N, R, J, P, plan = widths(mp)
@@ -815,20 +1019,9 @@ def main() -> int:
                               step_bytes(n // gf, V, P, J, R, N, V - 1) + 12 * P * N * 4,
                               clock_hz, sms)
             k5m_plain_ms = plain_ms
-        # K2 at this set's keyswitch shape
-        Km, Mm = mp.big_lwe_dimension * mp.ks_level, n + 1
-        half = 1 << (mp.ks_base_log - 1)
-        dg = torch.randint(-half, half + 1, (B, Km), generator=g, device=dev, dtype=torch.int32)
-        km, bd = rng.uniform_torus(g, (Km, Mm)), rng.uniform_torus(g, (B,))
-        o2 = {}
-        kms = cuda_ms(lambda: o2.update(kernel=keyswitch.neg_digit_mac(dg, km, bd)), 10)
-        kplain = cuda_ms(lambda: o2.update(plain=keyswitch.neg_digit_mac_plain(dg, km, bd)), 3)
-        k2_err = max(k2_err, hold(f"K2 keyswitch contraction GROUP_{gf}, batch {B}, K={Km}, "
-                                  f"M={Mm}", o2["kernel"], o2["plain"]))
-        print(f"{tag} K2 GROUP_{gf} batch {B} (K={Km}, M={Mm}): kernel {kms:.3f} ms, "
-              f"plain {kplain:.3f} ms")
-        k2_mb[gf] = (kms, kplain)
-        del mkey, acc, cexp, got, outs, dg, km, bd, o2
+        # the pass and K2' at this set's keyswitch shape
+        ks[name] = hold_keyswitch(name, mp, (1, 8, B, B + 1))
+        del mkey, acc, cexp, got, outs
 
     lap("3d")
     # ---- 3d. K6, the staged step, at the shapes beyond one block ------------
@@ -1104,8 +1297,19 @@ def main() -> int:
         del key, pk, acc, exps, a1, e1
     torch.cuda.empty_cache()
 
+    lap("3f")
+    # ---- 3f. the keyswitch at the large shapes; the wide form ---------------
+    for name in LARGE_KS_SETS:
+        ks[name] = hold_keyswitch(name, shortint_params(name), (8, B), reps=3)
+        torch.cuda.empty_cache()
+    ks_wide = {name: hold_wide_keyswitch(name, wopbs_params(name) if name.startswith("WOPBS")
+                                         else shortint_params(name), (1, 8, B, B + 1))
+               for name in WIDE_KS_SETS}
+    torch.cuda.empty_cache()
+
     def zero_counts():
-        rotation.launches = rotation.multi_bit_launches = keyswitch.launches = 0
+        rotation.launches = rotation.multi_bit_launches = 0
+        keyswitch.launches = keyswitch.decompose_launches = keyswitch.wide_launches = 0
         rotation.step_launches = rotation.step_variant_launches = 0
         rotation.cluster_launches = rotation.cluster_variant_launches = 0
         rotation.staged_launches = 0
@@ -1118,7 +1322,9 @@ def main() -> int:
                 "blind_rotate_cluster_step": rotation.cluster_launches,
                 "blind_rotate_cluster_step_variants": rotation.cluster_variant_launches,
                 "blind_rotate_staged": rotation.staged_launches,
-                "keyswitch_mac": keyswitch.launches}
+                "keyswitch_tc": keyswitch.launches,
+                "keyswitch_decompose": keyswitch.decompose_launches,
+                "keyswitch_mac": keyswitch.wide_launches}
 
     def check_requests(ck, outs, expect, path, seconds, batch=B):
         right = 0
@@ -1244,7 +1450,7 @@ def main() -> int:
         counts = read_counts()
         print(f"{label} kernel launches: {json.dumps(counts)}")
         want = {k: 0 for k in counts}
-        want.update({kernel: steps_per_call[pname], "keyswitch_mac": 1})
+        want.update({kernel: steps_per_call[pname], "keyswitch_tc": 1, "keyswitch_decompose": 1})
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         route_launches[label] = counts
@@ -1304,7 +1510,7 @@ def main() -> int:
         print(f"{pname} kernel launches: {json.dumps(counts)}")
         want = {k: 0 for k in counts}
         want.update({"blind_rotate_cluster_step_variants" if gf else "blind_rotate_cluster_step":
-                     steps, "keyswitch_mac": 1})
+                     steps, "keyswitch_tc": 1, "keyswitch_decompose": 1})
         if counts != want:
             raise AssertionError(f"{pname}: launches {counts}, expected {want}")
         large_launches[pname] = counts
@@ -1362,9 +1568,11 @@ def main() -> int:
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
-                        ("keyswitch_mac", classic_launches["keyswitch_mac"]),
+                        ("keyswitch_tc", classic_launches["keyswitch_tc"]),
+                        ("keyswitch_decompose", classic_launches["keyswitch_decompose"]),
                         ("blind_rotate_multibit", multi_bit_launches["blind_rotate_multibit"]),
-                        ("keyswitch_mac", multi_bit_launches["keyswitch_mac"]),
+                        ("keyswitch_tc", multi_bit_launches["keyswitch_tc"]),
+                        ("keyswitch_decompose", multi_bit_launches["keyswitch_decompose"]),
                         ("blind_rotate_cluster_step",
                          large_launches[CLASSIC_33]["blind_rotate_cluster_step"]),
                         ("blind_rotate_cluster_step_variants",
@@ -1372,12 +1580,29 @@ def main() -> int:
                         ("smem_probe", probe_launches)):
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by its path")
+    # the keyswitch on the classic and multi-bit paths: one pass and one K2'
+    # per KS+PBS call (one rotation launch a call there), never the wide form
+    for label, counts, rot in (("classic", classic_launches, "blind_rotate"),
+                               ("multi-bit GROUP_3", multi_bit_launches,
+                                "blind_rotate_multibit")):
+        if not (counts["keyswitch_tc"] == counts["keyswitch_decompose"] == counts[rot]
+                and counts["keyswitch_mac"] == 0):
+            raise AssertionError(f"{label} path: keyswitch launches {counts}, not one pass "
+                                 f"and one K2' a KS+PBS call")
 
     mp2 = shortint_params(GROUP_2)
     ck, sk = shortint.gen_keys(mp2, seed=args.seed, device=dev)
     ct = ck.encrypt(a.to(dev), seed=args.seed + 4)
     lut = sk.generate_lookup_table(f1)
+    zero_counts()
     out = sk.apply_lookup_table(ct, lut)
+    torch.cuda.synchronize()
+    group_2_launches = read_counts()
+    print(f"multi-bit GROUP_2 path kernel launches: {json.dumps(group_2_launches)}")
+    want = {k: 0 for k in group_2_launches}
+    want.update({"blind_rotate_multibit": 1, "keyswitch_tc": 1, "keyswitch_decompose": 1})
+    if group_2_launches != want:
+        raise AssertionError(f"GROUP_2: launches {group_2_launches}, expected {want}")
     if not torch.equal(ck.decrypt(out).cpu(), f1(a)):
         raise AssertionError("GROUP_2 KS+PBS decrypts wrong")
     kspbs[GROUP_2] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
@@ -1400,20 +1625,41 @@ def main() -> int:
             out["cluster"] = cluster
         if shapes:
             out["shapes"] = [{"shape": sh, "ms": t, "plain_ms": pt, "bound_ms": b[0],
-                              "bound_by": b[1]} for sh, t, pt, b in shapes]
+                              "bound_by": b[1], **(more[0] if more else {})}
+                             for sh, t, pt, b, *more in shapes]
         return out
 
     def route_total(kernel):
         return sum(c[kernel] for c in route_launches.values())
 
+    def path_total(kernel):
+        """Launches over every main path's counted window."""
+        return (classic_launches[kernel] + multi_bit_launches[kernel] + route_total(kernel)
+                + sum(c[kernel] for c in large_launches.values()) + group_2_launches[kernel])
+
+    ks_src = "tfhe_tpu_torch/csrc/keyswitch.cu"
+    ks22, ks_names = ks[CLASSIC], [CLASSIC, GROUP_3, GROUP_2] + list(LARGE_KS_SETS)
+    wide0 = ks_wide[WIDE_KS_SETS[0]]
+
     rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
         entry("blind_rotate", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               classic_launches["blind_rotate"], k1_err, k1_ms, k1_plain_ms, k1_bound),
-        entry("keyswitch_mac", "tfhe_tpu_torch/csrc/keyswitch.cu",
-              "tfhe_tpu/core/algorithms/keyswitch.py:41",
-              classic_launches["keyswitch_mac"] + multi_bit_launches["keyswitch_mac"]
-              + route_total("keyswitch_mac"), k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
+              path_total("keyswitch_tc"), max(ks[k]["err"]["tc"] for k in ks_names),
+              ks22["tc_ms"], ks22["tc_plain_ms"], ks22["tc_bound"],
+              [(ks[k]["shape"], ks[k]["tc_ms"], ks[k]["tc_plain_ms"], ks[k]["tc_bound"],
+                {"int_mm_ms": ks[k]["int_mm_ms"], "wide_form_ms": ks[k]["wide_ms"]})
+               for k in ks_names]),
+        entry("keyswitch_decompose", ks_src, "tfhe_tpu/core/decomposition.py:19",
+              path_total("keyswitch_decompose"), max(ks[k]["err"]["dec"] for k in ks_names),
+              ks22["dec_ms"], ks22["dec_plain_ms"], ks22["dec_bound"],
+              [(ks[k]["shape"], ks[k]["dec_ms"], ks[k]["dec_plain_ms"], ks[k]["dec_bound"])
+               for k in ks_names]),
+        entry("keyswitch_mac", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:24",
+              path_total("keyswitch_mac"), max(w["err"] for w in ks_wide.values()),
+              wide0["ms"], wide0["plain_ms"], wide0["bound"],
+              [(w["shape"], w["ms"], w["plain_ms"], w["bound"]) for w in ks_wide.values()]),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
               k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"],
@@ -1449,9 +1695,14 @@ def main() -> int:
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")
     print(f"{tag} K5 GROUP_3 per-step rotation batch {B}: {k5m_ms:.3f} ms, bound "
           f"{k5m_bound[0]:.3f} ms by {k5m_bound[1]}, plain {k3[3]['plain_ms']:.3f} ms")
-    for gf, (kms, kplain) in k2_mb.items():
-        print(f"{tag} K2 GROUP_{gf} keyswitch shape batch {B}: {kms:.3f} ms, plain "
-              f"{kplain:.3f} ms")
+    print(f"{tag} keyswitch at batch {B}: shape | K2' ms | bound ms | bound / time | pass ms "
+          f"| pass bound ms | wide form ms | torch._int_mm ms")
+    for k in ks_names:
+        r = ks[k]
+        mm = "not measured" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.4f}"
+        print(f"    {r['shape']} | {r['tc_ms']:.4f} | {r['tc_bound'][0]:.4f} | "
+              f"{r['tc_bound'][0] / r['tc_ms']:.1%} | {r['dec_ms']:.4f} | "
+              f"{r['dec_bound'][0]:.4f} | {r['wide_ms']:.3f} | {mm}")
     print(f"{tag} chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -1,7 +1,7 @@
-"""Builds `tfhe_tpu_torch/csrc/rotation.cu` for the host against
-`tests/cuda_host_stub.h`, for the tests that run the rotation kernels' CUDA
+"""Builds `tfhe_tpu_torch/csrc/rotation.cu` and `keyswitch.cu` for the host
+against `tests/cuda_host_stub.h`, for the tests that run the kernels' CUDA
 source on the CPU (tests/test_torch_delta_host.py,
-tests/test_torch_staged_host.py)."""
+tests/test_torch_staged_host.py, tests/test_torch_keyswitch_host.py)."""
 import ctypes
 import re
 import shutil
@@ -19,33 +19,72 @@ def build_rotation_host(out: Path, entries) -> ctypes.CDLL:
     """rotation.cu built with g++ (or clang++) into `out`, loaded, with the
     argument types of `entries` set from cuda_lib's table.  Skips where no
     C++20 host compiler is found."""
-    cxx = shutil.which("g++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ host compiler to build csrc/rotation.cu for the CPU")
-    src = (cuda_lib.CSRC / "rotation.cu").read_text()
-    src = src.replace("#include <cooperative_groups.h>", '#include "cuda_host_stub.h"')
-    src = src.replace("#include <cuda_runtime.h>", "")
     # the cluster barrier's halves, which the stand-in models; other inline
     # PTX (programmatic dependent launch) has no meaning on the host
-    for asm, call in (("barrier.cluster.arrive.relaxed.aligned;", "host_cluster_arrive();"),
-                      ("barrier.cluster.wait.aligned;", "host_cluster_wait();")):
-        line = f'asm volatile("{asm}" ::: "memory");'
-        assert src.count(line) == 1, f"rotation.cu no longer has {line!r} once"
-        src = src.replace(line, call)
+    return _build_host("rotation", out, entries, (
+        ('asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");',
+         "host_cluster_arrive();"),
+        ('asm volatile("barrier.cluster.wait.aligned;" ::: "memory");', "host_cluster_wait();")))
+
+
+def build_keyswitch_host(out: Path, entries) -> ctypes.CDLL:
+    """keyswitch.cu built for the host, as `build_rotation_host`: the mma and
+    cp.async statements become the stand-in's; cp.async's commit and wait
+    have nothing to wait for there, as the stand-in's copy is synchronous."""
+    src = (cuda_lib.CSRC / "keyswitch.cu").read_text()
+    lines = [ln.strip() for ln in src.splitlines()]
+    mma = next(ln for ln in lines if ln.startswith('asm volatile("mma.sync'))
+    copy = next(ln for ln in lines if ln.startswith('asm volatile("cp.async.cg'))
+    return _build_host("keyswitch", out, entries, (
+        (mma, "host_mma_s8u8(d, a0, a1, a2, a3, b0, b1);"),
+        (copy, "host_cp_async16(smem_dst, src, bytes);")))
+
+
+def _build_host(name: str, out: Path, entries, replacements) -> ctypes.CDLL:
+    """csrc/<name>.cu with each (inline PTX statement, host call) of
+    `replacements` replaced (each must be there once) and the rest of its
+    inline PTX removed, compiled into `out` and loaded."""
+    cxx = shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip(f"no C++ host compiler to build csrc/{name}.cu for the CPU")
+    src = (cuda_lib.CSRC / f"{name}.cu").read_text()
+    src = src.replace("#include <cooperative_groups.h>", '#include "cuda_host_stub.h"')
+    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_host_stub.h"')
+    for asm, call in replacements:
+        assert src.count(asm) == 1, f"{name}.cu no longer has {asm!r} once"
+        src = src.replace(asm, call)
     src = re.sub(r"^\s*asm volatile\(.*\);\s*$", "", src, flags=re.M)
+    src = _static_shared(src)
     src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
                       "unsigned char* smem = host_smem;")
-    (out / "rotation.cpp").write_text(src)
-    lib = out / "librotation_host.so"
+    (out / f"{name}.cpp").write_text(src)
+    lib = out / f"lib{name}_host.so"
     proc = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                            "-Wno-unknown-pragmas", f"-I{TESTS}", "-o", str(lib),
-                           str(out / "rotation.cpp")], capture_output=True, text=True)
+                           str(out / f"{name}.cpp")], capture_output=True, text=True)
     if proc.returncode != 0:
         if "barrier" in proc.stderr and "No such file" in proc.stderr:
             pytest.skip(f"{cxx} has no C++20 <barrier>")
-        raise AssertionError(f"host build of rotation.cu failed:\n{proc.stderr[-4000:]}")
+        raise AssertionError(f"host build of {name}.cu failed:\n{proc.stderr[-4000:]}")
     dll = ctypes.CDLL(str(lib))
-    for name in entries:
-        getattr(dll, name).argtypes = cuda_lib._SIGNATURES[name]
-        getattr(dll, name).restype = ctypes.c_int
+    for entry in entries:
+        getattr(dll, entry).argtypes = cuda_lib._SIGNATURES[entry]
+        getattr(dll, entry).restype = ctypes.c_int
     return dll
+
+
+def _static_shared(src: str) -> str:
+    """Each kernel's `__shared__ T name[...];` arrays as references into the
+    block's buffer, one after another (16-byte aligned), from its start."""
+    out, offset = [], "0"
+    for line in src.splitlines():
+        if "__global__" in line:
+            offset = "0"
+        m = re.match(r"^(\s*)__shared__ ([\w:]+) (\w+)((?:\[[^\]]+\])+);\s*$", line)
+        if m:
+            indent, typ, name, dims = m.groups()
+            line = (f"{indent}auto& {name} = *reinterpret_cast<{typ}(*){dims}>("
+                    f"host_smem + {offset});")
+            offset += f" + (sizeof({name}) + 15) / 16 * 16"
+        out.append(line)
+    return "\n".join(out) + "\n"

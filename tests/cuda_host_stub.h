@@ -1,9 +1,9 @@
 // A host stand-in for the CUDA runtime and device intrinsics that
-// tfhe_tpu_torch/csrc/rotation.cu uses, so that its kernels compile with a
-// C++20 host compiler and run on the CPU: every CUDA thread of a block is a
-// std::thread, __syncthreads() a std::barrier over the block, __syncwarp()
-// one over the warp, and each block's dynamic shared memory a buffer of
-// its own.  A cluster of C blocks (the launch's cluster dimension, 1
+// tfhe_tpu_torch/csrc/rotation.cu and keyswitch.cu use, so that their kernels
+// compile with a C++20 host compiler and run on the CPU: every CUDA thread of
+// a block is a std::thread, __syncthreads() a std::barrier over the block,
+// __syncwarp() one over the warp, and each block's dynamic shared memory a
+// buffer of its own.  A cluster of C blocks (the launch's cluster dimension, 1
 // without one) runs together, as C * blockDim.x threads: cluster.sync() is
 // a std::barrier over all of them (and the barrier's halves, arrive and
 // wait, are that barrier's) and map_shared_rank returns the same place in
@@ -13,11 +13,20 @@
 // is filled with stale data as it starts, so a write into a peer that has
 // not started yet is lost, and scribbled over as soon as its last thread
 // returns, as the card may give that memory to the next block.  Clusters
-// run one after another.  The
-// intrinsics compute what the device's do.  tests/test_torch_delta_host.py
-// and tests/test_torch_staged_host.py build it; it is no part of the port.
+// run one after another, over grids of up to three dimensions (clusters
+// along x).  The intrinsics compute what the device's do.  A warp's lanes
+// exchange values through a mailbox of their own (two sets, used in turn,
+// so one __syncwarp a call suffices): __shfl_xor_sync, and the warp-wide
+// mma.sync m16n8k32 s8 x u8 -> s32 (`host_mma_s8u8`: each lane posts its
+// fragments, __syncwarp, then each lane computes its own C fragment, in the
+// PTX ISA's fragment layout, which CUTLASS encodes as
+// SM80_16x8x32_S32S8U8S32_TN in cute/atom/mma_traits_sm80.hpp).  cp.async
+// is a synchronous copy (`host_cp_async16`, zero-filling past its source
+// size), so its commit and wait are no-ops.  tests/cuda_host.py builds the
+// sources against it; it is no part of the port.
 #pragma once
 #include <atomic>
+#include <array>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
@@ -62,7 +71,7 @@ inline unsigned __brev(unsigned x) {
 constexpr size_t HOST_SMEM = 232448;   // shared memory one block may use on sm_90
 
 inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim;
+inline dim3 blockDim, gridDim;
 inline unsigned host_cluster_size = 1;
 inline thread_local unsigned host_rank;               // this thread's block in its cluster
 inline thread_local unsigned char* host_smem;         // this thread's block's shared memory
@@ -92,6 +101,66 @@ inline void host_cluster_wait() {
 }
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 inline void __syncwarp() { host_warp_barriers[threadIdx.x >> 5].arrive_and_wait(); }
+
+// A warp's mailbox: [2 sets][32 lanes][4 words of 64 bits]; each call that
+// exchanges through it posts into the set of its turn, meets the warp at one
+// __syncwarp, reads, and turns to the other set.  A lane may post into a set
+// only after every lane has read it two calls back, which that barrier
+// ensures.
+inline thread_local uint64_t* host_warp_mail;          // this thread's warp's mailbox
+inline thread_local unsigned host_mail_turn;
+inline uint64_t* host_mail(unsigned lane) { return host_warp_mail + (host_mail_turn * 32 + lane) * 4; }
+
+template <class T> T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= 8, "one mailbox word");
+  const unsigned lane = threadIdx.x & 31;
+  std::memcpy(host_mail(lane), &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, host_mail(lane ^ (unsigned)lane_mask), sizeof(T));
+  host_mail_turn ^= 1;
+  return r;
+}
+
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32, d += A * B.  Lane
+// (g, t) = (lane / 4, lane % 4) holds A's rows g (a0, a2) and g + 8 (a1, a3),
+// bytes k = 4t..4t+3 (a0, a1) and 16+4t..16+4t+3 (a2, a3), byte i of a word
+// at k % 4 = i; B's column g, the same k (b0, b1); C's rows g (c0, c1) and
+// g + 8 (c2, c3), columns 2t and 2t + 1.  Sums wrap mod 2^32.
+inline void host_mma_s8u8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                          uint32_t b0, uint32_t b1) {
+  const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t mine[6] = {a0, a1, a2, a3, b0, b1};
+  std::memcpy(host_mail(lane), mine, sizeof(mine));
+  __syncwarp();
+  for (unsigned c = 0; c < 4; ++c) {
+    const unsigned row = g + 8 * (c >> 1), col = 2 * t + (c & 1);
+    uint32_t sum = 0;
+    for (unsigned k = 0; k < 32; ++k) {
+      uint32_t a_word, b_word;
+      std::memcpy(&a_word, reinterpret_cast<const uint32_t*>(
+                               host_mail((row % 8) * 4 + (k % 16) / 4)) +
+                               (row >= 8) + 2 * (k >= 16), 4);
+      std::memcpy(&b_word, reinterpret_cast<const uint32_t*>(
+                               host_mail(col * 4 + (k % 16) / 4)) + 4 + (k >= 16), 4);
+      const int8_t a = (int8_t)(a_word >> (8 * (k % 4)));
+      const uint8_t b = (uint8_t)(b_word >> (8 * (k % 4)));
+      sum += (uint32_t)((int32_t)a * (int32_t)b);
+    }
+    d[c] = (int)((uint32_t)d[c] + sum);
+  }
+  host_mail_turn ^= 1;
+}
+
+// cp.async.cg.shared.global, 16 bytes of which `bytes` are read, the rest zero.
+inline void host_cp_async16(void* dst, const void* src, int bytes) {
+  std::memcpy(dst, src, bytes);
+  std::memset(static_cast<unsigned char*>(dst) + bytes, 0, 16 - bytes);
+}
+
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -141,7 +210,10 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Par
   if (cfg->dynamicSmemBytes > HOST_SMEM || C < 1 || cfg->gridDim.x % C != 0)
     return cudaErrorInvalidValue;
   const unsigned threads = cfg->blockDim.x, warps = (threads + 31) / 32;
+  const unsigned row = cfg->gridDim.x / C;   // clusters along x
+  const unsigned clusters = row * cfg->gridDim.y * cfg->gridDim.z;
   blockDim = dim3(threads);
+  gridDim = cfg->gridDim;
   host_cluster_size = C;
   std::vector<std::unique_ptr<std::barrier<>>> blocks;
   std::vector<std::barrier<>*> warp_sets;
@@ -169,6 +241,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Par
     exits.push_back(std::make_unique<std::barrier<Scribble>>(threads,
                                                                Scribble{host_cluster_smem[c]}));
   std::barrier<> between_clusters(C * threads);
+  std::vector<uint64_t> mail((size_t)C * warps * 2 * 32 * 4);
   std::vector<std::thread> pool;
   for (unsigned t = 0; t < C * threads; ++t)
     pool.emplace_back([&, t] {
@@ -177,8 +250,11 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Par
       host_smem = host_cluster_smem[host_rank];
       host_block_barrier = blocks[host_rank].get();
       host_warp_barriers = warp_sets[host_rank];
-      for (unsigned b = 0; b < cfg->gridDim.x / C; ++b) {
-        blockIdx = dim3(b * C + host_rank);
+      host_warp_mail = mail.data() + ((size_t)host_rank * warps + threadIdx.x / 32) * 2 * 32 * 4;
+      host_mail_turn = 0;
+      for (unsigned b = 0; b < clusters; ++b) {
+        blockIdx = dim3(b % row * C + host_rank, b / row % cfg->gridDim.y,
+                        b / row / cfg->gridDim.y);
         if (t == 0)
           for (unsigned c = 0; c < C; ++c) host_reached[c].store(false);
         between_clusters.arrive_and_wait();

@@ -8,7 +8,9 @@ K6 for one step) refuse exactly the sets with N >= 16384, as the JAX
 per-step routes do (tfhe_tpu/core/poly/pallas_ntt.py:1809).  A change that
 makes a wrapper refuse a named set fails here.  Also K6's layout and batch
 tiles, and that the private `_staged=True` leaves the CPU (plain) result
-unchanged.
+unchanged.  And the keyswitch's form for every named set with a
+keyswitching key: 228 take the tensor-core form (K2′, whose int32 limb sums
+must stay below 2^31), 12 the wide form.
 """
 import dataclasses
 
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_tpu_torch.core.algorithms import external_product_num_primes
+from tfhe_tpu_torch.core.algorithms import external_product_num_primes, keyswitch
 from tfhe_tpu_torch.core.entities import NttBootstrapKey, NttMultiBitBootstrapKey
 from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_u64
 from tfhe_tpu_torch.core.params import ALL_NAMED_PARAMS, DecompParams
@@ -168,3 +170,40 @@ def test_staged_argument_leaves_the_cpu_result_unchanged(g):
         rot = rotation.rotate_accumulator
     np.testing.assert_array_equal(to_numpy_u64(rot(acc, exps, key, _staged=True)),
                                   to_numpy_u64(rot(acc, exps, key)))
+
+
+def _keyswitch_shapes():
+    """(name, K = n_in * levels, base_log, log_q) of every named set with a
+    keyswitching key (the keyswitch reads the big LWE dimension)."""
+    return [(name, p.big_lwe_dimension * p.ks_level, p.ks_base_log, p.log_q)
+            for name, p in sorted(ALL_NAMED_PARAMS.items()) if hasattr(p, "big_lwe_dimension")]
+
+
+def test_the_keyswitch_forms_over_the_named_sets():
+    shapes = _keyswitch_shapes()
+    tc = [s for s in shapes if keyswitch.tensor_core_form(*s[1:])]
+    wide = {name: b for name, K, b, q in shapes if not keyswitch.tensor_core_form(K, b, q)}
+    assert len(shapes) == 240 and len(tc) == 228 and len(wide) == 12
+    assert wide == {**{f"PARAM_MESSAGE_{m}_CARRY_{c}_COMPACT_PK_PBS_KS": 25
+                       for m, c in ((2, 6), (3, 5), (4, 3), (4, 4), (5, 1), (5, 2), (5, 3),
+                                    (6, 1))},
+                    "PARAM_MESSAGE_6_CARRY_2_COMPACT_PK_PBS_KS": 17,
+                    "PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS": 17,
+                    "WOPBS_PARAM_MESSAGE_3_CARRY_3_KS_PBS": 10,
+                    "WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS": 11}
+
+
+def test_every_tensor_core_keyswitch_sums_below_2_31():
+    """Every digit in [-2^(b-1), 2^(b-1)), every key byte <= 255: the limb
+    sums of each set on K2′ fit int32 (the largest, 4_4 PBS_KS at K =
+    196608, b = 4, is 0.19 * 2^31), and every K is a whole row of 16 bytes."""
+    worst = 0
+    for name, K, b, q in _keyswitch_shapes():
+        if keyswitch.tensor_core_form(K, b, q):
+            assert b <= 8 and q == 64, name
+            assert K * 2 ** (b - 1) * 255 < 2 ** 31, name
+            assert keyswitch.padded_depth(K) == K, name
+            worst = max(worst, K * 2 ** (b - 1) * 255)
+    assert worst == 196608 * 8 * 255
+    assert not keyswitch.tensor_core_form(65808, 8) and keyswitch.tensor_core_form(65792, 8)
+    assert not keyswitch.tensor_core_form(64, 8, log_q=32)

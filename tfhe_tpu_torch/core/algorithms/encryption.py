@@ -20,6 +20,7 @@ from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey,
 from ..numeric import LOG_Q, as_i64
 from ..params import DecompParams
 from ..poly import ntt
+from .keyswitch import keyswitch_key
 
 # ---------------------------------------------------------------------------
 # secret keys
@@ -248,5 +249,4 @@ def generate_keyswitch_key(gen: torch.Generator, in_sk: LweSecretKey,
                       for l in range(decomp.level)],
                      dtype=torch.int64, device=in_sk.bits.device)
     pts = in_sk.bits.unsqueeze(-1) * g                           # [n_in, l]
-    return LweKeyswitchKey(data=encrypt_lwe(gen, out_sk, pts, noise_std).data,
-                           decomp=decomp)
+    return keyswitch_key(encrypt_lwe(gen, out_sk, pts, noise_std).data, decomp)

@@ -5,7 +5,7 @@ axes are free batch axes; torus values are int64 bit patterns of u64):
 
   LweCiphertext.data      [..., n+1]             mask a_0..a_{n-1}, body last
   GlweCiphertext.data     [..., k+1, N]          k mask polys, then the body
-  LweKeyswitchKey.data    [n_in, l, n_out+1]
+  LweKeyswitchKey.data    [n_in, l, n_out+1]   (.limbs [n_out+1, 8, Kp] uint8)
   LweBootstrapKey.data    [n, l, k+1, k+1, N]    one GGSW per input key bit
   NttBootstrapKey.spectra [n, P, l*(k+1), k+1, N] the port's own spectra
                           ([n, 2, P, l*(k+1), k+1, N] in the paired form)
@@ -17,6 +17,7 @@ Nothing here is trained, so there is no nn.Module.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -91,10 +92,18 @@ class GlweSecretKey:
 
 @dataclass(frozen=True)
 class LweKeyswitchKey:
-    """data [n_in, l, n_out+1]: LWE encryptions of s_in[i] * q/B^(l+1)."""
+    """data [n_in, l, n_out+1]: LWE encryptions of s_in[i] * q/B^(l+1).
+
+    limbs: the same words as bytes for the tensor-core keyswitch (K2′),
+    [n_out+1, 8, Kp] uint8 with K = n_in*l contiguous (padded with zeros to
+    Kp, a multiple of 16): byte j of word [k, m] at [m, j, k].  Built once
+    where a key on the card is made or carried in
+    (`keyswitch.keyswitch_key`), for the sets that take that form; None
+    otherwise.  `data` stays the layout the plain path and interop read."""
 
     data: torch.Tensor
     decomp: DecompParams
+    limbs: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)

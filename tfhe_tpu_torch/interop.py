@@ -32,6 +32,7 @@ import torch
 
 from .core.algorithms.encryption import (bootstrap_key_to_ntt, bootstrap_key_to_ntt_paired,
                                          trivial_ggsw_one_ntt)
+from .core.algorithms.keyswitch import keyswitch_key as make_keyswitch_key
 from .core.algorithms.multi_bit import multi_bit_bootstrap_key_to_ntt
 from .core.entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
                             LweMultiBitBootstrapKey, LweSecretKey, NttBootstrapKey,
@@ -53,8 +54,9 @@ def glwe_secret_key(bits, device="cuda") -> GlweSecretKey:
 
 
 def keyswitch_key(data, decomp: DecompParams, device="cuda") -> LweKeyswitchKey:
-    return LweKeyswitchKey(data=from_numpy_u64(data, resolve_device(device)),
-                           decomp=decomp)
+    """KSK [n_in, l, n_out+1] u64; on the card with the limb layout K2′
+    reads, where the set takes the tensor-core keyswitch."""
+    return make_keyswitch_key(from_numpy_u64(data, resolve_device(device)), decomp)
 
 
 def bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
