@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
-Drives the port's shortint keyswitch + PBS paths once each, through the
-entry points a user calls, and checks them: the classic path at the full
-PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the multi-bit path
-at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in 296 groups
-of 3, N=2048), the per-step routes the rotation switches select
+Drives the port's shortint keyswitch + PBS paths and its integer path once
+each, through the entry points a user calls, and checks them: the classic
+path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
+multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
+296 groups of 3, N=2048), the per-step routes the rotation switches select
 (`tfhe_tpu_torch/config.py`), and the large-N paths through K6 (3_3 at
 N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
 
@@ -121,6 +121,28 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      model, the 3_3 results held against the plain CPU path (one
      ciphertext), KS+PBS timed, one call traced under torch.profiler (idle
      share, device time by kernel, K6's launches and their cadence);
+  4e. the integer path (FheUint8 to FheUint64 radix, signed and CRT, on
+     the ported KS+PBS): integer.gen_keys on the card at 2_2 for 4, 8, 16
+     and 32 blocks and on the GROUP_3 key at 16; BENCH_SUITE.json's radix
+     ops at its batch sizes (add, add_parallelized, mul, bitand, eq, gt,
+     max, neg, left_shift and rotate_left on the layered path, div; mul
+     also on the GROUP_3 key) and lt_signed, signed_div_rem,
+     unsigned_overflowing_add, crt_add and crt_mul at batch 8, each on
+     random values from the seed, with the counts set to 0 just before and
+     read just after (K1, or K3 on the GROUP_3 key, the pass and K2' once
+     per KS+PBS call, nothing else), its KS+PBS calls and rows counted,
+     timed by CUDA events (ms per op: the op over its batch), its peak
+     device memory read, every output block on the card and decrypted
+     against the clear model; the first and last 8 rows of the largest
+     call of FheUint64 mul (16,384 partial products: K1) and of FheUint32
+     mul on the GROUP_3 key (8,192: K3 and the GROUP_3 keyswitch) held
+     against the plain CPU path on those rows alone; one FheUint8 mul (batch 4) held block
+     for block against the plain path on the same keys and ciphertexts (the
+     CPU path's code, every wrapper taking its plain version, on the card's
+     tensors: on CPU tensors its 8 calls took 304 s of the 8-core host of
+     an H100 machine, PERF.md section 4);
+     one FheUint32 add and one div traced under torch.profiler (idle
+     share, device time by kernel); a JSON line of the ops;
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -164,6 +186,7 @@ right; it raises otherwise.  It prints each turn, then each tree's mean:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -224,6 +247,44 @@ WIDE_KS_SETS = ("WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS", "PARAM_MESSAGE_5_CARRY_1
 LARGE_KS_SETS = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS",
                  "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS",
                  "PARAM_MESSAGE_4_CARRY_4_KS_PBS")
+# the integer path (phase 4e): BENCH_SUITE.json's radix ops at its batch
+# sizes (tools/bench_suite.py:296-370), (label, op, blocks, batch); the
+# "_mb" row runs on the GROUP_3 key; then signed, overflowing and CRT ops at
+# small batches.  uint64_div (about 2,300 dependent calls) is left out.
+INT_OPS = (("uint32_add", "add", 16, 256), ("uint64_add", "add", 32, 128),
+           ("uint32_add_parallelized", "add_parallelized", 16, 256),
+           ("uint8_mul", "mul", 4, 64), ("uint32_mul", "mul", 16, 32),
+           ("uint64_mul", "mul", 32, 16), ("uint32_mul_mb", "mul", 16, 32),
+           ("uint32_bitand", "bitand", 16, 32), ("uint32_eq", "eq", 16, 32),
+           ("uint32_gt", "gt", 16, 32), ("uint32_max", "max", 16, 32),
+           ("uint32_neg", "neg", 16, 32), ("uint32_shl", "left_shift", 16, 64),
+           ("uint32_rotl", "rotate_left", 16, 64), ("uint64_shl", "left_shift", 32, 64),
+           ("uint8_div", "div", 4, 64), ("uint16_div", "div", 8, 16),
+           ("uint32_div", "div", 16, 8),
+           ("int32_lt_signed", "lt_signed", 16, 8), ("int8_signed_div_rem", "signed_div_rem", 4, 8),
+           ("uint32_overflowing_add", "unsigned_overflowing_add", 16, 8),
+           ("crt_add", "crt_add", 3, 8), ("crt_mul", "crt_mul", 2, 8))
+# CRT moduli: crt_add on (2, 3, 5); crt_mul packs two residues as x * 4 + y,
+# so its moduli must not exceed the message modulus 4 at 2_2
+INT_CRT_MODULI = {"crt_add": (2, 3, 5), "crt_mul": (3, 4)}
+# the ops whose largest KS+PBS call is held, first and last 8 rows, against
+# the plain CPU path: the classic key's widest call (K1) and the GROUP_3 key's
+# (K3, the GROUP_3 keyswitch)
+INT_SPIED = ("uint64_mul", "uint32_mul_mb")
+# tfhe-rs on an m6i.metal CPU, ms per op (BASELINE.md:24-35).  BASELINE.md
+# has no multi-bit, signed or overflowing rows: those ops stand beside the
+# figure of the row named in INT_BASELINE_OF, a stand-in, not their own
+INT_BASELINE_MS = {"uint32_add": 132.0, "uint64_add": 186.0, "uint32_add_parallelized": 132.0,
+                   "uint8_mul": 144.0, "uint32_mul": 333.0, "uint64_mul": 832.0,
+                   "uint32_mul_mb": 333.0, "uint32_bitand": 21.0, "uint32_eq": 57.4,
+                   "uint32_gt": 98.8, "uint32_max": 135.0, "uint32_neg": 129.0,
+                   "uint32_shl": 180.0, "uint32_rotl": 182.0, "uint64_shl": 243.0,
+                   "uint8_div": 729.0, "uint16_div": 1930.0, "uint32_div": 4810.0,
+                   "int32_lt_signed": 98.8, "int8_signed_div_rem": 729.0,
+                   "uint32_overflowing_add": 132.0}
+INT_BASELINE_OF = {"uint32_mul_mb": "classic Mul", "int32_lt_signed": "unsigned Cmp",
+                   "int8_signed_div_rem": "unsigned Div/Rem",
+                   "uint32_overflowing_add": "Add/Sub"}
 
 
 def smi(query: str) -> str:
@@ -248,15 +309,18 @@ def cuda_ms_reps(fn, reps: int) -> list:
     return [cuda_ms(fn, 1) for _ in range(reps)]
 
 
-def profile_window(fn) -> tuple:
-    """One call of fn() under torch.profiler (after a warm call) → (wall ms
-    on the host clock, synchronised; {kernel name: device ms} from
-    key_averages(); the device kernels [(name, start us, length us)] in
-    start order, from the exported trace)."""
+def profile_window(fn, warm: bool = True, cpu: bool = True) -> tuple:
+    """One call of fn() under torch.profiler (after a warm call, unless
+    warm=False; host-side events too, unless cpu=False) → (wall ms on the
+    host clock, synchronised; {kernel name: device ms} from key_averages();
+    the device kernels [(name, start us, length us)] in start order, from
+    the exported trace)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -545,6 +609,289 @@ def compare(other: str, turns: int, seed: int) -> int:
                          f"PBS/s")
         print(line + f"; runs {json.dumps(each)}")
     return 0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within: the classic KS+PBS path's kernel wrappers (K1, the
+    decomposition pass, K2') take their plain PyTorch versions, the code
+    CPU tensors take, on CUDA tensors too."""
+    from tfhe_tpu_torch.core.algorithms import keyswitch
+    from tfhe_tpu_torch.core.poly import rotation
+    saved = (rotation.rotate_accumulator, keyswitch.decompose_digits,
+             keyswitch.neg_digit_mac_tensor_core)
+    rotation.rotate_accumulator = lambda acc, exps, key: rotation.blind_rotate_plain(acc, exps,
+                                                                                     key)
+    keyswitch.decompose_digits = keyswitch.decompose_digits_plain
+    keyswitch.neg_digit_mac_tensor_core = lambda digits, key, limbs, body: (
+        keyswitch.neg_digit_mac_plain(digits[:, :key.shape[0]], key, body))
+    try:
+        yield
+    finally:
+        (rotation.rotate_accumulator, keyswitch.decompose_digits,
+         keyswitch.neg_digit_mac_tensor_core) = saved
+
+
+def _blocks(out) -> list:
+    """Every shortint block of an integer op's result."""
+    if isinstance(out, tuple):
+        return [b for o in out for b in _blocks(o)]
+    if hasattr(out, "blocks"):
+        return list(out.blocks)
+    return [out.block]
+
+
+def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4e: the integer path on the card.  integer.gen_keys at 2_2 for
+    4, 8, 16 and 32 blocks and on the GROUP_3 key at 16; each op of INT_OPS
+    once on random clear values from the seed, with the kernels' counts set
+    to 0 just before and read just after (K1, or K3 on the GROUP_3 key, the
+    decomposition pass and K2' once per KS+PBS call, nothing else), timed by
+    CUDA events (ms per op: the op's time over its batch), its KS+PBS calls
+    and rows counted, its peak device memory read, every output block on
+    the card and decrypted against the clear model.  Then one FheUint8 mul
+    (batch 4) held bit for bit against the plain path on the same keys and
+    ciphertexts (`plain_kernels`: the CPU path's code on the card's
+    tensors), the first and last 8 rows of the largest call of each op in
+    INT_SPIED against the plain CPU path on those rows alone, and one FheUint32 add and one div traced under
+    torch.profiler.  → {"launches": {kernel: launches over every op},
+    "ops": [one dict per op]}."""
+    import dataclasses
+
+    import numpy as np
+
+    from tfhe_tpu_torch import integer, shortint
+    from tfhe_tpu_torch.core.entities import GlweCiphertext, LweCiphertext, LweKeyswitchKey
+    from tfhe_tpu_torch.shortint.server_key import LookupTable
+
+    calls, spy, spied = [], {"on": False, "rows": 0}, {}
+    orig_apply = shortint.ServerKey.apply_lookup_table
+
+    def counted(self, ct, lut):
+        out = orig_apply(self, ct, lut)
+        rows = math.prod(ct.lwe.data.shape[:-1])
+        calls.append(rows)
+        if spy["on"] and rows > spy["rows"]:
+            spy.update(rows=rows, data=ct.lwe.data, acc=lut.acc.data, out=out.lwe.data,
+                       key=self)
+        return out
+
+    def keep_ends():
+        """The spied call's first and last 8 rows, inputs, LUTs and outputs,
+        on the host; the call's full tensors are let go."""
+        n1, (R, N) = spy["data"].shape[-1], spy["acc"].shape[-2:]
+        flat = spy["data"].reshape(-1, n1)
+        idx = torch.cat([torch.arange(8), torch.arange(flat.shape[0] - 8, flat.shape[0])])
+        idx = idx.to(flat.device)
+        luts = spy["acc"].expand(tuple(spy["data"].shape[:-1]) + (R, N)).reshape(-1, R, N)
+        ends = {"rows": spy["rows"], "key": spy["key"], "data": flat[idx].cpu(),
+                "luts": luts[idx].cpu(), "out": spy["out"].reshape(-1, n1)[idx].cpu()}
+        spy.clear()
+        spy.update(on=False, rows=0)
+        return ends
+
+    keys = {}
+    for name, nb in ((CLASSIC, 4), (CLASSIC, 8), (CLASSIC, 16), (CLASSIC, 32), (GROUP_3, 16)):
+        t0 = time.perf_counter()
+        keys[(name, nb)] = integer.gen_keys(name, num_blocks=nb, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        print(f"{tag} integer.gen_keys {name}, {nb} blocks, on the card: "
+              f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+
+    def ints(hi, n):
+        return [int(v) for v in rng.integers(0, hi, n, dtype=np.uint64)]
+
+    def case(op, nb, batch, ck):
+        """(operands, expected clear results, decrypt) for one op."""
+        w = 2 * nb
+        mod, half = 1 << w, 1 << (w - 1)
+        if op.startswith("crt_"):
+            moduli = INT_CRT_MODULI[op]
+            M = math.prod(moduli)
+            cck = integer.CrtClientKey(key=ck.key, moduli=moduli)
+            a, b = ints(M, batch), ints(M, batch)
+            f = (lambda x, y: (x + y) % M) if op == "crt_add" else (lambda x, y: x * y % M)
+            return ((cck.encrypt(a, seed=seed + 40), cck.encrypt(b, seed=seed + 41)),
+                    [f(x, y) for x, y in zip(a, b)], lambda o: [int(v) for v in cck.decrypt(o)])
+        if op in ("lt_signed", "signed_div_rem"):
+            a = [v - half for v in ints(mod, batch)]
+            b = [v - half for v in ints(mod, batch)]
+            if op == "signed_div_rem":
+                b = [v or 1 for v in b]
+            args = (ck.encrypt_signed(a, seed=seed + 42), ck.encrypt_signed(b, seed=seed + 43))
+            if op == "lt_signed":
+                return args, [x < y for x, y in zip(a, b)], lambda o: list(ck.decrypt_bool(o))
+            wrap = lambda v: (v + half) % mod - half
+            q = [wrap(int(x / y)) for x, y in zip(a, b)]
+            return args, [(qq, x - int(x / y) * y) for qq, x, y in zip(q, a, b)], \
+                lambda o: list(zip(ck.decrypt_signed(o[0]).tolist(),
+                                   ck.decrypt_signed(o[1]).tolist()))
+        a = ints(mod, batch)
+        if op in ("left_shift", "rotate_left"):
+            b = ints(w, batch)
+        elif op == "div":
+            b = [v + 1 for v in ints(mod - 1, batch)]
+        else:
+            b = ints(mod, batch)
+        ca, cb = ck.encrypt(a, seed=seed + 44), ck.encrypt(b, seed=seed + 45)
+        dec = lambda o: [int(v) for v in ck.decrypt(o)]
+        clear = {"add": lambda x, y: (x + y) % mod, "add_parallelized": lambda x, y: (x + y) % mod,
+                 "mul": lambda x, y: x * y % mod, "bitand": lambda x, y: x & y,
+                 "max": max, "neg": lambda x, y: -x % mod,
+                 "left_shift": lambda x, y: (x << y) % mod,
+                 "rotate_left": lambda x, y: ((x << y) | (x >> (w - y))) % mod,
+                 "div": lambda x, y: x // y}
+        if op in ("eq", "gt"):
+            f = (lambda x, y: x == y) if op == "eq" else (lambda x, y: x > y)
+            return (ca, cb), [f(x, y) for x, y in zip(a, b)], lambda o: list(ck.decrypt_bool(o))
+        if op == "unsigned_overflowing_add":
+            return (ca, cb), [((x + y) % mod, x + y >= mod) for x, y in zip(a, b)], \
+                lambda o: list(zip(dec(o[0]), ck.decrypt_bool(o[1]).tolist()))
+        want = [clear[op](x, y) for x, y in zip(a, b)]
+        return ((ca,) if op == "neg" else (ca, cb)), want, dec
+
+    totals, ops, kept = {}, [], {}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # one small add and mul first, untimed and uncounted: the first call of a
+    # process pays one-off costs (tables, lazily loaded modules) that are no
+    # op's
+    ck, sk = keys[(CLASSIC, 4)]
+    warm = (ck.encrypt([1, 2], seed=seed + 48), ck.encrypt([3, 4], seed=seed + 49))
+    sk.add(*warm), sk.mul(*warm)
+    torch.cuda.synchronize()
+    shortint.ServerKey.apply_lookup_table = counted
+    try:
+        for label, op, nb, batch in INT_OPS:
+            multi_bit = label.endswith("_mb")
+            ck, sk = keys[(GROUP_3 if multi_bit else CLASSIC, 4 if op.startswith("crt_") else nb)]
+            args, want, decrypt = case(op, nb, batch, ck)
+            fn = getattr(sk, op)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held_mb = torch.cuda.memory_allocated(dev) / 1e6
+            zero_counts()
+            calls.clear()
+            spy["on"] = label in INT_SPIED
+            start.record()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            spy["on"] = False
+            ms = start.elapsed_time(stop)
+            counts = read_counts()
+            peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
+            rot = "blind_rotate_multibit" if multi_bit else "blind_rotate"
+            expect = {k: 0 for k in counts}
+            expect.update({rot: len(calls), "keyswitch_tc": len(calls),
+                           "keyswitch_decompose": len(calls)})
+            if counts != expect or not calls:
+                raise AssertionError(f"{label}: launches {counts} over {len(calls)} KS+PBS "
+                                     f"calls, expected {expect}")
+            if label in INT_SPIED:
+                spied[label] = keep_ends()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            if any(b.lwe.data.device != dev for b in _blocks(out)):
+                raise AssertionError(f"{label}: an output block is off the card")
+            got = decrypt(out)
+            right = int(sum(g == w_ for g, w_ in zip(got, want)))
+            row = {"op": label, "blocks": nb, "batch": batch, "calls": len(calls),
+                   "rows": sum(calls), "largest_call": max(calls),
+                   "pbs_per_op": sum(calls) / batch, "ms_per_op": ms / batch, "ms": ms,
+                   "host_s": host_s, "peak_mb": peak_mb, "held_mb": held_mb,
+                   "right": right, "baseline_cpu_ms": INT_BASELINE_MS.get(label),
+                   "baseline_cpu_of": INT_BASELINE_OF.get(label)}
+            ops.append(row)
+            print(f"{tag} integer {label} ({nb} blocks, batch {batch}): {right}/{batch} decrypt "
+                  f"right; {len(calls)} KS+PBS calls, {sum(calls)} rows ({row['pbs_per_op']:.1f} "
+                  f"PBS per op, largest call {max(calls)} rows); {ms:.3f} ms by CUDA events, "
+                  f"{ms / batch:.3f} ms per op; host {host_s:.3f} s; peak device memory "
+                  f"{peak_mb:.1f} MB ({held_mb:.1f} MB held before); launches "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+            if right != batch:
+                raise AssertionError(f"{label}: {right}/{batch} decrypt right")
+            if label in ("uint32_add", "uint32_div"):
+                kept[label] = (fn, args)
+            del out, args
+    finally:
+        shortint.ServerKey.apply_lookup_table = orig_apply
+
+    def cpu_key(sk):
+        return shortint.ServerKey(
+            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
+            bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()), params=sk.params)
+
+    # each spied op's largest call, its first and last 8 rows against the
+    # plain CPU path on those rows alone (rows are independent): K1 on the
+    # classic key, K3 and the GROUP_3 keyswitch on the multi-bit one
+    for label, ends in spied.items():
+        t0 = time.perf_counter()
+        small = shortint.Ciphertext(lwe=LweCiphertext(data=ends["data"]), degree=15)
+        ref = cpu_key(ends["key"]).apply_lookup_table(
+            small, LookupTable(acc=GlweCiphertext(data=ends["luts"])))
+        same = torch.equal(ref.lwe.data, ends["out"])
+        print(f"{tag} integer {label}'s largest call ({ends['rows']} rows), its first and last "
+              f"8 rows: card path {'bit-identical' if same else 'MISMATCH'} to the plain CPU "
+              f"path on those rows alone ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not same:
+            raise AssertionError(f"{label}'s largest call disagrees with the plain CPU path")
+    del spied
+
+    # one FheUint8 mul, batch 4, against the plain path on the same keys and
+    # ciphertexts: the CPU path's code, every wrapper taking its plain
+    # version, on the card's tensors (on CPU tensors its 8 calls took 304 s
+    # of an H100 machine's 8-core host, PERF.md section 4)
+    t0 = time.perf_counter()
+    ck, sk = keys[(CLASSIC, 4)]
+    vals = ints(256, 8)
+    ca, cb = ck.encrypt(vals[:4], seed=seed + 46), ck.encrypt(vals[4:], seed=seed + 47)
+    card = sk.mul(ca, cb)
+    zero_counts()
+    with plain_kernels():
+        ref = sk.mul(ca, cb)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"the plain path launched kernels: {read_counts()}")
+    same = all(torch.equal(r.lwe.data, c.lwe.data) and
+               (r.degree, r.noise_level) == (c.degree, c.noise_level)
+               for r, c in zip(ref.blocks, card.blocks))
+    print(f"integer uint8_mul, batch 4: every block of the card path "
+          f"{'bit-identical' if same else 'MISMATCH'} to the plain path (no kernel launched), "
+          f"degrees and noise levels equal ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("the FheUint8 mul disagrees with the plain path")
+
+    # one FheUint32 add and one FheUint32 div under the profiler: the idle
+    # share and device time by kernel
+    traces = {}
+    for label, (fn, args) in kept.items():
+        wall_ms, by_kernel, timeline = profile_window(lambda: fn(*args), warm=False, cpu=False)
+        busy = print_profile(f"{tag} profiler, one integer {label} call "
+                             f"(batch {args[0].batch_shape[0]})", wall_ms, by_kernel, timeline)
+        if not busy:
+            raise AssertionError(f"the {label} trace shows no device time")
+        excl = exclusive_ms(timeline)
+        k1 = sum(v for k, v in excl.items() if "delta_kernel" in k)
+        ks = sum(v for k, v in excl.items() if "tensor_core_kernel" in k or "decompose" in k)
+        traces[label] = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+                         "k1_ms": k1, "keyswitch_ms": ks, "kernels": len(timeline)}
+        print(f"{tag} integer {label} trace: {len(timeline)} kernels, K1 {k1:.3f} ms "
+              f"({k1 / busy:.1%} of busy), the pass and K2' {ks:.3f} ms, the rest "
+              f"{busy - k1 - ks:.3f} ms")
+    del kept, keys
+    torch.cuda.empty_cache()
+    print(f"{tag} integer path, per op: op | blocks | batch | KS+PBS calls | PBS per op | "
+          f"ms per op | peak MB | tfhe-rs CPU ms per op (BASELINE.md)")
+    for r in ops:
+        of = f" ({r['baseline_cpu_of']}, a stand-in)" if r["baseline_cpu_of"] else ""
+        print(f"    {r['op']} | {r['blocks']} | {r['batch']} | {r['calls']} | "
+              f"{r['pbs_per_op']:.1f} | {r['ms_per_op']:.3f} | {r['peak_mb']:.1f} | "
+              f"{r['baseline_cpu_ms']}{of}")
+    print(json.dumps({"integer": ops, "traces": traces}))
+    return {"launches": totals, "ops": ops}
 
 
 def main() -> int:
@@ -1543,6 +1890,11 @@ def main() -> int:
         del ck, sk, ct, out, lut
         torch.cuda.empty_cache()
 
+    lap("4e")
+    # ---- 4e. the integer path: FheUint8-64, signed and CRT -------------------
+    int_path = integer_path(args.seed, dev, tag, zero_counts, read_counts)
+    int_launches = {k: int_path["launches"].get(k, 0) for k in read_counts()}
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -1567,6 +1919,7 @@ def main() -> int:
     print(f"multi-bit GROUP_3 path kernel launches: {json.dumps(multi_bit_launches)}")
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
+    print(f"integer path kernel launches (every op): {json.dumps(int_launches)}")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
                         ("keyswitch_tc", classic_launches["keyswitch_tc"]),
                         ("keyswitch_decompose", classic_launches["keyswitch_decompose"]),
@@ -1635,7 +1988,8 @@ def main() -> int:
     def path_total(kernel):
         """Launches over every main path's counted window."""
         return (classic_launches[kernel] + multi_bit_launches[kernel] + route_total(kernel)
-                + sum(c[kernel] for c in large_launches.values()) + group_2_launches[kernel])
+                + sum(c[kernel] for c in large_launches.values()) + group_2_launches[kernel]
+                + int_launches[kernel])
 
     ks_src = "tfhe_tpu_torch/csrc/keyswitch.cu"
     ks22, ks_names = ks[CLASSIC], [CLASSIC, GROUP_3, GROUP_2] + list(LARGE_KS_SETS)
@@ -1644,7 +1998,8 @@ def main() -> int:
     rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
         entry("blind_rotate", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              classic_launches["blind_rotate"], k1_err, k1_ms, k1_plain_ms, k1_bound),
+              classic_launches["blind_rotate"] + int_launches["blind_rotate"], k1_err, k1_ms,
+              k1_plain_ms, k1_bound),
         entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
               path_total("keyswitch_tc"), max(ks[k]["err"]["tc"] for k in ks_names),
               ks22["tc_ms"], ks22["tc_plain_ms"], ks22["tc_bound"],
@@ -1661,7 +2016,8 @@ def main() -> int:
               wide0["ms"], wide0["plain_ms"], wide0["bound"],
               [(w["shape"], w["ms"], w["plain_ms"], w["bound"]) for w in ks_wide.values()]),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              multi_bit_launches["blind_rotate_multibit"], max(k3[2]["err"], k3[3]["err"]),
+              multi_bit_launches["blind_rotate_multibit"] + int_launches["blind_rotate_multibit"],
+              max(k3[2]["err"], k3[3]["err"]),
               k3[3]["ms"], k3[3]["plain_ms"], k3[3]["bound"],
               [(f"GROUP_{gf} batch {B}, one launch", k3[gf]["ms"], k3[gf]["plain_ms"],
                 k3[gf]["bound"]) for gf in (3, 2)], rotation._CLUSTER),

@@ -31,9 +31,11 @@ def test_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 17
+    assert len(mods) >= 21
     assert {"tfhe_tpu_torch.config", "tfhe_tpu_torch.smem_probe",
-            "tfhe_tpu_torch.core.poly.rotation", "tfhe_tpu_torch.interop"} <= mods
+            "tfhe_tpu_torch.core.poly.rotation", "tfhe_tpu_torch.interop",
+            "tfhe_tpu_torch.integer", "tfhe_tpu_torch.integer.ciphertext",
+            "tfhe_tpu_torch.integer.client_key", "tfhe_tpu_torch.integer.server_key"} <= mods
 
 
 def _named_sets():

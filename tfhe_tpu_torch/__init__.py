@@ -5,7 +5,8 @@ It runs the shortint keyswitch + PBS path end to end, with classic and
 multi-bit keys: parameters, int64 torus numerics, generator-based
 randomness, entities, the exact CRT-NTT, encryption and key generation,
 keyswitch, the blind rotation on every route the JAX package's switches
-select (`config.py`), and the shortint op families.  Hand-written CUDA
+select (`config.py`), the shortint op families, and the radix, signed and
+CRT integers on top of them.  Hand-written CUDA
 kernels carry the hot work (`csrc/`): the whole blind rotation (K1 classic,
 K3 multi-bit), one rotation step per launch (K4 delta, K5 paired or
 multi-bit), the keyswitch contraction (K2), and a shared-memory probe.
@@ -17,7 +18,9 @@ Layout mirrors `tfhe_tpu/`:
                poly/ (ntt, rotation), algorithms/ (encryption, keyswitch,
                bootstrap, multi_bit)
   shortint/    ciphertext, client_key, server_key
-  interop.py   keys carried across from the JAX package (numpy arrays)
+  integer/     ciphertext, client_key, server_key (radix, signed, CRT)
+  interop.py   keys and integer ciphertexts carried across from the JAX
+               package (numpy arrays)
   cuda_lib.py  builds csrc/*.cu with nvcc at first use, loads with ctypes
   smem_probe.py  the largest dynamic shared memory a block gets
 

@@ -18,6 +18,10 @@ keys.  Nothing here imports jax.
   bootstrap_key_to_ntt_paired output [n, 2, P, J, R, N] u32, DIF order
                                               → the port's paired NttBootstrapKey
 
+An integer ciphertext crosses as its blocks' LWE arrays ([..., n+1] u64
+each) and their metadata (`radix_ciphertext`); an integer key is a
+shortint key and crosses as one.
+
 The DIF residues are inverted with the port's copy of the JAX plan tables
 and Garner (signed lift, exact: |coefficient| < 2^64 < M/2), back to the
 standard coefficients, from which the port builds its own spectra.
@@ -34,13 +38,15 @@ from .core.algorithms.encryption import (bootstrap_key_to_ntt, bootstrap_key_to_
                                          trivial_ggsw_one_ntt)
 from .core.algorithms.keyswitch import keyswitch_key as make_keyswitch_key
 from .core.algorithms.multi_bit import multi_bit_bootstrap_key_to_ntt
-from .core.entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
-                            LweMultiBitBootstrapKey, LweSecretKey, NttBootstrapKey,
-                            NttMultiBitBootstrapKey)
+from .core.entities import (GlweSecretKey, LweBootstrapKey, LweCiphertext,
+                            LweKeyswitchKey, LweMultiBitBootstrapKey, LweSecretKey,
+                            NttBootstrapKey, NttMultiBitBootstrapKey)
 from .core.numeric import from_numpy_u64
 from .core.params import DecompParams
 from .core.poly import ntt
 from .cuda_lib import resolve_device
+from .integer.ciphertext import CrtCiphertext, RadixCiphertext, SignedRadixCiphertext
+from .shortint.ciphertext import Ciphertext
 
 
 def lwe_secret_key(bits, device="cuda") -> LweSecretKey:
@@ -142,3 +148,29 @@ def multi_bit_bootstrap_key_from_dif(data, primes, decomp: DecompParams,
     std = standard_from_dif(data.reshape((ng * nv,) + data.shape[2:]), primes)
     std = std.reshape(ng, nv, J // R, R, R, n)
     return multi_bit_bootstrap_key_from_standard(std, decomp, grouping_factor, P, device)
+
+
+def radix_ciphertext(blocks, degrees, noise_levels, message_modulus: int,
+                     carry_modulus: int, kind: str = "radix", moduli=(),
+                     device="cuda"):
+    """A JAX integer ciphertext's blocks (numpy u64 [..., n+1] each, little
+    endian), with each block's degree and noise level → the port's
+    RadixCiphertext (kind "radix"), SignedRadixCiphertext ("signed") or
+    CrtCiphertext ("crt", with its moduli)."""
+    if not len(blocks) == len(degrees) == len(noise_levels):
+        raise ValueError(f"{len(blocks)} blocks, {len(degrees)} degrees and "
+                         f"{len(noise_levels)} noise levels")
+    dev = resolve_device(device)
+    out = [Ciphertext(lwe=LweCiphertext(data=from_numpy_u64(b, dev)), degree=int(d),
+                      message_modulus=message_modulus, carry_modulus=carry_modulus,
+                      noise_level=int(nl))
+           for b, d, nl in zip(blocks, degrees, noise_levels)]
+    if kind == "radix":
+        return RadixCiphertext(blocks=out)
+    if kind == "signed":
+        return SignedRadixCiphertext(blocks=out)
+    if kind == "crt":
+        if len(moduli) != len(out):
+            raise ValueError(f"{len(out)} CRT blocks and {len(moduli)} moduli")
+        return CrtCiphertext(blocks=out, moduli=tuple(int(m) for m in moduli))
+    raise ValueError(f"kind is 'radix', 'signed' or 'crt', not {kind!r}")

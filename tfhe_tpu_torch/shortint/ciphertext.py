@@ -58,6 +58,14 @@ class Ciphertext:
     carry_modulus: int = 4
     noise_level: int = NoiseLevel.NOMINAL
 
+    @property
+    def batch_shape(self) -> tuple:
+        return tuple(self.lwe.data.shape[:-1])
+
+    @property
+    def carry_is_empty(self) -> bool:
+        return self.degree < self.message_modulus
+
     def with_(self, lwe=None, degree=None, noise_level=None) -> "Ciphertext":
         return replace(
             self,

@@ -8,7 +8,7 @@ import torch
 
 from ..core import rng
 from ..core.algorithms import (decrypt_lwe, encrypt_lwe, generate_glwe_secret_key,
-                               generate_lwe_secret_key)
+                               generate_lwe_secret_key, trivial_lwe)
 from ..core.entities import GlweSecretKey, LweSecretKey
 from ..core.numeric import LOG_Q, as_i64, udiv
 from ..core.params import (ClassicPBSParameters, EncryptionKeyChoice,
@@ -60,6 +60,23 @@ class ClientKey:
                           message_modulus=p.message_modulus,
                           carry_modulus=p.carry_modulus,
                           noise_level=NoiseLevel.NOMINAL)
+
+    def unchecked_encrypt(self, messages, seed: int = 0) -> Ciphertext:
+        """Encrypt into the full message+carry space (degree = p*c - 1)."""
+        p = self.params
+        return self.encrypt(messages, seed).with_(
+            degree=p.message_modulus * p.carry_modulus - 1)
+
+    def trivial_encrypt(self, messages, degree=None) -> Ciphertext:
+        """Noiseless encryption: a zero mask and messages * Δ as the body."""
+        p = self.params
+        msgs = torch.as_tensor(messages, dtype=torch.int64, device=self.device)
+        n = (p.big_lwe_dimension if p.encryption_key_choice == EncryptionKeyChoice.BIG
+             else p.lwe_dimension)
+        return Ciphertext(lwe=trivial_lwe(msgs * as_i64(delta_for(p)), n),
+                          degree=p.message_modulus - 1 if degree is None else degree,
+                          message_modulus=p.message_modulus,
+                          carry_modulus=p.carry_modulus, noise_level=NoiseLevel.ZERO)
 
     def decrypt_message_and_carry(self, ct: Ciphertext) -> torch.Tensor:
         """→ int64 [...] in [0, 2 * msg_mod * carry_mod): the rounded phase,
