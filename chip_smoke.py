@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
-Drives the port's shortint keyswitch + PBS paths and its integer path once
-each, through the entry points a user calls, and checks them: the classic
+Drives the port's shortint keyswitch + PBS paths, its integer path, its
+boolean scheme and its apps once each, through the entry points a user
+calls, and checks them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
 296 groups of 3, N=2048), the per-step routes the rotation switches select
@@ -143,6 +144,38 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      an H100 machine, PERF.md section 4);
      one FheUint32 add and one div traced under torch.profiler (idle
      share, device time by kernel); a JSON line of the ops;
+  4f. the PBS -> KS order (ROADMAP C11): shortint.gen_keys at
+     PARAM_MESSAGE_1_CARRY_1_PBS_KS, 512 messages, one LUT request with its
+     launches counted (one K1, one pass, one K2'), 512/512 decrypted, the
+     first and last 8 rows against the plain CPU path; then the boolean
+     scheme at its five named sets (DEFAULT_PARAMETERS_KS_PBS and
+     PARAMETERS_ERROR_PROB_2_POW_MINUS_165_KS_PBS: KS -> PBS;
+     DEFAULT_PARAMETERS, TFHE_LIB_PARAMETERS and
+     PARAMETERS_ERROR_PROB_2_POW_MINUS_165: PBS -> KS): boolean.gen_keys on
+     the card, the six gates, mux and not_ at batch 512 on random operands,
+     each with its launches counted (a gate: one K1, one pass, one K2'; mux:
+     two K1 and two keyswitches, or one under PBS -> KS; not_: none) and
+     decrypted against its truth table; the AND gate timed at batch 1, 32
+     and 512 (ms a call, gates/s) beside tfhe-rs's CPU figures
+     (BASELINE.md:12-14); the first and last 8 rows of one AND call at batch
+     512 against the plain CPU path at DEFAULT_PARAMETERS_KS_PBS and
+     TFHE_LIB_PARAMETERS; 8 dependent ANDs traced (idle share);
+  4g. the apps, each with its launches counted against the KS+PBS calls it
+     made and decrypted against its clear model: TriviumStreamShortint at
+     PARAM_MESSAGE_1_CARRY_2_KS_PBS (32 streams, the full 1152-clock
+     warm-up in 18 rounds, round 19 checked for every stream; keystream
+     bits/s); the boolean TriviumStream and KreyviumStream at
+     DEFAULT_PARAMETERS_KS_PBS (32 streams; the warm-up cut to what fits 60 s
+     at phase 4f's gate latency, held against the clear model at the same
+     warm-up; one clock traced); SHA-256's primitives on 32-row words
+     (add_words_b, the four sigmas, ch_b, maj_b) against clear values, and
+     the whole digest of "abc" against hashlib if its projected time fits
+     120 s; TriviumStreamByte on FheUint8 at 2_2; the dark market
+     (volume_match, volume_match_parallel) and the regex engine on 4-block
+     integers at 2_2;
+  4h. the noise of encryptions made on the card (ROADMAP C10): 4096 LWE
+     and GLWE phases of zero through tests/test_torch_noise.py's five gates;
+     a JSON line of phases 4f to 4h;
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -285,6 +318,35 @@ INT_BASELINE_MS = {"uint32_add": 132.0, "uint64_add": 186.0, "uint32_add_paralle
 INT_BASELINE_OF = {"uint32_mul_mb": "classic Mul", "int32_lt_signed": "unsigned Cmp",
                    "int8_signed_div_rem": "unsigned Div/Rem",
                    "uint32_overflowing_add": "Add/Sub"}
+# ROADMAP C11, the PBS -> KS order: a named shortint set of key choice small
+# whose N one block holds (1_1, K1 at R = 4: its rows cost the plain CPU
+# path a fraction of what 2_2's twin's do)
+PBS_KS_SET = "PARAM_MESSAGE_1_CARRY_1_PBS_KS"
+# the boolean path (phase 4f): the five named sets, KS -> PBS then PBS -> KS;
+# the AND gate timed at BOOL_BATCHES; one set of each order held against the
+# plain CPU path; tfhe-rs's ms a gate on an m6i.metal CPU (BASELINE.md:12-14),
+# printed beside, not against
+BOOL_SETS = ("DEFAULT_PARAMETERS_KS_PBS", "PARAMETERS_ERROR_PROB_2_POW_MINUS_165_KS_PBS",
+             "DEFAULT_PARAMETERS", "TFHE_LIB_PARAMETERS", "PARAMETERS_ERROR_PROB_2_POW_MINUS_165")
+BOOL_HELD = ("DEFAULT_PARAMETERS_KS_PBS", "TFHE_LIB_PARAMETERS")
+BOOL_BATCHES = (1, 32, B)
+BOOL_BASELINE_MS = {"DEFAULT_PARAMETERS_KS_PBS": 9.19,
+                    "PARAMETERS_ERROR_PROB_2_POW_MINUS_165_KS_PBS": 14.1,
+                    "TFHE_LIB_PARAMETERS": 10.0}
+BOOL_TRUTH = {"and_": lambda x, y: x & y, "nand": lambda x, y: ~(x & y),
+              "or_": lambda x, y: x | y, "nor": lambda x, y: ~(x | y),
+              "xor_": lambda x, y: x ^ y, "xnor": lambda x, y: ~(x ^ y)}
+# the apps (phase 4g): Trivium on shortint bits as tools/bench_suite.py:204
+# runs it (32 streams, 18 rounds of 64 clocks, round 19 checked); the boolean
+# streams at DEFAULT_PARAMETERS_KS_PBS, their warm-up cut to what fits
+# STREAM_BUDGET_S at the measured gate latency; SHA-256 whole if its
+# projected time fits SHA_BUDGET_S; the byte stream with its full warm-up
+TRIVIUM_SET = "PARAM_MESSAGE_1_CARRY_2_KS_PBS"
+APP_BOOL_SET = "DEFAULT_PARAMETERS_KS_PBS"
+STREAMS = 32
+STREAM_BUDGET_S = 60.0
+SHA_BUDGET_S = 120.0
+BYTE_WARMUP = 18
 
 
 def smi(query: str) -> str:
@@ -366,6 +428,18 @@ def exclusive_ms(timeline: list) -> dict:
             out[name] = out.get(name, 0.0) + (ts + dur - max(ts, end)) / 1e3
             end = ts + dur
     return out
+
+
+def device_gaps(timeline: list, top: int = 3) -> tuple:
+    """The stretches between a trace's first and last kernel with none
+    running: (their sum in ms, the `top` longest as (ms, the kernel that
+    starts after it))."""
+    gaps, end = [], None
+    for name, ts, dur in timeline:
+        if end is not None and ts > end:
+            gaps.append(((ts - end) / 1e3, name))
+        end = ts + dur if end is None else max(end, ts + dur)
+    return sum(g for g, _ in gaps), sorted(gaps, reverse=True)[:top]
 
 
 def print_profile(label: str, wall_ms: float, by_kernel: dict, timeline: list) -> float:
@@ -656,12 +730,10 @@ def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     INT_SPIED against the plain CPU path on those rows alone, and one FheUint32 add and one div traced under
     torch.profiler.  → {"launches": {kernel: launches over every op},
     "ops": [one dict per op]}."""
-    import dataclasses
-
     import numpy as np
 
     from tfhe_tpu_torch import integer, shortint
-    from tfhe_tpu_torch.core.entities import GlweCiphertext, LweCiphertext, LweKeyswitchKey
+    from tfhe_tpu_torch.core.entities import GlweCiphertext, LweCiphertext
     from tfhe_tpu_torch.shortint.server_key import LookupTable
 
     calls, spy, spied = [], {"on": False, "rows": 0}, {}
@@ -819,18 +891,13 @@ def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     finally:
         shortint.ServerKey.apply_lookup_table = orig_apply
 
-    def cpu_key(sk):
-        return shortint.ServerKey(
-            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
-            bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()), params=sk.params)
-
     # each spied op's largest call, its first and last 8 rows against the
     # plain CPU path on those rows alone (rows are independent): K1 on the
     # classic key, K3 and the GROUP_3 keyswitch on the multi-bit one
     for label, ends in spied.items():
         t0 = time.perf_counter()
         small = shortint.Ciphertext(lwe=LweCiphertext(data=ends["data"]), degree=15)
-        ref = cpu_key(ends["key"]).apply_lookup_table(
+        ref = _cpu_server(ends["key"]).apply_lookup_table(
             small, LookupTable(acc=GlweCiphertext(data=ends["luts"])))
         same = torch.equal(ref.lwe.data, ends["out"])
         print(f"{tag} integer {label}'s largest call ({ends['rows']} rows), its first and last "
@@ -894,6 +961,512 @@ def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     return {"launches": totals, "ops": ops}
 
 
+def noise_hold(seed: int, dev, tag: str) -> dict:
+    """ROADMAP C10 on the card: the phases of 4096 encryptions of zero, LWE
+    (n = 742) and GLWE (k = 1, N = 2048: 2 polynomials), drawn from the card's
+    generators (`rng.gaussian_noise`), through the gates of
+    tests/test_torch_noise.py: std within 10%, |mean| < 5 std / sqrt(n),
+    kurtosis in (2.6, 3.4), zero noise exactly zero, one seed the same bits."""
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.algorithms import (decrypt_lwe, encrypt_glwe, encrypt_lwe,
+                                                generate_glwe_secret_key,
+                                                generate_lwe_secret_key)
+    from tfhe_tpu_torch.core.algorithms.encryption import _glwe_mask_dot_key
+
+    std, samples = 2.0 ** 40, 4096
+
+    def phases(kind, sigma, s):
+        if kind == "lwe":
+            sk = generate_lwe_secret_key(rng.generator(s, 0, device=dev), 742)
+            ct = encrypt_lwe(rng.generator(s, 1, device=dev), sk,
+                             torch.zeros(samples, dtype=torch.int64, device=dev), sigma)
+            return decrypt_lwe(ct, sk)
+        sk = generate_glwe_secret_key(rng.generator(s, 0, device=dev), 1, 2048)
+        ct = encrypt_glwe(rng.generator(s, 1, device=dev), sk,
+                          torch.zeros((samples // 2048, 2048), dtype=torch.int64, device=dev),
+                          sigma)
+        return (ct.body - _glwe_mask_dot_key(ct.mask, sk.bits)).reshape(-1)
+
+    out = {}
+    for kind in ("lwe", "glwe"):
+        ph = phases(kind, std, seed)
+        if ph.device != dev:
+            raise AssertionError(f"{kind} noise was not drawn on the card")
+        x = ph.to(torch.float64)
+        z = (x - x.mean()) / x.std()
+        g = {"std_ratio": (x.std() / std).item(), "mean_over_limit":
+             abs(x.mean().item()) / (5 * std / math.sqrt(samples)),
+             "kurtosis": (z ** 4).mean().item(),
+             "zero_exact": bool((phases(kind, 0.0, seed + 1) == 0).all()),
+             "same_bits": bool(torch.equal(phases(kind, 2.0 ** 30, seed + 2),
+                                           phases(kind, 2.0 ** 30, seed + 2)))}
+        ok = (abs(g["std_ratio"] - 1) < 0.10 and g["mean_over_limit"] < 1
+              and 2.6 < g["kurtosis"] < 3.4 and g["zero_exact"] and g["same_bits"])
+        print(f"{tag} noise on the card, {kind}, {samples} samples at std 2^40: std / asked "
+              f"{g['std_ratio']:.4f}, |mean| / (5 std / sqrt(n)) {g['mean_over_limit']:.4f}, "
+              f"kurtosis {g['kurtosis']:.4f}, zero noise exact {g['zero_exact']}, one seed the "
+              f"same bits {g['same_bits']}: {'passes' if ok else 'FAILS'} the five gates")
+        if not ok:
+            raise AssertionError(f"the card's {kind} noise fails a gate: {g}")
+        out[kind] = g
+    return out
+
+
+def _cpu_server(sk):
+    """A server key's copy on the CPU, for the plain path (no limb layout:
+    the CPU keyswitch reads `data`)."""
+    from tfhe_tpu_torch.core.entities import LweKeyswitchKey
+    return dataclasses.replace(
+        sk, ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
+        bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()))
+
+
+def _ends(t: torch.Tensor) -> torch.Tensor:
+    """The first and last 8 rows of a [rows, ...] tensor, on the host."""
+    return torch.cat([t[:8], t[-8:]]).cpu()
+
+
+def pbs_ks_hold(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """ROADMAP C11 on the card: shortint.gen_keys at PBS_KS_SET (key choice
+    small: the PBS runs first, the keyswitch reads its k*N outputs), 512
+    messages, one LUT request with the counts set to 0 just before and read
+    just after (one K1, one pass, one K2'), 512/512 decrypted, and the first
+    and last 8 rows held bit for bit against the plain CPU path."""
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.params import PBSOrder, shortint_params
+
+    p = shortint_params(PBS_KS_SET)
+    if p.pbs_order != PBSOrder.BOOTSTRAP_KEYSWITCH:
+        raise AssertionError(f"{PBS_KS_SET} does not take the PBS -> KS order")
+    ck, sk = shortint.gen_keys(p, seed=seed, device=dev)
+    mm = p.message_modulus
+    m = torch.randint(0, mm, (B,), generator=torch.Generator().manual_seed(seed))
+    ct = ck.encrypt(m.to(dev), seed=seed + 7)
+    f = lambda x: (3 * x + 1) % mm
+    lut = sk.generate_lookup_table(f)
+    zero_counts()
+    out = sk.apply_lookup_table(ct, lut)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want.update({"blind_rotate": 1, "keyswitch_tc": 1, "keyswitch_decompose": 1})
+    if counts != want:
+        raise AssertionError(f"{PBS_KS_SET}: launches {counts}, expected {want}")
+    if tuple(out.lwe.data.shape) != (B, p.lwe_dimension + 1):
+        raise AssertionError(f"{PBS_KS_SET}: output shape {tuple(out.lwe.data.shape)}")
+    right = int((ck.decrypt(out).cpu() == f(m)).sum())
+    ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+    t0 = time.perf_counter()
+    cpu = _cpu_server(sk)
+    ref = cpu.apply_lookup_table(ct.with_(lwe=LweCiphertext(data=_ends(ct.lwe.data))),
+                                 cpu.generate_lookup_table(f))
+    same = torch.equal(ref.lwe.data, _ends(out.lwe.data))
+    cpu_s = time.perf_counter() - t0
+    print(f"{tag} C11, {PBS_KS_SET} (n={p.lwe_dimension}, N={p.polynomial_size}, KS "
+          f"{p.ks_base_log}x{p.ks_level}: PBS first, then the keyswitch over "
+          f"{p.glwe_dimension * p.polynomial_size} inputs): {right}/{B} decrypt right; one K1, "
+          f"one pass, one K2'; KS+PBS {ms:.3f} ms at batch {B}; the first and last 8 rows "
+          f"{'bit-identical' if same else 'MISMATCH'} to the plain CPU path ({cpu_s:.1f} s)",
+          flush=True)
+    if right != B or not same:
+        raise AssertionError(f"{PBS_KS_SET}: {right}/{B} right, rows held: {same}")
+    return {"set": PBS_KS_SET, "right": right, "ms": ms, "launches": counts}
+
+
+def boolean_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4f: the boolean scheme on the card at the five named sets.  At
+    each: boolean.gen_keys on the card; the six gates, mux and not_ at batch
+    512 on random operands, each with the counts set to 0 just before and
+    read just after (a gate: one K1, one pass, one K2'; mux: two K1, and two
+    keyswitches under KS -> PBS, one under PBS -> KS; not_: none) and
+    decrypted against its truth table; the AND gate timed at batch 1, 32 and
+    512 by CUDA events (ms a call, gates/s); at BOOL_HELD, the first and last
+    8 rows of one AND call at batch 512 against the plain CPU path.  Then 8
+    dependent ANDs at batch 32 traced under torch.profiler.  → {"launches":
+    {kernel: launches}, "sets": [one dict a set], "trace": {...}}."""
+    from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.params import PBSOrder, boolean_params
+
+    gen = torch.Generator().manual_seed(seed)
+    totals, rows, trace = {}, [], {}
+    sub = lambda ct, n: Bo.BoolCiphertext(lwe=LweCiphertext(data=ct.lwe.data[:n]))
+    for name in BOOL_SETS:
+        p = boolean_params(name)
+        ks_first = p.pbs_order == PBSOrder.KEYSWITCH_BOOTSTRAP
+        t0 = time.perf_counter()
+        ck, sk = Bo.gen_keys(p, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        n_out = p.big_lwe_dimension if ks_first else p.lwe_dimension
+        m = torch.randint(0, 2, (3, B), generator=gen).bool()
+        a, b, c = (Bo.encrypt(ck, m[i].to(dev), seed=seed + 60 + i) for i in range(3))
+        ops = [(g, lambda g=g: getattr(Bo, g)(sk, a, b), f(m[0], m[1]))
+               for g, f in BOOL_TRUTH.items()]
+        ops += [("mux", lambda: Bo.mux(sk, a, b, c), torch.where(m[0], m[1], m[2])),
+                ("not_", lambda: Bo.not_(a), ~m[0])]
+        right = 0
+        for gname, fn, want in ops:
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            k1 = {"mux": 2, "not_": 0}.get(gname, 1)
+            ks = {"mux": 2 if ks_first else 1, "not_": 0}.get(gname, 1)
+            expect = {k: 0 for k in counts}
+            expect.update({"blind_rotate": k1, "keyswitch_tc": ks, "keyswitch_decompose": ks})
+            if counts != expect:
+                raise AssertionError(f"{name} {gname}: launches {counts}, expected {expect}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            if out.device != dev or tuple(out.lwe.data.shape) != (B, n_out + 1):
+                raise AssertionError(f"{name} {gname}: output {tuple(out.lwe.data.shape)} on "
+                                     f"{out.device}")
+            ok = int((Bo.decrypt(ck, out).cpu() == want).sum())
+            if ok != B:
+                raise AssertionError(f"{name} {gname}: {ok}/{B} decrypt right")
+            right += ok
+        held = None
+        if name in BOOL_HELD:
+            out = Bo.and_(sk, a, b)
+            t0 = time.perf_counter()
+            ref = Bo.and_(_cpu_server(sk), Bo.BoolCiphertext(lwe=LweCiphertext(
+                data=_ends(a.lwe.data))), Bo.BoolCiphertext(lwe=LweCiphertext(
+                    data=_ends(b.lwe.data))))
+            held = torch.equal(ref.lwe.data, _ends(out.lwe.data))
+            print(f"{name} and_ at batch {B}, its first and last 8 rows: card path "
+                  f"{'bit-identical' if held else 'MISMATCH'} to the plain CPU path "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            if not held:
+                raise AssertionError(f"{name}: the AND call disagrees with the plain CPU path")
+        lat = {}
+        for bt in BOOL_BATCHES:
+            x, y = sub(a, bt), sub(b, bt)
+            Bo.and_(sk, x, y)
+            lat[bt] = cuda_ms(lambda: Bo.and_(sk, x, y), 3 if bt == B else 5)
+        mux_ms = cuda_ms(lambda: Bo.mux(sk, a, b, c), 2)
+        base = BOOL_BASELINE_MS.get(name)
+        row = {"set": name, "order": p.pbs_order, "n": p.lwe_dimension,
+               "k": p.glwe_dimension, "N": p.polynomial_size,
+               "pbs": f"{p.pbs_base_log}x{p.pbs_level}", "ks": f"{p.ks_base_log}x{p.ks_level}",
+               "keygen_s": keygen_s, "right": right,
+               "gate_ms": {str(k): v for k, v in lat.items()},
+               "gates_per_s": {str(k): k / (v / 1e3) for k, v in lat.items()},
+               "mux_ms_512": mux_ms, "held": held, "baseline_cpu_ms": base}
+        rows.append(row)
+        print(f"{tag} boolean {name} (n={p.lwe_dimension}, k={p.glwe_dimension}, "
+              f"N={p.polynomial_size}, PBS {row['pbs']}, KS {row['ks']}, "
+              f"{'KS -> PBS' if ks_first else 'PBS -> KS'}): gen_keys {keygen_s:.2f} s; "
+              f"{right}/{len(ops) * B} right over six gates, mux and not_; AND ms a call "
+              + ", ".join(f"batch {k} {v:.3f} ({k / (v / 1e3):.1f} gates/s)"
+                          for k, v in lat.items())
+              + f"; mux {mux_ms:.3f} ms at {B}; tfhe-rs CPU, one gate: "
+              + (f"{base} ms (BASELINE.md:12-14, beside, not against)" if base
+                 else "not listed"), flush=True)
+        if name == APP_BOOL_SET:
+            x, y = sub(a, 32), sub(b, 32)
+
+            def chain():
+                z = x
+                for _ in range(8):
+                    z = Bo.and_(sk, z, y)
+                return z
+            wall_ms, by_kernel, timeline = profile_window(chain, cpu=False)
+            busy = print_profile(f"{tag} profiler, 8 dependent ANDs at batch 32, {name}",
+                                 wall_ms, by_kernel, timeline)
+            if not busy:
+                raise AssertionError("the boolean trace shows no device time")
+            gap_ms, longest = device_gaps(timeline)
+            print(f"{tag} the 8 ANDs' trace: {gap_ms:.3f} ms between kernels, the longest "
+                  + ", ".join(f"{g:.3f} ms before {k[:40]}" for g, k in longest))
+            trace = {"set": name, "wall_ms": wall_ms, "busy_ms": busy,
+                     "idle_share": 1 - busy / wall_ms, "gap_ms": gap_ms,
+                     "kernels": len(timeline)}
+        del ck, sk, a, b, c
+    torch.cuda.empty_cache()
+    return {"launches": totals, "sets": rows, "trace": trace}
+
+
+@contextlib.contextmanager
+def counted_calls():
+    """Within: the KS+PBS calls the apps make, counted where they are made
+    (the boolean module's bootstrap and keyswitch, shortint's
+    apply_lookup_table, each one pass + K2' and/or one K1 on the card):
+    yields {"pbs": n, "ks": n, "lut": n}."""
+    from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch import shortint
+    calls = {"pbs": 0, "ks": 0, "lut": 0}
+    saved = (Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table)
+
+    def wrap(kind, fn):
+        def call(*args):
+            calls[kind] += 1
+            return fn(*args)
+        return call
+    Bo.programmable_bootstrap = wrap("pbs", saved[0])
+    Bo.keyswitch_lwe = wrap("ks", saved[1])
+    shortint.ServerKey.apply_lookup_table = wrap("lut", saved[2])
+    try:
+        yield calls
+    finally:
+        Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table = saved
+
+
+def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: list) -> dict:
+    """Phase 4g: the apps and examples on the card, each run with the counts
+    set to 0 just before and read just after (K1 once a bootstrap, the pass
+    and K2' once a keyswitch, nothing else) and decrypted against its clear
+    model: TriviumStreamShortint (32 streams, the full warm-up); the boolean
+    Trivium and Kreyvium streams (32 streams, the warm-up that fits
+    STREAM_BUDGET_S at the gate latency phase 4f measured); the byte stream
+    on FheUint8 at 2_2; SHA-256 (whole, or its primitives and a projection);
+    the dark market and the regex engine on 4-block integers at 2_2.
+    → {"launches": {...}, "apps": [one dict an app]}."""
+    import numpy as np
+
+    from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch import integer, shortint
+    from tfhe_tpu_torch.apps import (KreyviumStream, TriviumStream, TriviumStreamByte,
+                                     TriviumStreamShortint, clear_kreyvium_keystream,
+                                     clear_trivium_keystream)
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.params import boolean_params
+    from tfhe_tpu_torch.examples import dark_market, regex_engine, sha256_bool
+
+    rng = np.random.default_rng(seed)
+    totals, apps = {}, []
+
+    @contextlib.contextmanager
+    def window(label):
+        """Counts at 0, the calls counted, then launches checked against them."""
+        zero_counts()
+        with counted_calls() as calls:
+            yield calls
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {k: 0 for k in counts}
+        expect.update({"blind_rotate": calls["pbs"] + calls["lut"],
+                       "keyswitch_tc": calls["ks"] + calls["lut"],
+                       "keyswitch_decompose": calls["ks"] + calls["lut"]})
+        if counts != expect or not counts["blind_rotate"]:
+            raise AssertionError(f"{label}: launches {counts} over calls {calls}, "
+                                 f"expected {expect}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        calls["launches"] = {k: v for k, v in counts.items() if v}
+
+    def report(row):
+        apps.append(row)
+        print(f"{tag} app {row['app']}: " + "; ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if k != "app"), flush=True)
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+
+    # ---- Trivium on shortint bits: 32 streams, 18 warm-up rounds, round 19 --
+    ck, sk = shortint.gen_keys(TRIVIUM_SET, seed=seed, device=dev)
+    key_bits = rng.integers(0, 2, (80, STREAMS))
+    iv = rng.integers(0, 2, 80).tolist()
+    enc_key = [ck.encrypt(torch.as_tensor(key_bits[i]), seed=seed + 200 + i) for i in range(80)]
+    stream = TriviumStreamShortint(enc_key, iv, sk, warmup_rounds=0)
+    widen = lambda reg: [c if c.lwe.data.dim() == 2 else c.with_(lwe=LweCiphertext(
+        data=c.lwe.data.expand(STREAMS, -1))) for c in reg]
+    stream.a, stream.b, stream.c = widen(stream.a), widen(stream.b), widen(stream.c)
+    marks = [ev() for _ in range(20)]
+    t0 = time.perf_counter()
+    with window("TriviumStreamShortint") as calls:
+        marks[0].record()
+        for r in range(19):
+            out = stream.next_64()
+            marks[r + 1].record()
+    host_s = time.perf_counter() - t0
+    round_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(19)]
+    got = torch.stack([ck.decrypt(z) for z in out]).cpu().numpy()        # [64, S]
+    want = np.array([clear_trivium_keystream(key_bits[:, s].tolist(), iv, 64)
+                     for s in range(STREAMS)]).T
+    right = int((got == want).all(axis=0).sum())
+    steady = sum(round_ms[1:]) / 18
+    report({"app": "TriviumStreamShortint", "set": TRIVIUM_SET, "streams": STREAMS,
+            "warmup_clocks": 1152, "streams_right": right, "calls": calls["lut"],
+            "round_ms": steady, "first_round_ms": round_ms[0], "round_19_ms": round_ms[18],
+            "keystream_bits_per_s": 64 * STREAMS / (steady / 1e3), "host_s": host_s,
+            "launches": calls["launches"]})
+    if right != STREAMS:
+        raise AssertionError(f"TriviumStreamShortint: {right}/{STREAMS} streams right")
+    del ck, sk, enc_key, stream, out
+
+    # ---- the boolean streams: 32 streams, the warm-up that fits the budget --
+    bp = boolean_params(APP_BOOL_SET)
+    at = min(b for b in BOOL_BATCHES if b >= STREAMS)
+    gate_ms = next(r for r in bool_sets if r["set"] == APP_BOOL_SET)["gate_ms"][str(at)]
+    ck, sk = Bo.gen_keys(bp, seed=seed, device=dev)
+    for cls, clear, width, per_clock in ((TriviumStream, clear_trivium_keystream, 80, 14),
+                                         (KreyviumStream, clear_kreyvium_keystream, 128, 16)):
+        n_out = 8
+        fit = int(STREAM_BUDGET_S * 1e3 / (per_clock * gate_ms)) - n_out
+        warm = max(0, min(1152, fit))
+        key_bits = rng.integers(0, 2, (width, STREAMS))
+        iv = rng.integers(0, 2, width).tolist()
+        enc_key = [Bo.encrypt(ck, torch.as_tensor(key_bits[i]).bool(), seed=seed + 300 + i)
+                   for i in range(width)]
+        start, mid, stop = ev(), ev(), ev()
+        t0 = time.perf_counter()
+        with window(cls.__name__) as calls:
+            start.record()
+            stream = cls(sk, enc_key, iv, warmup_rounds=warm)
+            mid.record()
+            outs = stream.next_bits(n_out)
+            stop.record()
+        host_s = time.perf_counter() - t0
+        got = torch.stack([Bo.decrypt(ck, z) for z in outs]).cpu().numpy()    # [n_out, S]
+        want = np.array([clear(key_bits[:, s].tolist(), iv, n_out, warmup_rounds=warm)
+                         for s in range(STREAMS)]).T
+        right = int((got == want).all(axis=0).sum())
+        out_ms = mid.elapsed_time(stop)
+        report({"app": cls.__name__, "set": APP_BOOL_SET, "streams": STREAMS,
+                "warmup_clocks": warm, "cut": warm < 1152,
+                f"gate_ms_at_{at}": gate_ms, "gate_calls": calls["pbs"],
+                "warmup_ms": start.elapsed_time(mid), "clock_ms": out_ms / n_out,
+                "ms_per_gate_call": start.elapsed_time(stop) / calls["pbs"],
+                "keystream_bits_per_s": STREAMS * n_out / (out_ms / 1e3),
+                "full_warmup_projected_s": 1152 * out_ms / n_out / 1e3,
+                "streams_right": right, "host_s": host_s, "launches": calls["launches"]})
+        if right != STREAMS:
+            raise AssertionError(f"{cls.__name__}: {right}/{STREAMS} streams right")
+        del enc_key, stream, outs
+    # one boolean Trivium clock traced: the idle share of a chain of gates
+    stream = TriviumStream(sk, [Bo.encrypt(ck, torch.ones(STREAMS, dtype=torch.bool),
+                                           seed=seed + 400)] * 80, [0] * 80, warmup_rounds=0)
+    wall_ms, by_kernel, timeline = profile_window(stream.next_bit, cpu=False)
+    busy = print_profile(f"{tag} profiler, one boolean Trivium clock, {STREAMS} streams",
+                         wall_ms, by_kernel, timeline)
+    if not busy:
+        raise AssertionError("the Trivium trace shows no device time")
+    gap_ms, longest = device_gaps(timeline)
+    print(f"{tag} the Trivium clock's trace: {gap_ms:.3f} ms between kernels, the longest "
+          + ", ".join(f"{g:.3f} ms before {k[:40]}" for g, k in longest))
+    apps.append({"app": "trace: one boolean Trivium clock", "wall_ms": wall_ms,
+                 "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "gap_ms": gap_ms,
+                 "kernels": len(timeline)})
+
+    # ---- SHA-256: the primitives on 32-row words, then whole or projected ---
+    word = lambda v: Bo.encrypt(ck, [bool((v >> i) & 1) for i in range(32)], seed=seed + v % 997)
+    val = lambda w: sum(int(x) << i for i, x in enumerate(Bo.decrypt(ck, w).tolist()))
+    av, bv, cv = (int(x) for x in rng.integers(0, 1 << 32, 3, dtype=np.uint64))
+    wa, wb, wc = word(av), word(bv), word(cv)
+    rotr = lambda v, r: ((v >> r) | (v << (32 - r))) & 0xFFFFFFFF
+    prims = [("add_words_b", lambda: sha256_bool.add_words_b(sk, wa, wb, bp),
+              (av + bv) & 0xFFFFFFFF),
+             ("small sigma0", lambda: sha256_bool._sigma_b(sk, wa, 7, 18, 3, bp, True),
+              rotr(av, 7) ^ rotr(av, 18) ^ (av >> 3)),
+             ("small sigma1", lambda: sha256_bool._sigma_b(sk, wa, 17, 19, 10, bp, True),
+              rotr(av, 17) ^ rotr(av, 19) ^ (av >> 10)),
+             ("big sigma0", lambda: sha256_bool._sigma_b(sk, wa, 2, 13, 22, bp, False),
+              rotr(av, 2) ^ rotr(av, 13) ^ rotr(av, 22)),
+             ("big sigma1", lambda: sha256_bool._sigma_b(sk, wa, 6, 11, 25, bp, False),
+              rotr(av, 6) ^ rotr(av, 11) ^ rotr(av, 25)),
+             ("ch_b", lambda: sha256_bool.ch_b(sk, wa, wb, wc), (av & bv) ^ (~av & cv)),
+             ("maj_b", lambda: sha256_bool.maj_b(sk, wa, wb, wc),
+              (av & bv) ^ (av & cv) ^ (bv & cv))]
+    per_call, n_calls = {}, {}
+    start, stop = ev(), ev()
+    for label, fn, want in prims:
+        with window(f"sha256 {label}") as calls:
+            start.record()
+            out = fn()
+            stop.record()
+        if val(out) != want & 0xFFFFFFFF:
+            raise AssertionError(f"sha256 {label}: {val(out):#x}, expected {want:#x}")
+        n_calls[label], per_call[label] = calls["pbs"], start.elapsed_time(stop) / calls["pbs"]
+    add, sig = n_calls["add_words_b"], n_calls["small sigma0"]
+    total = (48 * (2 * sig + 3 * add) + 64 * (7 * add + 2 * sig + n_calls["ch_b"]
+                                              + n_calls["maj_b"]) + 8 * add)
+    ms_call = sum(per_call[k] * n_calls[k] for k in n_calls) / sum(n_calls.values())
+    projected_s = total * ms_call / 1e3
+    row = {"app": "sha256", "set": APP_BOOL_SET, "calls_per_primitive": n_calls,
+           "ms_per_call": ms_call, "digest_calls": total, "digest_projected_s": projected_s,
+           "whole": projected_s <= SHA_BUDGET_S}
+    if row["whole"]:
+        import hashlib
+        bits = Bo.encrypt(ck, sha256_bool.pad_sha256_input("abc"), seed=seed + 500)
+        with window("sha256_fhe") as calls:
+            start.record()
+            digest = sha256_bool.sha256_fhe(sk, bp, bits)
+            stop.record()
+        hexd = sha256_bool.bools_to_hex(Bo.decrypt(ck, digest).tolist())
+        row.update(digest_s=start.elapsed_time(stop) / 1e3, digest_calls=calls["pbs"],
+                   digest_right=hexd == hashlib.sha256(b"abc").hexdigest())
+        if not row["digest_right"]:
+            raise AssertionError(f"sha256_fhe('abc') = {hexd}")
+    report(row)
+    del ck, sk, wa, wb, wc
+
+    # ---- the byte stream, the dark market and the regex engine at 2_2 -------
+    ck, isk = integer.gen_keys(CLASSIC, num_blocks=4, seed=seed, device=dev)
+    key = [int(x) for x in rng.integers(0, 256, 10)]
+    iv = [int(x) for x in rng.integers(0, 256, 10)]
+    enc = [ck.encrypt(v, seed=seed + 600 + i) for i, v in enumerate(key)]
+    with window("TriviumStreamByte") as calls:
+        start.record()
+        st = TriviumStreamByte(enc, iv, server_key=isk, warmup_rounds=BYTE_WARMUP)
+        got = st.next_64()
+        stop.record()
+    got = [int(ck.decrypt(v)) for v in got]
+    want = TriviumStreamByte(key, iv, warmup_rounds=BYTE_WARMUP).next_64()
+    report({"app": "TriviumStreamByte", "set": CLASSIC, "warmup_rounds": BYTE_WARMUP,
+            "rounds": BYTE_WARMUP + 1, "ms_per_round": start.elapsed_time(stop)
+            / (BYTE_WARMUP + 1), "calls": calls["lut"], "right": got == want})
+    if got != want:
+        raise AssertionError(f"TriviumStreamByte: {got} != {want}")
+
+    def fill(orders, other_total):
+        pre, out = 0, []
+        for o in orders:
+            out.append(min(o, max(0, other_total - pre)))
+            pre += o
+        return out
+    buys, sells = [int(x) for x in rng.integers(0, 60, 3)], [int(x) for x in rng.integers(0, 60, 2)]
+    eb = [ck.encrypt(v, seed=seed + 700 + i) for i, v in enumerate(buys)]
+    es = [ck.encrypt(v, seed=seed + 710 + i) for i, v in enumerate(sells)]
+    with window("volume_match") as calls:
+        start.record()
+        fb, fs = dark_market.volume_match(isk, eb, es)
+        stop.record()
+    matched = min(sum(buys), sum(sells))
+    ok = ([int(ck.decrypt(x)) for x in fb] == fill(buys, matched)
+          and [int(ck.decrypt(x)) for x in fs] == fill(sells, matched))
+    report({"app": "dark market volume_match", "set": CLASSIC, "orders": [3, 2],
+            "ms": start.elapsed_time(stop), "calls": calls["lut"], "right": ok})
+    buys, sells = rng.integers(0, 30, 8).tolist(), rng.integers(0, 30, 8).tolist()
+    with window("volume_match_parallel") as calls:
+        start.record()
+        fb, fs = dark_market.volume_match_parallel(isk, ck.encrypt(buys, seed=seed + 720),
+                                                   ck.encrypt(sells, seed=seed + 721))
+        stop.record()
+    ok2 = (ck.decrypt(fb).tolist() == fill(buys, sum(sells))
+           and ck.decrypt(fs).tolist() == fill(sells, sum(buys)))
+    report({"app": "dark market volume_match_parallel", "set": CLASSIC, "orders": [8, 8],
+            "ms": start.elapsed_time(stop), "calls": calls["lut"], "right": ok2})
+    if not (ok and ok2):
+        raise AssertionError("the dark market disagrees with its clear model")
+    for pattern, text, want in (("/^ab/", "abc", True), ("/bc$/", "abc", True),
+                                ("/b/", "xyz", False), ("a[bc]d", "acd", True)):
+        enc = [ck.encrypt(ord(ch), seed=seed + 800 + i) for i, ch in enumerate(text)]
+        with window(f"regex {pattern}") as calls:
+            start.record()
+            out = regex_engine.regex_match_radix(isk, pattern, enc)
+            stop.record()
+        got = bool(int(ck.key.decrypt(out)) & 1)
+        report({"app": f"regex {pattern} on {text!r}", "set": CLASSIC,
+                "ms": start.elapsed_time(stop), "calls": calls["lut"], "right": got == want})
+        if got != want:
+            raise AssertionError(f"regex {pattern} on {text!r}: {got}, expected {want}")
+    del ck, isk
+    torch.cuda.empty_cache()
+    return {"launches": totals, "apps": apps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -917,8 +1490,8 @@ def main() -> int:
     from tfhe_tpu_torch.core.algorithms import external_product_num_primes, keyswitch
     from tfhe_tpu_torch.core.algorithms.encryption import bootstrap_key_to_ntt_paired
     from tfhe_tpu_torch.core.decomposition import signed_decompose
-    from tfhe_tpu_torch.core.entities import (LweCiphertext, LweKeyswitchKey,
-                                              NttBootstrapKey, NttMultiBitBootstrapKey)
+    from tfhe_tpu_torch.core.entities import (LweCiphertext, NttBootstrapKey,
+                                              NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import (boolean_params, gadget_params, shortint_params,
                                             wopbs_params)
     from tfhe_tpu_torch.core.poly import ntt, rotation
@@ -1691,9 +2264,7 @@ def main() -> int:
         """The first request on `small` ciphertexts through the plain path on
         CPU tensors (what the CPU tests hold against tfhe_tpu), with the same
         key on its recorded route and the same switches."""
-        sk_cpu = shortint.ServerKey(
-            ksk=LweKeyswitchKey(data=sk.ksk.data.cpu(), decomp=sk.ksk.decomp),
-            bsk=dataclasses.replace(sk.bsk, spectra=sk.bsk.spectra.cpu()), params=sk.params)
+        sk_cpu = _cpu_server(sk)
         ct_small = ct.with_(lwe=LweCiphertext(data=ct.lwe.data[:small].cpu()))
         ref = sk_cpu.apply_lookup_table(ct_small, sk_cpu.generate_lookup_table(lut_fn))
         same = torch.equal(ref.lwe.data, out.lwe.data[:small].cpu())
@@ -1895,6 +2466,24 @@ def main() -> int:
     int_path = integer_path(args.seed, dev, tag, zero_counts, read_counts)
     int_launches = {k: int_path["launches"].get(k, 0) for k in read_counts()}
 
+    lap("4f")
+    # ---- 4f. the PBS -> KS order (C11), then the boolean scheme ---------------
+    c11 = pbs_ks_hold(args.seed, dev, tag, zero_counts, read_counts)
+    bool_path = boolean_path(args.seed, dev, tag, zero_counts, read_counts)
+
+    lap("4g")
+    # ---- 4g. the apps and examples --------------------------------------------
+    app_path = apps_path(args.seed, dev, tag, zero_counts, read_counts, bool_path["sets"])
+    slice_launches = {k: c11["launches"].get(k, 0) + bool_path["launches"].get(k, 0)
+                      + app_path["launches"].get(k, 0) for k in read_counts()}
+
+    lap("4h")
+    # ---- 4h. the noise of encryptions made on the card (C10) -----------------
+    noise = noise_hold(args.seed, dev, tag)
+    print(json.dumps({"pbs_ks": c11, "boolean": bool_path["sets"],
+                      "boolean_trace": bool_path["trace"], "apps": app_path["apps"],
+                      "noise": noise}))
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -1920,6 +2509,10 @@ def main() -> int:
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
     print(f"integer path kernel launches (every op): {json.dumps(int_launches)}")
+    print(f"boolean, apps and PBS -> KS paths kernel launches: {json.dumps(slice_launches)}")
+    for name in ("blind_rotate", "keyswitch_tc", "keyswitch_decompose"):
+        if bool_path["launches"][name] <= 0 or app_path["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the boolean or app path")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
                         ("keyswitch_tc", classic_launches["keyswitch_tc"]),
                         ("keyswitch_decompose", classic_launches["keyswitch_decompose"]),
@@ -1989,7 +2582,7 @@ def main() -> int:
         """Launches over every main path's counted window."""
         return (classic_launches[kernel] + multi_bit_launches[kernel] + route_total(kernel)
                 + sum(c[kernel] for c in large_launches.values()) + group_2_launches[kernel]
-                + int_launches[kernel])
+                + int_launches[kernel] + slice_launches[kernel])
 
     ks_src = "tfhe_tpu_torch/csrc/keyswitch.cu"
     ks22, ks_names = ks[CLASSIC], [CLASSIC, GROUP_3, GROUP_2] + list(LARGE_KS_SETS)
@@ -1998,7 +2591,8 @@ def main() -> int:
     rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
         entry("blind_rotate", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              classic_launches["blind_rotate"] + int_launches["blind_rotate"], k1_err, k1_ms,
+              classic_launches["blind_rotate"] + int_launches["blind_rotate"]
+              + slice_launches["blind_rotate"], k1_err, k1_ms,
               k1_plain_ms, k1_bound),
         entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
               path_total("keyswitch_tc"), max(ks[k]["err"]["tc"] for k in ks_names),

@@ -35,7 +35,11 @@ def test_imports_with_jax_blocked():
     assert {"tfhe_tpu_torch.config", "tfhe_tpu_torch.smem_probe",
             "tfhe_tpu_torch.core.poly.rotation", "tfhe_tpu_torch.interop",
             "tfhe_tpu_torch.integer", "tfhe_tpu_torch.integer.ciphertext",
-            "tfhe_tpu_torch.integer.client_key", "tfhe_tpu_torch.integer.server_key"} <= mods
+            "tfhe_tpu_torch.integer.client_key", "tfhe_tpu_torch.integer.server_key",
+            "tfhe_tpu_torch.boolean", "tfhe_tpu_torch.apps", "tfhe_tpu_torch.apps.trivium",
+            "tfhe_tpu_torch.examples", "tfhe_tpu_torch.examples.sha256_bool",
+            "tfhe_tpu_torch.examples.dark_market",
+            "tfhe_tpu_torch.examples.regex_engine"} <= mods
 
 
 def _named_sets():

@@ -23,7 +23,36 @@ def test_prime_pools_match_jax():
     for n in (256, 2048, 8192, 16384, 32768, 65536):
         assert ntt.primes_for(n) == jntt.primes_for(n)
     for bound in (75.0, 97.0, 139.0):
-        assert ntt.required_num_primes(bound) == jntt.required_num_primes(bound)
+        assert ntt.required_num_primes(bound, 2048) == jntt.required_num_primes(bound)
+
+
+def _pbs_sets():
+    import tfhe_tpu_torch.core.params as tp
+    return sorted(name for name, p in tp.ALL_NAMED_PARAMS.items() if hasattr(p, "pbs_level"))
+
+
+def test_prime_count_sized_on_the_sets_own_pool():
+    """ROADMAP C2b: the port sizes the CRT width over primes_for(N), the JAX
+    package over PRIMES_31 whatever N.  Every named set with a PBS (240)
+    gets the same count from both, so the two packages' keys agree."""
+    import tfhe_tpu.core.params as jp
+    import tfhe_tpu_torch.core.params as tp
+    from tfhe_tpu.core.algorithms.bootstrap import external_product_num_primes as jcount
+    from tfhe_tpu_torch.core.algorithms import external_product_num_primes as tcount
+    names = _pbs_sets()
+    assert len(names) == 240
+    high = 0
+    for name in names:
+        p, q = tp.ALL_NAMED_PARAMS[name], jp.ALL_NAMED_PARAMS[name]
+        assert tcount(p.polynomial_size, p.glwe_size, p.pbs_decomp) == \
+            jcount(q.polynomial_size, q.glwe_size, q.pbs_decomp, 64), name
+        high += p.polynomial_size > 8192
+    assert high > 0
+    # the pool read is the set's own: five of PRIMES_31's primes meet this
+    # bound, five of PRIMES_HIGH_N's (slightly smaller) do not
+    bound = sum(np.log2(q) for q in ntt.PRIMES_31[:5]) - 1.0
+    assert ntt.required_num_primes(bound, 2048) == jntt.required_num_primes(bound) == 5
+    assert ntt.required_num_primes(bound, 32768) == 6
 
 
 def test_plan_garner_constants_match_jax():

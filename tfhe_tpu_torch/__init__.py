@@ -5,8 +5,9 @@ It runs the shortint keyswitch + PBS path end to end, with classic and
 multi-bit keys: parameters, int64 torus numerics, generator-based
 randomness, entities, the exact CRT-NTT, encryption and key generation,
 keyswitch, the blind rotation on every route the JAX package's switches
-select (`config.py`), the shortint op families, and the radix, signed and
-CRT integers on top of them.  Hand-written CUDA
+select (`config.py`), the shortint op families, the radix, signed and
+CRT integers on top of them, the boolean scheme, and the apps and examples
+(Trivium/Kreyvium, SHA-256, the dark market, the regex engine).  Hand-written CUDA
 kernels carry the hot work (`csrc/`): the whole blind rotation (K1 classic,
 K3 multi-bit), one rotation step per launch (K4 delta, K5 paired or
 multi-bit), the keyswitch contraction (K2), and a shared-memory probe.
@@ -19,6 +20,9 @@ Layout mirrors `tfhe_tpu/`:
                bootstrap, multi_bit)
   shortint/    ciphertext, client_key, server_key
   integer/     ciphertext, client_key, server_key (radix, signed, CRT)
+  boolean/     the gates on both PBS orders
+  apps/        trivium (booleans, shortint bits, bytes)
+  examples/    sha256_bool, dark_market, regex_engine
   interop.py   keys and integer ciphertexts carried across from the JAX
                package (numpy arrays)
   cuda_lib.py  builds csrc/*.cu with nvcc at first use, loads with ctypes

@@ -1,0 +1,333 @@
+"""Encrypted Boolean gates (counterpart of `tfhe_tpu/boolean/__init__.py`;
+reference tfhe/src/boolean/).
+
+Encoding: true = +1/8 and false = -1/8 of the torus (boolean/mod.rs:76-80).
+A binary gate is a linear combination of its operands followed by one
+sign-LUT bootstrap and a keyswitch, in the order the parameters give:
+KS → PBS for key choice `big`, PBS → KS for `small`
+(engine/bootstrapping.rs:392).  On the card each KS + PBS is one
+decomposition pass, one K2′ and one K1 launch; `mux` makes two such calls
+(under PBS → KS: two K1 and one keyswitch, as the JAX package orders it).
+
+The torus is the port's 64-bit one: the five named boolean sets are 64-bit.
+A 32-bit set (`TEST_PARAMS_BOOLEAN_U32`) is served by the JAX package's XLA
+path only; here its keys and server raise `NotImplementedError` (ROADMAP
+A9c).  Torus constants at or above 2^63 (false = 7/8) are int64 bit
+patterns: every add and multiply wraps mod 2^64.
+
+Not ported yet (ROADMAP A9b, after A7): `CompressedCiphertext`,
+`encrypt_compressed`, `PublicKey`, `gen_public_key`,
+`encrypt_with_public_key`, `CompressedServerKey`, `CompressedPublicKey`.
+Every entry point runs on the card unless given device="cpu" (or a key on
+the CPU); without a card that raises.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import torch
+
+from ..core import rng
+from ..core.algorithms import (bootstrap_key_to_ntt, decrypt_lwe, encrypt_lwe,
+                               external_product_num_primes, generate_bootstrap_key,
+                               generate_glwe_secret_key, generate_keyswitch_key,
+                               generate_lwe_secret_key, keyswitch_lwe,
+                               programmable_bootstrap, trivial_glwe, trivial_lwe)
+from ..core.entities import (GlweCiphertext, GlweSecretKey, LweCiphertext,
+                             LweKeyswitchKey, LweSecretKey, NttBootstrapKey)
+from ..core.numeric import LOG_Q, as_i64
+from ..core.params import BooleanParameters, DecompParams, EncryptionKeyChoice, PBSOrder
+from ..core.params import boolean_params as get_boolean_params
+from ..cuda_lib import resolve_device
+
+
+def _checked(params: BooleanParameters | str) -> BooleanParameters:
+    """The parameters (a name is looked up), refused unless on the 64-bit
+    torus the port's keyswitch and rotation serve."""
+    if isinstance(params, str):
+        params = get_boolean_params(params)
+    if params.log_q != LOG_Q:
+        raise NotImplementedError(
+            f"{params.name or 'these parameters'}: log_q = {params.log_q}; the port's "
+            f"boolean scheme serves the 64-bit torus only (the 32-bit torus is ROADMAP A9c)")
+    return params
+
+
+def plaintext_true(params: BooleanParameters) -> int:
+    """+1/8 of the torus (reference PLAINTEXT_TRUE, boolean/mod.rs:76), as
+    an int64 bit pattern."""
+    return as_i64(1 << (params.log_q - 3))
+
+
+def plaintext_false(params: BooleanParameters) -> int:
+    """-1/8 of the torus (7/8: negative as an int64)."""
+    return as_i64(7 << (params.log_q - 3))
+
+
+def _fresh_noise_std(params: BooleanParameters) -> float:
+    if params.encryption_key_choice == EncryptionKeyChoice.SMALL:
+        return params.lwe_noise_std
+    return params.glwe_noise_std
+
+
+@dataclass(frozen=True)
+class ClientKey:
+    """Small LWE key + GLWE key (reference boolean::ClientKey)."""
+
+    lwe_sk: LweSecretKey
+    glwe_sk: GlweSecretKey
+    params: BooleanParameters
+
+    def __post_init__(self):
+        _checked(self.params)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lwe_sk.bits.device
+
+    @property
+    def encryption_key(self) -> LweSecretKey:
+        if self.params.encryption_key_choice == EncryptionKeyChoice.SMALL:
+            return self.lwe_sk
+        return self.glwe_sk.as_lwe_secret_key()
+
+
+@dataclass(frozen=True)
+class ServerKey:
+    """Bootstrap key in the port's spectra + keyswitch key (reference
+    boolean/engine/bootstrapping.rs:93)."""
+
+    bsk: NttBootstrapKey
+    ksk: LweKeyswitchKey
+    params: BooleanParameters
+
+    def __post_init__(self):
+        _checked(self.params)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bsk.spectra.device
+
+    @functools.cached_property
+    def sign_accumulator(self) -> GlweCiphertext:
+        """The gates' one LUT, made once on the key's device."""
+        return _sign_accumulator(self.params, self.device)
+
+
+@dataclass(frozen=True)
+class BoolCiphertext:
+    """Batch of encrypted booleans; data [..., n+1] int64 torus words."""
+
+    lwe: LweCiphertext
+
+    @property
+    def batch_shape(self) -> tuple:
+        return tuple(self.lwe.data.shape[:-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.lwe.data.device
+
+
+def gen_keys(params: BooleanParameters | str = "DEFAULT_PARAMETERS", seed: int = 0,
+             device="cuda"):
+    """→ (ClientKey, ServerKey) on `device` (reference boolean::gen_keys),
+    drawn from the port's generators: the bits differ from the JAX
+    package's for the same seed."""
+    params = _checked(params)
+    device = resolve_device(device)
+    lwe_sk = generate_lwe_secret_key(rng.generator(seed, 0xB0, 1, device=device),
+                                     params.lwe_dimension)
+    glwe_sk = generate_glwe_secret_key(rng.generator(seed, 0xB0, 2, device=device),
+                                       params.glwe_dimension, params.polynomial_size)
+    ck = ClientKey(lwe_sk=lwe_sk, glwe_sk=glwe_sk, params=params)
+    return ck, gen_server_key(ck, seed)
+
+
+def gen_server_key(ck: ClientKey, seed: int = 0) -> ServerKey:
+    """BSK (small key → GLWE key, in the port's spectra) and KSK (big →
+    small), on the client key's device."""
+    p = ck.params
+    device = ck.device
+    bsk_std = generate_bootstrap_key(rng.generator(seed, 0xB0, 3, device=device), ck.lwe_sk,
+                                     ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std)
+    npr = external_product_num_primes(p.polynomial_size, p.glwe_size, p.pbs_decomp)
+    bsk = bootstrap_key_to_ntt(bsk_std, npr)
+    del bsk_std
+    ksk = generate_keyswitch_key(rng.generator(seed, 0xB0, 4, device=device),
+                                 ck.glwe_sk.as_lwe_secret_key(), ck.lwe_sk, p.ks_decomp,
+                                 p.lwe_noise_std)
+    return ServerKey(bsk=bsk, ksk=ksk, params=p)
+
+
+# ---------------------------------------------------------------------------
+# encryption
+# ---------------------------------------------------------------------------
+
+
+def _encode(params: BooleanParameters, messages, device) -> torch.Tensor:
+    msgs = torch.as_tensor(messages, dtype=torch.bool, device=device)
+    true = torch.full((), plaintext_true(params), dtype=torch.int64, device=device)
+    false = torch.full((), plaintext_false(params), dtype=torch.int64, device=device)
+    return torch.where(msgs, true, false)
+
+
+def encrypt(ck: ClientKey, messages, seed: int = 0) -> BoolCiphertext:
+    """messages: bools [...] → BoolCiphertext [..., n+1] under the key the
+    parameters choose, on the key's device."""
+    pts = _encode(ck.params, messages, ck.device)
+    ct = encrypt_lwe(rng.generator(seed, 0xB1, device=ck.device), ck.encryption_key, pts,
+                     _fresh_noise_std(ck.params))
+    return BoolCiphertext(lwe=ct)
+
+
+def trivial_encrypt(params: BooleanParameters, messages, device="cuda") -> BoolCiphertext:
+    """Noiseless encryption: a zero mask and ±1/8 as the body, of the
+    dimension the parameters' key choice gives, on `device` (the apps pass
+    their server key's)."""
+    params = _checked(params)
+    pts = _encode(params, messages, resolve_device(device))
+    n = (params.lwe_dimension if params.encryption_key_choice == EncryptionKeyChoice.SMALL
+         else params.big_lwe_dimension)
+    return BoolCiphertext(lwe=trivial_lwe(pts, n))
+
+
+def decrypt(ck: ClientKey, ct: BoolCiphertext) -> torch.Tensor:
+    """→ bool tensor [...]: true iff the phase lies in the positive half."""
+    return decrypt_lwe(ct.lwe, ck.encryption_key) > 0
+
+
+# ---------------------------------------------------------------------------
+# the bootstrapping pattern
+# ---------------------------------------------------------------------------
+
+
+def _sign_accumulator(params: BooleanParameters, device) -> GlweCiphertext:
+    """Trivial GLWE accumulator with every body coefficient 1/8 (reference
+    engine/bootstrapping.rs:59-60)."""
+    body = torch.full((params.polynomial_size,), plaintext_true(params), dtype=torch.int64,
+                      device=device)
+    return trivial_glwe(body, params.glwe_dimension)
+
+
+def _on_key_device(sk: ServerKey, *cts: BoolCiphertext) -> None:
+    """Operands must lie on the server key's device: a trivial operand made
+    on the CPU beside card ciphertexts raises, it is not moved."""
+    for ct in cts:
+        if ct.device != sk.device:
+            raise ValueError(f"a ciphertext on {ct.device} met a server key on {sk.device}; "
+                             f"make trivial operands with device=sk.device")
+
+
+def _apply_bootstrapping_pattern(sk: ServerKey, lwe: LweCiphertext) -> LweCiphertext:
+    """KS → PBS or PBS → KS per the parameters' order (reference
+    apply_bootstrapping_pattern, engine/bootstrapping.rs:392)."""
+    acc = sk.sign_accumulator
+    if sk.params.pbs_order == PBSOrder.KEYSWITCH_BOOTSTRAP:
+        return programmable_bootstrap(keyswitch_lwe(lwe, sk.ksk), acc, sk.bsk)
+    return keyswitch_lwe(programmable_bootstrap(lwe, acc, sk.bsk), sk.ksk)
+
+
+def _gate(sk: ServerKey, data: torch.Tensor) -> BoolCiphertext:
+    return BoolCiphertext(lwe=_apply_bootstrapping_pattern(sk, LweCiphertext(data=data)))
+
+
+def _sum(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext, body: int,
+         negate: bool = False) -> torch.Tensor:
+    """±(a + b), then `body` added to the body column (a fresh tensor)."""
+    _on_key_device(sk, a, b)
+    data = a.lwe.data + b.lwe.data
+    if negate:
+        data = -data
+    data[..., -1] += body
+    return data
+
+
+# ---------------------------------------------------------------------------
+# gates (linear combinations per reference boolean/engine/mod.rs:608-830)
+# ---------------------------------------------------------------------------
+
+
+def and_(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, _sum(sk, a, b, plaintext_false(sk.params)))           # a + b - 1/8
+
+
+def nand(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, _sum(sk, a, b, plaintext_true(sk.params), negate=True))
+
+
+def or_(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, _sum(sk, a, b, plaintext_true(sk.params)))            # a + b + 1/8
+
+
+def nor(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, _sum(sk, a, b, plaintext_false(sk.params), negate=True))
+
+
+def xor_(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, _sum(sk, a, b, plaintext_true(sk.params)) * 2)        # 2(a + b + 1/8)
+
+
+xor = xor_   # `xor` is not a Python keyword: offer the reference's name too
+
+
+def xnor(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
+    return _gate(sk, -_sum(sk, a, b, plaintext_true(sk.params)) * 2)       # 2(-(a + b) - 1/8)
+
+
+def not_(a: BoolCiphertext) -> BoolCiphertext:
+    """Negation is linear: no PBS (reference engine/mod.rs `not`)."""
+    return BoolCiphertext(lwe=LweCiphertext(data=-a.lwe.data))
+
+
+def mux(sk: ServerKey, cond: BoolCiphertext, then_ct: BoolCiphertext,
+        else_ct: BoolCiphertext) -> BoolCiphertext:
+    """(cond AND then) + (NOT cond AND else) + 1/8: two bootstraps and a
+    linear recombination (reference engine/mod.rs:461-570).  Under PBS → KS
+    the sum is keyswitched once, after both bootstraps."""
+    false = plaintext_false(sk.params)
+    c1 = _sum(sk, cond, then_ct, false)
+    c2 = _sum(sk, not_(cond), else_ct, false)
+    acc = sk.sign_accumulator
+    if sk.params.pbs_order == PBSOrder.KEYSWITCH_BOOTSTRAP:
+        p1 = programmable_bootstrap(keyswitch_lwe(LweCiphertext(c1), sk.ksk), acc, sk.bsk)
+        p2 = programmable_bootstrap(keyswitch_lwe(LweCiphertext(c2), sk.ksk), acc, sk.bsk)
+        out = p1.data + p2.data
+        out[..., -1] += plaintext_true(sk.params)
+        return BoolCiphertext(lwe=LweCiphertext(data=out))
+    p1 = programmable_bootstrap(LweCiphertext(c1), acc, sk.bsk)
+    p2 = programmable_bootstrap(LweCiphertext(c2), acc, sk.bsk)
+    out = p1.data + p2.data
+    out[..., -1] += plaintext_true(sk.params)
+    return BoolCiphertext(lwe=keyswitch_lwe(LweCiphertext(data=out), sk.ksk))
+
+
+# ---------------------------------------------------------------------------
+# casting between boolean key sets (reference boolean/key_switching_key/)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BooleanKeySwitchingKey:
+    ksk: LweKeyswitchKey
+    dest_params: BooleanParameters
+
+    def cast(self, ct: BoolCiphertext) -> BoolCiphertext:
+        return BoolCiphertext(lwe=keyswitch_lwe(ct.lwe, self.ksk))
+
+
+def gen_key_switching_key(ck1: ClientKey, ck2: ClientKey, ks_base_log: int = 2,
+                          ks_level: int = 8, seed: int = 0) -> BooleanKeySwitchingKey:
+    """A KSK from ck1's encryption key to ck2's, on ck2's device."""
+    ksk = generate_keyswitch_key(rng.generator(seed, 0xB5C, device=ck2.device),
+                                 ck1.encryption_key, ck2.encryption_key,
+                                 DecompParams(ks_base_log, ks_level),
+                                 _fresh_noise_std(ck2.params))
+    return BooleanKeySwitchingKey(ksk=ksk, dest_params=ck2.params)
+
+
+__all__ = ["plaintext_true", "plaintext_false", "ClientKey",
+           "ServerKey", "BoolCiphertext", "gen_keys", "gen_server_key", "encrypt",
+           "trivial_encrypt", "decrypt", "and_", "nand", "or_", "nor", "xor_", "xor", "xnor",
+           "not_", "mux", "BooleanKeySwitchingKey", "gen_key_switching_key"]

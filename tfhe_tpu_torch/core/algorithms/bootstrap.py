@@ -28,7 +28,7 @@ def external_product_num_primes(n: int, glwe_size: int, decomp: DecompParams,
     integer convolution is bounded by N * J * B/2 * 2^log_q."""
     j = decomp.level * glwe_size
     log_bound = np.log2(n) + np.log2(j) + (decomp.base_log - 1) + log_q
-    return required_num_primes(log_bound)
+    return required_num_primes(log_bound, n)
 
 
 def sample_extract(glwe: GlweCiphertext, index: int = 0) -> LweCiphertext:

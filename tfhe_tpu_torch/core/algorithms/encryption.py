@@ -86,7 +86,7 @@ def _glwe_mask_dot_key(mask: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     CRT-NTT.  mask [..., k, N], bits [k, N] → [..., N]."""
     n, k = mask.shape[-1], bits.shape[-2]
     log_bound = LOG_Q + np.log2(n) + np.log2(max(k, 1))
-    plan = ntt.get_plan(n, ntt.required_num_primes(log_bound))
+    plan = ntt.get_plan(n, ntt.required_num_primes(log_bound, n))
     p = plan.tables(mask.device)["p"]
     m_hat = ntt.ntt_forward(plan, ntt.reduce(plan, mask))     # [..., k, P, N]
     s_hat = ntt.ntt_forward(plan, ntt.reduce(plan, bits))     # [k, P, N]

@@ -84,10 +84,13 @@ def _primitive_root(p: int) -> int:
         g += 1
 
 
-def required_num_primes(log_bound: float) -> int:
-    """Primes so the CRT modulus exceeds 2^(log_bound+1) (signed values)."""
+def required_num_primes(log_bound: float, n: int) -> int:
+    """Primes of `primes_for(n)` so the CRT modulus exceeds 2^(log_bound+1)
+    (signed values).  The JAX package sizes against PRIMES_31 whatever n
+    (tfhe_tpu/core/poly/ntt.py:100); every named set's count is the same
+    either way (tests/test_torch_ntt.py holds it)."""
     acc = 0.0
-    for i, p in enumerate(PRIMES_31):
+    for i, p in enumerate(primes_for(n)):
         acc += np.log2(p)
         if acc >= log_bound + 1.0:
             return i + 1
@@ -302,7 +305,7 @@ def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
     n = a.shape[-1]
     if log_bound is None:
         log_bound = 2 * 64 + np.log2(n)
-    plan = get_plan(n, required_num_primes(log_bound))
+    plan = get_plan(n, required_num_primes(log_bound, n))
     p = plan.tables(a.device)["p"]
     a_hat = ntt_forward(plan, reduce(plan, a))
     b_hat = ntt_forward(plan, reduce(plan, b))

@@ -18,7 +18,10 @@ keys.  Nothing here imports jax.
   bootstrap_key_to_ntt_paired output [n, 2, P, J, R, N] u32, DIF order
                                               → the port's paired NttBootstrapKey
 
-An integer ciphertext crosses as its blocks' LWE arrays ([..., n+1] u64
+A boolean server key crosses as its KSK data and its DIF-order
+`NttLweBootstrapKey.data` (`boolean_server_key`), a boolean ciphertext as
+its [..., n+1] u64 array (`bool_ciphertext`).  An integer ciphertext
+crosses as its blocks' LWE arrays ([..., n+1] u64
 each) and their metadata (`radix_ciphertext`); an integer key is a
 shortint key and crosses as one.
 
@@ -45,6 +48,8 @@ from .core.numeric import from_numpy_u64
 from .core.params import DecompParams
 from .core.poly import ntt
 from .cuda_lib import resolve_device
+from .boolean import BoolCiphertext
+from .boolean import ServerKey as BooleanServerKey
 from .integer.ciphertext import CrtCiphertext, RadixCiphertext, SignedRadixCiphertext
 from .shortint.ciphertext import Ciphertext
 
@@ -148,6 +153,20 @@ def multi_bit_bootstrap_key_from_dif(data, primes, decomp: DecompParams,
     std = standard_from_dif(data.reshape((ng * nv,) + data.shape[2:]), primes)
     std = std.reshape(ng, nv, J // R, R, R, n)
     return multi_bit_bootstrap_key_from_standard(std, decomp, grouping_factor, P, device)
+
+
+def boolean_server_key(ksk, bsk_dif, primes, params, device="cuda") -> BooleanServerKey:
+    """A JAX boolean server key's arrays (`boolean.gen_server_key`): its KSK
+    data [kN, l, n+1] u64 and its NttLweBootstrapKey.data [n, P, J, R, N]
+    (DIF-order residues over `primes`) → the port's boolean ServerKey."""
+    return BooleanServerKey(bsk=bootstrap_key_from_dif(bsk_dif, primes, params.pbs_decomp,
+                                                       device),
+                            ksk=keyswitch_key(ksk, params.ks_decomp, device), params=params)
+
+
+def bool_ciphertext(data, device="cuda") -> BoolCiphertext:
+    """A JAX BoolCiphertext's words [..., n+1] u64 → the port's."""
+    return BoolCiphertext(lwe=LweCiphertext(data=from_numpy_u64(data, resolve_device(device))))
 
 
 def radix_ciphertext(blocks, degrees, noise_levels, message_modulus: int,
