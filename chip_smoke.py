@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
 Drives the port's shortint keyswitch + PBS paths, its integer path, its
-boolean scheme and its apps once each, through the entry points a user
-calls, and checks them: the classic
+boolean scheme, its apps and its client-server key flow once each, through
+the entry points a user calls, and checks them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
 296 groups of 3, N=2048), the per-step routes the rotation switches select
@@ -176,6 +176,24 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   4h. the noise of encryptions made on the card (ROADMAP C10): 4096 LWE
      and GLWE phases of zero through tests/test_torch_noise.py's five gates;
      a JSON line of phases 4f to 4h;
+  4i. the client-server key flow (key_flow_path): at 2_2, a client key on
+     the card, gen_compressed_server_key (bytes on the wire against the
+     standard-domain key), save to a tfhe_tpu-v1 file, safe_load onto the
+     card, decompress() timed by CUDA events with its peak memory; the
+     decompressed standard BSK and KSK bit-identical to the full keys the
+     same threefry streams generate, and the first and last 8 input bits
+     and 64 keyswitching-key rows, decompressed on the CPU from the same
+     file, bit-identical to the card's; 512 encrypt_compressed ciphertexts
+     decompressed on the card through one KS+PBS (one pass, one K2', one
+     K1), 512/512 right and bit-identical to the call on the full key; at
+     the boolean DEFAULT_PARAMETERS_KS_PBS the same for its compressed
+     server key, then a public key through a file, 2 x 512 public-key
+     encryptions (one K2' each: the subset sum), one AND at batch 512 (one
+     pass, one K2', one K1), 512/512 right, the encryptions' first and last
+     8 rows against the plain CPU path; at 4_4 the compressed key made and
+     decompressed on the card (time, peak memory; its first and last input
+     bits against the CPU) and one KS+PBS at batch 8 (K6 once a step), right;
+     a JSON line of the phase;
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -347,6 +365,18 @@ STREAMS = 32
 STREAM_BUDGET_S = 60.0
 SHA_BUDGET_S = 120.0
 BYTE_WARMUP = 18
+# the key flow (phase 4i): a compressed shortint server key at 2_2 and a
+# compressed boolean server key and public key at the boolean
+# DEFAULT_PARAMETERS_KS_PBS, each through a tfhe_tpu-v1 file, then the 4_4
+# compressed key decompressed on the card with a KS+PBS at KEY_FLOW_44_BATCH;
+# the CPU holds take KEY_FLOW_ENDS input bits and KEY_FLOW_KSK_ROWS
+# keyswitching-key rows at each end of the key
+KEY_FLOW_SHORTINT = CLASSIC
+KEY_FLOW_BOOL = "DEFAULT_PARAMETERS_KS_PBS"
+KEY_FLOW_44 = CLASSIC_44
+KEY_FLOW_44_BATCH = 8
+KEY_FLOW_ENDS = 8
+KEY_FLOW_KSK_ROWS = 64
 
 
 def smi(query: str) -> str:
@@ -961,6 +991,331 @@ def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     return {"launches": totals, "ops": ops}
 
 
+def kspbs_launches(params, counts: dict) -> dict:
+    """The launches of one classic KS+PBS call at `params`: one decomposition
+    pass and one K2', then K1 where a ciphertext's rotation fits one block,
+    else K6's cluster step once a step (the shape rule, `rotation._rotation_route`)."""
+    from tfhe_tpu_torch.core.algorithms import external_product_num_primes
+    from tfhe_tpu_torch.core.poly import rotation
+    N, R = params.polynomial_size, params.glwe_dimension + 1
+    P = external_product_num_primes(N, R, params.pbs_decomp)
+    want = {k: 0 for k in counts}
+    want.update({"keyswitch_tc": 1, "keyswitch_decompose": 1})
+    if rotation._rotation_route(N, R, params.pbs_level * R, P) == "block":
+        want["blind_rotate"] = 1
+    else:
+        want["blind_rotate_cluster_step"] = params.lwe_dimension
+    return want
+
+
+def _timed(fn, dev) -> tuple:
+    """(fn's result, its milliseconds by CUDA events, the peak device memory
+    it allocated above what was held before it, in MB)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), (torch.cuda.max_memory_allocated(dev) - held) / 1e6
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def key_flow_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4i: the client-server key flow on the card.  At KEY_FLOW_SHORTINT:
+    a client key on the card, gen_compressed_server_key (bytes on the wire
+    against the standard-domain key), save to a tfhe_tpu-v1 file, safe_load
+    on the card, decompress() timed by CUDA events; the decompressed
+    standard BSK and KSK bit-identical to the full keys the same streams
+    generate, and their first and last KEY_FLOW_ENDS input bits and
+    KEY_FLOW_KSK_ROWS rows, decompressed on the CPU from the same file,
+    bit-identical to the card's; 512 encrypt_compressed ciphertexts
+    decompressed on the card through one KS+PBS (launches counted: one
+    pass, one K2', one K1), decrypted 512/512 and bit-identical to the call
+    on the full key.  At KEY_FLOW_BOOL: the compressed boolean server key
+    through the same file round trip and holds, a public key, 2 x 512
+    public-key encryptions (one K2' each, the subset sum), one AND at batch
+    512 (one pass, one K2', one K1) decrypted 512/512, and the encryptions'
+    first and last 8 rows against the plain CPU path.  At KEY_FLOW_44: the
+    compressed key decompressed on the card (time and peak memory); the
+    first and last input bits and KEY_FLOW_KSK_ROWS KSK rows, decompressed
+    on the CPU, bit-identical to the key in service (its spectra there, its
+    KSK rows), to the standard BSK decompressed again and to the bits
+    decompressed alone; one KS+PBS at KEY_FLOW_44_BATCH decrypted right.  → {"launches": {kernel: n},
+    "sets": [one dict a set]}."""
+    from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.core import rng, threefry
+    from tfhe_tpu_torch.core.algorithms import (bootstrap_key_to_ntt,
+                                                external_product_num_primes, seeded)
+    from tfhe_tpu_torch.core.algorithms.encryption import (generate_bootstrap_key_from_key,
+                                                           generate_keyswitch_key_from_key)
+    from tfhe_tpu_torch.core.algorithms.public_key import LwePublicKey
+    from tfhe_tpu_torch.core.params import boolean_params, shortint_params
+    from tfhe_tpu_torch.utils import serialization
+
+    totals, rows = {}, []
+
+    def count(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def ends(n, k):
+        return torch.cat([torch.arange(k), torch.arange(n - k, n)])
+
+    def compressed_holds(label, csk, p, full_gens, tmp):
+        """The file round trip of a compressed server key, decompress() on
+        the card, and the holds against the full keys and the CPU."""
+        bsk_b, ksk_b = csk.seeded_bsk.bodies, csk.seeded_ksk.bodies
+        n, L, R, N = bsk_b.shape
+        n_in, Lk = ksk_b.shape
+        wire = _nbytes(bsk_b, ksk_b)
+        standard = (n * L * R * R * N + n_in * Lk * (csk.seeded_ksk.output_lwe_dimension + 1)) * 8
+        path = os.path.join(tmp, f"{label}.npz")
+        t0 = time.perf_counter()
+        serialization.save(csk, path, compress=False)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = serialization.safe_load(path, expected_type="CompressedServerKey",
+                                         size_limit=wire + (1 << 20), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sk, ms, peak = _timed(loaded.decompress, dev)
+        bsk_std, masks_ms, _ = _timed(lambda: seeded.decompress_bootstrap_key(loaded.seeded_bsk),
+                                      dev)
+        ksk, ksk_ms, _ = _timed(lambda: seeded.decompress_keyswitch_key(loaded.seeded_ksk), dev)
+        full_bsk, full_ksk = full_gens()
+        exact = (torch.equal(bsk_std.data, full_bsk.data) and torch.equal(ksk.data, full_ksk.data)
+                 and torch.equal(sk.ksk.data, full_ksk.data))
+        t0 = time.perf_counter()
+        cpu = serialization.safe_load(path, device="cpu")
+        bits = ends(n, KEY_FLOW_ENDS)
+        cpu_bits = seeded.decompress_bootstrap_key(cpu.seeded_bsk, bits=bits).data
+        held = torch.equal(cpu_bits, bsk_std.data[bits.to(dev)].cpu())
+        for r0 in (0, n_in - KEY_FLOW_KSK_ROWS):
+            part = seeded.decompress_keyswitch_key(cpu.seeded_ksk,
+                                                   rows=(r0, r0 + KEY_FLOW_KSK_ROWS))
+            held = held and torch.equal(part.data, ksk.data[r0:r0 + KEY_FLOW_KSK_ROWS].cpu())
+        cpu_s = time.perf_counter() - t0
+        print(f"{tag} key flow {label}: compressed server key {wire / 1e6:.1f} MB on the wire "
+              f"against {standard / 1e6:.1f} MB of standard-domain key "
+              f"({standard / wire:.2f}x); file {os.path.getsize(path) / 1e6:.1f} MB, save "
+              f"{save_s:.2f} s, safe_load onto the card {load_s:.2f} s; decompress() "
+              f"{ms:.3f} ms by CUDA events (peak {peak:.1f} MB above what was held), of which "
+              f"the BSK's masks and standard key {masks_ms:.3f} ms and the KSK with its limbs "
+              f"{ksk_ms:.3f} ms (timed again alone); the decompressed BSK and KSK "
+              f"{'bit-identical' if exact else 'MISMATCH'} to the full keys of the same "
+              f"streams; input bits {bits.tolist()[:2]}..{bits.tolist()[-2:]} and "
+              f"{KEY_FLOW_KSK_ROWS} KSK rows at each end decompressed on the CPU from the file "
+              f"{'bit-identical' if held else 'MISMATCH'} to the card's ({cpu_s:.1f} s)",
+              flush=True)
+        if not (exact and held):
+            raise AssertionError(f"{label}: decompression exact {exact}, CPU slices held {held}")
+        del bsk_std, ksk, full_bsk, full_ksk
+        return sk, {"wire_mb": wire / 1e6, "standard_mb": standard / 1e6,
+                    "file_mb": os.path.getsize(path) / 1e6, "save_s": save_s,
+                    "load_s": load_s, "decompress_ms": ms, "decompress_peak_mb": peak,
+                    "bsk_std_ms": masks_ms, "ksk_ms": ksk_ms, "cpu_hold_s": cpu_s}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- shortint at KEY_FLOW_SHORTINT ----------------------------------
+        p = shortint_params(KEY_FLOW_SHORTINT)
+        ck = shortint.gen_client_key(p, seed, dev)
+        csk, gen_ms, _ = _timed(lambda: shortint.gen_compressed_server_key(ck, seed), dev)
+
+        def shortint_full():
+            # the streams of gen_compressed_server_key (shortint/server_key.py)
+            return (generate_bootstrap_key_from_key(
+                threefry.key_from_seed(2 * seed + 1, dev), rng.generator(seed, 5, device=dev),
+                ck.lwe_sk, ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std),
+                generate_keyswitch_key_from_key(
+                    threefry.key_from_seed(2 * seed + 2, dev), rng.generator(seed, 6, device=dev),
+                    ck.big_sk, ck.lwe_sk, p.ks_decomp, p.lwe_noise_std))
+        sk, row = compressed_holds("2_2", csk, p, shortint_full, tmp)
+        del csk
+        mm = p.message_modulus
+        m = torch.randint(0, mm, (B,), generator=torch.Generator().manual_seed(seed))
+        cct = ck.encrypt_compressed(m.to(dev), seed=seed + 40)
+        ct, enc_ms, _ = _timed(cct.decompress, dev)
+        f = lambda x: (3 * x + 1) % mm
+        lut = sk.generate_lookup_table(f)
+        zero_counts()
+        out = sk.apply_lookup_table(ct, lut)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = kspbs_launches(p, counts)
+        if counts != want:
+            raise AssertionError(f"key flow 2_2: launches {counts}, expected {want}")
+        count(counts)
+        right = int((ck.decrypt(out).cpu() == f(m)).sum())
+        fb, fk = shortint_full()
+        npr = external_product_num_primes(p.polynomial_size, p.glwe_size, p.pbs_decomp)
+        full_sk = shortint.ServerKey(ksk=fk, bsk=bootstrap_key_to_ntt(fb, npr), params=p)
+        del fb
+        same = torch.equal(out.lwe.data, full_sk.apply_lookup_table(ct, lut).lwe.data)
+        kspbs_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+        print(f"{tag} key flow 2_2: gen_compressed_server_key on the card {gen_ms:.1f} ms; "
+              f"{B} encrypt_compressed ciphertexts ({_nbytes(cct.ct.body)} B of bodies) "
+              f"decompressed on the card in {enc_ms:.3f} ms; one KS+PBS on the decompressed "
+              f"key: {right}/{B} decrypt right, launches {json.dumps(counts)}, output "
+              f"{'bit-identical' if same else 'MISMATCH'} to the same call on the full key; "
+              f"KS+PBS {kspbs_ms:.3f} ms at batch {B} (decompress() "
+              f"{row['decompress_ms'] / kspbs_ms:.2f}x of it)", flush=True)
+        if right != B or not same:
+            raise AssertionError(f"key flow 2_2: {right}/{B} right, same as the full key {same}")
+        rows.append({"set": KEY_FLOW_SHORTINT, "gen_ms": gen_ms, **row,
+                     "ct_decompress_ms": enc_ms, "right": right, "kspbs_ms": kspbs_ms,
+                     "launches": counts})
+        del ck, sk, full_sk, cct, ct, out, lut
+        torch.cuda.empty_cache()
+
+        # ---- boolean at KEY_FLOW_BOOL ---------------------------------------
+        bp = boolean_params(KEY_FLOW_BOOL)
+        bck = Bo.gen_client_key(bp, seed, dev)
+        bcsk, gen_ms, _ = _timed(lambda: Bo.gen_compressed_server_key(bck, seed), dev)
+
+        def boolean_full():
+            # the streams of boolean.gen_compressed_server_key
+            return (generate_bootstrap_key_from_key(
+                threefry.key_from_seed(2 * seed + 0xB001, dev),
+                rng.generator(seed, 0xB0, 5, device=dev), bck.lwe_sk, bck.glwe_sk,
+                bp.pbs_decomp, bp.glwe_noise_std),
+                generate_keyswitch_key_from_key(
+                    threefry.key_from_seed(2 * seed + 0xB002, dev),
+                    rng.generator(seed, 0xB0, 6, device=dev), bck.glwe_sk.as_lwe_secret_key(),
+                    bck.lwe_sk, bp.ks_decomp, bp.lwe_noise_std))
+        bsk, brow = compressed_holds("boolean", bcsk, bp, boolean_full, tmp)
+        del bcsk
+        pk, pk_ms, _ = _timed(lambda: Bo.gen_public_key(bck, seed=seed), dev)
+        path = os.path.join(tmp, "pk.npz")
+        serialization.save(pk, path, compress=False)
+        pk = serialization.safe_load(path, expected_type="PublicKey", device=dev)
+        mb = torch.randint(0, 2, (2, B), generator=torch.Generator().manual_seed(seed)).bool()
+        encs, enc_ms = [], []
+        for i in range(2):
+            zero_counts()
+            ct, ms, _ = _timed(lambda: Bo.encrypt_with_public_key(pk, mb[i].to(dev),
+                                                                  seed=seed + 50 + i), dev)
+            counts = read_counts()
+            want = {k: 0 for k in counts}
+            want["keyswitch_tc"] = 1
+            if counts != want:
+                raise AssertionError(f"public-key encryption: launches {counts}, expected {want}")
+            count(counts)
+            encs.append(ct)
+            enc_ms.append(ms)
+        enc_right = sum(int((Bo.decrypt(bck, c).cpu() == mb[i]).sum())
+                        for i, c in enumerate(encs))
+        zero_counts()
+        out = Bo.and_(bsk, encs[0], encs[1])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = kspbs_launches(bp, counts)
+        if counts != want:
+            raise AssertionError(f"key flow AND: launches {counts}, expected {want}")
+        count(counts)
+        and_right = int((Bo.decrypt(bck, out).cpu() == (mb[0] & mb[1])).sum())
+        t0 = time.perf_counter()
+        cpu_pk = Bo.PublicKey(pk=LwePublicKey(data=pk.pk.data.cpu()), params=bp)
+        ref = Bo.encrypt_with_public_key(cpu_pk, mb[0], seed=seed + 50)
+        pk_held = torch.equal(_ends(ref.lwe.data), _ends(encs[0].lwe.data))
+        cpu_s = time.perf_counter() - t0
+        print(f"{tag} key flow boolean {KEY_FLOW_BOOL}: gen_compressed_server_key on the card "
+              f"{gen_ms:.1f} ms; public key ({pk.pk.zero_encryption_count} encryptions of zero, "
+              f"{_nbytes(pk.pk.data) / 1e6:.1f} MB) {pk_ms:.1f} ms, through a file; {B} "
+              f"public-key encryptions {enc_ms[0]:.3f} and {enc_ms[1]:.3f} ms (one K2' each), "
+              f"{enc_right}/{2 * B} decrypt right; AND at batch {B} on the decompressed key: "
+              f"{and_right}/{B} right, launches {json.dumps(counts)}; the first and last 8 rows "
+              f"of the encryptions {'bit-identical' if pk_held else 'MISMATCH'} to the plain CPU "
+              f"path ({cpu_s:.1f} s)", flush=True)
+        if enc_right != 2 * B or and_right != B or not pk_held:
+            raise AssertionError(f"key flow boolean: encryptions {enc_right}/{2 * B}, AND "
+                                 f"{and_right}/{B}, rows held {pk_held}")
+        rows.append({"set": KEY_FLOW_BOOL, "gen_ms": gen_ms, **brow, "pk_ms": pk_ms,
+                     "pk_encrypt_ms": enc_ms, "right": enc_right + and_right,
+                     "launches": counts})
+        del bck, bsk, pk, encs, out
+        torch.cuda.empty_cache()
+
+    # ---- the 4_4 compressed key decompressed on the card --------------------
+    p = shortint_params(KEY_FLOW_44)
+    ck = shortint.gen_client_key(p, seed, dev)
+    csk, gen_ms, gen_peak = _timed(lambda: shortint.gen_compressed_server_key(ck, seed), dev)
+    wire = _nbytes(csk.seeded_bsk.bodies, csk.seeded_ksk.bodies)
+    n_in = csk.seeded_ksk.bodies.shape[0]
+    bits, dbits = ends(p.lwe_dimension, 1), ends(p.lwe_dimension, 1).to(dev)
+    part, part_ms, _ = _timed(lambda: seeded.decompress_bootstrap_key(csk.seeded_bsk,
+                                                                     bits=dbits), dev)
+    # the CPU's slices of the same bodies: the end bits' GGSWs, the end KSK rows
+    t0 = time.perf_counter()
+    cpu_part = seeded.decompress_bootstrap_key(
+        dataclasses.replace(csk.seeded_bsk, bodies=csk.seeded_bsk.bodies.cpu()), bits=bits)
+    cpu_ksk = dataclasses.replace(csk.seeded_ksk, bodies=csk.seeded_ksk.bodies.cpu())
+    ksk_ends = [(r0, seeded.decompress_keyswitch_key(
+        cpu_ksk, rows=(r0, r0 + KEY_FLOW_KSK_ROWS)).data)
+        for r0 in (0, n_in - KEY_FLOW_KSK_ROWS)]
+    cpu_s = time.perf_counter() - t0
+    held = {"bits alone": torch.equal(cpu_part.data, part.data.cpu())}
+    del part
+    sk, ms, peak = _timed(csk.decompress, dev)
+    # the key in service: its spectra at the end bits and its end KSK rows
+    npr = external_product_num_primes(p.polynomial_size, p.glwe_size, p.pbs_decomp)
+    spectra = bootstrap_key_to_ntt(dataclasses.replace(cpu_part, data=cpu_part.data.to(dev)),
+                                   npr).spectra
+    held["BSK spectra in service"] = torch.equal(spectra, sk.bsk.spectra[dbits])
+    held["KSK rows in service"] = all(
+        torch.equal(rows_, sk.ksk.data[r0:r0 + KEY_FLOW_KSK_ROWS].cpu())
+        for r0, rows_ in ksk_ends)
+    del spectra
+    # the mask regeneration alone, timed again: the standard BSK, the KSK with its limbs
+    bsk_std, bsk_ms, _ = _timed(lambda: seeded.decompress_bootstrap_key(csk.seeded_bsk), dev)
+    held["standard BSK bits"] = torch.equal(bsk_std.data[dbits].cpu(), cpu_part.data)
+    del bsk_std, cpu_part
+    ksk, ksk_ms, _ = _timed(lambda: seeded.decompress_keyswitch_key(csk.seeded_ksk), dev)
+    held["KSK alone"] = torch.equal(ksk.data, sk.ksk.data)
+    del ksk
+    m = torch.randint(0, p.message_modulus, (KEY_FLOW_44_BATCH,),
+                      generator=torch.Generator().manual_seed(seed))
+    ct = ck.encrypt_compressed(m.to(dev), seed=seed + 44).decompress()
+    f = lambda x: (3 * x + 1) % p.message_modulus
+    lut = sk.generate_lookup_table(f)
+    zero_counts()
+    out, kspbs_ms, _ = _timed(lambda: sk.apply_lookup_table(ct, lut), dev)
+    counts = read_counts()
+    want = kspbs_launches(p, counts)
+    if counts != want:
+        raise AssertionError(f"key flow 4_4: launches {counts}, expected {want}")
+    count(counts)
+    right = int((ck.decrypt(out).cpu() == f(m)).sum())
+    print(f"{tag} key flow 4_4: gen_compressed_server_key on the card {gen_ms:.1f} ms (peak "
+          f"{gen_peak:.1f} MB); {wire / 1e6:.1f} MB on the wire; decompress() on the card "
+          f"{ms:.3f} ms by CUDA events, peak {peak:.1f} MB above what was held (spectra "
+          f"{_nbytes(sk.bsk.spectra) / 1e9:.2f} GB, keyswitching key and limbs "
+          f"{_nbytes(sk.ksk.data, sk.ksk.limbs) / 1e9:.2f} GB); timed again alone, the "
+          f"BSK's masks and standard key {bsk_ms:.3f} ms, the KSK with its limbs "
+          f"{ksk_ms:.3f} ms (the same words as decompress()'s); input bits {bits.tolist()} "
+          f"decompressed alone on the card in {part_ms:.3f} ms; against the CPU's input bits "
+          f"{bits.tolist()} and {KEY_FLOW_KSK_ROWS} KSK rows at each end ({cpu_s:.1f} s): "
+          f"{json.dumps(held)}; one KS+PBS at batch {KEY_FLOW_44_BATCH}: "
+          f"{right}/{KEY_FLOW_44_BATCH} right, {kspbs_ms:.1f} ms, launches "
+          f"{json.dumps(counts)}", flush=True)
+    if not all(held.values()) or right != KEY_FLOW_44_BATCH:
+        raise AssertionError(f"key flow 4_4: held {held}, {right}/{KEY_FLOW_44_BATCH} right")
+    rows.append({"set": KEY_FLOW_44, "gen_ms": gen_ms, "gen_peak_mb": gen_peak,
+                 "wire_mb": wire / 1e6, "decompress_ms": ms, "decompress_peak_mb": peak,
+                 "bsk_std_ms": bsk_ms, "ksk_ms": ksk_ms, "bits_ms": part_ms,
+                 "cpu_hold_s": cpu_s, "kspbs_ms": kspbs_ms, "batch": KEY_FLOW_44_BATCH,
+                 "right": right, "launches": counts})
+    del ck, csk, sk, ct, out, lut
+    torch.cuda.empty_cache()
+    return {"launches": totals, "sets": rows}
+
+
 def noise_hold(seed: int, dev, tag: str) -> dict:
     """ROADMAP C10 on the card: the phases of 4096 encryptions of zero, LWE
     (n = 742) and GLWE (k = 1, N = 2048: 2 polynomials), drawn from the card's
@@ -1510,6 +1865,25 @@ def main() -> int:
 
     def lap(phase):
         print(f"{tag} phase {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def zero_counts():
+        rotation.launches = rotation.multi_bit_launches = 0
+        keyswitch.launches = keyswitch.decompose_launches = keyswitch.wide_launches = 0
+        rotation.step_launches = rotation.step_variant_launches = 0
+        rotation.cluster_launches = rotation.cluster_variant_launches = 0
+        rotation.staged_launches = 0
+
+    def read_counts():
+        return {"blind_rotate": rotation.launches,
+                "blind_rotate_multibit": rotation.multi_bit_launches,
+                "blind_rotate_step": rotation.step_launches,
+                "blind_rotate_step_variants": rotation.step_variant_launches,
+                "blind_rotate_cluster_step": rotation.cluster_launches,
+                "blind_rotate_cluster_step_variants": rotation.cluster_variant_launches,
+                "blind_rotate_staged": rotation.staged_launches,
+                "keyswitch_tc": keyswitch.launches,
+                "keyswitch_decompose": keyswitch.decompose_launches,
+                "keyswitch_mac": keyswitch.wide_launches}
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2227,25 +2601,6 @@ def main() -> int:
                for name in WIDE_KS_SETS}
     torch.cuda.empty_cache()
 
-    def zero_counts():
-        rotation.launches = rotation.multi_bit_launches = 0
-        keyswitch.launches = keyswitch.decompose_launches = keyswitch.wide_launches = 0
-        rotation.step_launches = rotation.step_variant_launches = 0
-        rotation.cluster_launches = rotation.cluster_variant_launches = 0
-        rotation.staged_launches = 0
-
-    def read_counts():
-        return {"blind_rotate": rotation.launches,
-                "blind_rotate_multibit": rotation.multi_bit_launches,
-                "blind_rotate_step": rotation.step_launches,
-                "blind_rotate_step_variants": rotation.step_variant_launches,
-                "blind_rotate_cluster_step": rotation.cluster_launches,
-                "blind_rotate_cluster_step_variants": rotation.cluster_variant_launches,
-                "blind_rotate_staged": rotation.staged_launches,
-                "keyswitch_tc": keyswitch.launches,
-                "keyswitch_decompose": keyswitch.decompose_launches,
-                "keyswitch_mac": keyswitch.wide_launches}
-
     def check_requests(ck, outs, expect, path, seconds, batch=B):
         right = 0
         for i, (out, want) in enumerate(zip(outs, expect)):
@@ -2484,6 +2839,12 @@ def main() -> int:
                       "boolean_trace": bool_path["trace"], "apps": app_path["apps"],
                       "noise": noise}))
 
+    lap("4i")
+    # ---- 4i. the client-server key flow ----------------------------------------
+    key_flow = key_flow_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"key_flow": key_flow["sets"]}))
+    slice_launches = {k: v + key_flow["launches"].get(k, 0) for k, v in slice_launches.items()}
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -2509,10 +2870,15 @@ def main() -> int:
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
     print(f"integer path kernel launches (every op): {json.dumps(int_launches)}")
-    print(f"boolean, apps and PBS -> KS paths kernel launches: {json.dumps(slice_launches)}")
+    print(f"boolean, apps, PBS -> KS and key-flow paths kernel launches: "
+          f"{json.dumps(slice_launches)}")
     for name in ("blind_rotate", "keyswitch_tc", "keyswitch_decompose"):
-        if bool_path["launches"][name] <= 0 or app_path["launches"][name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the boolean or app path")
+        if min(bool_path["launches"][name], app_path["launches"][name],
+               key_flow["launches"][name]) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the boolean, app or key-flow "
+                                 f"path")
+    if key_flow["launches"]["blind_rotate_cluster_step"] <= 0:
+        raise AssertionError("the key flow's 4_4 KS+PBS did not launch K6's cluster step")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
                         ("keyswitch_tc", classic_launches["keyswitch_tc"]),
                         ("keyswitch_decompose", classic_launches["keyswitch_decompose"]),
@@ -2625,7 +2991,8 @@ def main() -> int:
                (f"GROUP_3 batch {B}, {steps_per_call[GROUP_3]} launches", k5m_ms,
                 k5m_plain_ms, k5m_bound)], rotation._CLUSTER),
         entry("blind_rotate_cluster_step", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
-              sum(c["blind_rotate_cluster_step"] for c in large_launches.values()),
+              sum(c["blind_rotate_cluster_step"] for c in large_launches.values())
+              + slice_launches["blind_rotate_cluster_step"],
               k6["delta"]["err"], k6["delta"]["ms"], k6["delta"]["plain_ms"],
               k6["delta"]["bound"], k6["delta"]["shapes"]),
         entry("blind_rotate_cluster_step_variants", rot_src,

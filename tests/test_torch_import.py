@@ -39,7 +39,10 @@ def test_imports_with_jax_blocked():
             "tfhe_tpu_torch.boolean", "tfhe_tpu_torch.apps", "tfhe_tpu_torch.apps.trivium",
             "tfhe_tpu_torch.examples", "tfhe_tpu_torch.examples.sha256_bool",
             "tfhe_tpu_torch.examples.dark_market",
-            "tfhe_tpu_torch.examples.regex_engine"} <= mods
+            "tfhe_tpu_torch.examples.regex_engine",
+            "tfhe_tpu_torch.core.threefry", "tfhe_tpu_torch.core.algorithms.seeded",
+            "tfhe_tpu_torch.core.algorithms.public_key", "tfhe_tpu_torch.utils",
+            "tfhe_tpu_torch.utils.serialization"} <= mods
 
 
 def _named_sets():

@@ -15,10 +15,12 @@ path only; here its keys and server raise `NotImplementedError` (ROADMAP
 A9c).  Torus constants at or above 2^63 (false = 7/8) are int64 bit
 patterns: every add and multiply wraps mod 2^64.
 
-Not ported yet (ROADMAP A9b, after A7): `CompressedCiphertext`,
-`encrypt_compressed`, `PublicKey`, `gen_public_key`,
-`encrypt_with_public_key`, `CompressedServerKey`, `CompressedPublicKey`.
-Every entry point runs on the card unless given device="cpu" (or a key on
+The key forms (tfhe_tpu boolean/__init__.py:143-163, :293-411): seeded
+ciphertexts (`encrypt_compressed`), the list-of-zeros public key
+(`gen_public_key`, `encrypt_with_public_key`: the subset sum on K2′, bit
+for bit the JAX package's on the same key and seed), and the compressed
+server and public keys, whose masks regenerate from their seeds on the
+server's device.  Every entry point runs on the card unless given device="cpu" (or a key on
 the CPU); without a card that raises.
 """
 from __future__ import annotations
@@ -28,7 +30,10 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core import rng
+from ..core import rng, threefry
+from ..core.algorithms import seeded
+from ..core.algorithms.public_key import (LwePublicKey, encrypt_lwe_with_public_key,
+                                          generate_lwe_public_key)
 from ..core.algorithms import (bootstrap_key_to_ntt, decrypt_lwe, encrypt_lwe,
                                external_product_num_primes, generate_bootstrap_key,
                                generate_glwe_secret_key, generate_keyswitch_key,
@@ -130,18 +135,23 @@ class BoolCiphertext:
         return self.lwe.data.device
 
 
-def gen_keys(params: BooleanParameters | str = "DEFAULT_PARAMETERS", seed: int = 0,
-             device="cuda"):
-    """→ (ClientKey, ServerKey) on `device` (reference boolean::gen_keys),
-    drawn from the port's generators: the bits differ from the JAX
-    package's for the same seed."""
+def gen_client_key(params: BooleanParameters | str = "DEFAULT_PARAMETERS", seed: int = 0,
+                   device="cuda") -> ClientKey:
+    """The client key of gen_keys alone, on `device`, drawn from the port's
+    generators: the bits differ from the JAX package's for the same seed."""
     params = _checked(params)
     device = resolve_device(device)
     lwe_sk = generate_lwe_secret_key(rng.generator(seed, 0xB0, 1, device=device),
                                      params.lwe_dimension)
     glwe_sk = generate_glwe_secret_key(rng.generator(seed, 0xB0, 2, device=device),
                                        params.glwe_dimension, params.polynomial_size)
-    ck = ClientKey(lwe_sk=lwe_sk, glwe_sk=glwe_sk, params=params)
+    return ClientKey(lwe_sk=lwe_sk, glwe_sk=glwe_sk, params=params)
+
+
+def gen_keys(params: BooleanParameters | str = "DEFAULT_PARAMETERS", seed: int = 0,
+             device="cuda"):
+    """→ (ClientKey, ServerKey) on `device` (reference boolean::gen_keys)."""
+    ck = gen_client_key(params, seed, device)
     return ck, gen_server_key(ck, seed)
 
 
@@ -180,6 +190,28 @@ def encrypt(ck: ClientKey, messages, seed: int = 0) -> BoolCiphertext:
     ct = encrypt_lwe(rng.generator(seed, 0xB1, device=ck.device), ck.encryption_key, pts,
                      _fresh_noise_std(ck.params))
     return BoolCiphertext(lwe=ct)
+
+
+@dataclass(frozen=True)
+class CompressedCiphertext:
+    """A seeded boolean ciphertext: one torus word a bool and the mask's
+    seed (reference boolean CompressedCiphertext)."""
+
+    seeded: seeded.SeededLweCiphertext
+    params: BooleanParameters = None
+
+    def decompress(self, device=None) -> BoolCiphertext:
+        return BoolCiphertext(lwe=seeded.decompress_lwe(self.seeded, device))
+
+
+def encrypt_compressed(ck: ClientKey, messages, seed: int = 1) -> CompressedCiphertext:
+    """reference ClientKey::encrypt_compressed: the mask is the seed's
+    stream (the JAX package's for the same seed), the noise a generator's
+    of the seed."""
+    pts = _encode(ck.params, messages, ck.device)
+    sct = seeded.encrypt_lwe_seeded(seed, rng.generator(seed, 0x3E, device=ck.device),
+                                    ck.encryption_key, pts, _fresh_noise_std(ck.params))
+    return CompressedCiphertext(seeded=sct, params=ck.params)
 
 
 def trivial_encrypt(params: BooleanParameters, messages, device="cuda") -> BoolCiphertext:
@@ -304,6 +336,102 @@ def mux(sk: ServerKey, cond: BoolCiphertext, then_ct: BoolCiphertext,
 
 
 # ---------------------------------------------------------------------------
+# public keys (reference boolean/public_key/)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PublicKey:
+    """List-of-zero-encryptions public key for the boolean scheme."""
+
+    pk: LwePublicKey
+    params: BooleanParameters
+
+    @property
+    def device(self) -> torch.device:
+        return self.pk.data.device
+
+
+def gen_public_key(ck: ClientKey, zero_count: int | None = None, seed: int = 0) -> PublicKey:
+    """2n encryptions of zero (or zero_count) under the encryption key,
+    masks from fork(key_from_seed(seed), 0xB0B) as the JAX package draws
+    them, noise from a generator of the seed."""
+    zero_count = zero_count or 2 * ck.encryption_key.lwe_dimension
+    key = threefry.fork(threefry.key_from_seed(seed, ck.device), 0xB0B)
+    pk = generate_lwe_public_key(key, rng.generator(seed, 0xB0B, device=ck.device),
+                                 ck.encryption_key, zero_count, _fresh_noise_std(ck.params))
+    return PublicKey(pk=pk, params=ck.params)
+
+
+def encrypt_with_public_key(pk: PublicKey, messages, seed: int = 0) -> BoolCiphertext:
+    """The subset of fork(key_from_seed(seed), 0xB0C) summed (one K2′
+    launch on the card): bit-identical to the JAX package's encryption on
+    the same key and seed."""
+    pts = _encode(pk.params, messages, pk.device)
+    key = threefry.fork(threefry.key_from_seed(seed, pk.device), 0xB0C)
+    return BoolCiphertext(lwe=encrypt_lwe_with_public_key(key, pk.pk, pts))
+
+
+# ---------------------------------------------------------------------------
+# compressed (seeded) server and public keys (reference boolean/server_key
+# CompressedServerKey, boolean/public_key/compressed.rs)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CompressedServerKey:
+    """Seeds and bodies only: the BSK's GGSW masks and the KSK's masks
+    regenerate from the seeds on decompression ((k+1)x and (n+1)x smaller
+    on the wire)."""
+
+    seeded_bsk: seeded.SeededLweBootstrapKey
+    seeded_ksk: seeded.SeededLweKeyswitchKey
+    params: BooleanParameters = None
+
+    def decompress(self, device=None) -> ServerKey:
+        """The server key on the bodies' device (or `device`)."""
+        bsk, ksk = seeded.decompress_server_key(self.seeded_bsk, self.seeded_ksk, device)
+        return ServerKey(bsk=bsk, ksk=ksk, params=_checked(self.params))
+
+
+def gen_compressed_server_key(ck: ClientKey, seed: int = 0) -> CompressedServerKey:
+    """The compressed twin of gen_server_key (reference
+    boolean::CompressedServerKey::new): BSK masks from seed 2s+0xB001, KSK
+    masks from 2s+0xB002, as the JAX package lays them out."""
+    p = ck.params
+    _, sbsk = seeded.generate_seeded_bootstrap_key(
+        seed * 2 + 0xB001, rng.generator(seed, 0xB0, 5, device=ck.device), ck.lwe_sk,
+        ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std)
+    _, sksk = seeded.generate_seeded_keyswitch_key(
+        seed * 2 + 0xB002, rng.generator(seed, 0xB0, 6, device=ck.device),
+        ck.glwe_sk.as_lwe_secret_key(), ck.lwe_sk, p.ks_decomp, p.lwe_noise_std)
+    return CompressedServerKey(seeded_bsk=sbsk, seeded_ksk=sksk, params=p)
+
+
+@dataclass(frozen=True)
+class CompressedPublicKey:
+    """A seeded list-of-zero-encryptions public key: the bodies and the
+    mask's seed (reference boolean/public_key/compressed.rs)."""
+
+    seeded: seeded.SeededLwePublicKey
+    params: BooleanParameters = None
+
+    def decompress(self, device=None) -> PublicKey:
+        return PublicKey(pk=seeded.decompress_lwe_public_key(self.seeded, device),
+                         params=self.params)
+
+
+def gen_compressed_public_key(ck: ClientKey, zero_count: int | None = None,
+                              seed: int = 0) -> CompressedPublicKey:
+    """Masks from seed 2s+0xB003, as the JAX package lays them out."""
+    zero_count = zero_count or 2 * ck.encryption_key.lwe_dimension
+    _, spk = seeded.generate_seeded_lwe_public_key(
+        seed * 2 + 0xB003, rng.generator(seed, 0xB0, 7, device=ck.device), ck.encryption_key,
+        zero_count, _fresh_noise_std(ck.params))
+    return CompressedPublicKey(seeded=spk, params=ck.params)
+
+
+# ---------------------------------------------------------------------------
 # casting between boolean key sets (reference boolean/key_switching_key/)
 # ---------------------------------------------------------------------------
 
@@ -328,6 +456,9 @@ def gen_key_switching_key(ck1: ClientKey, ck2: ClientKey, ks_base_log: int = 2,
 
 
 __all__ = ["plaintext_true", "plaintext_false", "ClientKey",
-           "ServerKey", "BoolCiphertext", "gen_keys", "gen_server_key", "encrypt",
+           "ServerKey", "BoolCiphertext", "gen_client_key", "gen_keys", "gen_server_key", "encrypt",
+           "CompressedCiphertext", "encrypt_compressed",
            "trivial_encrypt", "decrypt", "and_", "nand", "or_", "nor", "xor_", "xor", "xnor",
-           "not_", "mux", "BooleanKeySwitchingKey", "gen_key_switching_key"]
+           "not_", "mux", "PublicKey", "gen_public_key", "encrypt_with_public_key",
+           "CompressedServerKey", "gen_compressed_server_key", "CompressedPublicKey",
+           "gen_compressed_public_key", "BooleanKeySwitchingKey", "gen_key_switching_key"]

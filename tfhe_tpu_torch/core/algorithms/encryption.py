@@ -3,7 +3,11 @@ bootstrap key's conversion into the port's spectra.
 
 Counterpart of `tfhe_tpu/core/algorithms/encryption.py`.  Randomness comes
 from explicit `torch.Generator`s (`core/rng.py`); every function runs on the
-device of its inputs.
+device of its inputs.  The `*_from_key` twins (and
+`generate_packing_keyswitch_key`) take a threefry key instead
+(`core/threefry.py`): their masks follow the JAX package's key tree index
+for index, so the seeded forms (`seeded.py`) replay them, while their noise
+still comes from a torch generator.
 """
 from __future__ import annotations
 
@@ -13,10 +17,10 @@ import numpy as np
 import torch
 
 from ... import config
-from .. import rng
+from .. import rng, threefry
 from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey,
-                        LweCiphertext, LweKeyswitchKey, LweSecretKey,
-                        NttBootstrapKey)
+                        LweCiphertext, LweKeyswitchKey, LwePackingKeyswitchKey,
+                        LweSecretKey, NttBootstrapKey)
 from ..numeric import LOG_Q, as_i64
 from ..params import DecompParams
 from ..poly import ntt
@@ -62,6 +66,16 @@ def encrypt_lwe(gen: torch.Generator, sk: LweSecretKey, plaintexts: torch.Tensor
     noise = rng.gaussian_noise(gen, shape, noise_std)
     return LweCiphertext(data=encrypt_lwe_deterministic_mask(
         mask, sk, plaintexts, noise))
+
+
+def encrypt_lwe_from_key(key: torch.Tensor, gen: torch.Generator, sk: LweSecretKey,
+                         plaintexts: torch.Tensor, noise_std: float) -> LweCiphertext:
+    """`encrypt_lwe` with the mask of tfhe_tpu encrypt_lwe(key, ...): the
+    words of split(key)[0] over plaintexts.shape + (n,)."""
+    mask = threefry.uniform_torus(threefry.split(key)[..., 0, :],
+                                  tuple(plaintexts.shape) + (sk.lwe_dimension,))
+    noise = rng.gaussian_noise(gen, tuple(plaintexts.shape), noise_std)
+    return LweCiphertext(data=encrypt_lwe_deterministic_mask(mask, sk, plaintexts, noise))
 
 
 def decrypt_lwe(ct: LweCiphertext, sk: LweSecretKey) -> torch.Tensor:
@@ -113,6 +127,23 @@ def encrypt_glwe(gen: torch.Generator, sk: GlweSecretKey,
         mask, sk, plaintext_polys, noise))
 
 
+def encrypt_glwe_from_key(key: torch.Tensor, gen: torch.Generator, sk: GlweSecretKey,
+                          plaintext_polys: torch.Tensor, noise_std: float) -> GlweCiphertext:
+    """`encrypt_glwe` with the mask of tfhe_tpu encrypt_glwe(key, ...): the
+    words of split(key)[0] over plaintext_polys.shape[:-1] + (k, N)."""
+    k, n = sk.glwe_dimension, sk.polynomial_size
+    lead = tuple(plaintext_polys.shape[:-1])
+    mask = threefry.uniform_torus(threefry.split(key)[..., 0, :], lead + (k, n))
+    noise = rng.gaussian_noise(gen, lead + (n,), noise_std)
+    return GlweCiphertext(data=encrypt_glwe_deterministic_mask(
+        mask, sk, plaintext_polys, noise))
+
+
+def decrypt_glwe(ct: GlweCiphertext, sk: GlweSecretKey) -> torch.Tensor:
+    """Phase polynomials body - sum_i a_i * s_i, int64 [..., N]."""
+    return ct.body - _glwe_mask_dot_key(ct.mask, sk.bits)
+
+
 def trivial_glwe(plaintext_polys: torch.Tensor, glwe_dimension: int) -> GlweCiphertext:
     lead = tuple(plaintext_polys.shape[:-1])
     mask = torch.zeros(lead + (glwe_dimension, plaintext_polys.shape[-1]),
@@ -151,6 +182,34 @@ def encrypt_constant_ggsw(gen: torch.Generator, sk: GlweSecretKey,
     return encrypt_glwe(gen, sk, ggsw_plaintexts(msg, sk, decomp), noise_std).data
 
 
+def ggsw_masks_from_key(keys: torch.Tensor, levels: int, glwe_size: int, n_poly: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """The GLWE masks of tfhe_tpu encrypt_constant_ggsw(key, ...) under each
+    key of keys [..., 2]: row r of the GGSW takes split(key, l*(k+1))[r], its
+    mask split(that)[0] over (k, N) → [..., l, k+1, k, N] (into `out`, a view
+    of that shape, if given)."""
+    k = glwe_size - 1
+    lead = tuple(keys.shape[:-1])
+    mask_keys = threefry.split(threefry.split(keys, levels * glwe_size))[..., 0, :]
+    if out is not None:
+        out = out.view(lead + (levels * glwe_size, k, n_poly))
+    masks = threefry.uniform_torus(mask_keys, (k, n_poly), out=out)
+    return masks.view(lead + (levels, glwe_size, k, n_poly))
+
+
+def encrypt_constant_ggsw_from_key(keys: torch.Tensor, gen: torch.Generator,
+                                   sk: GlweSecretKey, msg: torch.Tensor,
+                                   decomp: DecompParams, noise_std: float) -> torch.Tensor:
+    """GGSWs of msg [...] each under its key of keys [..., 2], masks as
+    tfhe_tpu encrypt_constant_ggsw draws them (`ggsw_masks_from_key`), noise from
+    gen: data [..., l, k+1, k+1, N]."""
+    k, n = sk.glwe_dimension, sk.polynomial_size
+    masks = ggsw_masks_from_key(keys, decomp.level, k + 1, n)
+    pts = ggsw_plaintexts(msg, sk, decomp)
+    noise = rng.gaussian_noise(gen, tuple(pts.shape), noise_std)
+    return encrypt_glwe_deterministic_mask(masks, sk, pts, noise)
+
+
 def generate_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
                            glwe_sk: GlweSecretKey, decomp: DecompParams,
                            noise_std: float) -> LweBootstrapKey:
@@ -159,6 +218,17 @@ def generate_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
     return LweBootstrapKey(data=encrypt_constant_ggsw(gen, glwe_sk, lwe_sk.bits,
                                                       decomp, noise_std),
                            decomp=decomp)
+
+
+def generate_bootstrap_key_from_key(key: torch.Tensor, gen: torch.Generator,
+                                    lwe_sk: LweSecretKey, glwe_sk: GlweSecretKey,
+                                    decomp: DecompParams, noise_std: float) -> LweBootstrapKey:
+    """`generate_bootstrap_key` with the masks of tfhe_tpu
+    generate_bootstrap_key(key, ...): input bit i's GGSW under
+    split(key, n)[i]."""
+    keys = threefry.split(key, lwe_sk.lwe_dimension)
+    return LweBootstrapKey(data=encrypt_constant_ggsw_from_key(
+        keys, gen, glwe_sk, lwe_sk.bits, decomp, noise_std), decomp=decomp)
 
 
 def ggsw_spectra(data: torch.Tensor, num_primes: int) -> torch.Tensor:
@@ -241,12 +311,40 @@ def bootstrap_key_to_ntt_paired(key: NttBootstrapKey) -> NttBootstrapKey:
 # ---------------------------------------------------------------------------
 
 
+def _gadget_plaintexts(bits: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
+    """bits [n] → [n, l]: bits[i] * q/B^(l+1)."""
+    g = torch.tensor([as_i64(1 << (LOG_Q - decomp.base_log * (l + 1)))
+                      for l in range(decomp.level)], dtype=torch.int64, device=bits.device)
+    return bits.unsqueeze(-1) * g
+
+
 def generate_keyswitch_key(gen: torch.Generator, in_sk: LweSecretKey,
                            out_sk: LweSecretKey, decomp: DecompParams,
                            noise_std: float) -> LweKeyswitchKey:
     """KSK[i, l] = LWE_out(s_in[i] * q/B^(l+1)), data [n_in, l, n_out+1]."""
-    g = torch.tensor([as_i64(1 << (LOG_Q - decomp.base_log * (l + 1)))
-                      for l in range(decomp.level)],
-                     dtype=torch.int64, device=in_sk.bits.device)
-    pts = in_sk.bits.unsqueeze(-1) * g                           # [n_in, l]
+    pts = _gadget_plaintexts(in_sk.bits, decomp)
     return keyswitch_key(encrypt_lwe(gen, out_sk, pts, noise_std).data, decomp)
+
+
+def generate_keyswitch_key_from_key(key: torch.Tensor, gen: torch.Generator,
+                                    in_sk: LweSecretKey, out_sk: LweSecretKey,
+                                    decomp: DecompParams, noise_std: float) -> LweKeyswitchKey:
+    """`generate_keyswitch_key` with the mask of tfhe_tpu
+    generate_keyswitch_key(key, ...): one encrypt_lwe over [n_in, l]."""
+    pts = _gadget_plaintexts(in_sk.bits, decomp)
+    return keyswitch_key(encrypt_lwe_from_key(key, gen, out_sk, pts, noise_std).data, decomp)
+
+
+def generate_packing_keyswitch_key(key: torch.Tensor, gen: torch.Generator,
+                                   in_sk: LweSecretKey, out_sk: GlweSecretKey,
+                                   decomp: DecompParams,
+                                   noise_std: float) -> LwePackingKeyswitchKey:
+    """PKSK[i, l] = GLWE_out(s_in[i] * q/B^(l+1) as a constant polynomial),
+    data [n_in, l, k+1, N], masks as tfhe_tpu
+    generate_packing_keyswitch_key(key, ...) draws them (one encrypt_glwe
+    over the [n_in, l, N] plaintexts), noise from gen."""
+    pts = torch.zeros((in_sk.lwe_dimension, decomp.level, out_sk.polynomial_size),
+                      dtype=torch.int64, device=in_sk.bits.device)
+    pts[..., 0] = _gadget_plaintexts(in_sk.bits, decomp)
+    return LwePackingKeyswitchKey(
+        data=encrypt_glwe_from_key(key, gen, out_sk, pts, noise_std).data, decomp=decomp)

@@ -20,10 +20,11 @@ import torch
 from ... import config
 from ..entities import (GlweCiphertext, GlweSecretKey, LweCiphertext,
                         LweMultiBitBootstrapKey, LweSecretKey, NttMultiBitBootstrapKey)
+from .. import threefry
 from ..params import DecompParams
 from ..poly import ntt
 from ..poly.rotation import blind_rotate_fused_multi_bit
-from .encryption import encrypt_constant_ggsw, ggsw_spectra
+from .encryption import encrypt_constant_ggsw, encrypt_constant_ggsw_from_key, ggsw_spectra
 
 
 def indicator_messages(bits: torch.Tensor, grouping_factor: int) -> torch.Tensor:
@@ -51,6 +52,20 @@ def generate_multi_bit_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
     data = encrypt_constant_ggsw(gen, glwe_sk, msgs.reshape(-1), decomp, noise_std)
     return LweMultiBitBootstrapKey(data=data.reshape(tuple(msgs.shape) + data.shape[1:]),
                                    decomp=decomp, grouping_factor=grouping_factor)
+
+
+def generate_multi_bit_bootstrap_key_from_key(key: torch.Tensor, gen: torch.Generator,
+                                              lwe_sk: LweSecretKey, glwe_sk: GlweSecretKey,
+                                              decomp: DecompParams, grouping_factor: int,
+                                              noise_std: float) -> LweMultiBitBootstrapKey:
+    """`generate_multi_bit_bootstrap_key` with the masks of tfhe_tpu
+    generate_multi_bit_bootstrap_key(key, ...): GGSW (j, v) under
+    split(key, n/g * 2^g)[j * 2^g + v]; noise from gen."""
+    msgs = indicator_messages(lwe_sk.bits, grouping_factor)      # [n/g, 2^g]
+    keys = threefry.split(key, msgs.numel()).view(tuple(msgs.shape) + (2,))
+    return LweMultiBitBootstrapKey(
+        data=encrypt_constant_ggsw_from_key(keys, gen, glwe_sk, msgs, decomp, noise_std),
+        decomp=decomp, grouping_factor=grouping_factor)
 
 
 def multi_bit_bootstrap_key_to_ntt(bsk: LweMultiBitBootstrapKey,

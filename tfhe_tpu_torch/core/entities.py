@@ -5,7 +5,11 @@ axes are free batch axes; torus values are int64 bit patterns of u64):
 
   LweCiphertext.data      [..., n+1]             mask a_0..a_{n-1}, body last
   GlweCiphertext.data     [..., k+1, N]          k mask polys, then the body
+  GgswCiphertext.data     [..., l, k+1, k+1, N]  level-major rows, each a GLWE
+  GswCiphertext.data      [..., l, n+1, n+1]     level-major rows, each an LWE
   LweKeyswitchKey.data    [n_in, l, n_out+1]   (.limbs [n_out+1, 8, Kp] uint8)
+  LwePackingKeyswitchKey.data [n_in, l, k+1, N]
+  GlweRelinearizationKey.data [pairs, l, k+1, N]
   LweBootstrapKey.data    [n, l, k+1, k+1, N]    one GGSW per input key bit
   NttBootstrapKey.spectra [n, P, l*(k+1), k+1, N] the port's own spectra
                           ([n, 2, P, l*(k+1), k+1, N] in the paired form)
@@ -91,6 +95,44 @@ class GlweSecretKey:
 
 
 @dataclass(frozen=True)
+class GgswCiphertext:
+    """data [..., l, k+1, k+1, N]: level-major; row r of level j encrypts
+    -m * s_r * q/B^(j+1), the last row +m * q/B^(j+1)."""
+
+    data: torch.Tensor
+    decomp: DecompParams
+
+    @property
+    def level_count(self) -> int:
+        return self.data.shape[-4]
+
+    @property
+    def glwe_size(self) -> int:
+        return self.data.shape[-3]
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.data.shape[-1]
+
+
+@dataclass(frozen=True)
+class GswCiphertext:
+    """data [..., l, n+1, n+1]: the N = 1 case of a GGSW; row r of level j
+    is an LWE of -m * s_r * q/B^(j+1), the last row of +m * q/B^(j+1)."""
+
+    data: torch.Tensor
+    decomp: DecompParams
+
+    @property
+    def level_count(self) -> int:
+        return self.data.shape[-3]
+
+    @property
+    def lwe_size(self) -> int:
+        return self.data.shape[-2]
+
+
+@dataclass(frozen=True)
 class LweKeyswitchKey:
     """data [n_in, l, n_out+1]: LWE encryptions of s_in[i] * q/B^(l+1).
 
@@ -104,6 +146,50 @@ class LweKeyswitchKey:
     data: torch.Tensor
     decomp: DecompParams
     limbs: Optional[torch.Tensor] = None
+
+
+@dataclass(frozen=True)
+class LwePackingKeyswitchKey:
+    """data [n_in, l, k+1, N]: GLWE encryptions of the constant polynomial
+    s_in[i] * q/B^(j+1)."""
+
+    data: torch.Tensor
+    decomp: DecompParams
+
+    @property
+    def input_lwe_dimension(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def glwe_size(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.data.shape[-1]
+
+
+@dataclass(frozen=True)
+class GlweRelinearizationKey:
+    """For each unordered pair (i <= j) of GLWE key polynomials, in
+    row-major order, l GLWE encryptions of s_i*s_j * q/B^(lvl+1): data
+    [pairs, l, k+1, N]."""
+
+    data: torch.Tensor
+    decomp: DecompParams
+
+    @property
+    def glwe_size(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.data.shape[-1]
+
+
+@dataclass(frozen=True)
+class Plaintext:
+    data: torch.Tensor
 
 
 @dataclass(frozen=True)

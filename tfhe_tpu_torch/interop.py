@@ -100,7 +100,11 @@ def multi_bit_bootstrap_key_from_standard(data, decomp: DecompParams,
 def standard_from_dif(data, primes) -> np.ndarray:
     """JAX NttLweBootstrapKey.data [n, P, J, R, N] (DIF-order residues) →
     standard coefficients [n, l*(k+1), k+1, N] u64 (the contraction axis
-    stays flattened).  Raises unless `primes` equal primes_for(N)[:P]."""
+    stays flattened).  Raises unless `primes` equal primes_for(N)[:P], and
+    unless the data are residues over those primes of 64-bit words: every
+    residue below its prime and every coefficient's lift within
+    [-2^63, 2^63) (ROADMAP C2: a key made on another prime pool fails
+    this, whatever primes it is said to be on)."""
     data = np.asarray(data)
     n_in, P, J, R, n = data.shape
     plan = ntt.get_plan(n, P)
@@ -108,7 +112,16 @@ def standard_from_dif(data, primes) -> np.ndarray:
         raise ValueError(f"key primes {tuple(primes)} differ from primes_for({n})"
                          f"[:{P}] = {plan.primes}")
     res = torch.from_numpy(data.astype(np.int64)).permute(0, 2, 3, 1, 4)  # [n,J,R,P,N]
-    coeffs = ntt.garner_to_torus(plan, ntt.dif_inverse(plan, res))
+    p = torch.tensor(plan.primes, dtype=torch.int64).reshape(P, 1)
+    if bool((res >= p).any()) or bool((res < 0).any()):
+        raise ValueError(f"residues at or above their primes {plan.primes}")
+    natural = ntt.dif_inverse(plan, res)
+    coeffs = ntt.garner_to_torus(plan, natural)
+    # the int64 lift reduces back to the residues exactly when the lift of
+    # the CRT value lies in [-2^63, 2^63)
+    if not torch.equal(ntt.reduce(plan, coeffs), natural):
+        raise ValueError(f"the residues lift to values beyond 64 bits over primes_for({n})"
+                         f"[:{P}]: a key made on another prime pool")
     return coeffs.numpy().view(np.uint64)
 
 

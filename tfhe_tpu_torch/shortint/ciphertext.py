@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+from ..core.algorithms.seeded import SeededLweCiphertext, decompress_lwe
 from ..core.entities import LweCiphertext
 
 
@@ -72,3 +73,24 @@ class Ciphertext:
             lwe=self.lwe if lwe is None else lwe,
             degree=self.degree if degree is None else degree,
             noise_level=self.noise_level if noise_level is None else noise_level)
+
+
+@dataclass(frozen=True)
+class CompressedCiphertext:
+    """A seeded shortint ciphertext: the body, the 32-bit mask seed and the
+    metadata of `Ciphertext`, (n+1)x smaller on the wire (reference
+    shortint/ciphertext/mod.rs:471-494; tfhe_tpu
+    shortint/ciphertext.py:84-103).  Made by ClientKey.encrypt_compressed;
+    `decompress()` replays the mask stream on the body's device (or
+    `device`)."""
+
+    ct: SeededLweCiphertext
+    degree: int = 0
+    message_modulus: int = 4
+    carry_modulus: int = 4
+    noise_level: int = NoiseLevel.NOMINAL
+
+    def decompress(self, device=None) -> Ciphertext:
+        return Ciphertext(lwe=decompress_lwe(self.ct, device), degree=self.degree,
+                          message_modulus=self.message_modulus,
+                          carry_modulus=self.carry_modulus, noise_level=self.noise_level)

@@ -26,6 +26,7 @@ import torch
 
 from .. import config
 from ..core import rng
+from ..core.algorithms import seeded
 from ..core.algorithms import (bootstrap_key_to_ntt, external_product_num_primes,
                                generate_bootstrap_key, generate_keyswitch_key,
                                generate_multi_bit_bootstrap_key, keyswitch_lwe,
@@ -672,3 +673,40 @@ def gen_server_key(ck: ClientKey, seed: int) -> ServerKey:
     ksk = generate_keyswitch_key(rng.generator(seed, 4, device=device),
                                  ck.big_sk, ck.lwe_sk, p.ks_decomp, p.lwe_noise_std)
     return ServerKey(ksk=ksk, bsk=bsk, params=p)
+
+
+@dataclass(frozen=True)
+class CompressedServerKey:
+    """Seeds and bodies only (reference shortint CompressedServerKey;
+    tfhe_tpu server_key.py:834-867): the BSK's GGSW masks and the KSK's
+    masks regenerate from the seeds on decompression, (k+1)x and (n+1)x
+    smaller on the wire.  Classic keys: the seeded multi-bit key is ROADMAP
+    A6b."""
+
+    seeded_bsk: seeded.SeededLweBootstrapKey
+    seeded_ksk: seeded.SeededLweKeyswitchKey
+    params: object = None
+
+    def decompress(self, device=None) -> ServerKey:
+        """The server key on the bodies' device (or `device`): the standard
+        BSK regenerated there and converted to the port's spectra, the KSK
+        with K2′'s limbs on the card."""
+        bsk, ksk = seeded.decompress_server_key(self.seeded_bsk, self.seeded_ksk, device)
+        return ServerKey(ksk=ksk, bsk=bsk, params=self.params)
+
+
+def gen_compressed_server_key(ck: ClientKey, seed: int = 0) -> CompressedServerKey:
+    """The compressed twin of gen_server_key on the client key's device:
+    BSK masks from seed 2s+1, KSK masks from 2s+2, as tfhe_tpu
+    gen_compressed_server_key lays them out; noise from generators of s."""
+    p = ck.params
+    if isinstance(p, MultiBitPBSParameters):
+        raise NotImplementedError("a compressed multi-bit server key is ROADMAP A6b")
+    device = ck.device
+    _, sbsk = seeded.generate_seeded_bootstrap_key(
+        seed * 2 + 1, rng.generator(seed, 5, device=device), ck.lwe_sk, ck.glwe_sk,
+        p.pbs_decomp, p.glwe_noise_std)
+    _, sksk = seeded.generate_seeded_keyswitch_key(
+        seed * 2 + 2, rng.generator(seed, 6, device=device), ck.big_sk, ck.lwe_sk,
+        p.ks_decomp, p.lwe_noise_std)
+    return CompressedServerKey(seeded_bsk=sbsk, seeded_ksk=sksk, params=p)

@@ -1,0 +1,333 @@
+"""The `tfhe_tpu-v1` file format, read and written without jax.
+
+Counterpart of `tfhe_tpu/utils/serialization.py`: an .npz archive of numpy
+arrays plus a `__meta__` entry, the JSON of {"version", "type", "tree"}.
+The tree's nodes are literals ("lit"), arrays by key ("arr"), lists and
+tuples, objects ("obj": the JAX package's type name and its fields) and
+"derived" fields (an NTT key's phase tables, regenerated by the reader;
+the port builds its own spectra, so it drops them).  No pickle anywhere.
+
+Reading maps each JAX type name to the port's type (`_READERS`), on the
+device asked for (the card unless given device="cpu"; without a card that
+raises).  Torus words cross as uint64 ↔ int64 bit patterns and secret-key
+bits as int8 ↔ int64.  A JAX `NttLweBootstrapKey` or
+`NttMultiBitBootstrapKey` crosses through its DIF-order residues
+(`interop`), which must be residues over primes_for(N) whose lift is a
+64-bit word: the file does not name its prime pool (ROADMAP C2), so a key
+made on another pool is refused here, not decrypted as garbage.  A key
+with no DIF residues (the JAX "fourstep" slim form) is refused by name.
+Types the port has not ported are refused naming their ROADMAP item.
+
+Writing covers this slice's types (`_WRITERS`): ciphertexts, seeded
+entities, compressed ciphertexts and keys, and public keys, under the JAX
+package's type names, so `tfhe_tpu.utils.safe_load` reads them (the boolean
+`CompressedCiphertext` is left out: the JAX package's registry has no
+entry for it, so neither package can read it).  The rest of the write side
+is ROADMAP A17.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+SERIALIZATION_VERSION = "tfhe_tpu-v1"
+
+
+class DeserializationError(ValueError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# the types: JAX names → readers, port classes → JAX names
+# ---------------------------------------------------------------------------
+
+_REFUSED = {
+    "tfhe_tpu.gadget.engine.Ciphertext": "the gadget fork (ROADMAP A14)",
+    "tfhe_tpu.gadget.engine.ClientKey": "the gadget fork (ROADMAP A14)",
+    "tfhe_tpu.gadget.engine.ServerKey": "the gadget fork (ROADMAP A14)",
+    "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList": "WoP-PBS (ROADMAP A12)",
+    "tfhe_tpu.shortint.wopbs.WopbsKey": "WoP-PBS (ROADMAP A12)",
+    "tfhe_tpu.shortint.wopbs.CombinedWopbsKey": "WoP-PBS (ROADMAP A12)",
+    "tfhe_tpu.integer.shift_key.ShiftKey": "the integer shift key (ROADMAP A10b)",
+}
+_READERS: Dict[str, Callable] = {}
+_WRITERS: Dict[type, str] = {}
+
+
+def _words(a, device) -> torch.Tensor:
+    """Torus words (uint64 numpy) → int64 bit patterns on `device`."""
+    arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
+    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def _bits(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+def _dif_key(f: dict, device):
+    """A JAX NttLweBootstrapKey → the port's, through its DIF residues."""
+    from .. import interop
+    from ..core.poly import ntt
+    decomp = f["decomp"]
+    if f.get("data") is not None:
+        data = np.asarray(f["data"])
+        primes = ntt.primes_for(data.shape[-1])[:data.shape[1]]
+        return _check_pool(lambda: interop.bootstrap_key_from_dif(data, primes, decomp, device))
+    order = f.get("paired_order", "dif")
+    if order == "dif" and f.get("paired") is not None:
+        paired = np.asarray(f["paired"])
+        primes = ntt.primes_for(paired.shape[-1])[:paired.shape[2]]
+        return _check_pool(lambda: interop.paired_bootstrap_key_from_dif(paired, primes,
+                                                                         decomp, device))
+    raise DeserializationError(f"an NttLweBootstrapKey in {order!r} order without its DIF "
+                               f"residues: the port converts only the DIF order")
+
+
+def _multi_bit_dif_key(f: dict, device):
+    from .. import interop
+    from ..core.poly import ntt
+    if f.get("data") is None:
+        raise DeserializationError(f"an NttMultiBitBootstrapKey in {f.get('u32_order')!r} "
+                                   f"order without its DIF residues: the port converts only "
+                                   f"the DIF order")
+    data = np.asarray(f["data"])
+    primes = ntt.primes_for(data.shape[-1])[:data.shape[2]]
+    return _check_pool(lambda: interop.multi_bit_bootstrap_key_from_dif(
+        data, primes, f["decomp"], f["grouping_factor"], device))
+
+
+def _check_pool(convert):
+    try:
+        return convert()
+    except ValueError as e:
+        raise DeserializationError(f"the key's residues are not those of primes_for(N) "
+                                   f"(ROADMAP C2: the file does not name its prime pool): "
+                                   f"{e}") from e
+
+
+def _register():
+    """Fill _READERS and _WRITERS (once, at first use: the scheme modules
+    import this package's core)."""
+    if _READERS:
+        return
+    from .. import boolean, integer, shortint
+    from ..core import entities as E
+    from ..core import params as Pm
+    from ..core.algorithms import keyswitch, public_key as PK, seeded as S
+    from ..shortint import ciphertext as SC, server_key as SS
+
+    def plain(cls, words=(), bits=()):
+        """A reader that builds cls from its fields, words and bits
+        converted to tensors on the device."""
+        def read(f, device):
+            f = dict(f)
+            for k in words:
+                if f.get(k) is not None:
+                    f[k] = _words(f[k], device)
+            for k in bits:
+                f[k] = _bits(f[k], device)
+            return cls(**f)
+        return read
+
+    core = "tfhe_tpu.core.entities."
+    seeded = "tfhe_tpu.core.algorithms.seeded."
+    _READERS.update({
+        core + "LweCiphertext": plain(E.LweCiphertext, words=("data",)),
+        core + "LweSecretKey": plain(E.LweSecretKey, bits=("bits",)),
+        core + "GlweCiphertext": plain(E.GlweCiphertext, words=("data",)),
+        core + "GlweSecretKey": plain(E.GlweSecretKey, bits=("bits",)),
+        core + "GgswCiphertext": plain(E.GgswCiphertext, words=("data",)),
+        core + "LweBootstrapKey": plain(E.LweBootstrapKey, words=("data",)),
+        core + "NttLweBootstrapKey": _dif_key,
+        core + "LweKeyswitchKey": lambda f, device: keyswitch.keyswitch_key(
+            _words(f["data"], device), f["decomp"]),
+        core + "LwePackingKeyswitchKey": plain(E.LwePackingKeyswitchKey, words=("data",)),
+        core + "GlweRelinearizationKey": plain(E.GlweRelinearizationKey, words=("data",)),
+        "tfhe_tpu.core.algorithms.multi_bit.NttMultiBitBootstrapKey": _multi_bit_dif_key,
+        "tfhe_tpu.core.algorithms.public_key.LwePublicKey": plain(PK.LwePublicKey,
+                                                                  words=("data",)),
+        "tfhe_tpu.core.algorithms.public_key.LweCompactPublicKey": plain(
+            PK.LweCompactPublicKey, words=("data",)),
+        "tfhe_tpu.boolean.BoolCiphertext": plain(boolean.BoolCiphertext),
+        "tfhe_tpu.boolean.ClientKey": plain(boolean.ClientKey),
+        "tfhe_tpu.boolean.ServerKey": plain(boolean.ServerKey),
+        "tfhe_tpu.boolean.CompressedServerKey": plain(boolean.CompressedServerKey),
+        "tfhe_tpu.boolean.CompressedPublicKey": plain(boolean.CompressedPublicKey),
+        "tfhe_tpu.boolean.PublicKey": plain(boolean.PublicKey),
+        "tfhe_tpu.shortint.ciphertext.Ciphertext": plain(SC.Ciphertext),
+        "tfhe_tpu.shortint.ciphertext.CompressedCiphertext": plain(SC.CompressedCiphertext),
+        "tfhe_tpu.shortint.client_key.ClientKey": plain(shortint.ClientKey),
+        "tfhe_tpu.shortint.server_key.ServerKey": plain(SS.ServerKey),
+        "tfhe_tpu.shortint.server_key.CompressedServerKey": plain(SS.CompressedServerKey),
+        "tfhe_tpu.shortint.server_key.LookupTable": plain(SS.LookupTable),
+        "tfhe_tpu.integer.ciphertext.RadixCiphertext": plain(integer.RadixCiphertext),
+        "tfhe_tpu.integer.ciphertext.SignedRadixCiphertext": plain(
+            integer.SignedRadixCiphertext),
+        "tfhe_tpu.integer.ciphertext.CrtCiphertext": lambda f, device: integer.CrtCiphertext(
+            blocks=f["blocks"], moduli=tuple(f["moduli"])),
+        "tfhe_tpu.integer.server_key.ServerKey": _integer_server_key,
+    })
+    for name in ("SeededLweCiphertext", "SeededGlweCiphertext", "SeededLweCompactPublicKey"):
+        _READERS[seeded + name] = plain(getattr(S, name), words=("body",))
+    for name in ("SeededLweBootstrapKey", "SeededLweKeyswitchKey", "SeededGgswCiphertextList",
+                 "SeededLweMultiBitBootstrapKey", "SeededLwePackingKeyswitchKey",
+                 "SeededLwePublicKey"):
+        _READERS[seeded + name] = plain(getattr(S, name), words=("bodies",))
+    for name in ("DecompParams", "ClassicPBSParameters", "MultiBitPBSParameters",
+                 "WopbsParameters", "BooleanParameters", "GadgetParameters"):
+        _READERS["tfhe_tpu.core.params." + name] = plain(getattr(Pm, name))
+
+    _WRITERS.update({
+        E.LweCiphertext: core + "LweCiphertext", E.GlweCiphertext: core + "GlweCiphertext",
+        E.GgswCiphertext: core + "GgswCiphertext",
+        PK.LwePublicKey: "tfhe_tpu.core.algorithms.public_key.LwePublicKey",
+        PK.LweCompactPublicKey: "tfhe_tpu.core.algorithms.public_key.LweCompactPublicKey",
+        boolean.BoolCiphertext: "tfhe_tpu.boolean.BoolCiphertext",
+        boolean.PublicKey: "tfhe_tpu.boolean.PublicKey",
+        boolean.CompressedServerKey: "tfhe_tpu.boolean.CompressedServerKey",
+        boolean.CompressedPublicKey: "tfhe_tpu.boolean.CompressedPublicKey",
+        SC.Ciphertext: "tfhe_tpu.shortint.ciphertext.Ciphertext",
+        SC.CompressedCiphertext: "tfhe_tpu.shortint.ciphertext.CompressedCiphertext",
+        SS.CompressedServerKey: "tfhe_tpu.shortint.server_key.CompressedServerKey",
+        integer.RadixCiphertext: "tfhe_tpu.integer.ciphertext.RadixCiphertext",
+        integer.SignedRadixCiphertext: "tfhe_tpu.integer.ciphertext.SignedRadixCiphertext",
+        integer.CrtCiphertext: "tfhe_tpu.integer.ciphertext.CrtCiphertext",
+    })
+    for name in S.__all__:
+        if name.startswith("Seeded"):
+            _WRITERS[getattr(S, name)] = seeded + name
+    for name in ("DecompParams", "ClassicPBSParameters", "MultiBitPBSParameters",
+                 "WopbsParameters", "BooleanParameters", "GadgetParameters"):
+        _WRITERS[getattr(Pm, name)] = "tfhe_tpu.core.params." + name
+
+
+def _integer_server_key(f, device):
+    from ..integer import ServerKey
+    if f.get("shift_key") is not None:
+        raise DeserializationError(f"an integer ServerKey with a shift key: "
+                                   f"{_REFUSED['tfhe_tpu.integer.shift_key.ShiftKey']}")
+    return ServerKey(key=f["key"])
+
+
+# ---------------------------------------------------------------------------
+# the tree
+# ---------------------------------------------------------------------------
+
+
+def _decode(node, arrays, device):
+    t = node["t"]
+    if t == "lit":
+        return node["v"]
+    if t == "arr":
+        return arrays[node["k"]]
+    if t in ("list", "tuple"):
+        vals = [_decode(x, arrays, device) for x in node["v"]]
+        return vals if t == "list" else tuple(vals)
+    if t == "derived":
+        return None
+    if t == "encoding":
+        raise DeserializationError("a gadget Encoding: the gadget fork (ROADMAP A14)")
+    if t == "obj":
+        name = node["cls"]
+        if name in _REFUSED:
+            raise DeserializationError(f"{name} is not ported yet: {_REFUSED[name]}")
+        _register()
+        read = _READERS.get(name)
+        if read is None:
+            raise DeserializationError(f"unknown type {name}")
+        fields = {k: _decode(v, arrays, device) for k, v in node["fields"].items()}
+        try:
+            return read(fields, device)
+        except NotImplementedError as e:
+            raise DeserializationError(f"{name}: {e}") from e
+    raise DeserializationError(f"bad node {t}")
+
+
+def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return {"t": "lit", "v": obj}
+    if isinstance(obj, torch.Tensor):
+        key = seen.get(id(obj))
+        if key is None:
+            if obj.dtype != torch.int64:
+                raise DeserializationError(f"only torus words (int64) are written, not "
+                                           f"{obj.dtype}")
+            key = f"a{len(arrays)}"
+            arrays[key] = obj.detach().cpu().numpy().view(np.uint64)
+            seen[id(obj)] = key
+        return {"t": "arr", "k": key}
+    if isinstance(obj, (list, tuple)):
+        return {"t": "list" if isinstance(obj, list) else "tuple",
+                "v": [_encode(x, arrays, seen) for x in obj]}
+    if dataclasses.is_dataclass(obj):
+        _register()
+        name = _WRITERS.get(type(obj))
+        if name is None:
+            raise DeserializationError(f"the port does not write {type(obj).__name__} "
+                                       f"(the write side beyond this is ROADMAP A17)")
+        return {"t": "obj", "cls": name,
+                "fields": {f.name: _encode(getattr(obj, f.name), arrays, seen)
+                           for f in dataclasses.fields(obj)}}
+    raise DeserializationError(f"cannot serialize {type(obj)}")
+
+
+def save(obj, path_or_buf, compress: bool = True) -> None:
+    """Write `obj` in the tfhe_tpu-v1 format (compress=False skips zlib:
+    key material is incompressible and large)."""
+    arrays: Dict[str, np.ndarray] = {}
+    tree = _encode(obj, arrays, {})
+    meta = json.dumps({"version": SERIALIZATION_VERSION, "type": tree["cls"], "tree": tree})
+    writer = np.savez_compressed if compress else np.savez
+    writer(path_or_buf, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **arrays)
+
+
+def _read(path_or_buf) -> tuple:
+    with np.load(path_or_buf, allow_pickle=False) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    return meta, arrays
+
+
+def _decode_on(meta: dict, arrays: dict, device):
+    from ..cuda_lib import resolve_device
+    return _decode(meta["tree"], arrays, resolve_device(device))
+
+
+def load(path_or_buf, device="cuda") -> Any:
+    """Read a tfhe_tpu-v1 file into the port's types, on `device`."""
+    meta, arrays = _read(path_or_buf)
+    return _decode_on(meta, arrays, device)
+
+
+def safe_load(path_or_buf, expected_type: str | None = None, size_limit: int | None = None,
+              conformance=None, device="cuda") -> Any:
+    """Versioned, type-named, size-limited read (tfhe_tpu
+    serialization.py:223-247; reference safe_deserialization.rs:16-60):
+    the size limit is checked before anything is read (for a path; the JAX
+    package checks it for path objects only, not for a str), then the
+    version, the type (its JAX name or a dotted suffix of it) and the
+    conformance predicate, each refusal a DeserializationError."""
+    if size_limit is not None and isinstance(path_or_buf, (str, os.PathLike)):
+        actual = os.path.getsize(path_or_buf)
+        if actual > size_limit:
+            raise DeserializationError(f"serialized size {actual} exceeds limit {size_limit}")
+    meta, arrays = _read(path_or_buf)
+    if meta.get("version") != SERIALIZATION_VERSION:
+        raise DeserializationError(f"version mismatch: {meta.get('version')} != "
+                                   f"{SERIALIZATION_VERSION}")
+    if expected_type is not None and not (meta["type"] == expected_type
+                                          or meta["type"].endswith("." + expected_type)):
+        raise DeserializationError(f"type mismatch: expected {expected_type}, got "
+                                   f"{meta['type']}")
+    obj = _decode_on(meta, arrays, device)
+    if conformance is not None and not conformance(obj):
+        raise DeserializationError("parameter conformance check failed")
+    return obj
+
+
+__all__ = ["SERIALIZATION_VERSION", "DeserializationError", "save", "load", "safe_load"]
