@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
 Drives the port's shortint keyswitch + PBS paths, its integer path, its
-boolean scheme, its apps and its client-server key flow once each, through
-the entry points a user calls, and checks them: the classic
+boolean scheme, its apps, its client-server key flow, its high-level API and
+its WoP-PBS once each, through the entry points a user calls, and checks
+them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
 296 groups of 3, N=2048), the per-step routes the rotation switches select
@@ -13,8 +14,9 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   1. card, power limit, SM clock, torch and CUDA versions;
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5, K6 in rotation.cu,
      the keyswitch's decomposition pass, K2' and the wide form K2 in
-     keyswitch.cu, the shared-memory probe in probe.cu; one nvcc per
-     source, in parallel) and prints ptxas's register, shared-memory and
+     keyswitch.cu, K7 in external_product.cu, the shared-memory probe in
+     probe.cu; one nvcc per source, in parallel) and prints ptxas's
+     register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
      compiled for N = 2048 and P = 4, K3/K5 once for each cluster size C
      and output count R, K6's cluster step once for each C, R and delta or
@@ -172,7 +174,12 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      the whole digest of "abc" against hashlib if its projected time fits
      120 s; TriviumStreamByte on FheUint8 at 2_2; the dark market
      (volume_match, volume_match_parallel) and the regex engine on 4-block
-     integers at 2_2;
+     integers at 2_2; transciphering: round 20 of the shortint streams
+     masks an FheUint64 batch of 32 at 2_2 (`trans_encrypt_64`: the bit
+     pairs cast through PARAM_KEYSWITCH_1_1_KS_PBS_TO_2_2_KS_PBS's 15 x 1
+     key, then n >> 1), and the kept state unmasks it (`trans_decrypt_64`),
+     each against `trans_encrypt_u64` on the clear keystream; the same
+     round trip for one FheUint64 through the byte stream's round 20;
   4h. the noise of encryptions made on the card (ROADMAP C10): 4096 LWE
      and GLWE phases of zero through tests/test_torch_noise.py's five gates;
      a JSON line of phases 4f to 4h;
@@ -194,6 +201,27 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      decompressed on the card (time, peak memory; its first and last input
      bits against the CPU) and one KS+PBS at batch 8 (K6 once a step), right;
      a JSON line of the phase;
+  4j. the high-level API at PARAM_MESSAGE_2_CARRY_2_KS_PBS (hlapi_path):
+     generate_keys on the card; FheUint8 through every operator at batch
+     64, the FheBool gates, select, cast_into and overflowing_add/sub;
+     FheUint32 add, mul, gt, scalar shl and //, FheUint64 add and mul,
+     FheInt32 <, scalar // and %, abs, FheUint128 add and == at batch 8;
+     each decrypted, its launches one K1, pass and K2' a KS+PBS call, five
+     ops timed beside the same op on the integer layer with equal
+     launches; PublicKey, CompactPublicKey, CompressedFheUint and
+     CompressedServerKey, each held on 4 rows against the CPU and
+     decrypted;
+  4k. the WoP-PBS (wopbs_path): new_wopbs_key(ck, sk, "auto") on 2_2 keys
+     (WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS), 512 ciphertexts over all 16
+     values through the identity and x^2 + 3 mod 16, launches exactly as
+     reckoned from the parameters (17 K1, 7 passes and K2', 24 wide K2, 4
+     K7 a call), 512/512 right, ms a call and peak memory; K7 held on the
+     first call's own operands against its plain version and timed alone,
+     a private functional keyswitch held against the CPU and one
+     circuit-bootstrapped GGSW against the plain kernels on the card's
+     tensors; new_wopbs_key_only_for_wopbs on keys of the WoP-PBS set,
+     512/512 right, and on the 2_2 keys, its rate recorded (a finding:
+     2_2's one-level PBS is too noisy for the circuit bootstrap);
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -211,7 +239,8 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      plain time there) and one step a launch on the per-step routes; K6's
      passes form at the shape it serves (no path serves that set, so its
      launches on the paths are 0); the keyswitch's three kernels per shape
-     (the wide form's launches on the paths are 0).
+     (the wide form's launches on the paths: the WoP-PBS's private
+     functional keyswitches); K7 at the WoP-PBS's vertical packing.
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -362,9 +391,23 @@ BOOL_TRUTH = {"and_": lambda x, y: x & y, "nand": lambda x, y: ~(x & y),
 TRIVIUM_SET = "PARAM_MESSAGE_1_CARRY_2_KS_PBS"
 APP_BOOL_SET = "DEFAULT_PARAMETERS_KS_PBS"
 STREAMS = 32
-STREAM_BUDGET_S = 60.0
+STREAM_BUDGET_S = 30.0
 SHA_BUDGET_S = 120.0
 BYTE_WARMUP = 18
+# transciphering in phase 4g: the shortint stream's bit pairs cast into the
+# high-level API's set on this decomposition
+CAST_SET = "PARAM_KEYSWITCH_1_1_KS_PBS_TO_2_2_KS_PBS"
+# the high-level API (phase 4j): FheUint8 at HL_BATCH, the wider types at
+# HL_WIDE_BATCH, public-key holds on HL_HELD rows
+HL_SET = CLASSIC
+HL_BATCH = 64
+HL_WIDE_BATCH = 8
+HL_HELD = 4
+# the WoP-PBS (phase 4k): new_wopbs_key(ck, sk, "auto") on keys of
+# WOPBS_COMPUTE_SET, WOPBS_BATCH ciphertexts a call, holds on WOPBS_HELD rows
+WOPBS_COMPUTE_SET = CLASSIC
+WOPBS_BATCH = 512
+WOPBS_HELD = 4
 # the key flow (phase 4i): a compressed shortint server key at 2_2 and a
 # compressed boolean server key and public key at the boolean
 # DEFAULT_PARAMETERS_KS_PBS, each through a tfhe_tpu-v1 file, then the 4_4
@@ -432,6 +475,22 @@ def profile_window(fn, warm: bool = True, cpu: bool = True) -> tuple:
     timeline = sorted((e["name"], e["ts"], e["dur"]) for e in events
                       if e.get("cat") == "kernel" and "ts" in e and "dur" in e)
     return wall_ms, kernels, sorted(timeline, key=lambda e: e[1])
+
+
+def profile_launches(fn, name_part: str, launches: int, label: str) -> tuple:
+    """profile_window(fn), traced once more where the trace holds fewer
+    kernels named `name_part` than the launch counters saw in the same call
+    (the profiler can drop the records of a window's first kernels: one
+    trace of a 3_3 call held 860 of its 864 K6 launches, its keyswitch's
+    records missing too).  → profile_window's tuple and the kernels'
+    timeline entries; the caller still holds their count exact."""
+    for attempt in (1, 2):
+        wall_ms, by_kernel, timeline = profile_window(fn)
+        events = [e for e in timeline if name_part in e[0]]
+        if len(events) == launches or attempt == 2:
+            return wall_ms, by_kernel, timeline, events
+        print(f"{label}: the trace recorded {len(events)} of the {launches} {name_part} "
+              f"launches the counters saw; traced again", flush=True)
 
 
 def busy_ms(timeline: list) -> float:
@@ -656,7 +715,8 @@ def measure_turn(seed: int) -> dict:
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         q = p.message_modulus
-        m = torch.randint(0, q, (B,), generator=rng.generator(seed, 11), dtype=torch.int64)
+        m = torch.randint(0, q, (B,), generator=rng.generator(seed, 11, device="cpu"),
+                          dtype=torch.int64)
         ct = ck.encrypt(m.to(dev), seed=seed + 6)
         lut = sk.generate_lookup_table(lambda x: (3 * x + 1) % q)
         res = {}
@@ -717,23 +777,29 @@ def compare(other: str, turns: int, seed: int) -> int:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within: the classic KS+PBS path's kernel wrappers (K1, the
-    decomposition pass, K2') take their plain PyTorch versions, the code
-    CPU tensors take, on CUDA tensors too."""
-    from tfhe_tpu_torch.core.algorithms import keyswitch
+    """Within: the kernel wrappers of the classic KS+PBS path and of the
+    WoP-PBS (K1, the decomposition pass, K2', the wide form K2, K7) take
+    their plain PyTorch versions, the code CPU tensors take, on CUDA tensors
+    too."""
+    from tfhe_tpu_torch.core.algorithms import bootstrap, keyswitch, wopbs
+    from tfhe_tpu_torch.core.poly import external_product as ep
     from tfhe_tpu_torch.core.poly import rotation
     saved = (rotation.rotate_accumulator, keyswitch.decompose_digits,
-             keyswitch.neg_digit_mac_tensor_core)
+             keyswitch.neg_digit_mac_tensor_core, keyswitch.neg_digit_mac,
+             wopbs.external_product, bootstrap.external_product)
     rotation.rotate_accumulator = lambda acc, exps, key: rotation.blind_rotate_plain(acc, exps,
                                                                                      key)
     keyswitch.decompose_digits = keyswitch.decompose_digits_plain
     keyswitch.neg_digit_mac_tensor_core = lambda digits, key, limbs, body: (
         keyswitch.neg_digit_mac_plain(digits[:, :key.shape[0]], key, body))
+    keyswitch.neg_digit_mac = keyswitch.neg_digit_mac_plain
+    wopbs.external_product = bootstrap.external_product = ep.external_product_plain
     try:
         yield
     finally:
         (rotation.rotate_accumulator, keyswitch.decompose_digits,
-         keyswitch.neg_digit_mac_tensor_core) = saved
+         keyswitch.neg_digit_mac_tensor_core, keyswitch.neg_digit_mac,
+         wopbs.external_product, bootstrap.external_product) = saved
 
 
 def _blocks(out) -> list:
@@ -989,6 +1055,16 @@ def integer_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
               f"{r['baseline_cpu_ms']}{of}")
     print(json.dumps({"integer": ops, "traces": traces}))
     return {"launches": totals, "ops": ops}
+
+
+def k7_mults(batch, P, J, R, n) -> int:
+    """K7 (csrc/external_product.cu): per row and prime the J forward and R
+    inverse transforms (Shoup, 3 a butterfly), the J R N products with a
+    Barrett reduction (7: the 64-bit product, the high multiply, the
+    quotient's product), R N sum reductions and the N^-1 multiply (3); then
+    Garner."""
+    per_prime = J * ntt_mults(n) + R * ntt_mults(n) + 7 * J * R * n + 7 * R * n + 3 * R * n
+    return batch * (P * per_prime + R * n * garner_mults(P))
 
 
 def kspbs_launches(params, counts: dict) -> dict:
@@ -1316,6 +1392,479 @@ def key_flow_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     return {"launches": totals, "sets": rows}
 
 
+def _launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def hlapi_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4j: the high-level API at HL_SET on the card.  generate_keys;
+    FheUint8 at HL_BATCH through every operator of `_FheUintBase` (a clear
+    operand where the operator takes one), the FheBool gates, `select`,
+    `cast_into`, `overflowing_add` / `overflowing_sub`; FheUint32 add, mul,
+    gt, scalar shl and //, FheUint64 add and mul, FheInt32 <, scalar // and
+    %, abs, FheUint128 add and == at HL_WIDE_BATCH.  Each with the counts at
+    0 just before and read just after (K1, the pass and K2' once per KS+PBS
+    call, nothing else), timed by CUDA events, decrypted against its clear
+    model; five ops also on the integer layer (`ServerKey.radix`) just
+    after, timed, their launches held equal.  Then PublicKey and
+    CompactPublicKey encryptions (HL_HELD rows against the plain CPU path
+    on the same key and seed: the public key's bit for bit, the compact
+    key's within the two generators' noise), a CompressedFheUint
+    decompressed (against the CPU's decompression of the same blocks) and
+    a CompressedServerKey decompressed and serving an add.
+    → {"launches": {...}, "ops": [...], "encryptions": {...}}."""
+    import numpy as np
+
+    from tfhe_tpu_torch import hlapi as H
+    from tfhe_tpu_torch.core.algorithms import public_key as PK
+    from tfhe_tpu_torch.core.algorithms import seeded
+
+    rng = np.random.default_rng(seed + 4)
+    totals, ops = {}, []
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ck, sk = H.generate_keys(H.ConfigBuilder().use_custom_parameters(HL_SET).build(),
+                             seed=seed, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    H.set_server_key(sk)
+    isk = sk.radix
+
+    def timed_counts(fn):
+        zero_counts()
+        start, stop = ev(), ev()
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(stop), read_counts()
+
+    def measured(label, batch, fn, clear, twin=None):
+        """fn's result decrypted against clear, its launches one K1, pass and
+        K2' a KS+PBS call (none for a whole-block shift or an FheUint's
+        abs); with twin, the same op on the integer layer beside it."""
+        out, ms, counts = timed_counts(fn)
+        got = [bool(v) if isinstance(v, (bool, np.bool_)) else int(v)
+               for v in np.asarray(out.decrypt(ck)).reshape(-1)] if not isinstance(out, tuple) \
+            else [tuple(bool(x) if isinstance(x, (bool, np.bool_)) else int(x) for x in row)
+                  for row in zip(*(np.asarray(o.decrypt(ck)).reshape(-1) for o in out))]
+        if got != clear:
+            raise AssertionError(f"hlapi {label}: {got[:4]} ..., expected {clear[:4]} ...")
+        kspbs = counts["blind_rotate"]
+        want = {k: 0 for k in counts}
+        want.update(blind_rotate=kspbs, keyswitch_tc=kspbs, keyswitch_decompose=kspbs)
+        if counts != want:
+            raise AssertionError(f"hlapi {label}: launches {counts}, expected one K1, pass and "
+                                 f"K2' a KS+PBS call")
+        row = {"op": label, "batch": batch, "ms": ms, "ms_per_op": ms / batch,
+               "kspbs_calls": kspbs}
+        if twin is not None:
+            _, tms, tcounts = timed_counts(twin)
+            if tcounts != counts:
+                raise AssertionError(f"hlapi {label}: launches {counts}, the integer layer's "
+                                     f"{tcounts}")
+            row.update(integer_ms=tms, integer_ms_per_op=tms / batch, ratio=ms / tms)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        ops.append(row)
+        print(f"{tag} hlapi {label} batch {batch}: {ms:.3f} ms ({ms / batch:.4f} ms per op), "
+              f"{kspbs} KS+PBS calls" + (f"; integer layer {row['integer_ms']:.3f} ms "
+                                         f"(ratio {row['ratio']:.3f})" if twin else ""),
+              flush=True)
+        return out
+
+    # ---- FheUint8 at HL_BATCH: every operator --------------------------------
+    B8 = HL_BATCH
+    a = [int(v) for v in rng.integers(0, 256, B8)]
+    b = [int(v) for v in rng.integers(0, 256, B8)]
+    s = [int(v) for v in rng.integers(0, 8, B8)]
+    x, y = H.FheUint8.encrypt(a, ck, seed=seed + 1), H.FheUint8.encrypt(b, ck, seed=seed + 2)
+    z = H.FheUint8.encrypt(s, ck, seed=seed + 3)
+    u8 = lambda v: v % 256
+    rotl = lambda v, r: u8((v << r) | (v >> (8 - r))) if r else v
+    rotr = lambda v, r: u8((v >> r) | (v << (8 - r))) if r else v
+    pairs = list(zip(a, b))
+    cases = [
+        ("+", lambda: x + y, [u8(p + q) for p, q in pairs], lambda: isk.add(x.ct, y.ct)),
+        ("+ 7", lambda: x + 7, [u8(p + 7) for p in a], None),
+        ("-", lambda: x - y, [u8(p - q) for p, q in pairs], None),
+        ("200 -", lambda: 200 - x, [u8(200 - p) for p in a], None),
+        ("*", lambda: x * y, [u8(p * q) for p, q in pairs], lambda: isk.mul(x.ct, y.ct)),
+        ("* 3", lambda: x * 3, [u8(3 * p) for p in a], None),
+        ("neg", lambda: -x, [u8(-p) for p in a], None),
+        ("&", lambda: x & y, [p & q for p, q in pairs], None),
+        ("| 0x5A", lambda: x | 0x5A, [p | 0x5A for p in a], None),
+        ("^", lambda: x ^ y, [p ^ q for p, q in pairs], None),
+        ("~", lambda: ~x, [u8(~p) for p in a], None),
+        ("<<", lambda: x << z, [u8(p << r) for p, r in zip(a, s)], None),
+        (">>", lambda: x >> z, [p >> r for p, r in zip(a, s)], None),
+        ("<< 3", lambda: x << 3, [u8(p << 3) for p in a], None),
+        (">> 2", lambda: x >> 2, [p >> 2 for p in a], None),
+        ("rotate_left", lambda: x.rotate_left(z), [rotl(p, r) for p, r in zip(a, s)], None),
+        ("rotate_right 3", lambda: x.rotate_right(3), [rotr(p, 3) for p in a], None),
+        ("//", lambda: x // y, [p // q if q else 255 for p, q in pairs],
+         lambda: isk.div(x.ct, y.ct)),
+        ("%", lambda: x % y, [p % q if q else p for p, q in pairs], None),
+        ("// 7", lambda: x // 7, [p // 7 for p in a], None),
+        ("% 7", lambda: x % 7, [p % 7 for p in a], None),
+        ("==", lambda: x == y, [p == q for p, q in pairs], lambda: isk.eq(x.ct, y.ct)),
+        ("!= 9", lambda: x != 9, [p != 9 for p in a], None),
+        ("<", lambda: x < y, [p < q for p, q in pairs], None),
+        ("<=", lambda: x <= y, [p <= q for p, q in pairs], None),
+        (">", lambda: x > y, [p > q for p, q in pairs], lambda: isk.gt(x.ct, y.ct)),
+        (">= 100", lambda: x >= 100, [p >= 100 for p in a], None),
+        ("min", lambda: x.min(y), [min(p, q) for p, q in pairs], None),
+        ("max 128", lambda: x.max(128), [max(p, 128) for p in a], None),
+        ("overflowing_add", lambda: x.overflowing_add(y),
+         [(u8(p + q), p + q > 255) for p, q in pairs], None),
+        ("overflowing_sub", lambda: x.overflowing_sub(y),
+         [(u8(p - q), p < q) for p, q in pairs], None),
+        ("cast_into FheUint16", lambda: x.cast_into(H.FheUint16), a, None),
+        ("select", lambda: (x > y).select(x, y), [max(p, q) for p, q in pairs], None),
+    ]
+    x + y            # a warm call: the first KS+PBS calls of a key pay set-up
+    torch.cuda.synchronize()
+    for label, fn, clear, twin in cases:
+        measured(f"FheUint8 {label}", B8, fn, clear, twin)
+    measured("FheUint8 abs", B8, lambda: x.abs(), a)
+    p_, q_ = x < y, x == y
+    bp = [p < q for p, q in pairs]
+    bq = [p == q for p, q in pairs]
+    for label, fn, clear in (("FheBool &", lambda: p_ & q_, [i and j for i, j in zip(bp, bq)]),
+                             ("FheBool |", lambda: p_ | q_, [i or j for i, j in zip(bp, bq)]),
+                             ("FheBool ^", lambda: p_ ^ q_, [i != j for i, j in zip(bp, bq)]),
+                             ("FheBool ~", lambda: ~p_, [not i for i in bp]),
+                             ("FheBool eq", lambda: p_.eq(q_), [i == j for i, j in zip(bp, bq)])):
+        measured(label, B8, fn, clear)
+    del x, y, z, p_, q_
+
+    # ---- the wider types at HL_WIDE_BATCH -----------------------------------
+    Bw = HL_WIDE_BATCH
+    wide = lambda bits: [int.from_bytes(rng.bytes(bits // 8), "little") for _ in range(Bw)]
+    m32, m64, m128 = (1 << 32), (1 << 64), (1 << 128)
+    a32, b32 = wide(32), [v or 1 for v in wide(32)]
+    x32, y32 = H.FheUint32.encrypt(a32, ck, seed=seed + 10), H.FheUint32.encrypt(b32, ck,
+                                                                                 seed=seed + 11)
+    x32 + y32        # a warm call: the first op at a new width allocates its buffers
+    torch.cuda.synchronize()
+    measured("FheUint32 +", Bw, lambda: x32 + y32, [(p + q) % m32 for p, q in zip(a32, b32)],
+             lambda: isk.add(x32.ct, y32.ct))
+    measured("FheUint32 *", Bw, lambda: x32 * y32, [(p * q) % m32 for p, q in zip(a32, b32)])
+    measured("FheUint32 >", Bw, lambda: x32 > y32, [p > q for p, q in zip(a32, b32)])
+    measured("FheUint32 << 5", Bw, lambda: x32 << 5, [(p << 5) % m32 for p in a32])
+    measured("FheUint32 //", Bw, lambda: x32 // y32, [p // q for p, q in zip(a32, b32)])
+    del x32, y32
+    a64, b64 = wide(64), wide(64)
+    x64, y64 = H.FheUint64.encrypt(a64, ck, seed=seed + 12), H.FheUint64.encrypt(b64, ck,
+                                                                                 seed=seed + 13)
+    measured("FheUint64 +", Bw, lambda: x64 + y64, [(p + q) % m64 for p, q in zip(a64, b64)])
+    measured("FheUint64 *", Bw, lambda: x64 * y64, [(p * q) % m64 for p, q in zip(a64, b64)])
+    del x64, y64
+    sa = [v - (1 << 31) for v in wide(32)]
+    sb = [v - (1 << 31) for v in wide(32)]
+    xs, ys = H.FheInt32.encrypt(sa, ck, seed=seed + 14), H.FheInt32.encrypt(sb, ck,
+                                                                            seed=seed + 15)
+    s32 = lambda v: (v + (1 << 31)) % m32 - (1 << 31)
+    measured("FheInt32 <", Bw, lambda: xs < ys, [p < q for p, q in zip(sa, sb)])
+    measured("FheInt32 // 7", Bw, lambda: xs // 7, [s32(int(p / 7)) for p in sa])
+    measured("FheInt32 % 7", Bw, lambda: xs % 7, [p - 7 * int(p / 7) for p in sa])
+    measured("FheInt32 abs", Bw, lambda: xs.abs(), [s32(abs(p)) for p in sa])
+    del xs, ys
+    a128, b128 = wide(128), wide(128)
+    b128[0] = a128[0]
+    x128 = H.FheUint128.encrypt(a128, ck, seed=seed + 16)
+    y128 = H.FheUint128.encrypt(b128, ck, seed=seed + 17)
+    measured("FheUint128 +", Bw, lambda: x128 + y128,
+             [(p + q) % m128 for p, q in zip(a128, b128)])
+    measured("FheUint128 ==", Bw, lambda: x128 == y128, [p == q for p, q in zip(a128, b128)])
+    del x128, y128
+
+    # ---- the encryptions ------------------------------------------------------
+    cpu = torch.device("cpu")
+    enc = {}
+    pk = H.PublicKey(ck, seed=seed)
+    vals = [int(v) for v in rng.integers(0, 256, B8)]
+    zero_counts()
+    ct, ms, counts = timed_counts(lambda: H.FheUint8.encrypt_with_public_key(vals, pk,
+                                                                              seed=seed + 20))
+    pk_cpu = H.PublicKey.__new__(H.PublicKey)
+    pk_cpu.params, pk_cpu.pk = pk.params, PK.LwePublicKey(data=pk.pk.data.cpu())
+    ref = H.FheUint8.encrypt_with_public_key(vals[:HL_HELD], pk_cpu, seed=seed + 20)
+    held = all(torch.equal(t.lwe.data[:HL_HELD].cpu(), r.lwe.data)
+               for t, r in zip(ct.ct.blocks, ref.ct.blocks))
+    right = [int(v) for v in ct.decrypt(ck)] == vals
+    enc["public_key"] = {"encrypt_ms": ms, "batch": B8, "launches": _launched(counts),
+                         "cpu_rows_bit_identical": held, "right": right}
+    if not (held and right and counts["keyswitch_tc"] == ct.ct.num_blocks):
+        raise AssertionError(f"hlapi PublicKey: {enc['public_key']}")
+    cpk = H.CompactPublicKey(ck, seed=seed)
+    ct, ms, counts = timed_counts(lambda: H.FheUint8.encrypt_with_compact_public_key(
+        vals, cpk, seed=seed + 21))
+    cpk_cpu = H.CompactPublicKey.__new__(H.CompactPublicKey)
+    cpk_cpu.params, cpk_cpu.pk = cpk.params, PK.LweCompactPublicKey(data=cpk.pk.data.cpu())
+    ref = H.FheUint8.encrypt_with_compact_public_key(vals[:HL_HELD], cpk_cpu, seed=seed + 21)
+    bound = 8 * math.sqrt(2) * cpk.params.glwe_noise_std
+    worst = max(float((t.lwe.data[:HL_HELD].cpu() - r.lwe.data).abs().max())
+                for t, r in zip(ct.ct.blocks, ref.ct.blocks))
+    right = [int(v) for v in ct.decrypt(ck)] == vals
+    enc["compact_public_key"] = {"encrypt_ms": ms, "batch": B8, "launches": _launched(counts),
+                                 "cpu_rows_max_diff": worst, "noise_bound": bound,
+                                 "right": right}
+    if not (worst <= bound and right):
+        raise AssertionError(f"hlapi CompactPublicKey: {enc['compact_public_key']}")
+    cct = H.FheUint8.encrypt_compressed(vals, ck, seed=seed + 22)
+    dec, ms, _ = timed_counts(cct.decompress)
+    held = all(torch.equal(seeded.decompress_lwe(sb, cpu).data[:HL_HELD],
+                           d.lwe.data[:HL_HELD].cpu())
+               for sb, d in zip(cct.seeded_blocks, dec.ct.blocks))
+    right = [int(v) for v in dec.decrypt(ck)] == vals
+    enc["compressed_fheuint"] = {"decompress_ms": ms, "cpu_rows_bit_identical": held,
+                                 "right": right}
+    if not (held and right):
+        raise AssertionError(f"hlapi CompressedFheUint: {enc['compressed_fheuint']}")
+    csk = H.CompressedServerKey(ck, seed=seed)
+    served, ms, _ = timed_counts(csk.decompress)
+    H.set_server_key(served)
+    xa, xb = H.FheUint8.encrypt(vals, ck, seed=seed + 23), H.FheUint8.encrypt(a, ck,
+                                                                            seed=seed + 24)
+    right = [int(v) for v in (xa + xb).decrypt(ck)] == [u8(p + q) for p, q in zip(vals, a)]
+    enc["compressed_server_key"] = {"decompress_ms": ms, "add_right": right}
+    H.set_server_key(sk)
+    if not right:
+        raise AssertionError("hlapi CompressedServerKey: the add on it decrypts wrong")
+    print(f"{tag} hlapi encryptions: {json.dumps(enc)}; generate_keys {keygen_s:.2f} s")
+    H.unset_server_key()
+    del ck, sk, served, csk, pk, cpk
+    torch.cuda.empty_cache()
+    return {"launches": totals, "ops": ops, "encryptions": enc, "generate_keys_s": keygen_s}
+
+
+def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4k: the WoP-PBS on the card.  new_wopbs_key(ck, sk, "auto") on
+    WOPBS_COMPUTE_SET keys (WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS at its
+    published widths), WOPBS_BATCH ciphertexts over all 16 values through
+    the identity and a non-linear LUT, each call with the counts at 0 just
+    before and read just after (the launches reckoned from the parameters:
+    K1 a PBS, the pass and K2' a keyswitch, the wide K2 a private
+    functional keyswitch, K7 a CMux or rotation step, nothing else), timed
+    by CUDA events, its peak device memory read, every output decrypted.
+    From the first call, on WOPBS_HELD rows: K7 against its plain version
+    on the call's own operands; a private functional keyswitch against the
+    CPU (its row key and input rows copied there); one circuit-bootstrapped
+    GGSW against the plain kernels on the card's tensors (`plain_kernels`).
+    K7 timed alone on the call's operands beside its plain version, the
+    wide K2 alone at the private functional keyswitch's shape beside its
+    plain version, and one call traced under torch.profiler.  Then
+    new_wopbs_key_only_for_wopbs (the WoP-PBS set's cbs and pfks
+    decompositions) through the non-linear LUT on keys of the WoP-PBS set,
+    decrypted, and on the compute keys, where its decryption rate is
+    recorded as a finding (the compute set's one-level PBS is too noisy for
+    the circuit bootstrap), not held.
+    → {"launches", "calls", "k7"}."""
+    import numpy as np
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.core.algorithms import wopbs as W
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.poly import external_product as ep
+    from tfhe_tpu_torch.shortint import wopbs as SW
+
+    rng = np.random.default_rng(seed + 5)
+    ck, sk = shortint.gen_keys(WOPBS_COMPUTE_SET, seed=seed, device=dev)
+    t0 = time.perf_counter()
+    comb = SW.new_wopbs_key(ck, sk, "auto", seed=seed)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    wp = comb.params
+    bits = int(math.log2(wp.message_modulus * wp.carry_modulus))
+    levels, rows = wp.cbs_level, wp.glwe_dimension + 1
+    luts = max(1, (1 << bits) // wp.polynomial_size)
+    tree = min(luts.bit_length() - 1, bits)
+    want_calls = {"blind_rotate": 1 + (bits - 1) + bits * levels + 1,
+                  "keyswitch": 1 + 1 + bits + 1, "keyswitch_mac": bits * levels * rows,
+                  "external_product": (luts - 1) + (bits - tree)}
+    print(f"{tag} WoP-PBS: {wp.name} (n={wp.lwe_dimension}, N={wp.polynomial_size}, PBS "
+          f"{wp.pbs_base_log}x{wp.pbs_level}, cbs {wp.cbs_base_log}x{wp.cbs_level}, pfks "
+          f"{wp.pfks_base_log}x{wp.pfks_level}) keys in {keygen_s:.2f} s; a call reckoned: "
+          f"{json.dumps(want_calls)}", flush=True)
+    msgs = torch.as_tensor(rng.integers(0, 16, WOPBS_BATCH))
+    ct = ck.unchecked_encrypt(msgs.to(dev), seed=seed + 1)
+    spy = {}
+    saved = (W.external_product, W.private_functional_keyswitch, SW.circuit_bootstrap_boolean)
+
+    def first(name, fn, keep):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in spy:
+                spy[name] = keep(args, kw, out)
+            return out
+        return call
+
+    W.external_product = first("k7", saved[0], lambda a, kw, out: (a, kw, out))
+    W.private_functional_keyswitch = first(
+        "pfks", saved[1], lambda a, kw, out: (a[0].data.clone(), a[1], a[2],
+                                              out.data[:WOPBS_HELD].clone()))
+    SW.circuit_bootstrap_boolean = first(
+        "cbs", saved[2], lambda a, kw, out: (a[1].data[:2].clone(), out.data[:2].clone()))
+    calls = []
+    try:
+        for label, f in (("identity", lambda v: v), ("x^2 + 3 mod 16", lambda v: (v * v + 3) % 16)):
+            lut = comb.generate_lut(f)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = comb.wopbs(sk, ct, lut)
+            stop.record()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e6
+            want = {k: 0 for k in counts}
+            want.update(blind_rotate=want_calls["blind_rotate"],
+                        keyswitch_tc=want_calls["keyswitch"],
+                        keyswitch_decompose=want_calls["keyswitch"],
+                        keyswitch_mac=want_calls["keyswitch_mac"],
+                        external_product=want_calls["external_product"])
+            if counts != want:
+                raise AssertionError(f"WoP-PBS {label}: launches {counts}, reckoned {want}")
+            got = ck.decrypt_message_and_carry(out).cpu()
+            right = int((got == f(msgs)).sum())
+            row = {"lut": label, "batch": WOPBS_BATCH, "ms": start.elapsed_time(stop),
+                   "peak_mb": peak, "held_mb": held / 1e6, "right": right,
+                   "launches": _launched(counts)}
+            calls.append(row)
+            print(f"{tag} WoP-PBS {label}: {row['ms']:.3f} ms a call at batch {WOPBS_BATCH} "
+                  f"({row['ms'] / WOPBS_BATCH:.4f} ms a ciphertext), {right}/{WOPBS_BATCH} "
+                  f"right, peak {peak:.1f} MB above {held / 1e6:.1f} MB held, launches "
+                  f"{json.dumps(row['launches'])}", flush=True)
+            if right != WOPBS_BATCH:
+                raise AssertionError(f"WoP-PBS {label}: {right}/{WOPBS_BATCH} right")
+    finally:
+        W.external_product, W.private_functional_keyswitch, SW.circuit_bootstrap_boolean = saved
+
+    # ---- the holds, on the first call's own operands -----------------------
+    args, kw, k7_out = spy["k7"]
+    ct0, spectra, decomp = args
+    exps = kw.get("exps")
+    ct1 = kw.get("ct1")
+    sel = slice(0, WOPBS_HELD)
+    plain = ep.external_product_plain(ct0, spectra[sel], decomp,
+                                      ct1=None if ct1 is None else ct1[sel],
+                                      exps=None if exps is None else exps[sel])
+    k7_err = max_abs_err(k7_out[sel], plain)
+    if k7_err:
+        raise AssertionError(f"K7 differs from its plain version by {k7_err}")
+    x_all, pf, row, pf_out = spy["pfks"]
+    cpu_pf = W.CbsPfpkskList(data=pf.data[row:row + 1].cpu(), decomp=pf.decomp)
+    pf_cpu = W.private_functional_keyswitch(LweCiphertext(data=x_all[sel].cpu()), cpu_pf, 0)
+    pf_err = max_abs_err(pf_out.cpu(), pf_cpu.data)
+    lwe_rows, ggsw_rows = spy["cbs"]
+    inner = comb.wopbs_key
+    with plain_kernels():
+        ggsw_plain = W.circuit_bootstrap_boolean(inner.server_key.bsk,
+                                                 LweCiphertext(data=lwe_rows), inner.pfpksk,
+                                                 inner.cbs_decomp, 63)
+    cbs_err = max_abs_err(ggsw_rows, ggsw_plain.data)
+    print(f"{tag} WoP-PBS holds: K7 on {WOPBS_HELD} rows of the first call's operands "
+          f"{k7_err}, the wide K2's PFPKS (row key {row}) on {WOPBS_HELD} rows against the "
+          f"CPU {pf_err}, one circuit-bootstrapped GGSW (2 rows) against the plain kernels "
+          f"{cbs_err} (max abs err; 0 is bit-identical)", flush=True)
+    if pf_err or cbs_err:
+        raise AssertionError(f"WoP-PBS holds: PFPKS {pf_err}, GGSW {cbs_err}")
+
+    # ---- K7 alone on the call's operands ------------------------------------
+    launch = lambda: ep.external_product(ct0, spectra, decomp, ct1=ct1, exps=exps)
+    launch()
+    k7_ms = cuda_ms(launch, 10)
+    k7_plain_ms = cuda_ms(lambda: ep.external_product_plain(ct0, spectra, decomp, ct1=ct1,
+                                                            exps=exps), 2)
+    Bk, (P, J, R, n) = spectra.shape[0], spectra.shape[-4:]
+    k7_bytes = _nbytes(ct0, spectra, ct1, exps) + Bk * R * n * 8
+    k7_shape = (f"WoP-PBS vertical packing at {wp.name}: batch {Bk}, N={n}, k+1={R}, "
+                f"cbs {decomp.base_log}x{decomp.level} (J={J}), P={P}, a GGSW a row")
+    print(f"{tag} K7 {k7_shape}: {k7_ms:.4f} ms, plain {k7_plain_ms:.3f} ms", flush=True)
+
+    # ---- the wide K2 alone at the private functional keyswitch's shape -------
+    from tfhe_tpu_torch.core.algorithms import keyswitch
+    from tfhe_tpu_torch.core.decomposition import signed_decompose
+    Bp = x_all.shape[0]
+    flat = pf.data[row].reshape(-1, pf.data.shape[-2] * pf.data.shape[-1])
+    digits = signed_decompose(x_all, pf.decomp).reshape(Bp, -1)
+    zero = torch.zeros(Bp, dtype=torch.int64, device=dev)
+    Kp, Mp = flat.shape
+    wide_ms = cuda_ms(lambda: keyswitch.neg_digit_mac(digits, flat, zero), 5)
+    wide_plain_ms = cuda_ms(lambda: keyswitch.neg_digit_mac_plain(digits, flat, zero, chunk=16), 1)
+    pfks = {"shape": f"WoP-PBS private functional keyswitch at {wp.name} batch {Bp}, "
+                     f"K={Kp}, M={Mp} (pfks {pf.decomp.base_log}x{pf.decomp.level})",
+            "ms": wide_ms, "plain_ms": wide_plain_ms, "mults": k2_mults(Bp, Kp, Mp),
+            "bytes": Bp * Kp * 4 + _nbytes(flat, zero) + Bp * Mp * 8}
+    print(f"{tag} K2 (wide form) {pfks['shape']}: {wide_ms:.4f} ms, plain {wide_plain_ms:.3f} "
+          f"ms", flush=True)
+    del digits, flat, x_all
+
+    # ---- one call traced: device time by kernel, the idle share --------------
+    lut = comb.generate_lut(lambda v: v)
+    wall_ms, by_kernel, timeline = profile_window(lambda: comb.wopbs(sk, ct, lut))
+    busy = print_profile(f"{tag} profiler, one WoP-PBS call at batch {WOPBS_BATCH}", wall_ms,
+                         by_kernel, timeline)
+    if not busy:
+        raise AssertionError("the WoP-PBS trace shows no device time")
+    trace = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+             "by_kernel_ms": {k[:60]: v for k, v in sorted(
+                 exclusive_ms(timeline).items(), key=lambda kv: -kv[1])[:6]}}
+    print(f"{tag} WoP-PBS trace by kernel (exclusive ms): {json.dumps(trace['by_kernel_ms'])}",
+          flush=True)
+
+    # ---- the only-for-wopbs regime: one set for the PBS and the WoP-PBS -----
+    # on keys of the WoP-PBS set, checked; on the compute keys, a finding:
+    # there the PBS (one level of 23 bits) leaves its output noise above
+    # the circuit bootstrap's finest levels, and it is recorded, not held
+    f = lambda v: (v * v + 3) % 16
+    only = {}
+    for label, keys in (("WoP-PBS set keys", None), ("compute keys", (ck, sk))):
+        if keys is None:
+            keys = shortint.gen_keys(wp, seed=seed + 2, device=dev)
+        kck, ksk_ = keys
+        kct = ct if keys[0] is ck else kck.unchecked_encrypt(msgs.to(dev), seed=seed + 3)
+        t0 = time.perf_counter()
+        wk = SW.new_wopbs_key_only_for_wopbs(kck, ksk_, cbs_decomp=wp.cbs_decomp,
+                                             pfks_decomp=wp.pfks_decomp, seed=seed)
+        torch.cuda.synchronize()
+        only_keygen_s = time.perf_counter() - t0
+        zero_counts()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wk.wopbs(kct, wk.generate_lut(f))
+        stop.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        right = int((kck.decrypt_message_and_carry(out).cpu() == f(msgs)).sum())
+        only[label] = right
+        calls.append({"lut": f"x^2 + 3 mod 16, new_wopbs_key_only_for_wopbs on {label} "
+                      f"({kck.params.name})", "batch": WOPBS_BATCH,
+                      "ms": start.elapsed_time(stop), "keygen_s": only_keygen_s, "right": right,
+                      "launches": _launched(counts)})
+        print(f"{tag} WoP-PBS only-for-wopbs on {label} ({kck.params.name}): "
+              f"{calls[-1]['ms']:.3f} ms, {right}/{WOPBS_BATCH} right, launches "
+              f"{json.dumps(calls[-1]['launches'])}", flush=True)
+        del kck, ksk_, kct, wk, out
+    if only["WoP-PBS set keys"] != WOPBS_BATCH:
+        raise AssertionError(f"new_wopbs_key_only_for_wopbs on the WoP-PBS set's keys: "
+                             f"{only['WoP-PBS set keys']}/{WOPBS_BATCH} right")
+    print(f"{tag} finding: new_wopbs_key_only_for_wopbs on the {WOPBS_COMPUTE_SET} keys "
+          f"decrypts {only['compute keys']}/{WOPBS_BATCH} right (not held: that regime needs "
+          f"a WoP-PBS set's PBS)", flush=True)
+    totals = {k: sum(c["launches"].get(k, 0) for c in calls) for k in read_counts()}
+    del ck, sk, comb, ct, spy
+    torch.cuda.empty_cache()
+    return {"launches": totals, "calls": calls, "keygen_s": keygen_s, "trace": trace,
+            "pfks": pfks,
+            "k7": {"err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms, "bytes": k7_bytes,
+                   "shape": k7_shape, "mults": k7_mults(Bk, P, J, R, n)}}
+
+
 def noise_hold(seed: int, dev, tag: str) -> dict:
     """ROADMAP C10 on the card: the phases of 4096 encryptions of zero, LWE
     (n = 742) and GLWE (k = 1, N = 2048: 2 polynomials), drawn from the card's
@@ -1547,12 +2096,15 @@ def boolean_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
 def counted_calls():
     """Within: the KS+PBS calls the apps make, counted where they are made
     (the boolean module's bootstrap and keyswitch, shortint's
-    apply_lookup_table, each one pass + K2' and/or one K1 on the card):
+    apply_lookup_table, the casting key's keyswitch, each one pass + K2'
+    and/or one K1 on the card):
     yields {"pbs": n, "ks": n, "lut": n}."""
     from tfhe_tpu_torch import boolean as Bo
     from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.shortint import key_switching_key as KS
     calls = {"pbs": 0, "ks": 0, "lut": 0}
-    saved = (Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table)
+    saved = (Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table,
+             KS.keyswitch_lwe)
 
     def wrap(kind, fn):
         def call(*args):
@@ -1562,10 +2114,12 @@ def counted_calls():
     Bo.programmable_bootstrap = wrap("pbs", saved[0])
     Bo.keyswitch_lwe = wrap("ks", saved[1])
     shortint.ServerKey.apply_lookup_table = wrap("lut", saved[2])
+    KS.keyswitch_lwe = wrap("ks", saved[3])
     try:
         yield calls
     finally:
-        Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table = saved
+        (Bo.programmable_bootstrap, Bo.keyswitch_lwe, shortint.ServerKey.apply_lookup_table,
+         KS.keyswitch_lwe) = saved
 
 
 def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: list) -> dict:
@@ -1581,10 +2135,12 @@ def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: lis
     import numpy as np
 
     from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch import hlapi as H
     from tfhe_tpu_torch import integer, shortint
     from tfhe_tpu_torch.apps import (KreyviumStream, TriviumStream, TriviumStreamByte,
                                      TriviumStreamShortint, clear_kreyvium_keystream,
-                                     clear_trivium_keystream)
+                                     clear_trivium_keystream, trans_encrypt_u64)
+    from tfhe_tpu_torch.core.params import SHORTINT_KS
     from tfhe_tpu_torch.core.entities import LweCiphertext
     from tfhe_tpu_torch.core.params import boolean_params
     from tfhe_tpu_torch.examples import dark_market, regex_engine, sha256_bool
@@ -1649,7 +2205,40 @@ def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: lis
             "launches": calls["launches"]})
     if right != STREAMS:
         raise AssertionError(f"TriviumStreamShortint: {right}/{STREAMS} streams right")
-    del ck, sk, enc_key, stream, out
+
+    # ---- transciphering from the shortint stream into an FheUint64 at 2_2 -
+    # round 20's keystream masks a batch of STREAMS values (one a stream);
+    # the stream's state, kept, gives the same keystream again to unmask it
+    hl_ck, hl_sk = H.generate_keys(H.ConfigBuilder().use_custom_parameters(HL_SET).build(),
+                                   seed=seed + 1, device=dev)
+    cast = shortint.generate_key_switching_key(ck, hl_ck.shortint_ck, SHORTINT_KS[CAST_SET],
+                                               seed=seed, dest_server_key=hl_sk.radix.key)
+    values = [int(v) for v in rng.integers(0, 1 << 64, STREAMS, dtype=np.uint64)]
+    cipher = H.FheUint64.encrypt(values, hl_ck, seed=seed + 250)
+    stream.cast_ksk, stream.hl_server_key = cast, hl_sk
+    kept = (stream.a, stream.b, stream.c)
+    with window("TriviumStreamShortint.trans_encrypt_64") as calls:
+        start_ev, stop_ev = ev(), ev()
+        start_ev.record()
+        masked = stream.trans_encrypt_64(cipher)
+        stop_ev.record()
+    enc_ms = start_ev.elapsed_time(stop_ev)
+    ks20 = [clear_trivium_keystream(key_bits[:, s].tolist(), iv, 128)[64:]
+            for s in range(STREAMS)]
+    got = [int(v) for v in masked.decrypt(hl_ck)]
+    right_enc = sum(g == trans_encrypt_u64(v, k) for g, v, k in zip(got, values, ks20))
+    stream.a, stream.b, stream.c = kept
+    with window("TriviumStreamShortint.trans_decrypt_64") as calls_dec:
+        unmasked = stream.trans_decrypt_64(masked)
+    right_dec = sum(int(g) == v for g, v in zip(unmasked.decrypt(hl_ck), values))
+    report({"app": "TriviumStreamShortint transciphering", "set": f"{TRIVIUM_SET} -> {HL_SET}",
+            "cast": CAST_SET, "values": STREAMS, "trans_encrypt_ms": enc_ms,
+            "calls": calls["lut"], "casts": calls["ks"], "encrypt_right": right_enc,
+            "round_trip_right": right_dec, "launches": calls["launches"]})
+    if right_enc != STREAMS or right_dec != STREAMS:
+        raise AssertionError(f"transciphering through {CAST_SET}: {right_enc}/{STREAMS} "
+                             f"masked right, {right_dec}/{STREAMS} unmasked right")
+    del ck, sk, enc_key, stream, out, cast, cipher, masked, unmasked
 
     # ---- the boolean streams: 32 streams, the warm-up that fits the budget --
     bp = boolean_params(APP_BOOL_SET)
@@ -1768,12 +2357,36 @@ def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: lis
         got = st.next_64()
         stop.record()
     got = [int(ck.decrypt(v)) for v in got]
-    want = TriviumStreamByte(key, iv, warmup_rounds=BYTE_WARMUP).next_64()
+    clear_st = TriviumStreamByte(key, iv, warmup_rounds=BYTE_WARMUP)
+    want = clear_st.next_64()
     report({"app": "TriviumStreamByte", "set": CLASSIC, "warmup_rounds": BYTE_WARMUP,
             "rounds": BYTE_WARMUP + 1, "ms_per_round": start.elapsed_time(stop)
             / (BYTE_WARMUP + 1), "calls": calls["lut"], "right": got == want})
     if got != want:
         raise AssertionError(f"TriviumStreamByte: {got} != {want}")
+    # transciphering: round 20's 8 bytes mask one FheUint64 on the stream's
+    # key; the state, kept, unmasks it
+    value = int(rng.integers(0, 1 << 64, dtype=np.uint64))
+    cipher = H.FheUint64(integer.RadixClientKey(key=ck.key, num_blocks=32).encrypt(
+        value, seed=seed + 650))
+    kept = (st.a, st.b, st.c)
+    with window("TriviumStreamByte.trans_encrypt_64") as calls:
+        start.record()
+        masked = st.trans_encrypt_64(cipher)
+        stop.record()
+    bits = [(b >> j) & 1 for b in clear_st.next_64() for j in range(8)]   # LSB first
+    rck64 = integer.RadixClientKey(key=ck.key, num_blocks=32)
+    right_enc = int(rck64.decrypt(masked.ct)) == trans_encrypt_u64(value, bits)
+    st.a, st.b, st.c = kept
+    with window("TriviumStreamByte.trans_decrypt_64"):
+        unmasked = st.trans_decrypt_64(masked)
+    right_dec = int(rck64.decrypt(unmasked.ct)) == value
+    report({"app": "TriviumStreamByte transciphering", "set": CLASSIC,
+            "trans_encrypt_ms": start.elapsed_time(stop), "calls": calls["lut"],
+            "encrypt_right": right_enc, "round_trip_right": right_dec})
+    if not (right_enc and right_dec):
+        raise AssertionError(f"byte-stream transciphering: masked right {right_enc}, "
+                             f"unmasked right {right_dec}")
 
     def fill(orders, other_total):
         pre, out = 0, []
@@ -1849,7 +2462,7 @@ def main() -> int:
                                               NttMultiBitBootstrapKey)
     from tfhe_tpu_torch.core.params import (boolean_params, gadget_params, shortint_params,
                                             wopbs_params)
-    from tfhe_tpu_torch.core.poly import ntt, rotation
+    from tfhe_tpu_torch.core.poly import external_product, ntt, rotation
 
     # ---- 1. the card ---------------------------------------------------------
     card = smi("name,power.limit")
@@ -1872,6 +2485,7 @@ def main() -> int:
         rotation.step_launches = rotation.step_variant_launches = 0
         rotation.cluster_launches = rotation.cluster_variant_launches = 0
         rotation.staged_launches = 0
+        external_product.launches = 0
 
     def read_counts():
         return {"blind_rotate": rotation.launches,
@@ -1883,7 +2497,8 @@ def main() -> int:
                 "blind_rotate_staged": rotation.staged_launches,
                 "keyswitch_tc": keyswitch.launches,
                 "keyswitch_decompose": keyswitch.decompose_launches,
-                "keyswitch_mac": keyswitch.wide_launches}
+                "keyswitch_mac": keyswitch.wide_launches,
+                "external_product": external_product.launches}
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2636,7 +3251,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"{tag} gen_keys {CLASSIC} on the card: {time.perf_counter() - t0:.2f} s")
     mm = params.message_modulus
-    msgs = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 8), dtype=torch.int64)
+    msgs = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 8, device="cpu"),
+                         dtype=torch.int64)
     ct = ck.encrypt(msgs.to(dev), seed=args.seed + 1)
 
     f1 = lambda x: (3 * x + 1) % mm
@@ -2667,7 +3283,7 @@ def main() -> int:
     print(f"{tag} gen_keys {GROUP_3} on the card: {time.perf_counter() - t0:.2f} s "
           f"(key {sk.bsk.spectra.numel() * 4 / 1e6:.1f} MB)")
     mm = mp3.message_modulus
-    gen = rng.generator(args.seed, 9)
+    gen = rng.generator(args.seed, 9, device="cpu")
     a = torch.randint(0, mm, (B,), generator=gen, dtype=torch.int64)
     b = torch.randint(0, mm, (B,), generator=gen, dtype=torch.int64)
     ca, cb = ck.encrypt(a.to(dev), seed=args.seed + 2), ck.encrypt(b.to(dev), seed=args.seed + 3)
@@ -2712,7 +3328,8 @@ def main() -> int:
         print(f"{tag} {label}: gen_keys on the card {time.perf_counter() - t0:.2f} s, key "
               f"route {route!r}, spectra {tuple(sk.bsk.spectra.shape)}")
         mm = rp.message_modulus
-        m = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 10), dtype=torch.int64)
+        m = torch.randint(0, mm, (B,), generator=rng.generator(args.seed, 10, device="cpu"),
+                          dtype=torch.int64)
         ct = ck.encrypt(m.to(dev), seed=args.seed + 5)
         lut = sk.generate_lookup_table(f1)
         zero_counts()
@@ -2732,10 +3349,11 @@ def main() -> int:
         if timed:
             route_kspbs[label] = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
         if label == "FUSED=0 classic":
-            wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ct, lut))
+            wall_ms, by_kernel, timeline, k4_events = profile_launches(
+                lambda: sk.apply_lookup_table(ct, lut), "delta_kernel",
+                steps_per_call[CLASSIC], label)
             print_profile(f"{tag} profiler, one {label} KS+PBS call at batch {B}", wall_ms,
                           by_kernel, timeline)
-            k4_events = [e for e in timeline if "delta_kernel" in e[0]]
             gaps = [b[1] - (a[1] + a[2]) for a, b in zip(k4_events, k4_events[1:])]
             ends = [b[1] + b[2] - (a[1] + a[2]) for a, b in zip(k4_events, k4_events[1:])]
             if len(k4_events) != steps_per_call[CLASSIC] or not gaps:
@@ -2770,7 +3388,7 @@ def main() -> int:
               f"{sk.bsk.spectra.numel() * 4 / 1e9:.2f} GB, keyswitching key "
               f"{sk.ksk.data.numel() * 8 / 1e9:.2f} GB), batch {batch}; K6: {form}")
         m = torch.randint(0, rp.message_modulus, (batch,),
-                          generator=rng.generator(args.seed, 11), dtype=torch.int64)
+                          generator=rng.generator(args.seed, 11, device="cpu"), dtype=torch.int64)
         ct = ck.encrypt(m.to(dev), seed=args.seed + 6)
         f33 = lambda x, q=rp.message_modulus: (3 * x + 1) % q
         lut = sk.generate_lookup_table(f33)
@@ -2796,10 +3414,10 @@ def main() -> int:
                                       2 if pname == CLASSIC_44 else 3), batch)
         # one call under the profiler: the idle share, device time by kernel, and
         # K6's launches and their cadence
-        wall_ms, by_kernel, timeline = profile_window(lambda: sk.apply_lookup_table(ct, lut))
+        wall_ms, by_kernel, timeline, k6_events = profile_launches(
+            lambda: sk.apply_lookup_table(ct, lut), "cluster_step", steps, pname)
         busy = print_profile(f"{tag} profiler, one {pname} KS+PBS call at batch {batch}",
                              wall_ms, by_kernel, timeline)
-        k6_events = [e for e in timeline if "cluster_step" in e[0]]
         if not busy or len(k6_events) != steps:
             raise AssertionError(f"the {pname} trace shows {len(k6_events)} K6 launches, "
                                  f"not {steps}")
@@ -2845,6 +3463,18 @@ def main() -> int:
     print(json.dumps({"key_flow": key_flow["sets"]}))
     slice_launches = {k: v + key_flow["launches"].get(k, 0) for k, v in slice_launches.items()}
 
+    lap("4j")
+    # ---- 4j. the high-level API ----------------------------------------------------
+    hl = hlapi_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"hlapi": hl["ops"], "hlapi_encryptions": hl["encryptions"]}))
+
+    lap("4k")
+    # ---- 4k. the WoP-PBS ------------------------------------------------------------
+    wop = wopbs_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"wopbs": wop["calls"], "wopbs_trace": wop["trace"]}))
+    slice_launches = {k: v + hl["launches"].get(k, 0) + wop["launches"].get(k, 0)
+                      for k, v in slice_launches.items()}
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -2870,8 +3500,11 @@ def main() -> int:
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
     print(f"integer path kernel launches (every op): {json.dumps(int_launches)}")
-    print(f"boolean, apps, PBS -> KS and key-flow paths kernel launches: "
+    print(f"boolean, apps, PBS -> KS, key-flow, hlapi and WoP-PBS paths kernel launches: "
           f"{json.dumps(slice_launches)}")
+    for name in ("external_product", "keyswitch_mac"):
+        if wop["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the WoP-PBS path")
     for name in ("blind_rotate", "keyswitch_tc", "keyswitch_decompose"):
         if min(bool_path["launches"][name], app_path["launches"][name],
                key_flow["launches"][name]) <= 0:
@@ -2974,7 +3607,9 @@ def main() -> int:
         entry("keyswitch_mac", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:24",
               path_total("keyswitch_mac"), max(w["err"] for w in ks_wide.values()),
               wide0["ms"], wide0["plain_ms"], wide0["bound"],
-              [(w["shape"], w["ms"], w["plain_ms"], w["bound"]) for w in ks_wide.values()]),
+              [(w["shape"], w["ms"], w["plain_ms"], w["bound"]) for w in ks_wide.values()]
+              + [(wop["pfks"]["shape"], wop["pfks"]["ms"], wop["pfks"]["plain_ms"],
+                  bound(wop["pfks"]["mults"], wop["pfks"]["bytes"], clock_hz, sms))]),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"] + int_launches["blind_rotate_multibit"],
               max(k3[2]["err"], k3[3]["err"]),
@@ -3007,6 +3642,12 @@ def main() -> int:
         entry("smem_probe", "tfhe_tpu_torch/csrc/probe.cu", "tools/vmem_probe.py:19",
               probe_launches, abs(largest - optin), probe_ms, optin_ms,
               bound(largest, 8, clock_hz, sms)),
+        entry("external_product", "tfhe_tpu_torch/csrc/external_product.cu",
+              "tfhe_tpu/core/algorithms/bootstrap.py:50", path_total("external_product"),
+              wop["k7"]["err"], wop["k7"]["ms"], wop["k7"]["plain_ms"],
+              bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
+              [(wop["k7"]["shape"], wop["k7"]["ms"], wop["k7"]["plain_ms"],
+                bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms))]),
     ]
     print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")

@@ -1,7 +1,8 @@
-"""Builds `tfhe_tpu_torch/csrc/rotation.cu` and `keyswitch.cu` for the host
-against `tests/cuda_host_stub.h`, for the tests that run the kernels' CUDA
-source on the CPU (tests/test_torch_delta_host.py,
-tests/test_torch_staged_host.py, tests/test_torch_keyswitch_host.py)."""
+"""Builds `tfhe_tpu_torch/csrc/rotation.cu`, `keyswitch.cu` and
+`external_product.cu` for the host against `tests/cuda_host_stub.h`, for the
+tests that run the kernels' CUDA source on the CPU
+(tests/test_torch_delta_host.py, tests/test_torch_staged_host.py,
+tests/test_torch_keyswitch_host.py, tests/test_torch_external_product.py)."""
 import ctypes
 import re
 import shutil
@@ -38,6 +39,12 @@ def build_keyswitch_host(out: Path, entries) -> ctypes.CDLL:
     return _build_host("keyswitch", out, entries, (
         (mma, "host_mma_s8u8(d, a0, a1, a2, a3, b0, b1);"),
         (copy, "host_cp_async16(smem_dst, src, bytes);")))
+
+
+def build_external_product_host(out: Path, entries) -> ctypes.CDLL:
+    """external_product.cu (K7) built for the host, as `build_rotation_host`;
+    it has no inline PTX."""
+    return _build_host("external_product", out, entries, ())
 
 
 def _build_host(name: str, out: Path, entries, replacements) -> ctypes.CDLL:

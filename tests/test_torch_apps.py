@@ -4,7 +4,9 @@ numpy keys and ciphertexts (tolerance 0): two clocks of the boolean
 one `step_64` round of `TriviumStreamShortint` (msg 2, carry 4, the
 TEST_PARAMS_TRIVIUM set), and SHA-256's batched `add_words_b`, sigma0 and
 `maj_b` at TEST_PARAMS_BOOLEAN.  Decrypted against clear models: the
-keystreams, the boolean transciphering round trip,
+keystreams, the boolean transciphering round trip, the transciphering of
+the shortint stream (against JAX too) and of the byte stream into an
+FheUint64 (its assembly against JAX on fixed keystream bytes),
 the dark market and the regex engine on 4-block integers at
 TEST_PARAMS_SHORTINT.  The clear models on the official eSTREAM vectors,
 the SHA-256 padding on the reference vector.
@@ -28,7 +30,9 @@ from tfhe_tpu.core.entities import GlweCiphertext as JGlwe
 from tfhe_tpu.core.entities import LweBootstrapKey as JBsk
 from tfhe_tpu.core.entities import LweCiphertext as JLwe
 from tfhe_tpu.core.entities import LweKeyswitchKey as JKsk
+from tfhe_tpu.core.params import TEST_PARAMS_SHORTINT as JP_SHORTINT
 from tfhe_tpu.core.params import TEST_PARAMS_TRIVIUM as JPT
+from tfhe_tpu.core.params import DecompParams as JDecomp
 from tfhe_tpu.shortint.ciphertext import Ciphertext as JCt
 from tfhe_tpu.shortint.ciphertext import NoiseLevel as JNoiseLevel
 from tfhe_tpu.shortint.server_key import LookupTable as JLut
@@ -42,7 +46,7 @@ from tfhe_tpu_torch.apps import (KreyviumStream, KreyviumStreamByte, KreyviumStr
 from tfhe_tpu_torch.apps.trivium import _lsb_bits_of_bytes
 from tfhe_tpu_torch.core.entities import LweCiphertext
 from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_u64
-from tfhe_tpu_torch.core.params import TEST_PARAMS_SHORTINT
+from tfhe_tpu_torch.core.params import TEST_PARAMS_SHORTINT, DecompParams
 from tfhe_tpu_torch.core.params import TEST_PARAMS_TRIVIUM as PT
 from tfhe_tpu_torch.examples import dark_market, regex_engine, sha256_bool
 from torch_boolean_jax import (JP, P, both, decrypt_bool, encrypt_bool, interpret_boolean,
@@ -280,15 +284,139 @@ def test_kreyvium_shortint_decrypts(trivium_keys):
 
 
 def test_transciphering_into_fheuint64_is_queued(trivium_keys):
-    """ROADMAP A6b / A11: the casting key and the high-level API."""
+    """Transciphering into an FheUint64 needs its keys: a shortint stream
+    without the casting key or the hlapi server key, and a clear byte
+    stream, refuse it."""
     _, tsk, _ = trivium_keys
-    with pytest.raises(NotImplementedError, match="A6b"):
-        TriviumStreamShortint([0] * 80, [0] * 80, tsk, cast_ksk=object(), warmup_rounds=0)
     stream = TriviumStreamShortint([0] * 80, [0] * 80, tsk, warmup_rounds=0)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="casting key"):
         stream.trans_encrypt_64(None)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="encrypted"):
         TriviumStreamByte([0] * 10, [0] * 10, warmup_rounds=0).trans_decrypt_64(None)
+
+
+CAST = (1, 15)            # PARAM_KEYSWITCH_1_1_KS_PBS_TO_2_2_KS_PBS's base_log x level
+VALUE = 0xDEADBEEFCAFEF00D
+
+
+def _cast_ksk(rng, in_bits, out_bits, std):
+    """A keyswitching key [n_in, 15, n_out+1] on the 15 x 1 decomposition."""
+    g = np.array([1 << (64 - (l + 1)) for l in range(CAST[1])], dtype=np.uint64)
+    pts = in_bits.astype(np.uint64)[:, None] * g
+    mask = rng.integers(0, 2 ** 64, pts.shape + (out_bits.size,), dtype=np.uint64)
+    noise = np.round(rng.normal(0.0, std, pts.shape)).astype(np.int64).view(np.uint64)
+    body = (mask * out_bits.astype(np.uint64)).sum(axis=-1, dtype=np.uint64) + pts + noise
+    return np.concatenate([mask, body[..., None]], axis=-1)
+
+
+@pytest.fixture(scope="module")
+def hl_keys():
+    """The high-level API's keys at TEST_PARAMS_SHORTINT in both packages, on
+    one numpy key, and an FheUint64 of VALUE (32 blocks) in both."""
+    from tfhe_tpu import hlapi as JH
+    from tfhe_tpu import integer as JI
+    from tfhe_tpu_torch import hlapi as TH
+    from torch_jax_pbs import jax_server, port_keys
+    torch.set_num_threads(1)
+    k = real_keys(TEST_PARAMS_SHORTINT, seed=92)
+    tck, tsk = port_keys(k, TEST_PARAMS_SHORTINT)
+    jsk = jax_server(k, JP_SHORTINT)
+    digits = [(VALUE >> (2 * i)) & 3 for i in range(32)]
+    blocks = [encrypt_big(TEST_PARAMS_SHORTINT, k["big_bits"], [d], seed=93 + i)
+              for i, d in enumerate(digits)]
+    tct = TH.FheUint64(interop.radix_ciphertext(blocks, [3] * 32, [1] * 32, 4, 4,
+                                                device="cpu"))
+    jct = JH.FheUint64(JI.RadixCiphertext(blocks=[
+        JCt(lwe=JLwe(data=jnp.asarray(b)), degree=3, message_modulus=4, carry_modulus=4)
+        for b in blocks]))
+    tcl, tsv = interop.hlapi_keys(tck, tsk)
+    return dict(k=k, tck=tck, tsk=tsk, jsk=jsk, tcl=tcl, tsv=tsv,
+                jsv=JH.ServerKey(JI.ServerKey(key=jsk)), tct=tct, jct=jct)
+
+
+def test_trivium_shortint_transciphering_matches_jax(trivium_keys, hl_keys):
+    """`TriviumStreamShortint.trans_encrypt_64` (warm-up 0): the keystream
+    bit pairs cast from TEST_PARAMS_TRIVIUM into TEST_PARAMS_SHORTINT (the
+    wider space: a keyswitch on the 15 x 1 decomposition, then n >> 1) and
+    XORed into an FheUint64, block for block JAX's; it decrypts to VALUE
+    XOR the clear keystream (`trans_encrypt_u64`), and a second stream of
+    the same key and IV takes it back to VALUE."""
+    from tfhe_tpu.shortint.key_switching_key import KeySwitchingKey as JKeySwitchingKey
+    from torch_jax_pbs import interpreted_pbs
+    k, tsk, jsk = trivium_keys
+    h = hl_keys
+    rng = np.random.default_rng(94)
+    key_bits = rng.integers(0, 2, 80).tolist()
+    iv = rng.integers(0, 2, 80).tolist()
+    ksk = _cast_ksk(rng, k["big_bits"], h["k"]["big_bits"], TEST_PARAMS_SHORTINT.glwe_noise_std)
+    tcast = interop.casting_key(ksk, DecompParams(*CAST), TEST_PARAMS_SHORTINT, 1,
+                                dest_server_key=h["tsk"], device="cpu")
+    jcast = JKeySwitchingKey(ksk=JKsk(data=jnp.asarray(ksk), decomp=JDecomp(*CAST)),
+                             dest_params=JP_SHORTINT, cast_rshift=1,
+                             dest_server_key=h["jsk"])
+    data = encrypt_big(PT, k["big_bits"], key_bits, seed=95)
+    tkey = [shortint.Ciphertext(lwe=LweCiphertext(data=from_numpy_u64(d)), degree=1,
+                                message_modulus=2, carry_modulus=4) for d in data]
+    jkey = [JCt(lwe=JLwe(data=jnp.asarray(d)), degree=1, message_modulus=2, carry_modulus=4)
+            for d in data]
+    with interpreted_pbs():
+        got = TriviumStreamShortint(tkey, iv, tsk, cast_ksk=tcast, hl_server_key=h["tsv"],
+                                    warmup_rounds=0).trans_encrypt_64(h["tct"])
+        want = JT.TriviumStreamShortint(jkey, iv, jsk, cast_ksk=jcast, hl_server_key=h["jsv"],
+                                        warmup_rounds=0).trans_encrypt_64(h["jct"])
+    for a, b in zip(got.ct.blocks, want.ct.blocks):
+        _same(a, b)
+        assert (a.degree, a.noise_level) == (b.degree, b.noise_level)
+    ks = clear_trivium_keystream(key_bits, iv, 64, warmup_rounds=0)
+    assert int(got.decrypt(h["tcl"])[0]) == trans_encrypt_u64(VALUE, ks)
+    back = TriviumStreamShortint(tkey, iv, tsk, cast_ksk=tcast, hl_server_key=h["tsv"],
+                                 warmup_rounds=0).trans_decrypt_64(got)
+    assert int(back.decrypt(h["tcl"])[0]) == VALUE
+
+
+def test_byte_stream_transciphering_matches_jax(hl_keys):
+    """`TriviumStreamByte.trans_encrypt_64` on 8 keystream bytes (encrypted
+    FheUint8 of fixed bytes, the same in both packages): each widened to
+    32 blocks, shifted to its byte, ORed and XORed into the FheUint64,
+    block for block JAX's and decrypted."""
+    from tfhe_tpu import integer as JI
+    from torch_jax_pbs import interpreted_pbs
+    h = hl_keys
+    ks_bytes = [0x3C, 0x00, 0xFF, 0x81, 0x5A, 0x01, 0x80, 0x77]
+    arrays = [[encrypt_big(TEST_PARAMS_SHORTINT, h["k"]["big_bits"], [(b >> (2 * i)) & 3],
+                           seed=200 + 4 * j + i) for i in range(4)]
+              for j, b in enumerate(ks_bytes)]
+    tbytes = [interop.radix_ciphertext(a, [3] * 4, [1] * 4, 4, 4, device="cpu") for a in arrays]
+    jbytes = [JI.RadixCiphertext(blocks=[JCt(lwe=JLwe(data=jnp.asarray(b)), degree=3,
+                                             message_modulus=4, carry_modulus=4) for b in a])
+              for a in arrays]
+    tstream = TriviumStreamByte([0] * 10, [0] * 10, warmup_rounds=0)
+    tstream.isk, tstream.next_64 = h["tsv"].radix, lambda: tbytes
+    jstream = JT.TriviumStreamByte([0] * 10, [0] * 10, warmup_rounds=0)
+    jstream.isk, jstream.next_64 = h["jsv"].radix, lambda: jbytes
+    with interpreted_pbs():
+        got, want = tstream.trans_encrypt_64(h["tct"]), jstream.trans_encrypt_64(h["jct"])
+    for a, b in zip(got.ct.blocks, want.ct.blocks):
+        _same(a, b)
+    mask = sum(b << (8 * j) for j, b in enumerate(ks_bytes))
+    assert int(got.decrypt(h["tcl"])[0]) == VALUE ^ mask
+
+
+def test_byte_stream_transciphering_round_trip(hl_keys):
+    """The port alone: an FheUint8 Trivium byte stream (warm-up 0) on the
+    hlapi key masks an FheUint64 with its first 64 keystream bits, those of
+    the clear byte model."""
+    h = hl_keys
+    isk = h["tsv"].radix
+    rck = integer.RadixClientKey(key=h["tck"], num_blocks=4)
+    key = list(bytes.fromhex("0053A6F94C9FF24598EB"))
+    iv = list(bytes.fromhex("0D74DB42A91077DE45AC"))
+    enc_key = [rck.encrypt(b, seed=300 + i) for i, b in enumerate(key)]
+    cipher = type(h["tct"]).encrypt(VALUE, h["tcl"], seed=310)
+    got = TriviumStreamByte(enc_key, iv, isk, warmup_rounds=0).trans_encrypt_64(cipher)
+    clear = TriviumStreamByte(key, iv, warmup_rounds=0).next_64()
+    mask = sum(b << (8 * j) for j, b in enumerate(clear))
+    assert int(got.decrypt(h["tcl"])) == VALUE ^ mask
 
 
 # ---------------------------------------------------------------------------

@@ -103,9 +103,9 @@ def test_port_bootstrap_key_decrypts():
     """Every GLWE row of the port's BSK decrypts (numpy phase) to its GGSW
     plaintext, -s_i*g_l*S_r for r < k and s_i*g_l at the body, within noise."""
     k, N, L, Bl = P.glwe_dimension, P.polynomial_size, P.pbs_level, P.pbs_base_log
-    lwe_bits = rng.binary_key(rng.generator(3, 1), (P.lwe_dimension,))
-    glwe_bits = rng.binary_key(rng.generator(3, 2), (k, N))
-    bsk = generate_bootstrap_key(rng.generator(3, 3),
+    lwe_bits = rng.binary_key(rng.generator(3, 1, device="cpu"), (P.lwe_dimension,))
+    glwe_bits = rng.binary_key(rng.generator(3, 2, device="cpu"), (k, N))
+    bsk = generate_bootstrap_key(rng.generator(3, 3, device="cpu"),
                                  interop.lwe_secret_key(lwe_bits, device="cpu"),
                                  interop.glwe_secret_key(glwe_bits, device="cpu"), P.pbs_decomp,
                                  P.glwe_noise_std)
@@ -126,10 +126,10 @@ def test_port_keyswitch_key_decrypts():
     """Every KSK row decrypts under the output key to s_in[i] * g_l, within
     noise."""
     n_in, L, Bk = 64, P.ks_level, P.ks_base_log
-    in_bits = rng.binary_key(rng.generator(4, 1), (n_in,))
-    out_bits = rng.binary_key(rng.generator(4, 2), (P.lwe_dimension,))
+    in_bits = rng.binary_key(rng.generator(4, 1, device="cpu"), (n_in,))
+    out_bits = rng.binary_key(rng.generator(4, 2, device="cpu"), (P.lwe_dimension,))
     out_sk = interop.lwe_secret_key(out_bits, device="cpu")
-    ksk = generate_keyswitch_key(rng.generator(4, 3),
+    ksk = generate_keyswitch_key(rng.generator(4, 3, device="cpu"),
                                  interop.lwe_secret_key(in_bits, device="cpu"),
                                  out_sk, P.ks_decomp, P.lwe_noise_std)
     assert ksk.data.shape == (n_in, L, P.lwe_dimension + 1)

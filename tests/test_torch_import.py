@@ -1,5 +1,6 @@
-"""tfhe_tpu_torch imports without jax, and carries the JAX package's
-parameter tables unchanged."""
+"""tfhe_tpu_torch imports without jax, carries the JAX package's parameter
+tables unchanged, and gives its exported random-source functions no CPU
+default device."""
 import dataclasses
 import subprocess
 import sys
@@ -31,7 +32,7 @@ def test_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     mods = set(proc.stdout.split())
-    assert len(mods) >= 21
+    assert len(mods) >= 27
     assert {"tfhe_tpu_torch.config", "tfhe_tpu_torch.smem_probe",
             "tfhe_tpu_torch.core.poly.rotation", "tfhe_tpu_torch.interop",
             "tfhe_tpu_torch.integer", "tfhe_tpu_torch.integer.ciphertext",
@@ -42,7 +43,10 @@ def test_imports_with_jax_blocked():
             "tfhe_tpu_torch.examples.regex_engine",
             "tfhe_tpu_torch.core.threefry", "tfhe_tpu_torch.core.algorithms.seeded",
             "tfhe_tpu_torch.core.algorithms.public_key", "tfhe_tpu_torch.utils",
-            "tfhe_tpu_torch.utils.serialization"} <= mods
+            "tfhe_tpu_torch.utils.serialization", "tfhe_tpu_torch.hlapi",
+            "tfhe_tpu_torch.shortint.key_switching_key", "tfhe_tpu_torch.shortint.wopbs",
+            "tfhe_tpu_torch.core.algorithms.wopbs", "tfhe_tpu_torch.core.algorithms.linear",
+            "tfhe_tpu_torch.core.poly.external_product"} <= mods
 
 
 def _named_sets():
@@ -73,3 +77,16 @@ def test_named_set_lookup():
     assert (p.lwe_dimension, p.glwe_dimension, p.polynomial_size) == (742, 1, 2048)
     assert (p.pbs_base_log, p.pbs_level, p.ks_base_log, p.ks_level) == (23, 1, 3, 5)
     assert tp.shortint_params("TEST_PARAMS_SHORTINT") is tp.TEST_PARAMS_SHORTINT
+
+
+def test_random_sources_take_no_default_device():
+    """`rng.generator` and `seeded.bsk_masks_from_seed` name their device:
+    called without one, they raise (no silent CPU default)."""
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.algorithms import seeded
+    with pytest.raises(TypeError, match="device"):
+        rng.generator(1, 2)
+    with pytest.raises(TypeError, match="device"):
+        seeded.bsk_masks_from_seed(1, 2, 1, 2, 8)
+    assert rng.generator(1, 2, device="cpu").device.type == "cpu"
+    assert tuple(seeded.bsk_masks_from_seed(1, 2, 1, 2, 8, "cpu").shape) == (2, 1, 2, 1, 8)

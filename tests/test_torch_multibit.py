@@ -179,10 +179,10 @@ def test_multi_bit_wrapper_refuses_other_devices(rot):
 def test_multi_bit_keygen_encrypts_the_indicators(g):
     tp = TP[g]
     k, L, Bl = tp.glwe_dimension, tp.pbs_level, tp.pbs_base_log
-    lwe_bits = rng.binary_key(rng.generator(7, 1), (tp.lwe_dimension,))
-    glwe_bits = rng.binary_key(rng.generator(7, 2), (k, N))
+    lwe_bits = rng.binary_key(rng.generator(7, 1, device="cpu"), (tp.lwe_dimension,))
+    glwe_bits = rng.binary_key(rng.generator(7, 2, device="cpu"), (k, N))
     std = generate_multi_bit_bootstrap_key(
-        rng.generator(7, 3), interop.lwe_secret_key(lwe_bits, device="cpu"),
+        rng.generator(7, 3, device="cpu"), interop.lwe_secret_key(lwe_bits, device="cpu"),
         interop.glwe_secret_key(glwe_bits, device="cpu"), tp.pbs_decomp, g, tp.glwe_noise_std)
     ng, nv = tp.lwe_dimension // g, 1 << g
     assert std.data.shape == (ng, nv, L, k + 1, k + 1, N) and std.grouping_factor == g

@@ -28,15 +28,15 @@ def phase_of_zeros(kind: str, std: float, seed: int) -> torch.Tensor:
     """The phases (message 0 + noise) of SAMPLES encryptions of zero, int64:
     LWE at n = 16, or GLWE polynomials at k = 1, N = 256 (16 of them)."""
     if kind == "lwe":
-        sk = generate_lwe_secret_key(rng.generator(seed, 0), P.lwe_dimension)
-        ct = encrypt_lwe(rng.generator(seed, 1), sk,
+        sk = generate_lwe_secret_key(rng.generator(seed, 0, device="cpu"), P.lwe_dimension)
+        ct = encrypt_lwe(rng.generator(seed, 1, device="cpu"), sk,
                          torch.zeros(SAMPLES, dtype=torch.int64), std)
         return decrypt_lwe(ct, sk)
-    sk = generate_glwe_secret_key(rng.generator(seed, 0), P.glwe_dimension,
+    sk = generate_glwe_secret_key(rng.generator(seed, 0, device="cpu"), P.glwe_dimension,
                                   P.polynomial_size)
     zeros = torch.zeros((SAMPLES // P.polynomial_size, P.polynomial_size),
                         dtype=torch.int64)
-    ct = encrypt_glwe(rng.generator(seed, 1), sk, zeros, std)
+    ct = encrypt_glwe(rng.generator(seed, 1, device="cpu"), sk, zeros, std)
     return (ct.body - _glwe_mask_dot_key(ct.mask, sk.bits)).reshape(-1)
 
 

@@ -11,6 +11,9 @@ TEST_PARAMS_SHORTINT and TEST_PARAMS_BOOLEAN on numpy secret keys:
 * port `save` → JAX `safe_load`: the nine seeded entities, decompressed by
   the JAX package bit-identically to the port; compressed ciphertexts and
   server keys, public keys and ciphertexts, decrypted right on the JAX side;
+* the WoP-PBS keys: a JAX `CombinedWopbsKey` (its `WopbsKey`, server keys,
+  `CbsPfpkskList` and casting KSK) read by the port and serving a WoP-PBS;
+  the port's `CbsPfpkskList` read by the JAX package;
 * every refusal: unported types by ROADMAP item, a version, a type, a size
   limit, a key on another prime pool (C2), a key with no DIF residues, and
   a card asked for without one.
@@ -172,6 +175,57 @@ def test_jax_full_server_key_read_through_its_dif_residues(tmp_path):
     out = sk.apply_lookup_table(ct, sk.generate_lookup_table(F))
     assert decrypt_big(P, keys["big_bits"], to_numpy_u64(out.lwe.data)).tolist() == \
         F(msgs).tolist()
+
+
+def test_wopbs_keys_cross_both_ways(tmp_path):
+    """JAX save → port safe_load of a CombinedWopbsKey on numpy keys (the
+    compute set TEST_PARAMS_SHORTINT, the WoP-PBS set TEST_PARAMS_WOPBS):
+    every key word equal to the arrays it was made of, and the port's copy
+    serves a WoP-PBS that decrypts right; the port's PFPKSK list read back
+    by the JAX package word for word."""
+    import tfhe_tpu.core.algorithms.wopbs as JW
+    import tfhe_tpu.shortint.wopbs as JSW
+    from tfhe_tpu.core.params import TEST_PARAMS_WOPBS as JPW
+    from tfhe_tpu_torch.core.algorithms import wopbs as TW
+    from tfhe_tpu_torch.core.params import TEST_PARAMS_WOPBS as PW
+    from tfhe_tpu_torch.shortint import wopbs as SW
+    from torch_jax_pbs import jax_server, port_keys
+    from torch_keys import _ksk
+    k, kw = real_keys(P, seed=40), real_keys(PW, seed=41)
+    rng = np.random.default_rng(42)
+    ksk_in, ksk_out = _ksk(rng, P, k["big_bits"], kw["big_bits"]), \
+        _ksk(rng, P, kw["big_bits"], k["lwe_bits"])
+    tck, tsk = port_keys(k, P)
+    wck, wsk = port_keys(kw, PW)
+    pf = SW.new_wopbs_key_only_for_wopbs(wck, wsk, cbs_decomp=PW.cbs_decomp,
+                                         pfks_decomp=PW.pfks_decomp, seed=43).pfpksk
+    jpf = JW.CbsPfpkskList(data=jnp.asarray(to_numpy_u64(pf.data)), decomp=JPW.pfks_decomp)
+    jsk = jax_server(k, JP)
+    jcomb = JSW.CombinedWopbsKey(
+        wopbs_key=JSW.WopbsKey(server_key=jax_server(kw, JPW), pfpksk=jpf,
+                               cbs_decomp=JPW.cbs_decomp),
+        pbs_server_key=JSS.ServerKey(ksk=JKsk(data=jnp.asarray(ksk_out), decomp=JP.ks_decomp),
+                                     bsk=jsk.bsk, params=JP),
+        ksk_pbs_to_wopbs=JKsk(data=jnp.asarray(ksk_in), decomp=JP.ks_decomp))
+    JSer.save(jcomb, tmp_path / "w.npz", compress=False)
+    comb = Ser.safe_load(tmp_path / "w.npz", expected_type="CombinedWopbsKey", device="cpu")
+    assert isinstance(comb, SW.CombinedWopbsKey) and isinstance(comb.wopbs_key, SW.WopbsKey)
+    assert isinstance(comb.wopbs_key.pfpksk, TW.CbsPfpkskList)
+    assert torch.equal(comb.wopbs_key.pfpksk.data, pf.data)
+    assert comb.wopbs_key.cbs_decomp == PW.cbs_decomp and comb.params == PW
+    assert torch.equal(comb.wopbs_key.server_key.bsk.spectra, wsk.bsk.spectra)
+    assert torch.equal(comb.wopbs_key.server_key.ksk.data, wsk.ksk.data)
+    assert torch.equal(comb.pbs_server_key.bsk.spectra, tsk.bsk.spectra)
+    np.testing.assert_array_equal(to_numpy_u64(comb.pbs_server_key.ksk.data), ksk_out)
+    np.testing.assert_array_equal(to_numpy_u64(comb.ksk_pbs_to_wopbs.data), ksk_in)
+    g = lambda x: (3 * x + 1) % 4
+    ct = tck.encrypt(torch.arange(4), seed=44)
+    out = comb.wopbs(tsk, ct, comb.generate_lut(g))
+    assert tck.decrypt(out).tolist() == [g(v) for v in range(4)]
+    Ser.save(pf, tmp_path / "pf.npz")
+    back = JSer.safe_load(tmp_path / "pf.npz", expected_type="CbsPfpkskList")
+    np.testing.assert_array_equal(np.asarray(back.data), to_numpy_u64(pf.data))
+    assert (back.decomp.base_log, back.decomp.level) == (PW.pfks_base_log, PW.pfks_level)
 
 
 def _jax_entities():
@@ -365,9 +419,7 @@ def _write(path, cls, fields=None, version=JSer.SERIALIZATION_VERSION):
 
 @pytest.mark.parametrize("cls, item", [
     ("tfhe_tpu.gadget.engine.Ciphertext", "A14"), ("tfhe_tpu.gadget.engine.ClientKey", "A14"),
-    ("tfhe_tpu.gadget.engine.ServerKey", "A14"), ("tfhe_tpu.shortint.wopbs.WopbsKey", "A12"),
-    ("tfhe_tpu.shortint.wopbs.CombinedWopbsKey", "A12"),
-    ("tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList", "A12"),
+    ("tfhe_tpu.gadget.engine.ServerKey", "A14"),
     ("tfhe_tpu.integer.shift_key.ShiftKey", "A10b")])
 def test_unported_types_refused_by_roadmap_item(cls, item, tmp_path):
     _write(tmp_path / "x.npz", cls)

@@ -14,11 +14,12 @@ Three representations of the 288-bit state:
   * bytes (`TriviumStreamByte`, `KreyviumStreamByte`): clear ints (the
     client's model), or 8-bit radix ciphertexts on an `integer.ServerKey`.
 
-Trivial cells are made on the server key's device.  The transciphering
-methods of the shortint and byte streams (`trans_encrypt_64`) need the
-shortint casting key (ROADMAP A6b) and the high-level API (A11), neither
-ported yet: they, and a `cast_ksk` or `hl_server_key` argument, raise
-`NotImplementedError`.
+Trivial cells are made on the server key's device.  Transciphering
+(`trans_encrypt_64`, reference trans_ciphering/mod.rs) XORs an FheUint64
+with 64 keystream bits: the shortint streams cast their bit pairs into the
+high-level API's parameters through a `shortint.KeySwitchingKey`
+(`cast_ksk`, with the hlapi `ServerKey` as `hl_server_key`); the byte
+streams assemble 8 FheUint8 bytes on their own integer key.
 """
 from __future__ import annotations
 
@@ -29,9 +30,8 @@ import torch
 from .. import boolean as B
 from .. import shortint
 from ..core.entities import LweCiphertext
+from ..integer.ciphertext import RadixCiphertext
 
-_TRANSCIPHER_TODO = ("transciphering into an FheUint64 needs the shortint casting key "
-                     "(ROADMAP A6b) and the high-level API (A11), not ported yet")
 
 
 def _xor3(sk, a, b, c):
@@ -218,10 +218,6 @@ def _split3(ct):
         data=ct.lwe.data.reshape((3, 64) + tuple(ct.lwe.data.shape[1:])))), 3)
 
 
-def _no_transciphering(cast_ksk, hl_server_key):
-    if cast_ksk is not None or hl_server_key is not None:
-        raise NotImplementedError(_TRANSCIPHER_TODO)
-
 
 class TriviumStreamShortint:
     """Trivium over shortint bits (reference TriviumStreamShortint,
@@ -238,10 +234,10 @@ class TriviumStreamShortint:
 
     def __init__(self, key, iv, sk, cast_ksk=None, hl_server_key=None,
                  warmup_rounds: int = 18):
-        _no_transciphering(cast_ksk, hl_server_key)
         if len(key) != self.KEY_BITS or len(iv) != self.KEY_BITS:
             raise ValueError(f"Trivium takes {self.KEY_BITS} key and IV bits")
         self.sk = sk
+        self.cast_ksk, self.hl_server_key = cast_ksk, hl_server_key
         triv = sk.create_trivial
         enc_key = [b if isinstance(b, shortint.Ciphertext) else triv(int(b)) for b in key]
         zero = triv(0)
@@ -285,7 +281,12 @@ class TriviumStreamShortint:
         return out
 
     def trans_encrypt_64(self, cipher):
-        raise NotImplementedError(_TRANSCIPHER_TODO)
+        """XOR an FheUint64 with the next 64 keystream bits (reference
+        TransCiphering::trans_encrypt_64, trans_ciphering/mod.rs:44-73):
+        the bits pair 2 by 2, cast through `cast_ksk` into the high-level
+        API's parameters, as 32 radix blocks."""
+        return _transcipher_from_shortint_stream(self.next_64(), cipher, self.sk,
+                                                 self.cast_ksk, self.hl_server_key)
 
     trans_decrypt_64 = trans_encrypt_64
 
@@ -298,10 +299,10 @@ class KreyviumStreamShortint(TriviumStreamShortint):
 
     def __init__(self, key, iv, sk, cast_ksk=None, hl_server_key=None,
                  warmup_rounds: int = 18):
-        _no_transciphering(cast_ksk, hl_server_key)
         if len(key) != 128 or len(iv) != 128:
             raise ValueError("Kreyvium takes a 128-bit key and a 128-bit IV")
         self.sk = sk
+        self.cast_ksk, self.hl_server_key = cast_ksk, hl_server_key
         triv = sk.create_trivial
         enc_key = [b if isinstance(b, shortint.Ciphertext) else triv(int(b)) for b in key]
         enc_iv = [triv(int(v)) for v in iv]
@@ -469,8 +470,17 @@ class TriviumStreamByte:
         return list(self._unstack(o, 8))
 
     def trans_encrypt_64(self, cipher):
-        raise NotImplementedError("transciphering into an FheUint64 needs the high-level "
-                                  "API (ROADMAP A11), not ported yet")
+        """XOR an FheUint64 with the keystream of the next 8 FheUint8 bytes
+        (reference transcipher_from_fheu8_stream, trans_ciphering/mod.rs:21):
+        each byte widened to the cipher's blocks and shifted to its place."""
+        if self.isk is None:
+            raise ValueError("transciphering needs the encrypted (FheUint8) stream")
+        acc = None
+        for i, byte in enumerate(self.next_64()):
+            wide = self.isk.scalar_left_shift(self.isk.cast_to_size(byte, cipher.ct.num_blocks),
+                                              8 * i)
+            acc = wide if acc is None else self.isk.bitor(acc, wide)
+        return type(cipher)(self.isk.bitxor(cipher.ct, acc))
 
     trans_decrypt_64 = trans_encrypt_64
 
@@ -576,6 +586,23 @@ def _bitrev_int(v):
 # ---------------------------------------------------------------------------
 # transciphering, the client side (reference trans_ciphering/mod.rs)
 # ---------------------------------------------------------------------------
+
+
+def _transcipher_from_shortint_stream(stream_bits, cipher, internal_sk, cast_ksk,
+                                      hl_server_key):
+    """64 shortint keystream bits → cipher XOR their FheUint64 mask
+    (reference transcipher_from_1_1_stream, trans_ciphering/mod.rs:44-73):
+    block j is bits 2j + 2 * bits (2j+1), cast in one batched call."""
+    if len(stream_bits) != 64:
+        raise ValueError(f"transciphering takes 64 keystream bits, not {len(stream_bits)}")
+    if cast_ksk is None or hl_server_key is None:
+        raise ValueError("transciphering needs the casting key and the hlapi server key")
+    lows = _stack_short([stream_bits[2 * j] for j in range(32)])
+    highs = _stack_short([stream_bits[2 * j + 1] for j in range(32)])
+    pairs = internal_sk.unchecked_add(lows, internal_sk.unchecked_scalar_mul(highs, 2))
+    mask = RadixCiphertext(blocks=_unstack_short(cast_ksk.cast(pairs), 32))
+    isk = getattr(hl_server_key, "radix", hl_server_key)
+    return type(cipher)(isk.bitxor(cipher.ct, mask))
 
 
 def trans_encrypt_u64(value: int, keystream_bits: Sequence[int]) -> int:

@@ -1,6 +1,7 @@
 """Core algorithms of the port's slices: encryption, keyswitch, bootstrap,
-multi-bit bootstrap."""
-from .bootstrap import (external_product_num_primes, modulus_switch,
+multi-bit bootstrap, linear algebra (the WoP-PBS is `wopbs.py`)."""
+from .bootstrap import (blind_rotate_only, cmux, external_product_accumulate,
+                        external_product_num_primes, modulus_switch,
                         programmable_bootstrap, sample_extract)
 from .encryption import (bootstrap_key_to_ntt, bootstrap_key_to_ntt_paired, decrypt_lwe,
                          encrypt_constant_ggsw, encrypt_glwe, encrypt_glwe_deterministic_mask,
@@ -8,13 +9,19 @@ from .encryption import (bootstrap_key_to_ntt, bootstrap_key_to_ntt_paired, decr
                          generate_glwe_secret_key, generate_keyswitch_key,
                          generate_lwe_secret_key, ggsw_plaintexts, trivial_ggsw_one_ntt,
                          trivial_glwe, trivial_lwe)
-from .keyswitch import keyswitch_lwe
+from .keyswitch import (keyswitch_lwe, packing_keyswitch_lwe_list_to_glwe,
+                        packing_keyswitch_lwe_to_glwe)
+from .linear import (glwe_add, glwe_add_plaintext_poly, glwe_sub, lwe_add, lwe_add_plaintext,
+                     lwe_mul_cleartext, lwe_neg, lwe_sub, lwe_sub_plaintext)
 from .multi_bit import (generate_multi_bit_bootstrap_key, multi_bit_blind_rotate,
                         multi_bit_bootstrap_key_to_ntt)
 
 __all__ = [
-    "external_product_num_primes", "modulus_switch", "programmable_bootstrap",
-    "sample_extract", "bootstrap_key_to_ntt", "bootstrap_key_to_ntt_paired", "decrypt_lwe",
+    "blind_rotate_only", "cmux", "external_product_accumulate",
+    "packing_keyswitch_lwe_list_to_glwe", "packing_keyswitch_lwe_to_glwe", "glwe_add",
+    "glwe_add_plaintext_poly", "glwe_sub", "lwe_add", "lwe_add_plaintext", "lwe_mul_cleartext",
+    "lwe_neg", "lwe_sub", "lwe_sub_plaintext", "external_product_num_primes", "modulus_switch",
+    "programmable_bootstrap", "sample_extract", "bootstrap_key_to_ntt", "bootstrap_key_to_ntt_paired", "decrypt_lwe",
     "encrypt_constant_ggsw", "encrypt_glwe", "encrypt_glwe_deterministic_mask", "encrypt_lwe",
     "encrypt_lwe_deterministic_mask", "generate_bootstrap_key",
     "generate_glwe_secret_key", "generate_keyswitch_key", "generate_lwe_secret_key",

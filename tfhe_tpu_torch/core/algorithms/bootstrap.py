@@ -1,11 +1,15 @@
 """Programmable bootstrapping: modulus switch, blind rotation, sample
-extraction and the PBS entry point (classic keys).
+extraction, the PBS entry point (classic keys), and the external product
+and CMux outside a rotation.
 
-Counterpart of `tfhe_tpu/core/algorithms/bootstrap.py`.  The blind rotation
-is one of the JAX package's kernel routes, chosen as it chooses them
-(`config.py`): the fused delta form (K1), the per-step delta form (K4) or
-the per-step paired form (K5), never the rotate-subtract form of the JAX
+Counterpart of `tfhe_tpu/core/algorithms/bootstrap.py`.  The PBS's blind
+rotation is one of the JAX package's kernel routes, chosen as it chooses
+them (`config.py`): the fused delta form (K1), the per-step delta form (K4)
+or the per-step paired form (K5), never the rotate-subtract form of the JAX
 XLA `blind_rotate`, which differs in low bits (hazard C4 in ROADMAP.md).
+`blind_rotate_only` is that rotate-subtract form (the JAX function runs
+it), on K7 one step a launch, as are `external_product_accumulate` and
+`cmux` (`core/poly/external_product.py`).
 """
 from __future__ import annotations
 
@@ -16,10 +20,13 @@ from ... import config
 from ..entities import GlweCiphertext, LweCiphertext, NttBootstrapKey
 from ..params import DecompParams
 from ..poly.ntt import required_num_primes
-from ..poly.rotation import blind_rotate_fused, blind_rotate_steps, modulus_switch
+from ..poly.external_product import external_product
+from ..poly.rotation import (_switch_and_prerotate, blind_rotate_fused, blind_rotate_steps,
+                             modulus_switch)
 
 __all__ = ["external_product_num_primes", "modulus_switch", "sample_extract",
-           "programmable_bootstrap"]
+           "programmable_bootstrap", "external_product_accumulate", "cmux",
+           "blind_rotate_only"]
 
 
 def external_product_num_primes(n: int, glwe_size: int, decomp: DecompParams,
@@ -57,3 +64,33 @@ def programmable_bootstrap(lwe: LweCiphertext, lut: GlweCiphertext,
     else:
         rotated = blind_rotate_steps(lut.data, lwe.data, bsk)
     return sample_extract(GlweCiphertext(data=rotated), 0)
+
+
+def external_product_accumulate(acc_data: torch.Tensor, operand_data: torch.Tensor,
+                                spectra: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
+    """acc + GGSW [x] operand (tfhe_tpu bootstrap.py:50): acc_data and
+    operand_data [..., k+1, N] int64, the GGSW's spectra [..., P, J, R, N]
+    int32 (`encryption.ggsw_spectra`).  K7 with ct1 = acc + operand, whose
+    difference with acc is the operand exactly."""
+    return external_product(acc_data, spectra, decomp, ct1=acc_data + operand_data)
+
+
+def cmux(ct0: GlweCiphertext, ct1: GlweCiphertext, spectra: torch.Tensor,
+         decomp: DecompParams) -> GlweCiphertext:
+    """ct0 + GGSW(b) [x] (ct1 - ct0): ct1 where b = 1 (tfhe_tpu
+    bootstrap.py:80; reference fft64/crypto/ggsw.rs:766), one K7 launch."""
+    return GlweCiphertext(data=external_product(ct0.data, spectra, decomp, ct1=ct1.data))
+
+
+def blind_rotate_only(lwe: LweCiphertext, lut: GlweCiphertext,
+                      bsk: NttBootstrapKey) -> GlweCiphertext:
+    """The PBS without its sample extraction (tfhe_tpu bootstrap.py:170,
+    which runs the XLA `blind_rotate`): mod-switch, LUT pre-rotation, then
+    per mask element j acc += GGSW(s_j) [x] (X^a_j * acc - acc), one K7
+    launch a step (rotated operand, the key's GGSW shared by the batch).
+    lut [k+1, N] or [..., k+1, N]; lwe [..., n+1] → [..., k+1, N]."""
+    spectra = bsk.spectra[:, 1] if bsk.paired else bsk.spectra     # GGSW(s_j)
+    batch, exps, acc = _switch_and_prerotate(lut.data, lwe.data, bsk.polynomial_size)
+    for j in range(spectra.shape[0]):
+        acc = external_product(acc, spectra[j], bsk.decomp, exps=exps[:, j])
+    return GlweCiphertext(data=acc.reshape(batch + tuple(acc.shape[-2:])))

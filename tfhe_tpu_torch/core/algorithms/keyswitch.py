@@ -1,4 +1,5 @@
-"""LWE keyswitching, in two forms chosen from the shape.
+"""LWE keyswitching, in two forms chosen from the shape, and the packing
+keyswitch into a GLWE.
 
 Counterpart of `tfhe_tpu/core/algorithms/keyswitch.py:68 keyswitch_lwe`:
 out = (0, b) - sum_{i,l} d_{i,l} * KSK[i, l].  The JAX package contracts on
@@ -28,9 +29,10 @@ import torch.nn.functional as F
 
 from ... import cuda_lib
 from ..decomposition import signed_decompose
-from ..entities import LweCiphertext, LweKeyswitchKey
+from ..entities import GlweCiphertext, LweCiphertext, LweKeyswitchKey, LwePackingKeyswitchKey
 from ..numeric import LOG_Q
 from ..params import DecompParams
+from ..poly import monomial_mul
 
 # Kernel launches, counted by each wrapper's CUDA branch only.
 launches = 0             # K2′, the tensor-core contraction
@@ -220,18 +222,60 @@ def neg_digit_mac(digits: torch.Tensor, key: torch.Tensor,
     return out
 
 
+def contract(x: torch.Tensor, key: torch.Tensor, decomp: DecompParams, body: torch.Tensor,
+             limbs: torch.Tensor | None = None) -> torch.Tensor:
+    """-sum_{i,l} d_l(x_i) * key[i*L + l] mod 2^64, plus body[b] at the last
+    column: x [B, n] int64 torus words (rows may be strided), key [n*L, M]
+    int64, body [B] → [B, M], in the form `tensor_core_form` gives the shape:
+    one decomposition pass and one K2′ launch on the card (with the key's
+    `limbs`, built here if not given), or the torch decomposition and one K2
+    launch."""
+    B, n = x.shape
+    if tensor_core_form(n * decomp.level, decomp.base_log):
+        if limbs is None and key.device.type == "cuda":
+            limbs = limb_layout(key)
+        return neg_digit_mac_tensor_core(decompose_digits(x, decomp), key, limbs, body)
+    return neg_digit_mac(signed_decompose(x, decomp).reshape(B, -1), key, body)
+
+
 def keyswitch_lwe(ct: LweCiphertext, ksk: LweKeyswitchKey) -> LweCiphertext:
-    """LWE(n_in) → LWE(n_out), in the form `tensor_core_form` gives the
-    key's shape (one decomposition pass and one K2′ launch on the card, or
-    the torch decomposition and one K2 launch)."""
+    """LWE(n_in) → LWE(n_out), in the form `tensor_core_form` gives the key's
+    shape (one decomposition pass and one K2′ launch on the card, or the
+    torch decomposition and one K2 launch)."""
     n_in, levels, M = ksk.data.shape
-    K = n_in * levels
     batch = tuple(ct.data.shape[:-1])
-    mask, body = ct.mask.reshape(-1, n_in), ct.body.reshape(-1)
-    key = ksk.data.reshape(K, M)
-    if tensor_core_form(K, ksk.decomp.base_log):
-        out = neg_digit_mac_tensor_core(decompose_digits(mask, ksk.decomp), key, ksk.limbs,
-                                        body)
-    else:
-        out = neg_digit_mac(signed_decompose(mask, ksk.decomp).reshape(-1, K), key, body)
+    out = contract(ct.mask.reshape(-1, n_in), ksk.data.reshape(n_in * levels, M), ksk.decomp,
+                   ct.body.reshape(-1), ksk.limbs)
     return LweCiphertext(data=out.reshape(batch + (M,)))
+
+
+def packing_keyswitch_lwe_to_glwe(ct: LweCiphertext,
+                                  pksk: LwePackingKeyswitchKey) -> GlweCiphertext:
+    """Pack LWEs [..., n_in+1] into constant-coefficient GLWEs [..., k+1, N]
+    (tfhe_tpu keyswitch.py:79; reference
+    keyswitch_lwe_ciphertext_into_glwe_ciphertext): out = -sum d * PKSK,
+    the body added at coefficient 0 of the body polynomial; the contraction
+    is `contract`'s (K2′ or K2 on the card)."""
+    n_in, levels, glwe_size, n = pksk.data.shape
+    batch = tuple(ct.data.shape[:-1])
+    zero = torch.zeros(ct.body.numel(), dtype=torch.int64, device=ct.data.device)
+    out = contract(ct.mask.reshape(-1, n_in), pksk.data.reshape(n_in * levels, glwe_size * n),
+                   pksk.decomp, zero).reshape(batch + (glwe_size, n))
+    out[..., -1, 0] += ct.body
+    return GlweCiphertext(data=out)
+
+
+def _static_monomial_mul(polys: torch.Tensor, t) -> torch.Tensor:
+    """X^t * polys for 0 <= t < N (tfhe_tpu keyswitch.py:107)."""
+    return monomial_mul(polys, torch.as_tensor(t, device=polys.device))
+
+
+def packing_keyswitch_lwe_list_to_glwe(cts: LweCiphertext,
+                                       pksk: LwePackingKeyswitchKey) -> GlweCiphertext:
+    """Pack m <= N LWEs [..., m, n_in+1] into one GLWE [..., k+1, N] with
+    message i at coefficient i: sum_i X^i * KS(ct_i) (tfhe_tpu
+    keyswitch.py:93)."""
+    glwe = packing_keyswitch_lwe_to_glwe(cts, pksk).data        # [..., m, k+1, N]
+    m = glwe.shape[-3]
+    shifts = torch.arange(m, device=glwe.device).unsqueeze(-1)  # [m, 1]
+    return GlweCiphertext(data=_static_monomial_mul(glwe, shifts).sum(dim=-3))

@@ -198,7 +198,7 @@ def decompress_glwe(sct: SeededGlweCiphertext, device=None) -> GlweCiphertext:
 
 
 def bsk_masks_from_seed(seed: int, n_in: int, levels: int, glwe_size: int, n_poly: int,
-                        device="cpu", bits=None, out=None) -> torch.Tensor:
+                        device, bits=None, out=None) -> torch.Tensor:
     """The masks of generate_bootstrap_key from the seed alone: GGSW i under
     split(key_from_seed(seed), n_in)[i] → [n_in, l, k+1, k, N] (only the
     input bits `bits`, an index tensor or slice, if given)."""

@@ -17,8 +17,9 @@ import torch
 from .numeric import float_round_to_torus
 
 
-def generator(seed: int, *stream: int, device="cpu") -> torch.Generator:
-    """A generator on `device` seeded from (seed, *stream)."""
+def generator(seed: int, *stream: int, device) -> torch.Generator:
+    """A generator on `device` (no default: a caller names the CPU or the
+    card) seeded from (seed, *stream)."""
     state = np.random.SeedSequence([seed & 0xFFFFFFFF, *stream]).generate_state(2)
     g = torch.Generator(device=device)
     g.manual_seed((int(state[0]) << 31) ^ int(state[1]))

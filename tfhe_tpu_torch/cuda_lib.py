@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("rotation.cu", "keyswitch.cu", "probe.cu")
+SOURCES = ("rotation.cu", "keyswitch.cu", "external_product.cu", "probe.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tfhe_keyswitch_decompose": [_P, _L, _P] + [_I] * 5 + [_P],
     "tfhe_keyswitch_tc": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "tfhe_external_product": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "tfhe_smem_probe": [_I, _P, _P],
     "tfhe_smem_optin": [_I, ctypes.POINTER(ctypes.c_int)],
 }

@@ -18,6 +18,15 @@ keys.  Nothing here imports jax.
   bootstrap_key_to_ntt_paired output [n, 2, P, J, R, N] u32, DIF order
                                               → the port's paired NttBootstrapKey
 
+The WoP-PBS and casting keys cross as their arrays around port keys:
+  CbsPfpkskList.data [k+1, n_in+1, l, k+1, N] u64 → CbsPfpkskList
+                                              (`cbs_pfpksk`)
+  WopbsKey, CombinedWopbsKey                  → their port classes over
+                                                port server keys (`wopbs_key`,
+                                                `combined_wopbs_key`)
+  shortint KeySwitchingKey.ksk.data           → KeySwitchingKey (`casting_key`)
+and the hlapi keys wrap the shortint and integer keys (`hlapi_keys`).
+
 A boolean server key crosses as its KSK data and its DIF-order
 `NttLweBootstrapKey.data` (`boolean_server_key`), a boolean ciphertext as
 its [..., n+1] u64 array (`bool_ciphertext`).  An integer ciphertext
@@ -41,6 +50,7 @@ from .core.algorithms.encryption import (bootstrap_key_to_ntt, bootstrap_key_to_
                                          trivial_ggsw_one_ntt)
 from .core.algorithms.keyswitch import keyswitch_key as make_keyswitch_key
 from .core.algorithms.multi_bit import multi_bit_bootstrap_key_to_ntt
+from .core.algorithms.wopbs import CbsPfpkskList
 from .core.entities import (GlweSecretKey, LweBootstrapKey, LweCiphertext,
                             LweKeyswitchKey, LweMultiBitBootstrapKey, LweSecretKey,
                             NttBootstrapKey, NttMultiBitBootstrapKey)
@@ -52,6 +62,8 @@ from .boolean import BoolCiphertext
 from .boolean import ServerKey as BooleanServerKey
 from .integer.ciphertext import CrtCiphertext, RadixCiphertext, SignedRadixCiphertext
 from .shortint.ciphertext import Ciphertext
+from .shortint.key_switching_key import KeySwitchingKey
+from .shortint.wopbs import CombinedWopbsKey, WopbsKey
 
 
 def lwe_secret_key(bits, device="cuda") -> LweSecretKey:
@@ -206,3 +218,42 @@ def radix_ciphertext(blocks, degrees, noise_levels, message_modulus: int,
             raise ValueError(f"{len(out)} CRT blocks and {len(moduli)} moduli")
         return CrtCiphertext(blocks=out, moduli=tuple(int(m) for m in moduli))
     raise ValueError(f"kind is 'radix', 'signed' or 'crt', not {kind!r}")
+
+
+def cbs_pfpksk(data, decomp: DecompParams, device="cuda") -> CbsPfpkskList:
+    """A JAX CbsPfpkskList's data [k+1, n_in+1, l, k+1, N] u64 → the port's."""
+    return CbsPfpkskList(data=from_numpy_u64(data, resolve_device(device)), decomp=decomp)
+
+
+def wopbs_key(server_key, pfpksk_data, pfks_decomp: DecompParams, cbs_decomp: DecompParams,
+              device="cuda") -> WopbsKey:
+    """A JAX WopbsKey → the port's: its server key already carried across (a
+    port shortint ServerKey), its PFPKSK list from the arrays."""
+    return WopbsKey(server_key=server_key, pfpksk=cbs_pfpksk(pfpksk_data, pfks_decomp, device),
+                    cbs_decomp=cbs_decomp)
+
+
+def combined_wopbs_key(inner: WopbsKey, pbs_server_key, ksk_data, ks_decomp: DecompParams,
+                       device="cuda") -> CombinedWopbsKey:
+    """A JAX CombinedWopbsKey → the port's: the inner WopbsKey and the
+    compute server key (with its casting KSK) already carried across, the
+    compute → WoP-PBS casting key from its data [kN, l, n_w+1] u64."""
+    return CombinedWopbsKey(wopbs_key=inner, pbs_server_key=pbs_server_key,
+                            ksk_pbs_to_wopbs=keyswitch_key(ksk_data, ks_decomp, device))
+
+
+def casting_key(ksk_data, decomp: DecompParams, dest_params, cast_rshift: int,
+                dest_server_key=None, src_server_key=None, device="cuda") -> KeySwitchingKey:
+    """A JAX shortint KeySwitchingKey → the port's: its KSK data [n_1, l,
+    n_2+1] u64 and metadata, over port server keys for the shift LUTs."""
+    return KeySwitchingKey(ksk=keyswitch_key(ksk_data, decomp, device), dest_params=dest_params,
+                           cast_rshift=cast_rshift, dest_server_key=dest_server_key,
+                           src_server_key=src_server_key)
+
+
+def hlapi_keys(client_key, server_key) -> tuple:
+    """(hlapi ClientKey, hlapi ServerKey) around a port shortint client key
+    and shortint server key (the JAX hlapi keys hold the same two)."""
+    from . import hlapi
+    from .integer.server_key import ServerKey as IntegerServerKey
+    return hlapi.ClientKey(client_key), hlapi.ServerKey(IntegerServerKey(key=server_key))

@@ -20,6 +20,7 @@ class NoiseLevel:
 
     ZERO = 0
     NOMINAL = 1
+    UNKNOWN = 1 << 30       # the cast's keyswitched value before its shift LUT
 
 
 class MaxNoiseLevel:

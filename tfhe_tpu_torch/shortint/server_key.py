@@ -111,6 +111,20 @@ class ServerKey:
                            self.params.glwe_dimension)
         return LookupTable(acc=acc, degree=int(vals.max()))
 
+    def generate_lookup_table_raw(self, values) -> LookupTable:
+        """The accumulator whose box for input value i holds the raw torus
+        word values[i] (no Δ scaling; tfhe_tpu server_key.py:99), p =
+        msg_mod * carry_mod values."""
+        p = self.message_modulus * self.carry_modulus
+        box = self.params.polynomial_size // p
+        vals = np.asarray([int(v) & ((1 << 64) - 1) for v in values], dtype=np.uint64)
+        if vals.shape != (p,):
+            raise ValueError(f"a raw LUT takes {p} values, not {vals.shape}")
+        poly = np.roll(np.repeat(vals, box), -(box // 2))
+        poly[-(box // 2):] = np.uint64(0) - poly[-(box // 2):]
+        acc = trivial_glwe(from_numpy_u64(poly, self.device), self.params.glwe_dimension)
+        return LookupTable(acc=acc, degree=p - 1)
+
     def generate_msg_lookup_table(self, f: Callable[[int], int]) -> LookupTable:
         m = self.message_modulus
         return self.generate_lookup_table(lambda x: f(x) % m)
@@ -651,6 +665,54 @@ class ServerKey:
         space = self.message_modulus * self.carry_modulus
         return self._trivial(values, space, space - 1)
 
+    # ------------------------------------------------------------------
+    # execution flags, key sizes and parameter accessors (tfhe_tpu
+    # server_key.py:764-806; reference shortint/server_key/mod.rs)
+    # ------------------------------------------------------------------
+
+    def deterministic_pbs_execution(self) -> bool:
+        """Always True: every kernel's arithmetic is exact and its reduction
+        order fixed (the reference toggles a multi-bit thread-pool mode)."""
+        return True
+
+    def set_deterministic_pbs_execution(self, det: bool) -> None:
+        if not det:
+            raise ValueError("a non-deterministic PBS does not exist here")
+
+    def bootstrapping_key_size_elements(self) -> int:
+        """Words of the bootstrapping key as the port holds it: its spectra
+        (int32 residues, [n, P, J, R, N], or the paired and multi-bit
+        forms), not the JAX package's uint64 NTT words."""
+        return self.bsk.spectra.numel()
+
+    def bootstrapping_key_size_bytes(self) -> int:
+        """Bytes of the key's spectra (4 a word: int32 residues)."""
+        return self.bootstrapping_key_size_elements() * self.bsk.spectra.element_size()
+
+    def key_switching_key_size_elements(self) -> int:
+        return self.ksk.data.numel()
+
+    def key_switching_key_size_bytes(self) -> int:
+        return self.key_switching_key_size_elements() * self.ksk.data.element_size()
+
+    def input_lwe_dimension(self) -> int:
+        return self.params.lwe_dimension
+
+    def output_lwe_dimension(self) -> int:
+        return self.params.glwe_dimension * self.params.polynomial_size
+
+    def glwe_size(self) -> int:
+        return self.params.glwe_dimension + 1
+
+    def polynomial_size(self) -> int:
+        return self.params.polynomial_size
+
+    def decomposition_base_log(self) -> int:
+        return self.params.pbs_base_log
+
+    def decomposition_level_count(self) -> int:
+        return self.params.pbs_level
+
 
 def gen_server_key(ck: ClientKey, seed: int) -> ServerKey:
     """BSK (small LWE key → GLWE key, classic or multi-bit as the parameters
@@ -680,8 +742,9 @@ class CompressedServerKey:
     """Seeds and bodies only (reference shortint CompressedServerKey;
     tfhe_tpu server_key.py:834-867): the BSK's GGSW masks and the KSK's
     masks regenerate from the seeds on decompression, (k+1)x and (n+1)x
-    smaller on the wire.  Classic keys: the seeded multi-bit key is ROADMAP
-    A6b."""
+    smaller on the wire.  The bootstrapping key is classic for every set,
+    multi-bit ones too, as the JAX package makes it (tfhe-rs would make a
+    multi-bit key there): `ServerKey._pbs` then runs the classic PBS."""
 
     seeded_bsk: seeded.SeededLweBootstrapKey
     seeded_ksk: seeded.SeededLweKeyswitchKey
@@ -698,10 +761,10 @@ class CompressedServerKey:
 def gen_compressed_server_key(ck: ClientKey, seed: int = 0) -> CompressedServerKey:
     """The compressed twin of gen_server_key on the client key's device:
     BSK masks from seed 2s+1, KSK masks from 2s+2, as tfhe_tpu
-    gen_compressed_server_key lays them out; noise from generators of s."""
+    gen_compressed_server_key lays them out; noise from generators of s.
+    A classic bootstrapping key on multi-bit parameters too (tfhe_tpu
+    server_key.py:852-867)."""
     p = ck.params
-    if isinstance(p, MultiBitPBSParameters):
-        raise NotImplementedError("a compressed multi-bit server key is ROADMAP A6b")
     device = ck.device
     _, sbsk = seeded.generate_seeded_bootstrap_key(
         seed * 2 + 1, rng.generator(seed, 5, device=device), ck.lwe_sk, ck.glwe_sk,

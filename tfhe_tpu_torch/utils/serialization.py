@@ -18,11 +18,12 @@ made on another pool is refused here, not decrypted as garbage.  A key
 with no DIF residues (the JAX "fourstep" slim form) is refused by name.
 Types the port has not ported are refused naming their ROADMAP item.
 
-Writing covers this slice's types (`_WRITERS`): ciphertexts, seeded
-entities, compressed ciphertexts and keys, and public keys, under the JAX
-package's type names, so `tfhe_tpu.utils.safe_load` reads them (the boolean
-`CompressedCiphertext` is left out: the JAX package's registry has no
-entry for it, so neither package can read it).  The rest of the write side
+Writing covers the types held as standard-domain words (`_WRITERS`):
+ciphertexts, seeded entities, compressed ciphertexts and keys, public keys
+and the WoP-PBS's PFPKSK list, under the JAX package's type names, so
+`tfhe_tpu.utils.safe_load` reads them (the boolean `CompressedCiphertext`
+is left out: the JAX package's registry has no entry for it, so neither
+package can read it).  The rest of the write side
 is ROADMAP A17.
 """
 from __future__ import annotations
@@ -50,9 +51,6 @@ _REFUSED = {
     "tfhe_tpu.gadget.engine.Ciphertext": "the gadget fork (ROADMAP A14)",
     "tfhe_tpu.gadget.engine.ClientKey": "the gadget fork (ROADMAP A14)",
     "tfhe_tpu.gadget.engine.ServerKey": "the gadget fork (ROADMAP A14)",
-    "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList": "WoP-PBS (ROADMAP A12)",
-    "tfhe_tpu.shortint.wopbs.WopbsKey": "WoP-PBS (ROADMAP A12)",
-    "tfhe_tpu.shortint.wopbs.CombinedWopbsKey": "WoP-PBS (ROADMAP A12)",
     "tfhe_tpu.integer.shift_key.ShiftKey": "the integer shift key (ROADMAP A10b)",
 }
 _READERS: Dict[str, Callable] = {}
@@ -118,8 +116,8 @@ def _register():
     from .. import boolean, integer, shortint
     from ..core import entities as E
     from ..core import params as Pm
-    from ..core.algorithms import keyswitch, public_key as PK, seeded as S
-    from ..shortint import ciphertext as SC, server_key as SS
+    from ..core.algorithms import keyswitch, public_key as PK, seeded as S, wopbs as W
+    from ..shortint import ciphertext as SC, server_key as SS, wopbs as SW
 
     def plain(cls, words=(), bits=()):
         """A reader that builds cls from its fields, words and bits
@@ -171,6 +169,10 @@ def _register():
         "tfhe_tpu.integer.ciphertext.CrtCiphertext": lambda f, device: integer.CrtCiphertext(
             blocks=f["blocks"], moduli=tuple(f["moduli"])),
         "tfhe_tpu.integer.server_key.ServerKey": _integer_server_key,
+        "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList": plain(W.CbsPfpkskList,
+                                                              words=("data",)),
+        "tfhe_tpu.shortint.wopbs.WopbsKey": plain(SW.WopbsKey),
+        "tfhe_tpu.shortint.wopbs.CombinedWopbsKey": plain(SW.CombinedWopbsKey),
     })
     for name in ("SeededLweCiphertext", "SeededGlweCiphertext", "SeededLweCompactPublicKey"):
         _READERS[seeded + name] = plain(getattr(S, name), words=("body",))
@@ -197,6 +199,7 @@ def _register():
         integer.RadixCiphertext: "tfhe_tpu.integer.ciphertext.RadixCiphertext",
         integer.SignedRadixCiphertext: "tfhe_tpu.integer.ciphertext.SignedRadixCiphertext",
         integer.CrtCiphertext: "tfhe_tpu.integer.ciphertext.CrtCiphertext",
+        W.CbsPfpkskList: "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList",
     })
     for name in S.__all__:
         if name.startswith("Seeded"):
