@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
 Drives the port's shortint keyswitch + PBS paths, its integer path, its
-boolean scheme, its apps, its client-server key flow, its high-level API and
-its WoP-PBS once each, through the entry points a user calls, and checks
-them: the classic
+boolean scheme, its apps, its client-server key flow, its high-level API,
+its WoP-PBS and its gadget fork once each, through the entry points a user
+calls, and checks them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
 296 groups of 3, N=2048), the per-step routes the rotation switches select
@@ -222,6 +222,17 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      tensors; new_wopbs_key_only_for_wopbs on keys of the WoP-PBS set,
      512/512 right, and on the 2_2 keys, its rate recorded (a finding:
      2_2's one-level PBS is too noisy for the circuit bootstrap);
+  4l. the gadget fork (gadget_path), on keys from gadget.gen_keys on the
+     card: at the gadget DEFAULT_PARAMETERS (PBS -> KS) the AND, OR, XOR,
+     NAND and 3-input majority gadgets at batch 1, 32 and 512, one K1, pass
+     and K2' a call, every row decrypted, timed beside phase 4f's boolean
+     AND; at AES_PARAMETERS_40 (J = 16, KS -> PBS) apply_lut, a 3-output
+     MVB (K7 once a rotation step), simple and full tree bootstrapping,
+     lwe_mult and woppbs_lut at batch 512, launches checked against the
+     reckoning, timed, decrypted rows counted (an op short of 512 is
+     printed as a finding); K7 over the MVB's first steps and K1 on the
+     tree's packed accumulator held bit for bit against their plain
+     versions; K7 timed at the MVB's shape; one MVB call traced;
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -408,6 +419,22 @@ HL_HELD = 4
 WOPBS_COMPUTE_SET = CLASSIC
 WOPBS_BATCH = 512
 WOPBS_HELD = 4
+# the gadget fork (phase 4l): the gates at GADGET_GATE_SET at GADGET_GATE_BATCHES,
+# beside phase 4f's boolean AND at the boolean set of the same name and shapes;
+# the LUT, MVB, tree, LWE-multiplication and WoP-PBS ops at GADGET_OP_SET on
+# GADGET_BATCH ciphertexts; K7 held over GADGET_K7_STEPS rotation steps and K1
+# on the tree's packed accumulator, each on GADGET_HELD rows
+GADGET_GATE_SET = "DEFAULT_PARAMETERS"
+GADGET_GATE_BATCHES = (1, 32, B)
+GADGET_OP_SET = "AES_PARAMETERS_40"
+GADGET_BATCH = B
+GADGET_HELD = 8
+GADGET_K7_STEPS = 3
+GADGET_GATES = {"and": (lambda a, b: a & b, 2, [1, 2], 5),
+                "or": (lambda a, b: a | b, 2, [1, 2], 5),
+                "xor": (lambda a, b: a ^ b, 2, [1, 2], 5),
+                "nand": (lambda a, b: 1 - (a & b), 2, [1, 2], 5),
+                "maj3": (lambda a, b, c: (a + b + c >= 2) * 1, 3, [1, 1, 1], 7)}
 # the key flow (phase 4i): a compressed shortint server key at 2_2 and a
 # compressed boolean server key and public key at the boolean
 # DEFAULT_PARAMETERS_KS_PBS, each through a tfhe_tpu-v1 file, then the 4_4
@@ -1863,6 +1890,238 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
             "pfks": pfks,
             "k7": {"err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms, "bytes": k7_bytes,
                    "shape": k7_shape, "mults": k7_mults(Bk, P, J, R, n)}}
+
+
+def gadget_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_and_ms: dict) -> dict:
+    """Phase 4l: the gadget fork on the card, on the port's own keys
+    (`gadget.gen_keys` on the card) at two named gadget sets.
+
+    At GADGET_GATE_SET (PBS -> KS; the boolean DEFAULT_PARAMETERS' shapes):
+    the four 2-input gates and the 3-input majority (`Gadget.new_canonical`,
+    p = 5 and 7) at each of GADGET_GATE_BATCHES on random bits, each call
+    with the counts at 0 just before and read just after (one K1, one pass,
+    one K2', nothing else), every row decrypted against the clear model, then
+    timed by CUDA events beside phase 4f's boolean AND (`bool_and_ms`).
+
+    At GADGET_OP_SET (KS -> PBS, J = 16) on GADGET_BATCH ciphertexts:
+    `apply_lut`, `mvb` with three outputs, `simple_tree_bootstrapping` and
+    `full_tree_bootstrapping` (o = 3, p = 7), `lwe_mult` (p = 16) and
+    `woppbs_lut` (o = 16 in Z_17), each called once to time its first call
+    (host tables for new shapes), then once with its launches counted
+    against the reckoning (K7 once a rotation step for MVB's common factor,
+    the pass and K2' once a keyswitch or packing keyswitch call, K1 once a
+    PBS), timed by CUDA events, its decrypted rows counted.  An op that
+    decrypts fewer than all its rows is printed as a finding, not held.
+
+    Holds, bit for bit against the plain versions on the card's tensors:
+    K7 over the first GADGET_K7_STEPS steps of the MVB's common factor
+    (GADGET_HELD rows each), and K1 on GADGET_HELD rows of the tree's last
+    PBS, whose accumulator is a packed GLWE a row with a nonzero mask.  K7
+    timed alone at the MVB's shape (a GGSW shared by the batch) beside its
+    plain version, and one MVB call traced (device time by kernel, K7's
+    share).  → {"launches", "gates", "ops", "k7", "trace"}."""
+    from tfhe_tpu_torch import gadget as TG
+    from tfhe_tpu_torch.core.algorithms import bootstrap
+    from tfhe_tpu_torch.core.entities import GlweCiphertext, LweCiphertext
+    from tfhe_tpu_torch.core.params import gadget_params
+    from tfhe_tpu_torch.core.poly import external_product as ep
+    from tfhe_tpu_torch.core.poly.rotation import _switch_and_prerotate
+    from tfhe_tpu_torch.gadget import engine as TE
+
+    gen = torch.Generator().manual_seed(seed + 14)
+    totals, gates, ops = {}, [], []
+
+    def counted(label, fn, want):
+        zero_counts()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {k: 0 for k in counts}
+        expect.update(want)
+        if counts != expect:
+            raise AssertionError(f"gadget {label}: launches {counts}, reckoned {expect}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, start.elapsed_time(stop), counts
+
+    # ---- the gates at GADGET_GATE_SET --------------------------------------------
+    gp = gadget_params(GADGET_GATE_SET)
+    t0 = time.perf_counter()
+    ck, sk = TG.gen_keys(gp, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    gate_keygen_s = time.perf_counter() - t0
+    for name, (fn, arity, vals, p) in GADGET_GATES.items():
+        g = TE.Gadget.new_canonical(fn, arity, vals, 1, p, p)
+        bits = torch.randint(0, 2, (arity, B), generator=gen)
+        cts = [TG.encrypt_arithmetic(ck, bits[i].to(dev), g.enc_in[i], seed=seed + 70 + i)
+               for i in range(arity)]
+        clear = fn(*bits)
+        row = {"gate": name, "p": p, "ms": {}, "right": {}}
+        for bt in GADGET_GATE_BATCHES:
+            sub = [TE.Ciphertext(lwe=LweCiphertext(data=c.lwe.data[:bt]), encoding=c.encoding)
+                   for c in cts]
+            out, _, _ = counted(f"{name} batch {bt}", lambda: g.exec(sk, sub),
+                                {"blind_rotate": 1, "keyswitch_tc": 1, "keyswitch_decompose": 1})
+            right = int((TG.decrypt(ck, out).cpu() == clear[:bt]).sum())
+            if right != bt or tuple(out.lwe.data.shape) != (bt, gp.lwe_dimension + 1):
+                raise AssertionError(f"gadget {name} at batch {bt}: {right}/{bt} right, output "
+                                     f"{tuple(out.lwe.data.shape)}")
+            row["right"][str(bt)] = right
+            row["ms"][str(bt)] = cuda_ms(lambda: g.exec(sk, sub), 3 if bt == B else 5)
+        gates.append(row)
+        print(f"{tag} gadget {name} at {GADGET_GATE_SET} (p = {p}, one K1, pass and K2' a "
+              f"call): ms a call " + ", ".join(
+                  f"batch {bt} {row['ms'][str(bt)]:.3f} ({row['right'][str(bt)]}/{bt} right; "
+                  f"boolean AND {bool_and_ms.get(str(bt), float('nan')):.3f})"
+                  for bt in GADGET_GATE_BATCHES), flush=True)
+        del cts, out
+    print(f"{tag} gadget {GADGET_GATE_SET} (n={gp.lwe_dimension}, k={gp.glwe_dimension}, "
+          f"N={gp.polynomial_size}, PBS {gp.pbs_base_log}x{gp.pbs_level}, KS "
+          f"{gp.ks_base_log}x{gp.ks_level}, PBS -> KS) keys in {gate_keygen_s:.2f} s", flush=True)
+    del ck, sk
+
+    # ---- the ops at GADGET_OP_SET ------------------------------------------------------
+    op = gadget_params(GADGET_OP_SET)
+    t0 = time.perf_counter()
+    ck, sk = TG.gen_keys(op, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    op_keygen_s = time.perf_counter() - t0
+    n = op.lwe_dimension
+    enc5 = TE.Encoding.new_canonical(5, list(range(5)), 11)
+    enc3 = TE.Encoding.new_canonical(3, [0, 1, 2], 7)
+    w16 = TE.Encoding.new_trivial_wopbs(16)
+    in17 = TE.Encoding.new_canonical(16, list(range(16)), 17)
+    m5 = torch.randint(0, 5, (GADGET_BATCH,), generator=gen)
+    x0, x1 = torch.randint(0, 3, (2, GADGET_BATCH), generator=gen)
+    ma, mb = torch.randint(0, 16, (2, GADGET_BATCH), generator=gen)
+    c5 = TG.encrypt_arithmetic(ck, m5.to(dev), enc5, seed=seed + 80)
+    c0 = TG.encrypt_arithmetic(ck, x0.to(dev), enc3, seed=seed + 81)
+    c1 = TG.encrypt_arithmetic(ck, x1.to(dev), enc3, seed=seed + 82)
+    ca = TG.encrypt_arithmetic(ck, ma.to(dev), w16, seed=seed + 83)
+    cb = TG.encrypt_arithmetic(ck, mb.to(dev), w16, seed=seed + 84)
+    c17 = TG.encrypt_arithmetic(ck, ma.to(dev), in17, seed=seed + 85)
+    luts = [[(2 * x) % 5 for x in range(5)], [(x * x) % 5 for x in range(5)],
+            [(x + 3) % 5 for x in range(5)]]
+    tree_lut = [(2 * i + 1) % 3 for i in range(9)]
+    f9 = lambda x: (x * x + 2) % 9
+    v9 = (x0 + 3 * x1) ** 2 + 2
+    f16 = lambda x: (3 * x + 1) % 16
+    pass_tc = lambda c: {"keyswitch_tc": c, "keyswitch_decompose": c}
+    plan = [
+        ("apply_lut", lambda: [TE.apply_lut(sk, c5, enc5, lambda x: (4 * x + 1) % 5)],
+         [(4 * m5 + 1) % 5], {"blind_rotate": 1, **pass_tc(1)}),
+        ("mvb, 3 outputs", lambda: TE.mvb(sk, c5, [enc5] * 3, luts),
+         [torch.tensor(l)[m5] for l in luts], {"external_product": n, **pass_tc(1)}),
+        ("simple_tree_bootstrapping", lambda: [TE.simple_tree_bootstrapping(
+            sk, [c1, c0], enc3, 9, tree_lut)], [torch.tensor(tree_lut)[x0 + 3 * x1]],
+         {"external_product": n, "blind_rotate": 1, **pass_tc(3)}),
+        ("full_tree_bootstrapping", lambda: TE.full_tree_bootstrapping(
+            sk, [c1, c0], [enc3, enc3], 9, f9), [(v9 % 9) // 3, v9 % 3],
+         {"external_product": n, "blind_rotate": 2, **pass_tc(5)}),
+        ("lwe_mult", lambda: [TE.lwe_mult(sk, ca, cb, w16)], [(ma * mb) % 16], pass_tc(1)),
+        ("woppbs_lut", lambda: [TE.woppbs_lut(sk, c17, w16, f16)], [f16(ma)],
+         {"blind_rotate": 2, **pass_tc(3)}),
+    ]
+    spy = {"k7": [], "k1": None}
+    saved = (bootstrap.external_product, TE.programmable_bootstrap)
+
+    def k7_spy(acc, spectra, decomp, **kw):
+        out = saved[0](acc, spectra, decomp, **kw)
+        if len(spy["k7"]) < GADGET_K7_STEPS:
+            sel = slice(0, GADGET_HELD)
+            spy["k7"].append((acc[sel].clone(), spectra, decomp, kw["exps"][sel].clone(),
+                              out[sel].clone()))
+        return out
+
+    def k1_spy(lwe, lut, bsk):
+        out = saved[1](lwe, lut, bsk)
+        if lut.data.dim() > 2 and spy["k1"] is None:
+            sel = slice(0, GADGET_HELD)
+            spy["k1"] = (lwe.data[sel].clone(), lut.data[sel].clone(), bsk, out.data[sel].clone())
+        return out
+
+    for label, fn, wants, launches in plan:
+        _, first_ms, _ = _timed(fn, dev)          # the first call: host tables for new shapes
+        try:
+            bootstrap.external_product, TE.programmable_bootstrap = k7_spy, k1_spy
+            outs, ms, counts = counted(label, fn, launches)
+        finally:
+            bootstrap.external_product, TE.programmable_bootstrap = saved
+        right = [int((TG.decrypt(ck, o).cpu() == w).sum()) for o, w in zip(outs, wants)]
+        row = {"op": label, "batch": GADGET_BATCH, "ms": ms, "first_ms": first_ms,
+               "right": right, "launches": _launched(counts)}
+        ops.append(row)
+        print(f"{tag} gadget {label} at {GADGET_OP_SET}, batch {GADGET_BATCH}: {ms:.3f} ms a "
+              f"call (the first call {first_ms:.3f}), right "
+              + ", ".join(f"{r}/{GADGET_BATCH}" for r in right)
+              + f", launches {json.dumps(row['launches'])}", flush=True)
+        if min(right) < GADGET_BATCH:
+            print(f"{tag} finding: gadget {label} at {GADGET_OP_SET} decrypts "
+                  + ", ".join(f"{r}/{GADGET_BATCH}" for r in right) + " (not held)", flush=True)
+        del outs
+    print(f"{tag} gadget {GADGET_OP_SET} (n={n}, k={op.glwe_dimension}, N={op.polynomial_size}, "
+          f"PBS {op.pbs_base_log}x{op.pbs_level}, KS {op.ks_base_log}x{op.ks_level}, KS -> PBS) "
+          f"keys in {op_keygen_s:.2f} s", flush=True)
+
+    # ---- the holds: K7 over the common factor's first steps, K1 on a packed accumulator
+    k7_err = 0
+    for acc, spectra, decomp, exps, out in spy["k7"]:
+        k7_err = max(k7_err, max_abs_err(
+            out, ep.external_product_plain(acc, spectra, decomp, exps=exps)))
+    lwe, lut, bsk, k1_out = spy["k1"]
+    masked = bool(lut[:, :-1, :].any())
+    with plain_kernels():
+        k1_plain = TE.programmable_bootstrap(LweCiphertext(data=lwe), GlweCiphertext(data=lut),
+                                             bsk)
+    k1_err = max_abs_err(k1_out, k1_plain.data)
+    print(f"{tag} gadget holds: K7 over the MVB's first {len(spy['k7'])} steps on "
+          f"{GADGET_HELD} rows {k7_err}; K1 on {GADGET_HELD} rows of the tree's packed "
+          f"accumulator (mask nonzero: {masked}) {k1_err} (max abs err; 0 is bit-identical)",
+          flush=True)
+    if k7_err or k1_err or not masked or len(spy["k7"]) != GADGET_K7_STEPS:
+        raise AssertionError(f"gadget holds: K7 {k7_err}, K1 {k1_err}, mask nonzero {masked}")
+
+    # ---- K7 alone at the MVB's shape; one MVB call traced --------------------------
+    acc0 = TE.build_common_factor_accumulator(op, enc5, dev)
+    small = TE.keyswitch_lwe(c5.lwe, sk.ksk)
+    _, exps, acc = _switch_and_prerotate(acc0.data, small.data, op.polynomial_size)
+    spectra = sk.bsk.spectra[:, 1] if sk.bsk.paired else sk.bsk.spectra
+    spec0, decomp = spectra[0], sk.bsk.decomp
+    launch = lambda: ep.external_product(acc, spec0, decomp, exps=exps[:, 0])
+    launch()
+    k7_ms = cuda_ms(launch, 20)
+    k7_plain_ms = cuda_ms(lambda: ep.external_product_plain(acc, spec0, decomp, exps=exps[:, 0]),
+                          2)
+    P, J, R, N = spec0.shape
+    k7_bytes = _nbytes(acc, spec0, exps[:, 0]) + acc.numel() * 8
+    k7_shape = (f"gadget MVB common factor at {GADGET_OP_SET}: batch {GADGET_BATCH}, N={N}, "
+                f"k+1={R}, PBS {decomp.base_log}x{decomp.level} (J={J}), P={P}, a GGSW shared "
+                f"by the batch")
+    print(f"{tag} K7 {k7_shape}: {k7_ms:.4f} ms, plain {k7_plain_ms:.3f} ms", flush=True)
+    wall_ms, by_kernel, timeline = profile_window(lambda: TE.mvb(sk, c5, [enc5] * 3, luts))
+    busy = print_profile(f"{tag} profiler, one gadget MVB call at batch {GADGET_BATCH}",
+                         wall_ms, by_kernel, timeline)
+    if not busy:
+        raise AssertionError("the gadget MVB trace shows no device time")
+    excl = exclusive_ms(timeline)
+    k7_busy = sum(v for k, v in excl.items() if "external_product" in k)
+    trace = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+             "k7_ms": k7_busy, "k7_share_of_busy": k7_busy / busy,
+             "by_kernel_ms": {k[:60]: v for k, v in sorted(excl.items(),
+                                                           key=lambda kv: -kv[1])[:6]}}
+    print(f"{tag} gadget MVB trace: K7 {k7_busy:.3f} ms of {busy:.3f} busy "
+          f"({k7_busy / busy:.1%}); by kernel (exclusive ms) {json.dumps(trace['by_kernel_ms'])}",
+          flush=True)
+    del ck, sk, c5, c0, c1, ca, cb, c17, spy, acc, small, spectra
+    torch.cuda.empty_cache()
+    return {"launches": totals, "gates": gates, "ops": ops, "trace": trace,
+            "gate_keygen_s": gate_keygen_s, "op_keygen_s": op_keygen_s,
+            "k7": {"err": k7_err, "k1_err": k1_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
+                   "bytes": k7_bytes, "shape": k7_shape,
+                   "mults": k7_mults(GADGET_BATCH, P, J, R, N)}}
 
 
 def noise_hold(seed: int, dev, tag: str) -> dict:
@@ -3475,6 +3734,14 @@ def main() -> int:
     slice_launches = {k: v + hl["launches"].get(k, 0) + wop["launches"].get(k, 0)
                       for k, v in slice_launches.items()}
 
+    lap("4l")
+    # ---- 4l. the gadget fork ----------------------------------------------------------
+    bool_and = next(r["gate_ms"] for r in bool_path["sets"] if r["set"] == GADGET_GATE_SET)
+    gad = gadget_path(args.seed, dev, tag, zero_counts, read_counts, bool_and)
+    print(json.dumps({"gadget_gates": gad["gates"], "gadget_ops": gad["ops"],
+                      "gadget_trace": gad["trace"]}))
+    slice_launches = {k: v + gad["launches"].get(k, 0) for k, v in slice_launches.items()}
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -3500,11 +3767,15 @@ def main() -> int:
     for pname, counts in large_launches.items():
         print(f"{pname} path kernel launches: {json.dumps(counts)}")
     print(f"integer path kernel launches (every op): {json.dumps(int_launches)}")
-    print(f"boolean, apps, PBS -> KS, key-flow, hlapi and WoP-PBS paths kernel launches: "
-          f"{json.dumps(slice_launches)}")
+    print(f"boolean, apps, PBS -> KS, key-flow, hlapi, WoP-PBS and gadget paths kernel "
+          f"launches: {json.dumps(slice_launches)}")
+    print(f"gadget path kernel launches: {json.dumps(gad['launches'])}")
     for name in ("external_product", "keyswitch_mac"):
         if wop["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the WoP-PBS path")
+    for name in ("blind_rotate", "external_product", "keyswitch_tc", "keyswitch_decompose"):
+        if gad["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the gadget path")
     for name in ("blind_rotate", "keyswitch_tc", "keyswitch_decompose"):
         if min(bool_path["launches"][name], app_path["launches"][name],
                key_flow["launches"][name]) <= 0:
@@ -3591,7 +3862,7 @@ def main() -> int:
     kernels = [
         entry("blind_rotate", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               classic_launches["blind_rotate"] + int_launches["blind_rotate"]
-              + slice_launches["blind_rotate"], k1_err, k1_ms,
+              + slice_launches["blind_rotate"], max(k1_err, gad["k7"]["k1_err"]), k1_ms,
               k1_plain_ms, k1_bound),
         entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
               path_total("keyswitch_tc"), max(ks[k]["err"]["tc"] for k in ks_names),
@@ -3644,10 +3915,11 @@ def main() -> int:
               bound(largest, 8, clock_hz, sms)),
         entry("external_product", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/bootstrap.py:50", path_total("external_product"),
-              wop["k7"]["err"], wop["k7"]["ms"], wop["k7"]["plain_ms"],
+              max(wop["k7"]["err"], gad["k7"]["err"]), wop["k7"]["ms"], wop["k7"]["plain_ms"],
               bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
-              [(wop["k7"]["shape"], wop["k7"]["ms"], wop["k7"]["plain_ms"],
-                bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms))]),
+              [(k7["shape"], k7["ms"], k7["plain_ms"],
+                bound(k7["mults"], k7["bytes"], clock_hz, sms))
+               for k7 in (wop["k7"], gad["k7"])]),
     ]
     print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")

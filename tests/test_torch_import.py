@@ -46,7 +46,10 @@ def test_imports_with_jax_blocked():
             "tfhe_tpu_torch.utils.serialization", "tfhe_tpu_torch.hlapi",
             "tfhe_tpu_torch.shortint.key_switching_key", "tfhe_tpu_torch.shortint.wopbs",
             "tfhe_tpu_torch.core.algorithms.wopbs", "tfhe_tpu_torch.core.algorithms.linear",
-            "tfhe_tpu_torch.core.poly.external_product"} <= mods
+            "tfhe_tpu_torch.core.poly.external_product", "tfhe_tpu_torch.gadget",
+            "tfhe_tpu_torch.gadget.encoding", "tfhe_tpu_torch.gadget.engine",
+            "tfhe_tpu_torch.gadget.instrument", "tfhe_tpu_torch.core.algorithms.glwe_mult",
+            "tfhe_tpu_torch.core.algorithms.gsw"} <= mods
 
 
 def _named_sets():

@@ -14,6 +14,11 @@ TEST_PARAMS_SHORTINT and TEST_PARAMS_BOOLEAN on numpy secret keys:
 * the WoP-PBS keys: a JAX `CombinedWopbsKey` (its `WopbsKey`, server keys,
   `CbsPfpkskList` and casting KSK) read by the port and serving a WoP-PBS;
   the port's `CbsPfpkskList` read by the JAX package;
+* the gadget fork's `Ciphertext` (with its encoding), `ClientKey` and
+  `ServerKey` both ways (numpy keys at TEST_PARAMS_GADGET,
+  `torch_gadget_jax`): read into the port's types equal to the port's keys
+  on the same arrays, and written back equal to the JAX package's (the
+  BSK's residues and Shoup quotients word for word);
 * every refusal: unported types by ROADMAP item, a version, a type, a size
   limit, a key on another prime pool (C2), a key with no DIF residues, and
   a card asked for without one.
@@ -417,24 +422,97 @@ def _write(path, cls, fields=None, version=JSer.SERIALIZATION_VERSION):
     np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8))
 
 
+@pytest.fixture(scope="module")
+def gadget_objects():
+    """JAX and port gadget keys and a ciphertext on the same numpy arrays."""
+    from torch_gadget_jax import both, encodings, encrypt, jax_keys, numpy_gadget_keys, port_keys
+    keys = numpy_gadget_keys(23)
+    jenc, _ = encodings(5, [[0], [1], [2], [3], [4]], 11)
+    (jck, jsk), (tck, tsk) = jax_keys(keys, "ks_pbs"), port_keys(keys, "ks_pbs")
+    jct, tct = both(encrypt(keys, "ks_pbs", [0, 1, 2, 3, 4], jenc, seed=3), jenc)
+    return {"Ciphertext": (jct, tct), "ClientKey": (jck, tck), "ServerKey": (jsk, tsk)}
+
+
+def _same_gadget(kind, jobj, tobj):
+    """A JAX gadget object and a port one hold the same words."""
+    def u64(t):
+        return to_numpy_u64(t)
+    if kind == "Ciphertext":
+        np.testing.assert_array_equal(np.asarray(jobj.lwe.data), u64(tobj.lwe.data))
+        assert (jobj.encoding.origin_modulus, jobj.encoding.modulus_p, jobj.encoding.parts,
+                jobj.encoding.wopbs) == (tobj.encoding.origin_modulus, tobj.encoding.modulus_p,
+                                         tobj.encoding.parts, tobj.encoding.wopbs)
+        return
+    assert jobj.params.name == tobj.params.name
+    if kind == "ClientKey":
+        for f in ("lwe_sk", "glwe_sk"):
+            np.testing.assert_array_equal(np.asarray(getattr(jobj, f).bits),
+                                          getattr(tobj, f).bits.numpy())
+        return
+    for f in ("ksk", "pksk", "rlk"):
+        np.testing.assert_array_equal(np.asarray(getattr(jobj, f).data),
+                                      u64(getattr(tobj, f).data))
+        assert getattr(jobj, f).decomp.base_log == getattr(tobj, f).decomp.base_log
+
+
+def _gadget_round_trip(kind, objs, tmp_path):
+    """The JAX package's file read by the port, the port's read by the JAX
+    package, each equal to the other package's object on the same arrays;
+    the BSK written by the port equals the JAX key's residues and Shoup
+    quotients."""
+    jobj, tobj = objs[kind]
+    JSer.safe_save(jobj, tmp_path / "j.npz")
+    got = Ser.safe_load(tmp_path / "j.npz", expected_type=kind, device="cpu")
+    assert type(got) is type(tobj)
+    _same_gadget(kind, jobj, got)
+    if kind == "ServerKey":
+        assert torch.equal(got.bsk.spectra, tobj.bsk.spectra)
+    Ser.save(tobj, tmp_path / "t.npz")
+    back = JSer.safe_load(tmp_path / "t.npz", expected_type="gadget.engine." + kind)
+    assert type(back) is type(jobj)
+    _same_gadget(kind, back, tobj)
+    if kind == "ClientKey":
+        assert np.asarray(back.lwe_sk.bits).dtype == np.int8
+    if kind == "ServerKey":
+        np.testing.assert_array_equal(np.asarray(back.bsk.data), np.asarray(jobj.bsk.data))
+        np.testing.assert_array_equal(np.asarray(back.bsk.shoup), np.asarray(jobj.bsk.shoup))
+        assert back.bsk.paired is None and back.params == jobj.params
+        again = Ser.safe_load(tmp_path / "t.npz", device="cpu")
+        assert torch.equal(again.bsk.spectra, tobj.bsk.spectra)
+
+
 @pytest.mark.parametrize("cls, item", [
     ("tfhe_tpu.gadget.engine.Ciphertext", "A14"), ("tfhe_tpu.gadget.engine.ClientKey", "A14"),
     ("tfhe_tpu.gadget.engine.ServerKey", "A14"),
     ("tfhe_tpu.integer.shift_key.ShiftKey", "A10b")])
-def test_unported_types_refused_by_roadmap_item(cls, item, tmp_path):
+def test_unported_types_refused_by_roadmap_item(cls, item, tmp_path, request):
+    """A10b's type is refused by its item; A14's three gadget types are
+    ported and round-trip both ways instead."""
+    if item == "A14":
+        _gadget_round_trip(cls.rsplit(".", 1)[1], request.getfixturevalue("gadget_objects"),
+                           tmp_path)
+        return
     _write(tmp_path / "x.npz", cls)
     with pytest.raises(Ser.DeserializationError, match=item):
         Ser.safe_load(tmp_path / "x.npz", device="cpu")
 
 
 def test_gadget_encoding_and_shift_key_refused(tmp_path):
+    """A gadget ciphertext (an "encoding" node) reads as the port's; the
+    shift key and an unknown type are refused."""
     from tfhe_tpu.gadget.encoding import Encoding
     from tfhe_tpu.gadget.engine import Ciphertext as GadgetCiphertext
     enc = Encoding(2, [[0], [1]], 3)
-    JSer.save(GadgetCiphertext(lwe=JLwe(data=jnp.zeros((2, 3), jnp.uint64)), encoding=enc),
-              tmp_path / "g.npz")
-    with pytest.raises(Ser.DeserializationError, match="A14"):
-        Ser.load(tmp_path / "g.npz", device="cpu")
+    words = jnp.asarray(np.array([[1, 2, 2 ** 63], [3, 2 ** 64 - 1, 0]], dtype=np.uint64))
+    JSer.save(GadgetCiphertext(lwe=JLwe(data=words), encoding=enc), tmp_path / "g.npz")
+    got = Ser.load(tmp_path / "g.npz", device="cpu")
+    np.testing.assert_array_equal(to_numpy_u64(got.lwe.data), np.asarray(words))
+    assert (got.encoding.origin_modulus, got.encoding.modulus_p, got.encoding.parts) == (
+        2, 3, enc.parts)
+    Ser.save(got, tmp_path / "g2.npz")
+    back = JSer.load(tmp_path / "g2.npz")
+    assert back.encoding == enc
+    np.testing.assert_array_equal(np.asarray(back.lwe.data), np.asarray(words))
     node = {"t": "lit", "v": None}
     _write(tmp_path / "i.npz", "tfhe_tpu.integer.server_key.ServerKey",
            {"key": node, "shift_key": {"t": "obj", "cls": "tfhe_tpu.integer.shift_key.ShiftKey",

@@ -12,9 +12,11 @@ and the plan's Garner constants are copied; the transform is the port's own:
 Spectral slot k of the forward transform holds the evaluation at
 psi^(2*brv(k) + 1), so the monomial X^e is the pointwise phase
 psi^(e*(2*brv(k)+1) mod 2N) there (`NttPlan.slot_odd`, `psi_pow`).  This
-order happens to equal the JAX package's DIF order, but nothing relies on
-that: keys cross between the packages through standard coefficients
-(`interop.py`), with `dif_inverse` as the JAX order's inverse.
+order equals the JAX package's DIF order.  Keys read from the JAX package
+cross through standard coefficients (`interop.py`, with `dif_inverse` as
+the JAX order's inverse); the `tfhe_tpu-v1` writer relies on the equality
+to write the port's spectra as a JAX key (tests/test_torch_serialization.py
+holds the written residues equal to the JAX package's).
 
 Residues live in int64 tensors.  They stay below 2^30, so a product of two
 is below 2^60 and the plain version may reduce with `%` (Shoup's trick in

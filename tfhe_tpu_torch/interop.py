@@ -27,6 +27,13 @@ The WoP-PBS and casting keys cross as their arrays around port keys:
   shortint KeySwitchingKey.ksk.data           → KeySwitchingKey (`casting_key`)
 and the hlapi keys wrap the shortint and integer keys (`hlapi_keys`).
 
+The gadget keys cross as their arrays (`gadget_keys`): the two secret
+keys' bits, the BSK's DIF-order `NttLweBootstrapKey.data`, the KSK
+[kN, l, n+1], the packing KSK [kN, l, k+1, N] and the relinearization key
+[pairs, l, k+1, N] (u64); a gadget ciphertext as its [..., n+1] u64 array
+and its encoding (`gadget_ciphertext`; the `Encoding` class is the JAX
+package's, copied whole).
+
 A boolean server key crosses as its KSK data and its DIF-order
 `NttLweBootstrapKey.data` (`boolean_server_key`), a boolean ciphertext as
 its [..., n+1] u64 array (`bool_ciphertext`).  An integer ciphertext
@@ -59,6 +66,9 @@ from .core.params import DecompParams
 from .core.poly import ntt
 from .cuda_lib import resolve_device
 from .boolean import BoolCiphertext
+from .core.entities import GlweRelinearizationKey, LwePackingKeyswitchKey
+from .gadget import engine as gadget_engine
+from .gadget.encoding import Encoding
 from .boolean import ServerKey as BooleanServerKey
 from .integer.ciphertext import CrtCiphertext, RadixCiphertext, SignedRadixCiphertext
 from .shortint.ciphertext import Ciphertext
@@ -257,3 +267,29 @@ def hlapi_keys(client_key, server_key) -> tuple:
     from . import hlapi
     from .integer.server_key import ServerKey as IntegerServerKey
     return hlapi.ClientKey(client_key), hlapi.ServerKey(IntegerServerKey(key=server_key))
+
+
+def gadget_ciphertext(data, encoding: Encoding, device="cuda") -> gadget_engine.Ciphertext:
+    """A JAX gadget Ciphertext's words [..., n+1] u64 and its encoding → the
+    port's."""
+    return gadget_engine.Ciphertext(
+        lwe=LweCiphertext(data=from_numpy_u64(data, resolve_device(device))), encoding=encoding)
+
+
+def gadget_keys(lwe_bits, glwe_bits, bsk_dif, primes, ksk, pksk, rlk, params,
+                device="cuda") -> tuple:
+    """A JAX gadget key pair's arrays (`tfhe_tpu.gadget.gen_keys`): the
+    secret keys' bits, the NttLweBootstrapKey.data [n, P, J, R, N] (DIF-order
+    residues over `primes`), the KSK, packing KSK and relinearization key
+    data (u64) → the port's (ClientKey, ServerKey) for `params` (either PBS
+    order: the keys serve both)."""
+    dev = resolve_device(device)
+    ck = gadget_engine.ClientKey(lwe_sk=lwe_secret_key(lwe_bits, dev),
+                                 glwe_sk=glwe_secret_key(glwe_bits, dev), params=params)
+    sk = gadget_engine.ServerKey(
+        bsk=bootstrap_key_from_dif(bsk_dif, primes, params.pbs_decomp, dev),
+        ksk=keyswitch_key(ksk, params.ks_decomp, dev),
+        pksk=LwePackingKeyswitchKey(data=from_numpy_u64(pksk, dev), decomp=params.ks_decomp),
+        rlk=GlweRelinearizationKey(data=from_numpy_u64(rlk, dev), decomp=params.pbs_decomp),
+        params=params)
+    return ck, sk

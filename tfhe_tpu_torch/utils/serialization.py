@@ -16,15 +16,21 @@ bits as int8 ↔ int64.  A JAX `NttLweBootstrapKey` or
 64-bit word: the file does not name its prime pool (ROADMAP C2), so a key
 made on another pool is refused here, not decrypted as garbage.  A key
 with no DIF residues (the JAX "fourstep" slim form) is refused by name.
-Types the port has not ported are refused naming their ROADMAP item.
+Types the port has not ported are refused naming their ROADMAP item.  A
+gadget encoding (an "encoding" node) becomes the port's `Encoding`.
 
 Writing covers the types held as standard-domain words (`_WRITERS`):
 ciphertexts, seeded entities, compressed ciphertexts and keys, public keys
 and the WoP-PBS's PFPKSK list, under the JAX package's type names, so
 `tfhe_tpu.utils.safe_load` reads them (the boolean `CompressedCiphertext`
 is left out: the JAX package's registry has no entry for it, so neither
-package can read it).  The rest of the write side
-is ROADMAP A17.
+package can read it); and the gadget fork's `Ciphertext` (with its
+encoding), `ClientKey` (secret-key bits as int8) and `ServerKey`, whose
+BSK is written as a JAX `NttLweBootstrapKey` of its residues and their
+Shoup quotients (`_ntt_key_fields`: the port's spectral order is the JAX
+package's DIF order, which tests/test_torch_serialization.py holds) with
+no paired form, so the JAX package runs it on its XLA route.  The rest of
+the write side is ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -48,13 +54,12 @@ class DeserializationError(ValueError):
 # ---------------------------------------------------------------------------
 
 _REFUSED = {
-    "tfhe_tpu.gadget.engine.Ciphertext": "the gadget fork (ROADMAP A14)",
-    "tfhe_tpu.gadget.engine.ClientKey": "the gadget fork (ROADMAP A14)",
-    "tfhe_tpu.gadget.engine.ServerKey": "the gadget fork (ROADMAP A14)",
     "tfhe_tpu.integer.shift_key.ShiftKey": "the integer shift key (ROADMAP A10b)",
 }
 _READERS: Dict[str, Callable] = {}
 _WRITERS: Dict[type, str] = {}
+# types written with fields of their own making: type → obj → {field: value}
+_WRITE_FIELDS: Dict[type, Callable] = {}
 
 
 def _words(a, device) -> torch.Tensor:
@@ -108,12 +113,31 @@ def _check_pool(convert):
                                    f"{e}") from e
 
 
+def _ntt_key_fields(key) -> dict:
+    """A port NttBootstrapKey → the fields of a JAX NttLweBootstrapKey: the
+    residues [n, P, J, R, N] u64 (pair1, GGSW(s_i), of a paired key) and
+    their Shoup quotients floor(v * 2^32 / p), no paired form."""
+    from ..core.poly import ntt
+    spectra = key.spectra[:, 1] if key.paired else key.spectra
+    data = spectra.detach().cpu().numpy().astype(np.uint64)
+    P = data.shape[1]
+    primes = np.asarray(ntt.get_plan(data.shape[-1], P).primes, dtype=np.uint64)
+    shoup = (data << np.uint64(32)) // primes.reshape(1, P, 1, 1, 1)
+    return {"data": data, "shoup": shoup, "paired": None, "paired_shoup": None, "mono": None,
+            "mono_shoup": None, "decomp": key.decomp, "log_q": 64, "paired_order": "dif"}
+
+
+def _secret_key_fields(key) -> dict:
+    return {"bits": key.bits.detach().cpu().numpy().astype(np.int8)}
+
+
 def _register():
-    """Fill _READERS and _WRITERS (once, at first use: the scheme modules
-    import this package's core)."""
+    """Fill _READERS, _WRITERS and _WRITE_FIELDS (once, at first use: the
+    scheme modules import this package's core)."""
     if _READERS:
         return
     from .. import boolean, integer, shortint
+    from ..gadget import engine as GE
     from ..core import entities as E
     from ..core import params as Pm
     from ..core.algorithms import keyswitch, public_key as PK, seeded as S, wopbs as W
@@ -173,6 +197,9 @@ def _register():
                                                               words=("data",)),
         "tfhe_tpu.shortint.wopbs.WopbsKey": plain(SW.WopbsKey),
         "tfhe_tpu.shortint.wopbs.CombinedWopbsKey": plain(SW.CombinedWopbsKey),
+        "tfhe_tpu.gadget.engine.Ciphertext": plain(GE.Ciphertext),
+        "tfhe_tpu.gadget.engine.ClientKey": plain(GE.ClientKey),
+        "tfhe_tpu.gadget.engine.ServerKey": plain(GE.ServerKey),
     })
     for name in ("SeededLweCiphertext", "SeededGlweCiphertext", "SeededLweCompactPublicKey"):
         _READERS[seeded + name] = plain(getattr(S, name), words=("body",))
@@ -200,6 +227,19 @@ def _register():
         integer.SignedRadixCiphertext: "tfhe_tpu.integer.ciphertext.SignedRadixCiphertext",
         integer.CrtCiphertext: "tfhe_tpu.integer.ciphertext.CrtCiphertext",
         W.CbsPfpkskList: "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList",
+        GE.Ciphertext: "tfhe_tpu.gadget.engine.Ciphertext",
+        GE.ClientKey: "tfhe_tpu.gadget.engine.ClientKey",
+        GE.ServerKey: "tfhe_tpu.gadget.engine.ServerKey",
+        E.LweSecretKey: core + "LweSecretKey", E.GlweSecretKey: core + "GlweSecretKey",
+        E.LweKeyswitchKey: core + "LweKeyswitchKey",
+        E.LwePackingKeyswitchKey: core + "LwePackingKeyswitchKey",
+        E.GlweRelinearizationKey: core + "GlweRelinearizationKey",
+        E.NttBootstrapKey: core + "NttLweBootstrapKey",
+    })
+    _WRITE_FIELDS.update({
+        E.LweSecretKey: _secret_key_fields, E.GlweSecretKey: _secret_key_fields,
+        E.LweKeyswitchKey: lambda k: {"data": k.data, "decomp": k.decomp},
+        E.NttBootstrapKey: _ntt_key_fields,
     })
     for name in S.__all__:
         if name.startswith("Seeded"):
@@ -234,7 +274,9 @@ def _decode(node, arrays, device):
     if t == "derived":
         return None
     if t == "encoding":
-        raise DeserializationError("a gadget Encoding: the gadget fork (ROADMAP A14)")
+        from ..gadget.encoding import Encoding
+        return Encoding(node["o"], node["parts"], node["p"], wopbs=node["wopbs"],
+                        _validate=False)
     if t == "obj":
         name = node["cls"]
         if name in _REFUSED:
@@ -252,8 +294,16 @@ def _decode(node, arrays, device):
 
 
 def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
+    from ..gadget.encoding import Encoding
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return {"t": "lit", "v": obj}
+    if isinstance(obj, np.ndarray):
+        key = f"a{len(arrays)}"
+        arrays[key] = obj
+        return {"t": "arr", "k": key}
+    if isinstance(obj, Encoding):
+        return {"t": "encoding", "o": obj.origin_modulus, "p": obj.modulus_p,
+                "wopbs": obj.wopbs, "parts": [sorted(part) for part in obj.parts]}
     if isinstance(obj, torch.Tensor):
         key = seen.get(id(obj))
         if key is None:
@@ -273,9 +323,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
         if name is None:
             raise DeserializationError(f"the port does not write {type(obj).__name__} "
                                        f"(the write side beyond this is ROADMAP A17)")
+        fields = _WRITE_FIELDS.get(type(obj))
+        fields = (fields(obj) if fields else
+                  {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
         return {"t": "obj", "cls": name,
-                "fields": {f.name: _encode(getattr(obj, f.name), arrays, seen)
-                           for f in dataclasses.fields(obj)}}
+                "fields": {k: _encode(v, arrays, seen) for k, v in fields.items()}}
     raise DeserializationError(f"cannot serialize {type(obj)}")
 
 
