@@ -3,7 +3,8 @@
 
 Drives the port's shortint keyswitch + PBS paths, its integer path, its
 boolean scheme, its apps, its client-server key flow, its high-level API,
-its WoP-PBS and its gadget fork once each, through the entry points a user
+its WoP-PBS, its gadget fork, its GGSW shifts, its integer WoP-PBS and its
+2^128 torus once each, through the entry points a user
 calls, and checks them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
@@ -14,7 +15,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   1. card, power limit, SM clock, torch and CUDA versions;
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5, K6 in rotation.cu,
      the keyswitch's decomposition pass, K2' and the wide form K2 in
-     keyswitch.cu, K7 in external_product.cu, the shared-memory probe in
+     keyswitch.cu, K7 and K8 in external_product.cu, the shared-memory probe in
      probe.cu; one nvcc per source, in parallel) and prints ptxas's
      register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
@@ -167,7 +168,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      PARAM_MESSAGE_1_CARRY_2_KS_PBS (32 streams, the full 1152-clock
      warm-up in 18 rounds, round 19 checked for every stream; keystream
      bits/s); the boolean TriviumStream and KreyviumStream at
-     DEFAULT_PARAMETERS_KS_PBS (32 streams; the warm-up cut to what fits 60 s
+     DEFAULT_PARAMETERS_KS_PBS (32 streams; the warm-up cut to what fits 10 s
      at phase 4f's gate latency, held against the clear model at the same
      warm-up; one clock traced); SHA-256's primitives on 32-row words
      (add_words_b, the four sigmas, ch_b, maj_b) against clear values, and
@@ -233,6 +234,31 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      printed as a finding); K7 over the MVB's first steps and K1 on the
      tree's packed accumulator held bit for bit against their plain
      versions; K7 timed at the MVB's shape; one MVB call traced;
+  4m. shifts by an encrypted amount through GGSW selectors (shift_path):
+     integer.gen_keys(..., shift_key="auto") at 2_2 (the shift key at
+     WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS); FheUint32 shl, shr, rotl, rotr
+     and the arithmetic shr, and FheUint64 shl, at batch 64, each with its
+     launches held equal to the reckoning from the code (two K1 calls, the
+     pass and K2' each, the wide K2 a GGSW row and the packing keyswitch,
+     K7 a CMux), timed, peak memory read, decrypted, beside the same op on
+     the layered path in the same run; the hlapi's FheUint32 << on
+     generate_keys(shift_key="auto"); 40 dependent rotl at batch 64 (the
+     2,560 values of ROADMAP C3), every one right;
+  4n. the integer WoP-PBS (integer_wopbs_path) on
+     new_wopbs_key_only_for_wopbs over keys of the WoP set: an 8-block
+     radix (16 bits: 32 LUT polynomials, 31 CMuxes an output block before
+     the rotation) through (7x + 13) mod 2^16 and wopbs_crt at (2, 3, 5)
+     with x^2 + 1, batch 64, launches against the reckoning, timed, peak
+     memory, every row decrypted; K7 held and timed at the CMux tree;
+  4o. the 2^128 torus (pbs128_path): 2_2's shapes with its noise scaled to
+     2^128, keys made on the card, keyswitch128 (one pass, one K2' on the
+     key's four 32-bit words) then programmable_bootstrap128 (K8 once a
+     step, 742) at batch 512 with a 4-bit LUT, 512/512 decrypted; K8 held
+     bit for bit on the first and last 8 rows of the last step and timed
+     there; the word
+     form held against the plain 128-bit sum; the custom moduli of
+     tests/test_nonnative.py (encrypt, add, scalar-multiply, decrypt, the
+     decomposition) at n = 742, batch 512, against Python-int models;
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -251,7 +277,9 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      passes form at the shape it serves (no path serves that set, so its
      launches on the paths are 0); the keyswitch's three kernels per shape
      (the wide form's launches on the paths: the WoP-PBS's private
-     functional keyswitches); K7 at the WoP-PBS's vertical packing.
+     functional keyswitches); K7 at the WoP-PBS's vertical packing, the
+     MVB and the integer WoP-PBS's CMux tree; K8 at a step of the 128-bit
+     PBS.
 
 Every failure raises; nothing falls back to a plain version or the CPU.
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA card:
@@ -266,7 +294,8 @@ turn measures at batch 512, by CUDA events, with the same seeded random
 keys and inputs: the whole rotation at PARAM_MESSAGE_2_CARRY_2_KS_PBS (K1)
 and, through K6, at 3_3, 3_3 GROUP_3 and 4_4; `keyswitch_lwe` alone at the
 2_2, 3_3 and 4_4 keyswitch shapes (the key built by
-`interop.keyswitch_key`); and KS+PBS at 2_2 and those three sets
+`interop.keyswitch_key`); K7 and K8 alone at EP_SHAPES (random operands);
+and KS+PBS at 2_2 and those three sets
 (gen_keys on the card, 512 messages, one LUT request decrypted against
 the clear function).  Every output's checksum must agree across
 all turns (the pipeline is exact) and every KS+PBS output must decrypt
@@ -402,7 +431,7 @@ BOOL_TRUTH = {"and_": lambda x, y: x & y, "nand": lambda x, y: ~(x & y),
 TRIVIUM_SET = "PARAM_MESSAGE_1_CARRY_2_KS_PBS"
 APP_BOOL_SET = "DEFAULT_PARAMETERS_KS_PBS"
 STREAMS = 32
-STREAM_BUDGET_S = 30.0
+STREAM_BUDGET_S = 10.0     # keeps the whole script well inside its 1,200 s limit
 SHA_BUDGET_S = 120.0
 BYTE_WARMUP = 18
 # transciphering in phase 4g: the shortint stream's bit pairs cast into the
@@ -441,6 +470,25 @@ GADGET_GATES = {"and": (lambda a, b: a & b, 2, [1, 2], 5),
 # compressed key decompressed on the card with a KS+PBS at KEY_FLOW_44_BATCH;
 # the CPU holds take KEY_FLOW_ENDS input bits and KEY_FLOW_KSK_ROWS
 # keyswitching-key rows at each end of the key
+# phase 4m: the GGSW shift (BENCH_SUITE.json's uint32_shl / uint32_rotl /
+# uint64_shl rows); tfhe-rs's CPU times of those rows (tools/bench_suite.py:45-54)
+SHIFT_SET = CLASSIC
+SHIFT_BATCH = 64
+SHIFT_OPS = (("uint32_shl", "shl", 16), ("uint32_shr", "shr", 16), ("uint32_rotl", "rotl", 16),
+             ("uint32_rotr", "rotr", 16), ("int32_ashr", "ashr", 16), ("uint64_shl", "shl", 32))
+SHIFT_BASELINE_MS = {"uint32_shl": 180.0, "uint32_rotl": 182.0, "uint64_shl": 243.0}
+SHIFT_CHAIN = 40
+# phase 4n: the integer WoP-PBS
+IWOPBS_SET = "WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS"
+IWOPBS_BLOCKS = 8
+IWOPBS_BATCH = 64
+IWOPBS_MODULI = (2, 3, 5)
+# phase 4o: the 2^128 torus at 2_2's shapes, and the custom moduli of
+# tests/test_nonnative.py
+PBS128_SET = CLASSIC
+PBS128_BATCH = B
+CUSTOM_MODULI = ((1 << 64) - (1 << 32) + 1, (1 << 48) - 59, 1 << 63)
+
 KEY_FLOW_SHORTINT = CLASSIC
 KEY_FLOW_BOOL = "DEFAULT_PARAMETERS_KS_PBS"
 KEY_FLOW_44 = CLASSIC_44
@@ -667,6 +715,15 @@ def bound(mults: int, nbytes: int, sm_clock_hz: float, sms: int) -> tuple:
 
 COMPARED = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS", "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS",
             "PARAM_MESSAGE_4_CARRY_4_KS_PBS")
+# --against's external products, label -> (batch, N, k+1, base_log, level, P,
+# the GGSW shared, the rotated operand): K7 at the WoP-PBS's vertical packing,
+# the gadget MVB and the integer WoP-PBS's CMux tree; K8 at the 128-bit PBS
+EP_SHAPES = {
+    "K7 WoP-PBS vertical packing": (512, 2048, 2, 5, 3, 3, False, False),
+    "K7 gadget MVB": (512, 512, 4, 6, 4, 3, True, True),
+    "K7 CMux tree": (64, 2048, 2, 5, 3, 3, False, False),
+    "K8 128-bit PBS step": (512, 2048, 2, 23, 1, 6, True, True),
+}
 
 
 def measure_turn(seed: int) -> dict:
@@ -680,8 +737,8 @@ def measure_turn(seed: int) -> dict:
     from tfhe_tpu_torch.core.algorithms.keyswitch import keyswitch_lwe
     from tfhe_tpu_torch.core.entities import (LweCiphertext, NttBootstrapKey,
                                               NttMultiBitBootstrapKey)
-    from tfhe_tpu_torch.core.params import shortint_params
-    from tfhe_tpu_torch.core.poly import ntt, rotation
+    from tfhe_tpu_torch.core.params import DecompParams, shortint_params
+    from tfhe_tpu_torch.core.poly import external_product, ntt, rotation
 
     dev = torch.device("cuda", 0)
 
@@ -722,6 +779,27 @@ def measure_turn(seed: int) -> dict:
         ms = timed(run, 2 if N >= 32768 else 3)
         out[f"rotation {name}"] = {"ms": ms, "steps": steps, "check": checksum(res["o"])}
         del spectra, key, acc, exps, res
+        torch.cuda.empty_cache()
+    for label, (b, N, R, base_log, L, P, shared, rotated) in EP_SHAPES.items():
+        # K7 and K8 at the main path's shapes, random operands
+        plan = ntt.get_plan(N, P)
+        lead = () if shared else (b,)
+        spectra = torch.stack([torch.randint(0, q, lead + (L * R, R, N), generator=g, device=dev,
+                                             dtype=torch.int32) for q in plan.primes],
+                              dim=len(lead))
+        exps = torch.randint(0, 2 * N, (b,), generator=g, device=dev)
+        decomp = DecompParams(base_log, L)
+        if label.startswith("K8"):
+            acc = rng.uniform_torus(g, (b, R, N, 2))
+            fn = lambda: external_product.external_product128(acc, spectra, decomp, exps)
+        else:
+            acc, ct1 = rng.uniform_torus(g, (b, R, N)), rng.uniform_torus(g, (b, R, N))
+            kw = {"exps": exps} if rotated else {"ct1": ct1}
+            fn = lambda: external_product.external_product(acc, spectra, decomp, **kw)
+        res = {}
+        ms = timed(lambda: res.update(o=fn()), 20)
+        out[label] = {"ms": ms, "check": checksum(res["o"])}
+        del spectra, exps, acc, res
         torch.cuda.empty_cache()
     for name in (CLASSIC, CLASSIC_33, CLASSIC_44):
         # the keyswitch alone, the key carried in as a u64 array
@@ -2124,6 +2202,497 @@ def gadget_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_and_ms:
                    "mults": k7_mults(GADGET_BATCH, P, J, R, N)}}
 
 
+def shift_reckoning(nb: int, bp: int, amount_nb: int, kind: str, glwe_size: int, lc: int,
+                    batch: int) -> dict:
+    """The GGSW shift's launches and PBS rows, reckoned from
+    `integer/shift_key.py`: one CBS call (a K1 launch, its pass and K2'), a
+    private functional keyswitch (the wide K2) per selector bit and GGSW
+    row, one packing keyswitch (the wide K2 at the pfks decomposition), a
+    K7 CMux per selector bit, one refresh call; the arithmetic shift's sign
+    bit one more KS+PBS call."""
+    n_sel = max(1, math.ceil(math.log2(nb * bp)))
+    sb = int(math.log2(bp)) if bp > 1 else 0
+    bits = [j for j in range(sb, n_sel) if j // bp < amount_nb]
+    subs = [t for t in range(sb) if t // bp < amount_nb]
+    refresh = 2 * nb - (kind in ("shl", "shr"))   # logical shifts have no edge neighbour
+    calls = 2 + (kind == "ashr")
+    return {"launches": {"blind_rotate": calls, "keyswitch_tc": calls,
+                         "keyswitch_decompose": calls,
+                         "keyswitch_mac": len(bits) * glwe_size + 1,
+                         "external_product": len(bits)},
+            "pbs_rows": batch * (len(bits) * lc + len(subs) + refresh + (kind == "ashr"))}
+
+
+def shift_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4m: shifts and rotates by an encrypted amount through GGSW
+    selectors (`integer/shift_key.py`).  integer.gen_keys at SHIFT_SET with
+    shift_key="auto" (WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS) for 16 blocks;
+    FheUint32 shl, shr, rotl, rotr and the arithmetic shr by encrypted
+    amounts at SHIFT_BATCH (BENCH_SUITE.json's uint32_shl and uint32_rotl
+    rows), and uint64 shl (32 blocks), each with the counts at 0 just
+    before and read just after (held equal to `shift_reckoning`), timed by
+    CUDA events, its peak device memory read, decrypted against the clear
+    model, and the same op on the layered path (the same keys without the
+    shift key) timed in the same run and decrypted.  The hlapi's FheUint32
+    << on generate_keys(shift_key="auto") beside the integer layer's.  C3's
+    hold: SHIFT_CHAIN dependent rotl at SHIFT_BATCH, every value right.
+    → {"launches", "ops", "chain"}."""
+    import numpy as np
+
+    from tfhe_tpu_torch import hlapi as H
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.integer import shift_key as SK
+
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    rck, isk = integer.gen_keys(SHIFT_SET, num_blocks=16, seed=seed, shift_key="auto",
+                                device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    shk = isk.shift_key
+    wp = shk.wopbs.params
+    layered = integer.ServerKey(key=isk.key)
+    m = isk.msg_mod
+    bp = int(math.log2(m))
+    print(f"{tag} shift key: {wp.name} (N={wp.polynomial_size}, n={wp.lwe_dimension}), cbs "
+          f"{shk.cbs_decomp.base_log}x{shk.cbs_decomp.level}, casts "
+          f"{SK.SHIFT_CAST_KS_DECOMP.base_log}x{SK.SHIFT_CAST_KS_DECOMP.level}, packing "
+          f"{shk.pksk.decomp.base_log}x{shk.pksk.decomp.level}; keys in {keygen_s:.2f} s",
+          flush=True)
+    ops, totals = [], {}
+
+    def clear(kind, v, s, bits):
+        s %= 1 << max(1, math.ceil(math.log2(bits)))
+        mask = (1 << bits) - 1
+        if kind == "shl":
+            return (v << s) & mask if s < bits else 0
+        if kind == "shr":
+            return v >> s if s < bits else 0
+        if kind == "ashr":
+            sv = v - (1 << bits) if v >> (bits - 1) else v
+            return (sv >> min(s, bits - 1)) & mask
+        s %= bits
+        if kind == "rotl":
+            return ((v << s) | (v >> (bits - s))) & mask if s else v
+        return ((v >> s) | (v << (bits - s))) & mask if s else v
+
+    names = {"shl": "left_shift", "shr": "right_shift", "rotl": "rotate_left",
+             "rotr": "rotate_right", "ashr": "right_shift_arithmetic"}
+    def draw(bits):
+        """SHIFT_BATCH uniform values below 2^bits (bits <= 64)."""
+        return [((int(h) << 32) | int(lo)) % (1 << bits) for h, lo in
+                zip(rng.integers(0, 1 << 32, SHIFT_BATCH), rng.integers(0, 1 << 32, SHIFT_BATCH))]
+
+    for label, kind, nb in SHIFT_OPS:
+        bits = nb * bp
+        ck = integer.RadixClientKey(key=rck.key, num_blocks=nb)
+        vals, amts = draw(bits), draw(bits)
+        a = ck.encrypt(vals, seed=seed + 10)
+        s = ck.encrypt(amts, seed=seed + 11)
+        want = [clear(kind, v, x, bits) for v, x in zip(vals, amts)]
+        row = {"op": label, "blocks": nb, "batch": SHIFT_BATCH}
+        for path, key in (("ggsw", isk), ("layered", layered)):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = getattr(key, names[kind])(a, s)
+            stop.record()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e6
+            got = [int(v) for v in ck.decrypt(out)]
+            right = sum(g == w for g, w in zip(got, want))
+            row[path] = {"ms": start.elapsed_time(stop), "peak_mb": peak, "right": right,
+                         "launches": _launched(counts)}
+            if path == "ggsw":
+                reck = shift_reckoning(nb, bp, nb, kind, wp.glwe_dimension + 1,
+                                       shk.cbs_decomp.level, SHIFT_BATCH)
+                want_counts = {k: 0 for k in counts}
+                want_counts.update(reck["launches"])
+                if counts != want_counts:
+                    raise AssertionError(f"GGSW {label}: launches {counts}, reckoned "
+                                         f"{want_counts}")
+                row["pbs_rows"] = reck["pbs_rows"]
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+            if right != SHIFT_BATCH:
+                raise AssertionError(f"{path} {label}: {right}/{SHIFT_BATCH} right")
+        row["ms_per_op"] = row["ggsw"]["ms"] / SHIFT_BATCH
+        row["layered_ms_per_op"] = row["layered"]["ms"] / SHIFT_BATCH
+        ops.append(row)
+        print(f"{tag} {label} ({nb} blocks, batch {SHIFT_BATCH}): GGSW {row['ggsw']['ms']:.3f} ms "
+              f"({row['ms_per_op']:.4f} ms an op; {row['pbs_rows'] // SHIFT_BATCH} PBS an op; "
+              f"peak {row['ggsw']['peak_mb']:.1f} MB; launches "
+              f"{json.dumps(row['ggsw']['launches'])}), layered {row['layered']['ms']:.3f} ms "
+              f"({row['layered_ms_per_op']:.4f} ms an op; launches "
+              f"{json.dumps(row['layered']['launches'])}); {SHIFT_BATCH}/{SHIFT_BATCH} right on "
+              f"both; tfhe-rs on a CPU {SHIFT_BASELINE_MS.get(label, 'n/a')} ms an op",
+              flush=True)
+
+    # ---- the hlapi's << on a key with the shift key --------------------------
+    hck, hsk = H.generate_keys(H.ConfigBuilder().use_custom_parameters(SHIFT_SET).build(),
+                               seed=seed + 1, shift_key="auto", device=dev)
+    H.set_server_key(hsk)
+    vals = [int(v) for v in rng.integers(0, 1 << 32, SHIFT_BATCH)]
+    amts = [int(v) for v in rng.integers(0, 32, SHIFT_BATCH)]
+    x, y = H.FheUint32.encrypt(vals, hck, seed=seed + 12), H.FheUint32.encrypt(amts, hck,
+                                                                               seed=seed + 13)
+    zero_counts()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    z = x << y
+    stop.record()
+    torch.cuda.synchronize()
+    h_counts = read_counts()
+    got = [int(v) for v in z.decrypt(hck)]
+    h_right = sum(g == clear("shl", v, s, 32) for g, v, s in zip(got, vals, amts))
+    hl = {"op": "hlapi FheUint32 << FheUint32", "batch": SHIFT_BATCH,
+          "ms": start.elapsed_time(stop), "right": h_right, "launches": _launched(h_counts),
+          "integer_layer_ms": ops[0]["ggsw"]["ms"]}
+    if h_counts != {**{k: 0 for k in h_counts}, **shift_reckoning(
+            16, bp, 16, "shl", wp.glwe_dimension + 1, shk.cbs_decomp.level,
+            SHIFT_BATCH)["launches"]} or h_right != SHIFT_BATCH:
+        raise AssertionError(f"hlapi <<: launches {h_counts}, {h_right}/{SHIFT_BATCH} right")
+    for k, v in h_counts.items():
+        totals[k] = totals.get(k, 0) + v
+    print(f"{tag} hlapi FheUint32 << FheUint32 at batch {SHIFT_BATCH}: {hl['ms']:.3f} ms "
+          f"(the integer layer's: {hl['integer_layer_ms']:.3f} ms), {h_right}/{SHIFT_BATCH} "
+          f"right, launches {json.dumps(hl['launches'])}", flush=True)
+    H.unset_server_key()
+    del hck, hsk, x, y, z
+
+    # ---- C3: dependent rotations, every value right -------------------------
+    ck = integer.RadixClientKey(key=rck.key, num_blocks=16)
+    vals = [int(v) for v in rng.integers(0, 1 << 32, SHIFT_BATCH)]
+    cur = ck.encrypt(vals, seed=seed + 14)
+    expect = list(vals)
+    wrong = 0
+    t0 = time.perf_counter()
+    for i in range(SHIFT_CHAIN):
+        amts = [int(v) for v in rng.integers(0, 32, SHIFT_BATCH)]
+        cur = isk.rotate_left(cur, ck.encrypt(amts, seed=seed + 100 + i))
+        expect = [clear("rotl", v, s, 32) for v, s in zip(expect, amts)]
+        wrong += sum(int(g) != w for g, w in zip(ck.decrypt(cur), expect))
+    chain_s = time.perf_counter() - t0
+    chain = {"rotations": SHIFT_CHAIN, "batch": SHIFT_BATCH,
+             "values": SHIFT_CHAIN * SHIFT_BATCH, "wrong": wrong, "seconds": chain_s}
+    print(f"{tag} C3 hold: {SHIFT_CHAIN} dependent rotl at batch {SHIFT_BATCH}: {wrong} wrong "
+          f"in {SHIFT_CHAIN * SHIFT_BATCH} values ({chain_s:.1f} s)", flush=True)
+    if wrong:
+        raise AssertionError(f"C3: {wrong} of {SHIFT_CHAIN * SHIFT_BATCH} chained rotations "
+                             f"decrypt wrong")
+    del rck, isk, layered, shk, cur
+    torch.cuda.empty_cache()
+    return {"launches": totals, "ops": ops + [hl], "chain": chain, "keygen_s": keygen_s}
+
+
+def integer_wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4n: the integer WoP-PBS (`integer/wopbs.py`) on the card, on
+    new_wopbs_key_only_for_wopbs over keys of WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    (its own cbs and pfks decompositions).  An IWOPBS_BLOCKS-block radix
+    (16 bits: 32 LUT polynomials, so each output block runs 31 CMuxes on
+    K7 before the GGSW-driven rotation) through f(x) = (7x + 13) mod 2^16
+    at IWOPBS_BATCH, and wopbs_crt at moduli (2, 3, 5) with x^2 + 1; each
+    with the counts at 0 just before and read just after (held equal to
+    the reckoning: K1 an extracted bit's PBS and a CBS level, the pass and
+    K2' a keyswitch, the wide K2 a private functional keyswitch, K7 a CMux
+    or rotation step), timed, its peak memory read, every row decrypted.
+    K7 held and timed alone at the CMux tree's shape (a first-layer CMux,
+    a GGSW a row).  → {"launches", "calls", "k7"}."""
+    import numpy as np
+
+    from tfhe_tpu_torch import integer, shortint
+    from tfhe_tpu_torch.core.algorithms import wopbs as W
+    from tfhe_tpu_torch.core.params import wopbs_params
+    from tfhe_tpu_torch.core.poly import external_product as ep
+    from tfhe_tpu_torch.integer.wopbs import new_integer_wopbs_key
+    from tfhe_tpu_torch.shortint import wopbs as SW
+
+    wp = wopbs_params(IWOPBS_SET)
+    rng = np.random.default_rng(seed + 13)
+    t0 = time.perf_counter()
+    ck, sk = shortint.gen_keys(wp, seed=seed + 6, device=dev)
+    iwk = new_integer_wopbs_key(SW.new_wopbs_key_only_for_wopbs(
+        ck, sk, cbs_decomp=wp.cbs_decomp, pfks_decomp=wp.pfks_decomp, seed=seed))
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    levels, rows, n = wp.cbs_level, wp.glwe_dimension + 1, wp.polynomial_size
+    calls, totals = [], {}
+    spy = {}
+    saved = W.external_product
+
+    def tree_cmux(*a, **kw):
+        """Keeps the operands of the latest CMux of the tree whose operands
+        have a batch of their own (the tree's first layer shares them)."""
+        out = saved(*a, **kw)
+        if kw.get("ct1") is not None and a[0].dim() > 2:
+            spy["k7"] = (a, kw, out)
+        return out
+
+    def reckon(widths, outputs):
+        bits = sum(widths)
+        luts = max(1, (1 << bits) // n)
+        tree = min(luts.bit_length() - 1, bits)
+        return {"blind_rotate": sum(w - 1 for w in widths) + bits * levels,
+                "keyswitch_tc": sum(widths), "keyswitch_decompose": sum(widths),
+                "keyswitch_mac": bits * levels * rows,
+                "external_product": outputs * ((luts - 1) + (bits - tree))}
+
+    nb = IWOPBS_BLOCKS
+    m = wp.message_modulus
+    f = lambda x: (7 * x + 13) % (1 << (2 * nb))
+    vals = [int(v) for v in rng.integers(0, 1 << (2 * nb), IWOPBS_BATCH)]
+    rck = integer.RadixClientKey(key=ck, num_blocks=nb)
+    cck = integer.CrtClientKey(key=ck, moduli=IWOPBS_MODULI)
+    g = lambda x: x * x + 1
+    space = math.prod(IWOPBS_MODULI)
+    cvals = [int(v) for v in rng.integers(0, space, IWOPBS_BATCH)]
+    cases = (("radix", f"{nb}-block radix, (7x + 13) mod 2^{2 * nb}",
+              lambda: iwk.wopbs(rck.encrypt(vals, seed=seed + 7), f),
+              lambda out: [int(v) for v in rck.decrypt(out)], [f(v) for v in vals],
+              reckon([int(math.log2(m))] * nb, nb)),
+             ("crt", f"CRT {IWOPBS_MODULI}, x^2 + 1",
+              lambda: iwk.wopbs_crt(cck.encrypt(cvals, seed=seed + 8), g),
+              lambda out: [int(v) for v in cck.decrypt(out)], [g(v) % space for v in cvals],
+              reckon([max(1, math.ceil(math.log2(mj))) for mj in IWOPBS_MODULI],
+                     len(IWOPBS_MODULI))))
+    W.external_product = tree_cmux
+    try:
+        for kind, label, run, dec, want, reck in cases:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            stop.record()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e6
+            want_counts = {k: 0 for k in counts}
+            want_counts.update(reck)
+            if counts != want_counts:
+                raise AssertionError(f"integer WoP-PBS {label}: launches {counts}, reckoned "
+                                     f"{want_counts}")
+            right = sum(a == b for a, b in zip(dec(out), want))
+            row = {"case": label, "batch": IWOPBS_BATCH, "ms": start.elapsed_time(stop),
+                   "peak_mb": peak, "right": right, "launches": _launched(counts),
+                   "k7_per_call": counts["external_product"]}
+            calls.append(row)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            print(f"{tag} integer WoP-PBS {label} at batch {IWOPBS_BATCH}: {row['ms']:.3f} ms, "
+                  f"{right}/{IWOPBS_BATCH} right, peak {peak:.1f} MB above {held / 1e6:.1f} MB "
+                  f"held, launches {json.dumps(row['launches'])}", flush=True)
+            if right != IWOPBS_BATCH:
+                raise AssertionError(f"integer WoP-PBS {label}: {right}/{IWOPBS_BATCH} right")
+    finally:
+        W.external_product = saved
+
+    # ---- K7 at the CMux tree's shape ------------------------------------------
+    (ct0, spectra, decomp), kw, k7_out = spy["k7"]
+    ct1 = kw["ct1"]
+    held = slice(0, 8)
+    plain = ep.external_product_plain(ct0[held], spectra[held], decomp, ct1=ct1[held])
+    k7_err = max_abs_err(k7_out[held], plain)
+    if k7_err:
+        raise AssertionError(f"K7 at the CMux tree differs from its plain version by {k7_err}")
+    k7_ms = cuda_ms(lambda: ep.external_product(ct0, spectra, decomp, ct1=ct1), 10)
+    k7_plain_ms = cuda_ms(lambda: ep.external_product_plain(ct0, spectra, decomp, ct1=ct1), 2)
+    Bk, (P, J, R, nn) = spectra.shape[0], spectra.shape[-4:]
+    k7 = {"err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
+          "bytes": _nbytes(ct0, spectra, ct1) + Bk * R * nn * 8,
+          "mults": k7_mults(Bk, P, J, R, nn),
+          "shape": f"integer WoP-PBS CMux tree at {wp.name}: batch {Bk}, N={nn}, k+1={R}, "
+                   f"cbs {decomp.base_log}x{decomp.level} (J={J}), P={P}, a GGSW a row"}
+    print(f"{tag} K7 {k7['shape']}: {k7_ms:.4f} ms, plain {k7_plain_ms:.3f} ms, held on 8 "
+          f"rows: {k7_err}", flush=True)
+    del ck, sk, iwk, spy, ct0, spectra, ct1
+    torch.cuda.empty_cache()
+    return {"launches": totals, "calls": calls, "k7": k7, "keygen_s": keygen_s}
+
+
+def k8_mults(batch, P, J, R, n) -> int:
+    """K8 (csrc/external_product.cu): K7's count, plus per coefficient and
+    prime the 64 x 128-bit lift product (three u64 products, 3 each)."""
+    return k7_mults(batch, P, J, R, n) + batch * R * n * 9 * P
+
+
+def pbs128_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4o: the 2^128 torus on the card (`core/algorithms/pbs128.py`).
+    PBS128_SET's shapes (n = 742, k = 1, N = 2048, PBS 23 x 1, KS 3 x 5)
+    with its noise std-devs scaled to 2^128; the BSK and KSK made on the
+    card (threefry masks); PBS128_BATCH messages of 4 bits at Delta =
+    2^123 under the GLWE key, keyswitch128 then programmable_bootstrap128
+    with a 4-bit LUT, the counts at 0 just before and read just after (one
+    pass and one K2' for the keyswitch, K8 once a step), timed, decrypted.
+    K8 held bit for bit against its plain version on the first and last 8
+    rows of the last step's operands, where both GLWE components carry
+    random masks (at the first the mask is the trivial LUT's zeros), and
+    timed alone there (a launch);
+    the keyswitch's word form held against the plain 128-bit sum on 4
+    rows.  Then the custom moduli (`nonnative.py`) at tests/test_nonnative.py's
+    three moduli, an n = 742 key, PBS128_BATCH rows: encrypt, add,
+    scalar-multiply, decrypt and the decomposition, against Python-int
+    models.  → {"launches", "pbs", "k8", "custom"}."""
+    import numpy as np
+
+    from tfhe_tpu_torch.core import rng as trng
+    from tfhe_tpu_torch.core import threefry, u128
+    from tfhe_tpu_torch.core.algorithms import nonnative as NN
+    from tfhe_tpu_torch.core.algorithms import pbs128 as M
+    from tfhe_tpu_torch.core.entities import GlweSecretKey, LweSecretKey
+    from tfhe_tpu_torch.core.params import shortint_params
+    from tfhe_tpu_torch.core.poly import external_product as ep
+
+    p = shortint_params(PBS128_SET)
+    n_in, k, N = p.lwe_dimension, p.glwe_dimension, p.polynomial_size
+    gen = trng.generator(seed, 0x128, device=dev)
+    lwe_sk = LweSecretKey(bits=trng.binary_key(gen, (n_in,)))
+    glwe_sk = GlweSecretKey(bits=trng.binary_key(gen, (k, N)))
+    big = glwe_sk.as_lwe_secret_key()
+    ks = threefry.split(threefry.key_from_seed(seed, dev), 4)
+    glwe_std, lwe_std = p.glwe_modular_std_dev * 2.0 ** 128, p.lwe_modular_std_dev * 2.0 ** 128
+    t0 = time.perf_counter()
+    bsk = M.bootstrap_key128_to_ntt(M.generate_bootstrap_key128(
+        ks[0], gen, lwe_sk, glwe_sk, p.pbs_decomp, glwe_std), p.pbs_decomp)
+    ksk = M.generate_keyswitch_key128(ks[1], gen, big, lwe_sk, p.ks_decomp, lwe_std)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    P = bsk.spectra.shape[1]
+    print(f"{tag} 128-bit keys at {PBS128_SET}'s shapes (P = {P} primes for the external "
+          f"product) in {keygen_s:.2f} s", flush=True)
+
+    delta, space = 1 << 123, 16
+    fn = lambda x: (5 * x + 3) % space
+    box = N // space
+    lut_vals = [(fn(i // box) * delta) % (1 << 128) for i in range(N)]
+    lut_vals = lut_vals[box // 2:] + [(-x) % (1 << 128) for x in lut_vals[:box // 2]]
+    lut = M.trivial_glwe128(u128.from_python_ints(lut_vals, dev), k)
+    rng = np.random.default_rng(seed + 17)
+    msgs = [int(v) for v in rng.integers(0, space, PBS128_BATCH)]
+    ct = M.encrypt_lwe128(ks[2], gen, big, u128.from_python_ints([v * delta for v in msgs], dev),
+                          glwe_std)
+    spy = {}
+    saved = M.external_product128
+
+    def keep_last(*a):
+        out = saved(*a)
+        spy["k8"] = (a, out)
+        return out
+
+    M.external_product128 = keep_last
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        small = M.keyswitch128(ct, ksk)
+        mid.record()
+        out = M.programmable_bootstrap128(small, lut, bsk)
+        stop.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        M.external_product128 = saved
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e6
+    want = {c: 0 for c in counts}
+    want.update(keyswitch_tc=1, keyswitch_decompose=1, external_product128=n_in)
+    if counts != want:
+        raise AssertionError(f"128-bit KS+PBS: launches {counts}, reckoned {want}")
+    phase = u128.to_python_ints(M.decrypt_lwe128(out, big))
+    got = [int((int(v) + delta // 2) // delta) % space for v in phase]
+    right = sum(g == fn(v) for g, v in zip(got, msgs))
+    pbs = {"batch": PBS128_BATCH, "keyswitch_ms": start.elapsed_time(mid),
+           "pbs_ms": mid.elapsed_time(stop), "peak_mb": peak, "right": right,
+           "launches": _launched(counts), "keygen_s": keygen_s}
+    print(f"{tag} 128-bit keyswitch {pbs['keyswitch_ms']:.3f} ms, PBS {pbs['pbs_ms']:.3f} ms at "
+          f"batch {PBS128_BATCH} ({n_in} K8 launches), {right}/{PBS128_BATCH} right, peak "
+          f"{peak:.1f} MB, launches {json.dumps(pbs['launches'])}", flush=True)
+    if right != PBS128_BATCH:
+        raise AssertionError(f"128-bit KS+PBS: {right}/{PBS128_BATCH} right")
+
+    # ---- K8 held and timed on the last step's operands ------------------------
+    (acc, spectra, decomp, exps), k8_out = spy["k8"]
+    ends = torch.cat([torch.arange(8), torch.arange(PBS128_BATCH - 8, PBS128_BATCH)]).to(dev)
+    if not bool((acc[ends, :k] != 0).any(dim=(1, 2, 3)).all()):
+        raise AssertionError("K8's held rows have a zero GLWE mask at the last step")
+    plain = ep.external_product128_plain(acc[ends], spectra, decomp, exps[ends])
+    k8_err = max_abs_err(k8_out[ends], plain)
+    if k8_err:
+        raise AssertionError(f"K8 differs from its plain version by {k8_err}")
+    k8_ms = cuda_ms(lambda: ep.external_product128(acc, spectra, decomp, exps), 20)
+    k8_plain_ms = cuda_ms(lambda: ep.external_product128_plain(acc, spectra, decomp, exps), 2)
+    Pk, J, R, nn = spectra.shape
+    Bk = acc.shape[0]
+    k8 = {"err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms,
+          "bytes": 2 * _nbytes(acc) + _nbytes(spectra) + Bk * 4,
+          "mults": k8_mults(Bk, Pk, J, R, nn),
+          "shape": f"the last step of the 128-bit PBS at {PBS128_SET}'s shapes: batch {Bk}, "
+                   f"N={nn}, k+1={R}, PBS {decomp.base_log}x{decomp.level} (J={J}), P={Pk}, the "
+                   f"GGSW shared"}
+    print(f"{tag} K8 {k8['shape']}: {k8_ms:.4f} ms a launch, plain {k8_plain_ms:.3f} ms; first "
+          f"and last 8 rows of the last step against the plain version: {k8_err}", flush=True)
+    four = slice(0, 4)
+    ks_err = max_abs_err(M.keyswitch128(M.Lwe128(data=ct.data[four]), ksk).data,
+                         M.keyswitch128_plain(M.Lwe128(data=ct.data[four]), ksk).data)
+    if ks_err:
+        raise AssertionError(f"keyswitch128's word form differs from the plain sum by {ks_err}")
+    print(f"{tag} keyswitch128's four-word form against the plain 128-bit sum on 4 rows: "
+          f"{ks_err}", flush=True)
+    del bsk, ksk, spy, acc, spectra, k8_out, ct, small, out
+    torch.cuda.empty_cache()
+
+    # ---- the custom moduli -----------------------------------------------------
+    custom = []
+    for q in CUSTOM_MODULI:
+        t0 = time.perf_counter()
+        key = threefry.fork(threefry.key_from_seed(seed, dev), q % (1 << 31))
+        qd = q // 64
+        a_m = [int(v) for v in rng.integers(0, 8, PBS128_BATCH)]
+        b_m = [int(v) for v in rng.integers(0, 8, PBS128_BATCH)]
+        ca = NN.encrypt_lwe_custom_mod(threefry.fold_in(key, 1), gen, lwe_sk,
+                                       [v * qd for v in a_m], 2.0 ** -30, q)
+        cb = NN.encrypt_lwe_custom_mod(threefry.fold_in(key, 2), gen, lwe_sk,
+                                       [v * qd for v in b_m], 2.0 ** -30, q)
+        c3 = NN.lwe_cleartext_mul_custom_mod(NN.lwe_add_custom_mod(ca, cb, q), 3, q)
+        phase = NN.decrypt_lwe_custom_mod(c3, lwe_sk, q).cpu().numpy().view(np.uint64)
+        dec = [((int(v) + qd // 2) // qd) % 64 for v in phase]
+        right = sum(d == 3 * (x + y) for d, x, y in zip(dec, a_m, b_m))
+        words = ca.data.reshape(-1)
+        wi = words.cpu().numpy().view(np.uint64).astype(object)
+        sr = q // (1 << 12)
+        closest = NN.closest_representable_custom_mod(words, 4, 3, q).cpu().numpy().view(
+            np.uint64).astype(object)
+        model = (((wi + sr // 2) % (1 << 64)) % q // sr * sr) % (1 << 64)
+        terms = NN.decompose_custom_mod(words, 4, 3, q)
+        t = terms.cpu().numpy().view(np.uint64).astype(object)
+        centered = np.where(t > q // 2, t - q, t)
+        rec = NN.recomposition_summands_custom_mod(terms, 4, 3, q).cpu().numpy().view(
+            np.uint64).astype(object).sum(axis=-1) % q
+        diff = (rec - closest) % q
+        diff = np.where(diff > q // 2, q - diff, diff)
+        dec_ok = bool((closest == model).all() and (abs(centered) <= 8).all()
+                      and (diff <= 2 * (1 << 12)).all())
+        row = {"q": str(q), "n": n_in, "batch": PBS128_BATCH, "right": right,
+               "decomposition_words": len(wi), "decomposition_ok": dec_ok,
+               "seconds": time.perf_counter() - t0}
+        custom.append(row)
+        print(f"{tag} custom modulus q = {q}: 3 (a + b) decrypted {right}/{PBS128_BATCH} right, "
+              f"the decomposition of {len(wi)} words against the Python-int model "
+              f"{'right' if dec_ok else 'WRONG'} ({row['seconds']:.1f} s)", flush=True)
+        if right != PBS128_BATCH or not dec_ok:
+            raise AssertionError(f"custom modulus {q}: {right}/{PBS128_BATCH}, decomposition "
+                                 f"{dec_ok}")
+    return {"launches": counts, "pbs": pbs, "k8": k8, "custom": custom}
+
+
 def noise_hold(seed: int, dev, tag: str) -> dict:
     """ROADMAP C10 on the card: the phases of 4096 encryptions of zero, LWE
     (n = 742) and GLWE (k = 1, N = 2048: 2 polynomials), drawn from the card's
@@ -2744,7 +3313,7 @@ def main() -> int:
         rotation.step_launches = rotation.step_variant_launches = 0
         rotation.cluster_launches = rotation.cluster_variant_launches = 0
         rotation.staged_launches = 0
-        external_product.launches = 0
+        external_product.launches = external_product.launches128 = 0
 
     def read_counts():
         return {"blind_rotate": rotation.launches,
@@ -2757,7 +3326,8 @@ def main() -> int:
                 "keyswitch_tc": keyswitch.launches,
                 "keyswitch_decompose": keyswitch.decompose_launches,
                 "keyswitch_mac": keyswitch.wide_launches,
-                "external_product": external_product.launches}
+                "external_product": external_product.launches,
+                "external_product128": external_product.launches128}
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3742,6 +4312,23 @@ def main() -> int:
                       "gadget_trace": gad["trace"]}))
     slice_launches = {k: v + gad["launches"].get(k, 0) for k, v in slice_launches.items()}
 
+    lap("4m")
+    # ---- 4m. shifts by an encrypted amount through GGSW selectors --------------------
+    shift = shift_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"shift": shift["ops"], "shift_chain": shift["chain"]}))
+
+    lap("4n")
+    # ---- 4n. the integer WoP-PBS -------------------------------------------------------
+    iwop = integer_wopbs_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"integer_wopbs": iwop["calls"]}))
+
+    lap("4o")
+    # ---- 4o. the 2^128 torus and the custom moduli ----------------------------------
+    p128 = pbs128_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"pbs128": p128["pbs"], "custom_moduli": p128["custom"]}))
+    slice_launches = {k: v + shift["launches"].get(k, 0) + iwop["launches"].get(k, 0)
+                      + p128["launches"].get(k, 0) for k, v in slice_launches.items()}
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -3773,6 +4360,16 @@ def main() -> int:
     for name in ("external_product", "keyswitch_mac"):
         if wop["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the WoP-PBS path")
+    for label, path, names in (
+            ("GGSW shift", shift, ("blind_rotate", "keyswitch_tc", "keyswitch_decompose",
+                                   "keyswitch_mac", "external_product")),
+            ("integer WoP-PBS", iwop, ("blind_rotate", "keyswitch_tc", "keyswitch_decompose",
+                                       "keyswitch_mac", "external_product")),
+            ("128-bit PBS", p128, ("external_product128", "keyswitch_tc",
+                                   "keyswitch_decompose"))):
+        for name in names:
+            if path["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the {label} path")
     for name in ("blind_rotate", "external_product", "keyswitch_tc", "keyswitch_decompose"):
         if gad["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the gadget path")
@@ -3915,11 +4512,17 @@ def main() -> int:
               bound(largest, 8, clock_hz, sms)),
         entry("external_product", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/bootstrap.py:50", path_total("external_product"),
-              max(wop["k7"]["err"], gad["k7"]["err"]), wop["k7"]["ms"], wop["k7"]["plain_ms"],
+              max(wop["k7"]["err"], gad["k7"]["err"], iwop["k7"]["err"]), wop["k7"]["ms"], wop["k7"]["plain_ms"],
               bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
               [(k7["shape"], k7["ms"], k7["plain_ms"],
                 bound(k7["mults"], k7["bytes"], clock_hz, sms))
-               for k7 in (wop["k7"], gad["k7"])]),
+               for k7 in (wop["k7"], gad["k7"], iwop["k7"])]),
+        entry("external_product128", "tfhe_tpu_torch/csrc/external_product.cu",
+              "tfhe_tpu/core/algorithms/pbs128.py:244", path_total("external_product128"),
+              p128["k8"]["err"], p128["k8"]["ms"], p128["k8"]["plain_ms"],
+              bound(p128["k8"]["mults"], p128["k8"]["bytes"], clock_hz, sms),
+              [(p128["k8"]["shape"], p128["k8"]["ms"], p128["k8"]["plain_ms"],
+                bound(p128["k8"]["mults"], p128["k8"]["bytes"], clock_hz, sms))]),
     ]
     print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")

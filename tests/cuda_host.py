@@ -2,7 +2,8 @@
 `external_product.cu` for the host against `tests/cuda_host_stub.h`, for the
 tests that run the kernels' CUDA source on the CPU
 (tests/test_torch_delta_host.py, tests/test_torch_staged_host.py,
-tests/test_torch_keyswitch_host.py, tests/test_torch_external_product.py)."""
+tests/test_torch_keyswitch_host.py, tests/test_torch_external_product.py,
+tests/test_torch_pbs128.py)."""
 import ctypes
 import re
 import shutil
@@ -42,8 +43,8 @@ def build_keyswitch_host(out: Path, entries) -> ctypes.CDLL:
 
 
 def build_external_product_host(out: Path, entries) -> ctypes.CDLL:
-    """external_product.cu (K7) built for the host, as `build_rotation_host`;
-    it has no inline PTX."""
+    """external_product.cu (K7 and K8) built for the host, as
+    `build_rotation_host`; it has no inline PTX."""
     return _build_host("external_product", out, entries, ())
 
 

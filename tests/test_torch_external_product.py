@@ -283,3 +283,24 @@ def test_k7_wrapper_refuses_bad_operands():
         ep.external_product(ct, key, DecompParams(5, 2), ct1=ct)
     with pytest.raises(ValueError, match="no external-product kernel"):
         ep.external_product(ct.to("meta"), key.to("meta"), decomp, ct1=ct.to("meta"))
+
+
+def test_k8_wrapper_refuses_bad_operands():
+    """K8's wrapper: more primes than PRIMES_31's 7, base_log * level above
+    64, shapes that disagree, and a device that is neither the CPU nor the
+    card."""
+    acc = torch.zeros((2, 2, 64, 2), dtype=torch.int64)
+    exps = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="7 primes"):
+        ep.external_product128(acc, torch.zeros((8, 2, 2, 64), dtype=torch.int32),
+                               DecompParams(23, 1), exps)
+    with pytest.raises(ValueError, match="base_log 1..30"):
+        ep.external_product128(acc, torch.zeros((6, 10, 2, 64), dtype=torch.int32),
+                               DecompParams(13, 5), exps)
+    with pytest.raises(ValueError, match="disagree"):
+        ep.external_product128(acc, torch.zeros((6, 4, 2, 64), dtype=torch.int32),
+                               DecompParams(23, 1), exps)
+    with pytest.raises(ValueError, match="no external-product kernel"):
+        ep.external_product128(acc.to("meta"), torch.zeros((6, 2, 2, 64), dtype=torch.int32,
+                                                           device="meta"),
+                               DecompParams(23, 1), exps.to("meta"))

@@ -302,8 +302,9 @@ def test_generate_keys_and_server_key_state(monkeypatch):
     assert (x + 1).decrypt(ck).tolist() == [2, 0]
     assert TH.FheUint2.encrypt_trivial([2, 1], ck).decrypt(ck).tolist() == [2, 1]
     TH.unset_server_key()
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TH.generate_keys(cfg, shift_key="auto", device="cpu")
+    # the GGSW shift key is built on request (a WoP-PBS set by name)
+    _, sk2 = TH.generate_keys(cfg, seed=14, shift_key="TEST_PARAMS_WOPBS", device="cpu")
+    assert sk2.radix.shift_key.wopbs.params.name == "TEST_PARAMS_WOPBS"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TH.generate_keys(cfg)

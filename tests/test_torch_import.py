@@ -49,7 +49,19 @@ def test_imports_with_jax_blocked():
             "tfhe_tpu_torch.core.poly.external_product", "tfhe_tpu_torch.gadget",
             "tfhe_tpu_torch.gadget.encoding", "tfhe_tpu_torch.gadget.engine",
             "tfhe_tpu_torch.gadget.instrument", "tfhe_tpu_torch.core.algorithms.glwe_mult",
-            "tfhe_tpu_torch.core.algorithms.gsw"} <= mods
+            "tfhe_tpu_torch.core.algorithms.gsw", "tfhe_tpu_torch.integer.shift_key",
+            "tfhe_tpu_torch.integer.wopbs", "tfhe_tpu_torch.core.u128",
+            "tfhe_tpu_torch.core.algorithms.pbs128",
+            "tfhe_tpu_torch.core.algorithms.nonnative"} <= mods
+
+
+def test_shift_key_constants_match_jax():
+    """The port keeps its own copies of the shift key's decompositions."""
+    import tfhe_tpu.integer.shift_key as JSK
+    from tfhe_tpu_torch.integer import shift_key as TSK
+    for name in ("SHIFT_CBS_DECOMP", "SHIFT_CAST_KS_DECOMP"):
+        a, b = getattr(JSK, name), getattr(TSK, name)
+        assert (a.base_log, a.level) == (b.base_log, b.level)
 
 
 def _named_sets():
@@ -93,3 +105,18 @@ def test_random_sources_take_no_default_device():
         seeded.bsk_masks_from_seed(1, 2, 1, 2, 8)
     assert rng.generator(1, 2, device="cpu").device.type == "cpu"
     assert tuple(seeded.bsk_masks_from_seed(1, 2, 1, 2, 8, "cpu").shape) == (2, 1, 2, 1, 8)
+
+
+def test_u128_constructors_take_no_default_device():
+    """`u128.from_python_int`, `from_python_ints` and `zeros128` name their
+    device: called without one, they raise (no silent CPU default)."""
+    from tfhe_tpu_torch.core import u128
+    with pytest.raises(TypeError, match="device"):
+        u128.from_python_int(3, (2,))
+    with pytest.raises(TypeError, match="device"):
+        u128.from_python_ints([3, 4])
+    with pytest.raises(TypeError, match="device"):
+        u128.zeros128((2,))
+    assert u128.from_python_int(3, (2,), "cpu").device.type == "cpu"
+    assert u128.from_python_ints([3, 4], "cpu").shape == (2, 2)
+    assert u128.zeros128((2,), "cpu").shape == (2, 2)

@@ -484,8 +484,13 @@ def test_entry_points_run_on_the_card_by_default(name):
 
 
 def test_shift_key_not_ported():
-    with pytest.raises(NotImplementedError, match="A10b"):
-        integer.gen_keys(P, num_blocks=2, shift_key="auto", device="cpu")
+    """The shift key is ported: `gen_keys(shift_key=...)` builds it (its
+    parity is tests/test_torch_shift_key.py)."""
+    from tfhe_tpu_torch.core.params import TEST_PARAMS_WOPBS
+    from tfhe_tpu_torch.integer.shift_key import ShiftKey, ggsw_shift_supported
+    _, sk = integer.gen_keys(P, num_blocks=2, shift_key=TEST_PARAMS_WOPBS, device="cpu")
+    assert isinstance(sk.shift_key, ShiftKey)
+    assert ggsw_shift_supported(sk.shift_key, M, 2, 2)
 
 
 def test_interop_kinds():

@@ -1,0 +1,140 @@
+"""The port's custom-modulus LWE (`tfhe_tpu_torch/core/algorithms/nonnative.py`)
+bit for bit against tfhe_tpu's (tolerance 0) at the three moduli of
+tests/test_nonnative.py (2^64 - 2^32 + 1, 2^48 - 59, 2^63): the masks
+(threefry bits, two 64-bit draws reduced mod q), whole encryptions and the
+seeded twins without noise, the linear algebra and the decomposition on
+the same words, and with noise the round trip decrypted (the noise is the
+port's own, from a torch generator).  Where q > 2^63 the JAX package's
+masked sum wraps past 2^64 before it reduces (ROADMAP C13); the port
+copies it, and the equal encryptions hold that."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu.core import rng as jrng
+from tfhe_tpu.core.algorithms import nonnative as J
+from tfhe_tpu.core.entities import LweCiphertext as JLwe
+from tfhe_tpu.core.entities import LweSecretKey as JLweSk
+from tfhe_tpu_torch import interop
+from tfhe_tpu_torch.core import threefry
+from tfhe_tpu_torch.core.algorithms import nonnative as T
+from tfhe_tpu_torch.core.entities import LweCiphertext
+
+U64 = np.uint64
+GOLDILOCKS_ISH = (1 << 64) - (1 << 32) + 1
+Q_ODD_48 = (1 << 48) - 59
+Q_POW2_63 = 1 << 63
+ALL_Q = [GOLDILOCKS_ISH, Q_ODD_48, Q_POW2_63]
+
+
+def t64(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=U64)).view(np.int64).copy())
+
+
+def same(t, j):
+    np.testing.assert_array_equal(t.numpy().view(U64), np.asarray(j))
+
+
+def words(rng, shape, q):
+    """Uniform words in [0, q), the largest values among them."""
+    w = np.array([int(v) % q for v in rng.integers(0, 2 ** 64, int(np.prod(shape)),
+                                                   dtype=U64)], dtype=object)
+    w[:3] = [q - 1, q - 2, 0]
+    return w.astype(U64).reshape(shape)
+
+
+def keys(n, seed):
+    bits = np.random.default_rng(seed).integers(0, 2, n).astype(np.int8)
+    return interop.lwe_secret_key(bits, device="cpu"), JLweSk(bits=jnp.asarray(bits))
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+def test_uniform_mod_equals_jax(q):
+    got = T.uniform_mod(threefry.key_from_seed(3, "cpu"), (5, 7), q)
+    same(got, J.uniform_mod(jrng.key_from_seed(3), (5, 7), q))
+    assert all(v < q for v in got.numpy().view(U64).astype(object).ravel())
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+def test_encryption_and_seeded_twins_equal_jax_without_noise(q):
+    """Noise 0: the ciphertexts, the seeded bodies and their decompression
+    word for word; decompressing the seeded form gives the direct form."""
+    tsk, jsk = keys(64, 4)
+    pts = np.array([123456789, 5, q - 1, 0], dtype=U64)
+    key, jkey = threefry.key_from_seed(5, "cpu"), jrng.key_from_seed(5)
+    gen = torch.Generator()
+    ct = T.encrypt_lwe_custom_mod(key, gen, tsk, t64(pts), 0.0, q)
+    same(ct.data, J.encrypt_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q).data)
+    bodies = T.encrypt_seeded_lwe_custom_mod(key, gen, tsk, t64(pts), 0.0, q)
+    same(bodies, J.encrypt_seeded_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q))
+    back = T.decompress_seeded_lwe_custom_mod(key, bodies, 64, q)
+    assert torch.equal(back.data, ct.data)
+    same(back.data, J.decompress_seeded_lwe_custom_mod(jkey, jnp.asarray(bodies.numpy()
+                                                                         .view(U64)), 64,
+                                                       q).data)
+    same(T.decrypt_lwe_custom_mod(ct, tsk, q),
+         J.decrypt_lwe_custom_mod(JLwe(data=jnp.asarray(ct.data.numpy().view(U64))), jsk, q))
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+def test_encrypt_decrypt_with_noise(q):
+    """The port's noise (rel. std 2^-25): 32 messages of 16 decrypt right;
+    the mask is still JAX's."""
+    tsk, jsk = keys(64, 6)
+    p, delta = 16, q // 32
+    msgs = np.arange(32) % p
+    pts = [int(m) * delta for m in msgs]
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    ct = T.encrypt_lwe_custom_mod(threefry.key_from_seed(7, "cpu"), gen, tsk, pts, 2.0 ** -25, q)
+    jct = J.encrypt_lwe_custom_mod(jrng.key_from_seed(7), jsk, jnp.asarray(pts, dtype=U64),
+                                   2.0 ** -25, q)
+    same(ct.mask, jct.mask)
+    phase = T.decrypt_lwe_custom_mod(ct, tsk, q).numpy().view(U64).astype(object)
+    assert [((v + delta // 2) % q) // delta % p for v in phase] == msgs.tolist()
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+def test_linear_algebra_equals_jax(q):
+    """add, sub, neg, plaintext add and cleartext mul on the same words."""
+    rng = np.random.default_rng(8)
+    a, b = words(rng, (6, 17), q), words(rng, (6, 17), q)
+    ta, tb = LweCiphertext(data=t64(a)), LweCiphertext(data=t64(b))
+    ja, jb = JLwe(data=jnp.asarray(a)), JLwe(data=jnp.asarray(b))
+    same(T.lwe_add_custom_mod(ta, tb, q).data, J.lwe_add_custom_mod(ja, jb, q).data)
+    same(T.lwe_sub_custom_mod(ta, tb, q).data, J.lwe_sub_custom_mod(ja, jb, q).data)
+    same(T.lwe_neg_custom_mod(ta, q).data, J.lwe_neg_custom_mod(ja, q).data)
+    pt = words(rng, (6,), q)
+    same(T.lwe_plaintext_add_custom_mod(ta, t64(pt), q).data,
+         J.lwe_plaintext_add_custom_mod(ja, jnp.asarray(pt), q).data)
+    for c in (3, q - 1, 1 << 40):
+        same(T.lwe_cleartext_mul_custom_mod(ta, c, q).data,
+             J.lwe_cleartext_mul_custom_mod(ja, c, q).data)
+
+
+def test_closest_representable_reference_vector():
+    """decomposer.rs:338-340's doc test: q = 2^64 - 2^32 + 1, B = 2^4, l = 3."""
+    got = T.closest_representable_custom_mod(t64([16982820785129133100]), 4, 3, GOLDILOCKS_ISH)
+    assert int(got.numpy().view(U64)[0]) == 16983074190859960320
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+@pytest.mark.parametrize("base_log, level", [(4, 3), (1, 8), (7, 5)])
+def test_decomposition_equals_jax(q, base_log, level):
+    """closest_representable, the balanced terms and the recomposition
+    summands on the same words."""
+    x = words(np.random.default_rng(9 + level), (64,), q)
+    tx, jx = t64(x), jnp.asarray(x)
+    same(T.closest_representable_custom_mod(tx, base_log, level, q),
+         J.closest_representable_custom_mod(jx, base_log, level, q))
+    terms = T.decompose_custom_mod(tx, base_log, level, q)
+    jterms = J.decompose_custom_mod(jx, base_log, level, q)
+    same(terms, jterms)
+    same(T.recomposition_summands_custom_mod(terms, base_log, level, q),
+         J.recomposition_summands_custom_mod(jterms, base_log, level, q))
+
+
+def test_bad_modulus_refused():
+    with pytest.raises(ValueError, match="custom modulus"):
+        T.decompose_custom_mod(t64([1]), 4, 3, 1 << 64)

@@ -486,20 +486,22 @@ def _gadget_round_trip(kind, objs, tmp_path):
     ("tfhe_tpu.gadget.engine.ServerKey", "A14"),
     ("tfhe_tpu.integer.shift_key.ShiftKey", "A10b")])
 def test_unported_types_refused_by_roadmap_item(cls, item, tmp_path, request):
-    """A10b's type is refused by its item; A14's three gadget types are
-    ported and round-trip both ways instead."""
+    """A10b's and A14's types are ported: the three gadget types round-trip
+    both ways; a ShiftKey node without its fields is refused as malformed
+    (its round trip is tests/test_torch_shift_key.py)."""
     if item == "A14":
         _gadget_round_trip(cls.rsplit(".", 1)[1], request.getfixturevalue("gadget_objects"),
                            tmp_path)
         return
     _write(tmp_path / "x.npz", cls)
-    with pytest.raises(Ser.DeserializationError, match=item):
+    with pytest.raises(Ser.DeserializationError, match="ShiftKey"):
         Ser.safe_load(tmp_path / "x.npz", device="cpu")
 
 
 def test_gadget_encoding_and_shift_key_refused(tmp_path):
-    """A gadget ciphertext (an "encoding" node) reads as the port's; the
-    shift key and an unknown type are refused."""
+    """A gadget ciphertext (an "encoding" node) reads as the port's; an
+    integer server key whose shift key node lacks its fields, and an
+    unknown type, are refused."""
     from tfhe_tpu.gadget.encoding import Encoding
     from tfhe_tpu.gadget.engine import Ciphertext as GadgetCiphertext
     enc = Encoding(2, [[0], [1]], 3)
@@ -517,7 +519,7 @@ def test_gadget_encoding_and_shift_key_refused(tmp_path):
     _write(tmp_path / "i.npz", "tfhe_tpu.integer.server_key.ServerKey",
            {"key": node, "shift_key": {"t": "obj", "cls": "tfhe_tpu.integer.shift_key.ShiftKey",
                                        "fields": {}}})
-    with pytest.raises(Ser.DeserializationError, match="A10b"):
+    with pytest.raises(Ser.DeserializationError, match="ShiftKey"):
         Ser.load(tmp_path / "i.npz", device="cpu")
     _write(tmp_path / "u.npz", "tfhe_tpu.core.entities.SomethingNew")
     with pytest.raises(Ser.DeserializationError, match="unknown type"):
@@ -542,7 +544,7 @@ def test_version_type_and_size_refused(tmp_path):
     with pytest.raises(Ser.DeserializationError, match="version mismatch"):
         Ser.safe_load(tmp_path / "v.npz", device="cpu")
     with pytest.raises(Ser.DeserializationError, match="does not write"):
-        Ser.save(object.__new__(shortint.ServerKey), tmp_path / "w.npz")
+        Ser.save(object.__new__(shortint.ClientKey), tmp_path / "w.npz")
     JSer.save(JS.SeededLweCiphertext(body=jnp.zeros(3, jnp.uint32), seed=1, lwe_dimension=4,
                                      log_q=32), tmp_path / "q.npz")
     with pytest.raises(NotImplementedError, match="A9c"):

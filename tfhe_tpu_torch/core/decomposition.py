@@ -34,3 +34,21 @@ def _balanced_digits(s: torch.Tensor, b_log: int, levels: int) -> torch.Tensor:
         digits_lsb.append(raw - (carry << b_log))
         s = shr(s, b_log) + carry
     return torch.stack(digits_lsb[::-1], dim=-1)
+
+
+def signed_decompose128(x128: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
+    """2^128-modulus decomposition (tfhe_tpu decomposition.py:47): x128
+    [..., 2] (hi, lo) → int64 digits [..., L].  base_log * level <= 64, so
+    every digit lies in the high limb: below 64 the digits are the 64-bit
+    decomposition of hi alone (the rounding constant sits in hi, nothing
+    carries out of lo); at exactly 64 lo's top bit is the rounding bit."""
+    b_log, levels = decomp.base_log, decomp.level
+    shift = 128 - b_log * levels
+    if shift < 64:
+        raise ValueError(f"base_log * level = {b_log * levels}: at most 64 at a 2^128 modulus")
+    hi, lo = x128[..., 0], x128[..., 1]
+    if shift > 64:
+        s = shr(hi + (1 << (shift - 65)), shift - 64)
+    else:
+        s = hi + shr(lo, 63)
+    return _balanced_digits(s, b_log, levels)

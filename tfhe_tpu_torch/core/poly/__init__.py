@@ -9,7 +9,8 @@ import torch
 from . import ntt
 from .ntt import NttPlan, get_plan, negacyclic_polymul
 
-__all__ = ["ntt", "NttPlan", "get_plan", "negacyclic_polymul", "monomial_mul"]
+__all__ = ["ntt", "NttPlan", "get_plan", "negacyclic_polymul", "monomial_mul",
+           "monomial_mul128"]
 
 
 def monomial_mul(poly: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -28,3 +29,21 @@ def monomial_mul(poly: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     shifted = torch.gather(poly.expand(batch + (n,)), -1, src)
     sign_neg = (idx < rot.unsqueeze(-1)) ^ flip.unsqueeze(-1)
     return torch.where(sign_neg, -shifted, shifted)
+
+
+def monomial_mul128(poly128: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """X^t * poly for 128-bit polynomials [..., N, 2] (tfhe_tpu
+    pbs128.py:226 monomial_mul128): `monomial_mul`'s gather on both limbs,
+    the wrapped coefficients negated mod 2^128."""
+    from ..u128 import neg128, where128
+    n = poly128.shape[-2]
+    t_red = torch.remainder(t, 2 * n)
+    flip = t_red >= n
+    rot = torch.where(flip, t_red - n, t_red)
+    idx = torch.arange(n, device=poly128.device)
+    batch = torch.broadcast_shapes(poly128.shape[:-2], rot.shape)
+    src = torch.remainder(idx - rot.unsqueeze(-1), n).expand(batch + (n,))
+    src = src.unsqueeze(-1).expand(batch + (n, 2))
+    shifted = torch.gather(poly128.expand(batch + (n, 2)), -2, src)
+    sign_neg = (idx < rot.unsqueeze(-1)) ^ flip.unsqueeze(-1)
+    return where128(sign_neg, neg128(shifted), shifted)

@@ -168,6 +168,9 @@ class NttPlan:
         prefixes = [int(np.prod([1] + P[:j], dtype=object)) for j in range(num_primes)]
         self.prefix_mod = [x & ((1 << 64) - 1) for x in prefixes]
         self.M_mod = M & ((1 << 64) - 1)
+        # the 2^128 torus's constants (tfhe_tpu/core/poly/ntt.py:186-189)
+        self.prefix_mod128 = [x & ((1 << 128) - 1) for x in prefixes]
+        self.M_mod128 = M & ((1 << 128) - 1)
         self._dif = None
         self._device_tables = {}
 
@@ -276,9 +279,10 @@ def dif_inverse(plan: NttPlan, v: torch.Tensor) -> torch.Tensor:
     return v * torch.from_numpy(untwist).to(v.device) % p.squeeze(-1)
 
 
-def garner_to_torus(plan: NttPlan, res: torch.Tensor) -> torch.Tensor:
-    """CRT residues [..., P, N] → the signed-lifted integer mod 2^64 [..., N]
-    (int64), as tfhe_tpu/core/poly/ntt.py:351 garner_to_torus."""
+def _garner_digits(plan: NttPlan, res: torch.Tensor) -> tuple:
+    """CRT residues [..., P, N] → (mixed-radix digits t_i [..., N] int64,
+    the signed-lift predicate value >= M/2), as tfhe_tpu
+    ntt.py `_garner_digits`."""
     P = plan.num_primes
     v = [res[..., i, :] for i in range(P)]
     t = [v[0]]
@@ -288,16 +292,23 @@ def garner_to_torus(plan: NttPlan, res: torch.Tensor) -> torch.Tensor:
         for j in range(i):
             acc = (acc + t[j] * plan.garner_weights[i][j]) % pi
         t.append((v[i] - acc) % pi * plan.garner_inv[i] % pi)
-    c = torch.zeros_like(t[0])
-    for i in range(P):
-        c = c + t[i] * as_i64(plan.prefix_mod[i])
     ge = torch.zeros(t[0].shape, dtype=torch.bool, device=res.device)
     eq = torch.ones(t[0].shape, dtype=torch.bool, device=res.device)
     for i in reversed(range(P)):
         h = plan.half_digits[i]
         ge = ge | (eq & (t[i] > h))
         eq = eq & (t[i] == h)
-    return torch.where(ge | eq, c - as_i64(plan.M_mod), c)
+    return t, ge | eq
+
+
+def garner_to_torus(plan: NttPlan, res: torch.Tensor) -> torch.Tensor:
+    """CRT residues [..., P, N] → the signed-lifted integer mod 2^64 [..., N]
+    (int64), as tfhe_tpu/core/poly/ntt.py:351 garner_to_torus."""
+    t, lift = _garner_digits(plan, res)
+    c = torch.zeros_like(t[0])
+    for i in range(plan.num_primes):
+        c = c + t[i] * as_i64(plan.prefix_mod[i])
+    return torch.where(lift, c - as_i64(plan.M_mod), c)
 
 
 def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
@@ -314,7 +325,59 @@ def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
     return garner_to_torus(plan, ntt_inverse(plan, a_hat * b_hat % p))
 
 
+# ---------------------------------------------------------------------------
+# the 2^128 torus (tfhe_tpu/core/poly/ntt.py:388-430): the same transforms
+# over more primes; only the reduction and the reconstruction differ
+# ---------------------------------------------------------------------------
+
+
+def _reduce_torus128(x128: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """128-bit torus values [..., N, 2] → residues [..., P, N] of their
+    signed representatives (hi as int64) * 2^64 + lo (lo unsigned)."""
+    p = plan.tables(x128.device)["p"]                            # [P, 1]
+    hi = x128[..., 0].unsqueeze(-2)
+    lo = x128[..., 1].unsqueeze(-2)
+    two64 = torch.tensor([[pow(2, 64, q)] for q in plan.primes], dtype=torch.int64,
+                         device=x128.device)
+    r_lo = (torch.remainder(lo, p) + (lo < 0).to(torch.int64) * two64) % p
+    return (torch.remainder(hi, p) * two64 + r_lo) % p
+
+
+def ntt_forward128(plan: NttPlan, x128: torch.Tensor) -> torch.Tensor:
+    """128-bit torus polynomials [..., N, 2] → spectra [..., P, N]."""
+    return ntt_forward(plan, _reduce_torus128(x128, plan))
+
+
+def garner_to_torus128(plan: NttPlan, res: torch.Tensor) -> torch.Tensor:
+    """CRT residues [..., P, N] → the signed-lifted value mod 2^128
+    [..., N, 2]: sum_i t_i * (prod_{j<i} p_j mod 2^128), less M mod 2^128
+    where the lift is negative (M itself exceeds 2^128)."""
+    from ..u128 import add128, mul_u64_by_u128, sub128, where128
+    t, lift = _garner_digits(plan, res)
+    c = mul_u64_by_u128(t[0], 0, 1)
+    for i in range(1, plan.num_primes):
+        pref = plan.prefix_mod128[i]
+        c = add128(c, mul_u64_by_u128(t[i], pref >> 64, pref & ((1 << 64) - 1)))
+    m = plan.M_mod128
+    m_arr = mul_u64_by_u128(torch.ones((), dtype=torch.int64, device=res.device), m >> 64,
+                            m & ((1 << 64) - 1))
+    return where128(lift, sub128(c, m_arr.expand_as(c)), c)
+
+
+def negacyclic_polymul128(a128: torch.Tensor, b: torch.Tensor,
+                          log_bound: float) -> torch.Tensor:
+    """Exact negacyclic product of a 128-bit polynomial [..., N, 2] with a
+    small-integer polynomial [..., N], mod 2^128 (tfhe_tpu ntt.py:416)."""
+    n = a128.shape[-2]
+    plan = get_plan(n, required_num_primes(log_bound, n))
+    p = plan.tables(a128.device)["p"]
+    a_hat = ntt_forward128(plan, a128)
+    b_hat = ntt_forward(plan, reduce(plan, b))
+    return garner_to_torus128(plan, ntt_inverse(plan, a_hat * b_hat % p))
+
+
 __all__ = ["PRIMES_31", "PRIMES_HIGH_N", "primes_for", "required_num_primes",
            "NttPlan", "get_plan", "reduce", "ntt_forward",
            "ntt_inverse", "dif_inverse", "garner_to_torus",
-           "negacyclic_polymul"]
+           "negacyclic_polymul", "ntt_forward128", "garner_to_torus128",
+           "negacyclic_polymul128"]

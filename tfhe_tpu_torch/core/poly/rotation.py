@@ -202,8 +202,9 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
     device: tab its u32 tables [psi_rev, twin, psi_inv_rev, twin] [P, N],
     then [P, 2N] rows it does not read (zeros that keep its offsets until it
     takes the delta body's NTT), then [pw, twin] [P, 2N] with pw[m] = psi^m;
-    consts `_host_consts` on the device.  The delta body (K1/K4) takes its
-    tables from `_delta_tables` and its constants from `_host_consts`."""
+    consts `_host_consts` on the device, then the 2^128 lift's words for K8
+    (`_consts128`).  The delta body (K1/K4) takes its tables from
+    `_delta_tables` and its constants from `_host_consts`."""
     dkey = (plan.n, plan.num_primes, str(torch.device(device)))
     if dkey not in _TABLES:
         P, n = plan.num_primes, plan.n
@@ -215,9 +216,21 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
         parts += [np.zeros(2 * 2 * P * n, dtype=np.uint64)]
         parts += [plan.psi_pow.astype(np.uint64), _shoup_u32(plan.psi_pow, p)]
         tab = np.concatenate([a.reshape(-1) for a in parts]).astype(np.uint32)
+        consts = np.concatenate([_host_consts(plan), _consts128(plan)])
         _TABLES[dkey] = (torch.from_numpy(tab.view(np.int32).copy()).to(device),
-                         torch.from_numpy(_host_consts(plan).view(np.int64).copy()).to(device))
+                         torch.from_numpy(consts.view(np.int64)).to(device))
     return _TABLES[dkey]
+
+
+def _consts128(plan: ntt.NttPlan) -> np.ndarray:
+    """The words after `_host_consts` (u64, external_product.cu's C_PREFIX128
+    and C_MMOD128): (hi, lo) of each prefix prod_{j<k} p_j mod 2^128 for
+    _MAXP primes (zeros past the plan's), then of M mod 2^128."""
+    vals = [0] * (2 * _MAXP + 2)
+    for i, v in enumerate(plan.prefix_mod128 + [plan.M_mod128]):
+        at = 2 * i if i < plan.num_primes else 2 * _MAXP
+        vals[at:at + 2] = [v >> 64, v & ((1 << 64) - 1)]
+    return np.array(vals, dtype=np.uint64)
 
 
 def _host_consts(plan: ntt.NttPlan) -> np.ndarray:

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "tfhe_keyswitch_decompose": [_P, _L, _P] + [_I] * 5 + [_P],
     "tfhe_keyswitch_tc": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "tfhe_external_product": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "tfhe_external_product128": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "tfhe_smem_probe": [_I, _P, _P],
     "tfhe_smem_optin": [_I, ctypes.POINTER(ctypes.c_int)],
 }

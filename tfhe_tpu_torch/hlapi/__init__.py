@@ -194,14 +194,17 @@ class CompressedServerKey:
 def generate_keys(config: Config = None, seed: int = 0, shift_key=None, device="cuda"):
     """→ (ClientKey, ServerKey) (reference tfhe::generate_keys) at the
     config's parameters, on the card unless given device="cpu"; without a
-    card that raises.  The JAX package's `shift_key` (the GGSW-selector
-    shift key) is not ported: anything but None raises."""
-    if shift_key is not None:
-        raise NotImplementedError("the integer shift key is not ported yet (ROADMAP A10b); "
-                                  "shifts take the layered path with shift_key=None")
+    card that raises.  shift_key: None, or a WoP-PBS parameter set, its
+    name or "auto" to build the GGSW-selector shift key too, which the
+    encrypted-amount `<<`, `>>` and rotations then take
+    (integer/shift_key.py)."""
     config = config or ConfigBuilder.default()
     ck, sk = shortint.gen_keys(shortint_params(config.params_name), seed=seed, device=device)
-    return ClientKey(ck), ServerKey(integer.ServerKey(key=sk))
+    shk = None
+    if shift_key is not None:
+        from ..integer.shift_key import new_shift_key
+        shk = new_shift_key(ck, sk, shift_key, seed=seed)
+    return ClientKey(ck), ServerKey(integer.ServerKey(key=sk, shift_key=shk))
 
 
 class _FheUintBase:

@@ -4,8 +4,8 @@
 A `RadixCiphertext` is a little-endian list of shortint blocks
 (integer/ciphertext/mod.rs:18); the server's ops are blockwise shortint
 LUTs, and the independent block PBS of each layer are stacked onto the
-batch axis of one keyswitch + PBS call.  The GGSW shift key and the integer
-WoP-PBS of the JAX package are not ported.
+batch axis of one keyswitch + PBS call.  `shift_key.py` holds the GGSW
+shift key and `wopbs.py` the integer WoP-PBS.
 """
 from .ciphertext import BooleanBlock, CrtCiphertext, RadixCiphertext, SignedRadixCiphertext
 from .client_key import CrtClientKey, RadixClientKey

@@ -13,14 +13,15 @@ Costs (b = num_blocks): `add` ripples its carry through b dependent calls;
 `add_parallelized` is a Hillis–Steele carry scan in log2(b) + 3 calls;
 `mul` is one call for all 2b² partial products, then carry-save
 accumulation; comparisons are log2(b) tree layers.  Encrypted-amount shifts
-and rotates take the layered exclusive-selection path (the GGSW shift key
-of the JAX package is not ported).
+and rotates take the layered exclusive-selection path, or with a shift key
+(`gen_keys(shift_key=...)`) the GGSW-selector path of `shift_key.py`, under
+the JAX package's gate.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, List
+from typing import Any, Callable, List
 
 import torch
 
@@ -39,6 +40,9 @@ EQ, LT, GT = 0, 1, 2
 @dataclass(frozen=True)
 class ServerKey:
     key: shortint.ServerKey
+    # the GGSW-selector shift key (shift_key.py); None keeps the layered
+    # path for encrypted-amount shifts
+    shift_key: Any = None
 
     @property
     def msg_mod(self) -> int:
@@ -56,10 +60,12 @@ class ServerKey:
     # batched-LUT plumbing: stack blocks into the PBS batch axis
     # ------------------------------------------------------------------
 
-    def _apply_luts_stacked(self, blocks: List[Block],
-                            luts: List[LookupTable]) -> List[Block]:
-        """One KS+PBS call for len(blocks) inputs, each with its own LUT."""
+    def _apply_luts_stacked(self, blocks: List[Block], luts: List[LookupTable],
+                            sk: shortint.ServerKey = None) -> List[Block]:
+        """One KS+PBS call for len(blocks) inputs, each with its own LUT, on
+        this key's shortint key or `sk` (the GGSW shift's casting keys)."""
         assert len(blocks) == len(luts)
+        sk = self.key if sk is None else sk
         data = torch.stack([b.lwe.data for b in blocks])              # [nb, ..., n+1]
         acc = torch.stack([l.acc.data for l in luts])                 # [nb, k+1, N]
         acc = acc.reshape(acc.shape[:1] + (1,) * (data.ndim - 2) + acc.shape[-2:])
@@ -68,7 +74,7 @@ class ServerKey:
                     message_modulus=blocks[0].message_modulus,
                     carry_modulus=blocks[0].carry_modulus,
                     noise_level=max(b.noise_level for b in blocks))
-        out = self.key.apply_lookup_table(tmp, LookupTable(acc=GlweCiphertext(data=acc)))
+        out = sk.apply_lookup_table(tmp, LookupTable(acc=GlweCiphertext(data=acc)))
         return [blocks[i].with_(lwe=LweCiphertext(data=out.lwe.data[i]),
                                 degree=luts[i].degree, noise_level=NoiseLevel.NOMINAL)
                 for i in range(len(blocks))]
@@ -711,9 +717,18 @@ class ServerKey:
         on the tracked linear bound.  The p_fail guarantee rests on the JAX
         package's measured PBS output noise (tests/test_noise_distribution.py)
         and its sampled p_fail runs, not on that bound; parameters with
-        tighter margins would need the candidates refreshed first."""
+        tighter margins would need the candidates refreshed first.
+
+        With a shift key the GGSW path runs instead where its gate holds
+        (tfhe_tpu server_key.py:814-822): rotates only at a power-of-two
+        width, for the doubled copy's window."""
+        from .shift_key import _shift_rotate_ggsw, ggsw_shift_supported
         m = self.msg_mod
         bp = int(math.log2(m))
+        if ggsw_shift_supported(self.shift_key, m, a.num_blocks, amount.num_blocks):
+            total = a.num_blocks * bp
+            if kind in ("shl", "shr") or total & (total - 1) == 0:
+                return _shift_rotate_ggsw(self, a, amount, kind)
         a = self._maybe_propagate(a)
         amount = self._maybe_propagate(amount)
         nb = a.num_blocks
@@ -1251,8 +1266,15 @@ class ServerKey:
     def right_shift_arithmetic(self, a: RadixCiphertext,
                                amount: RadixCiphertext) -> RadixCiphertext:
         """Sign-extending shift by an encrypted amount: a cmux ladder over
-        the amount's bits with arithmetic rungs."""
+        the amount's bits with arithmetic rungs, or the GGSW path with nb
+        sign-fill blocks packed behind the data, at a power-of-two width
+        only (tfhe_tpu server_key.py:1466-1475: elsewhere the selector
+        reaches past the sign fill)."""
+        from .shift_key import _shift_rotate_ggsw, ggsw_shift_supported
         total_bits = a.num_blocks * int(math.log2(self.msg_mod))
+        if total_bits & (total_bits - 1) == 0 and ggsw_shift_supported(
+                self.shift_key, self.msg_mod, a.num_blocks, amount.num_blocks):
+            return _shift_rotate_ggsw(self, a, amount, "ashr")
         bits = self._amount_bits(amount, max(1, int(math.ceil(math.log2(total_bits)))))
         out = self._maybe_propagate(a)
         for i, bit in enumerate(bits):
@@ -1384,10 +1406,11 @@ def gen_keys(params="PARAM_MESSAGE_2_CARRY_2_KS_PBS", num_blocks: int = 4, seed:
              shift_key=None, device="cuda"):
     """→ (RadixClientKey, ServerKey) (reference integer::gen_keys_radix), on
     the card unless given device="cpu"; without a card that raises.
-    Encrypted-amount shifts take the layered path: the GGSW-selector shift
-    key of the JAX package (`shift_key=`) is not ported (ROADMAP A10b)."""
-    if shift_key is not None:
-        raise NotImplementedError("the integer shift key is not ported yet (ROADMAP A10b); "
-                                  "shifts take the layered path with shift_key=None")
+    shift_key: None (layered shifts), or a WoP-PBS parameter set, its name
+    or "auto" to build the GGSW-selector shift key too (shift_key.py)."""
     ck, sk = shortint.gen_keys(params, seed=seed, device=device)
-    return RadixClientKey(key=ck, num_blocks=num_blocks), ServerKey(key=sk)
+    shk = None
+    if shift_key is not None:
+        from .shift_key import new_shift_key
+        shk = new_shift_key(ck, sk, shift_key, seed=seed)
+    return RadixClientKey(key=ck, num_blocks=num_blocks), ServerKey(key=sk, shift_key=shk)

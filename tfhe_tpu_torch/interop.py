@@ -25,6 +25,10 @@ The WoP-PBS and casting keys cross as their arrays around port keys:
                                                 port server keys (`wopbs_key`,
                                                 `combined_wopbs_key`)
   shortint KeySwitchingKey.ksk.data           → KeySwitchingKey (`casting_key`)
+  ShiftKey                                    → the port's over a combined
+                                                WoP-PBS key and two server
+                                                keys, its packing KSK from
+                                                its data (`shift_key`)
 and the hlapi keys wrap the shortint and integer keys (`hlapi_keys`).
 
 The gadget keys cross as their arrays (`gadget_keys`): the two secret
@@ -259,6 +263,18 @@ def casting_key(ksk_data, decomp: DecompParams, dest_params, cast_rshift: int,
     return KeySwitchingKey(ksk=keyswitch_key(ksk_data, decomp, device), dest_params=dest_params,
                            cast_rshift=cast_rshift, dest_server_key=dest_server_key,
                            src_server_key=src_server_key)
+
+
+def shift_key(wopbs, pksk_data, pksk_decomp: DecompParams, cbs_server_key,
+              refresh_server_key, cbs_decomp: DecompParams, device="cuda"):
+    """A JAX ShiftKey → the port's: its combined WoP-PBS key and its two
+    casting server keys already carried across (port keys), its packing
+    keyswitching key from the data [kN, l, k_w+1, N_w] u64."""
+    from .integer.shift_key import ShiftKey
+    return ShiftKey(wopbs=wopbs, pksk=LwePackingKeyswitchKey(
+        data=from_numpy_u64(pksk_data, resolve_device(device)), decomp=pksk_decomp),
+        cbs_server_key=cbs_server_key, refresh_server_key=refresh_server_key,
+        cbs_decomp=cbs_decomp)
 
 
 def hlapi_keys(client_key, server_key) -> tuple:

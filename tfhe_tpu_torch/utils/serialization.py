@@ -15,8 +15,7 @@ bits as int8 ↔ int64.  A JAX `NttLweBootstrapKey` or
 (`interop`), which must be residues over primes_for(N) whose lift is a
 64-bit word: the file does not name its prime pool (ROADMAP C2), so a key
 made on another pool is refused here, not decrypted as garbage.  A key
-with no DIF residues (the JAX "fourstep" slim form) is refused by name.
-Types the port has not ported are refused naming their ROADMAP item.  A
+with no DIF residues (the JAX "fourstep" slim form) is refused by name.  A
 gadget encoding (an "encoding" node) becomes the port's `Encoding`.
 
 Writing covers the types held as standard-domain words (`_WRITERS`):
@@ -29,8 +28,10 @@ encoding), `ClientKey` (secret-key bits as int8) and `ServerKey`, whose
 BSK is written as a JAX `NttLweBootstrapKey` of its residues and their
 Shoup quotients (`_ntt_key_fields`: the port's spectral order is the JAX
 package's DIF order, which tests/test_torch_serialization.py holds) with
-no paired form, so the JAX package runs it on its XLA route.  The rest of
-the write side is ROADMAP A17.
+no paired form, so the JAX package runs it on its XLA route; the shortint
+and integer `ServerKey`s, the WoP-PBS keys and the GGSW shift key
+(`ShiftKey`) in the same way, an object met twice written once (the shift
+key shares its two BSKs).  The rest of the write side is ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -53,9 +54,6 @@ class DeserializationError(ValueError):
 # the types: JAX names → readers, port classes → JAX names
 # ---------------------------------------------------------------------------
 
-_REFUSED = {
-    "tfhe_tpu.integer.shift_key.ShiftKey": "the integer shift key (ROADMAP A10b)",
-}
 _READERS: Dict[str, Callable] = {}
 _WRITERS: Dict[type, str] = {}
 # types written with fields of their own making: type → obj → {field: value}
@@ -138,6 +136,7 @@ def _register():
         return
     from .. import boolean, integer, shortint
     from ..gadget import engine as GE
+    from ..integer import shift_key as SK
     from ..core import entities as E
     from ..core import params as Pm
     from ..core.algorithms import keyswitch, public_key as PK, seeded as S, wopbs as W
@@ -192,7 +191,8 @@ def _register():
             integer.SignedRadixCiphertext),
         "tfhe_tpu.integer.ciphertext.CrtCiphertext": lambda f, device: integer.CrtCiphertext(
             blocks=f["blocks"], moduli=tuple(f["moduli"])),
-        "tfhe_tpu.integer.server_key.ServerKey": _integer_server_key,
+        "tfhe_tpu.integer.server_key.ServerKey": plain(integer.ServerKey),
+        "tfhe_tpu.integer.shift_key.ShiftKey": plain(SK.ShiftKey),
         "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList": plain(W.CbsPfpkskList,
                                                               words=("data",)),
         "tfhe_tpu.shortint.wopbs.WopbsKey": plain(SW.WopbsKey),
@@ -227,6 +227,11 @@ def _register():
         integer.SignedRadixCiphertext: "tfhe_tpu.integer.ciphertext.SignedRadixCiphertext",
         integer.CrtCiphertext: "tfhe_tpu.integer.ciphertext.CrtCiphertext",
         W.CbsPfpkskList: "tfhe_tpu.core.algorithms.wopbs.CbsPfpkskList",
+        SS.ServerKey: "tfhe_tpu.shortint.server_key.ServerKey",
+        SW.WopbsKey: "tfhe_tpu.shortint.wopbs.WopbsKey",
+        SW.CombinedWopbsKey: "tfhe_tpu.shortint.wopbs.CombinedWopbsKey",
+        SK.ShiftKey: "tfhe_tpu.integer.shift_key.ShiftKey",
+        integer.ServerKey: "tfhe_tpu.integer.server_key.ServerKey",
         GE.Ciphertext: "tfhe_tpu.gadget.engine.Ciphertext",
         GE.ClientKey: "tfhe_tpu.gadget.engine.ClientKey",
         GE.ServerKey: "tfhe_tpu.gadget.engine.ServerKey",
@@ -247,14 +252,6 @@ def _register():
     for name in ("DecompParams", "ClassicPBSParameters", "MultiBitPBSParameters",
                  "WopbsParameters", "BooleanParameters", "GadgetParameters"):
         _WRITERS[getattr(Pm, name)] = "tfhe_tpu.core.params." + name
-
-
-def _integer_server_key(f, device):
-    from ..integer import ServerKey
-    if f.get("shift_key") is not None:
-        raise DeserializationError(f"an integer ServerKey with a shift key: "
-                                   f"{_REFUSED['tfhe_tpu.integer.shift_key.ShiftKey']}")
-    return ServerKey(key=f["key"])
 
 
 # ---------------------------------------------------------------------------
@@ -279,8 +276,6 @@ def _decode(node, arrays, device):
                         _validate=False)
     if t == "obj":
         name = node["cls"]
-        if name in _REFUSED:
-            raise DeserializationError(f"{name} is not ported yet: {_REFUSED[name]}")
         _register()
         read = _READERS.get(name)
         if read is None:
@@ -288,7 +283,7 @@ def _decode(node, arrays, device):
         fields = {k: _decode(v, arrays, device) for k, v in node["fields"].items()}
         try:
             return read(fields, device)
-        except NotImplementedError as e:
+        except (NotImplementedError, TypeError) as e:
             raise DeserializationError(f"{name}: {e}") from e
     raise DeserializationError(f"bad node {t}")
 
@@ -318,6 +313,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
         return {"t": "list" if isinstance(obj, list) else "tuple",
                 "v": [_encode(x, arrays, seen) for x in obj]}
     if dataclasses.is_dataclass(obj):
+        # an object met twice (the shift key's shared BSKs) is one node,
+        # so its arrays are written once
+        node = seen.get(("obj", id(obj)))
+        if node is not None:
+            return node
         _register()
         name = _WRITERS.get(type(obj))
         if name is None:
@@ -326,8 +326,10 @@ def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
         fields = _WRITE_FIELDS.get(type(obj))
         fields = (fields(obj) if fields else
                   {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
-        return {"t": "obj", "cls": name,
+        node = {"t": "obj", "cls": name,
                 "fields": {k: _encode(v, arrays, seen) for k, v in fields.items()}}
+        seen[("obj", id(obj))] = node
+        return node
     raise DeserializationError(f"cannot serialize {type(obj)}")
 
 
