@@ -459,6 +459,9 @@ GADGET_OP_SET = "AES_PARAMETERS_40"
 GADGET_BATCH = B
 GADGET_HELD = 8
 GADGET_K7_STEPS = 3
+# lwe_mult's and woppbs_lut's rows right at GADGET_OP_SET before the port's
+# glwe_mult rounded its modulus switch (ROADMAP C12; PERF.md §5), beside today's
+C12_TRUNCATING_RIGHT = {"lwe_mult": 44, "woppbs_lut": 33}
 GADGET_GATES = {"and": (lambda a, b: a & b, 2, [1, 2], 5),
                 "or": (lambda a, b: a | b, 2, [1, 2], 5),
                 "xor": (lambda a, b: a ^ b, 2, [1, 2], 5),
@@ -487,6 +490,7 @@ IWOPBS_MODULI = (2, 3, 5)
 # tests/test_nonnative.py
 PBS128_SET = CLASSIC
 PBS128_BATCH = B
+KS128_REPS = 7
 CUSTOM_MODULI = ((1 << 64) - (1 << 32) + 1, (1 << 48) - 59, 1 << 63)
 
 KEY_FLOW_SHORTINT = CLASSIC
@@ -726,9 +730,47 @@ EP_SHAPES = {
 }
 
 
-def measure_turn(seed: int) -> dict:
+def ep_case(label: str, g, dev) -> dict:
+    """EP_SHAPES[label] with random operands from g on dev: {"run": the
+    wrapper's call (keywords passed on), "plain": the plain version's,
+    "bytes": each input read once and the output written once, "mults":
+    the bound's count (k7_mults, k8_mults), "shape", "batch", "P"}."""
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.params import DecompParams
+    from tfhe_tpu_torch.core.poly import external_product, ntt
+
+    b, N, R, base_log, L, P, shared, rotated = EP_SHAPES[label]
+    plan = ntt.get_plan(N, P)
+    lead = () if shared else (b,)
+    spectra = torch.stack([torch.randint(0, q, lead + (L * R, R, N), generator=g, device=dev,
+                                         dtype=torch.int32) for q in plan.primes],
+                          dim=len(lead))
+    exps = torch.randint(0, 2 * N, (b,), generator=g, device=dev)
+    decomp = DecompParams(base_log, L)
+    J = L * R
+    if label.startswith("K8"):
+        acc = rng.uniform_torus(g, (b, R, N, 2))
+        run = lambda **kw: external_product.external_product128(acc, spectra, decomp, exps, **kw)
+        plain = lambda: external_product.external_product128_plain(acc, spectra, decomp, exps)
+        nbytes, mults = _nbytes(acc, spectra, exps) + acc.numel() * 8, k8_mults(b, P, J, R, N)
+    else:
+        acc, ct1 = rng.uniform_torus(g, (b, R, N)), rng.uniform_torus(g, (b, R, N))
+        op = {"exps": exps} if rotated else {"ct1": ct1}
+        run = lambda **kw: external_product.external_product(acc, spectra, decomp, **op, **kw)
+        plain = lambda: external_product.external_product_plain(acc, spectra, decomp, **op)
+        nbytes = _nbytes(acc, spectra, *op.values()) + acc.numel() * 8
+        mults = k7_mults(b, P, J, R, N)
+    shape = (f"{label}: batch {b}, N={N}, k+1={R}, {base_log}x{L} (J={J}), P={P}, "
+             f"{'a GGSW shared' if shared else 'a GGSW a row'}, "
+             f"{'rotated' if rotated else 'explicit'} operand")
+    return {"run": run, "plain": plain, "bytes": nbytes, "mults": mults, "shape": shape,
+            "batch": b, "n": N, "R": R, "J": J, "P": P}
+
+
+def measure_turn(seed: int, only: tuple = ()) -> dict:
     """One turn of --against in the port first on sys.path: {label: {"ms",
-    "check", ...}}."""
+    "check", ...}}; with `only`, the measurements whose labels start with
+    one of its prefixes."""
     import numpy as np
 
     from tfhe_tpu_torch import interop, shortint
@@ -737,10 +779,13 @@ def measure_turn(seed: int) -> dict:
     from tfhe_tpu_torch.core.algorithms.keyswitch import keyswitch_lwe
     from tfhe_tpu_torch.core.entities import (LweCiphertext, NttBootstrapKey,
                                               NttMultiBitBootstrapKey)
-    from tfhe_tpu_torch.core.params import DecompParams, shortint_params
-    from tfhe_tpu_torch.core.poly import external_product, ntt, rotation
+    from tfhe_tpu_torch.core.params import shortint_params
+    from tfhe_tpu_torch.core.poly import ntt, rotation
 
     dev = torch.device("cuda", 0)
+
+    def wanted(label):
+        return not only or label.startswith(tuple(only))
 
     def checksum(t):
         w = t.to(torch.int64).reshape(-1)
@@ -755,6 +800,8 @@ def measure_turn(seed: int) -> dict:
     out = {}
     g = rng.generator(seed, 7, device=dev)
     for name in (CLASSIC,) + COMPARED:
+        if not wanted(f"rotation {name}"):
+            continue
         p = shortint_params(name)
         n, N, R = p.lwe_dimension, p.polynomial_size, p.glwe_dimension + 1
         J, gf = p.pbs_level * R, getattr(p, "grouping_factor", None)
@@ -780,29 +827,20 @@ def measure_turn(seed: int) -> dict:
         out[f"rotation {name}"] = {"ms": ms, "steps": steps, "check": checksum(res["o"])}
         del spectra, key, acc, exps, res
         torch.cuda.empty_cache()
-    for label, (b, N, R, base_log, L, P, shared, rotated) in EP_SHAPES.items():
+    for label in EP_SHAPES:
         # K7 and K8 at the main path's shapes, random operands
-        plan = ntt.get_plan(N, P)
-        lead = () if shared else (b,)
-        spectra = torch.stack([torch.randint(0, q, lead + (L * R, R, N), generator=g, device=dev,
-                                             dtype=torch.int32) for q in plan.primes],
-                              dim=len(lead))
-        exps = torch.randint(0, 2 * N, (b,), generator=g, device=dev)
-        decomp = DecompParams(base_log, L)
-        if label.startswith("K8"):
-            acc = rng.uniform_torus(g, (b, R, N, 2))
-            fn = lambda: external_product.external_product128(acc, spectra, decomp, exps)
-        else:
-            acc, ct1 = rng.uniform_torus(g, (b, R, N)), rng.uniform_torus(g, (b, R, N))
-            kw = {"exps": exps} if rotated else {"ct1": ct1}
-            fn = lambda: external_product.external_product(acc, spectra, decomp, **kw)
+        if not wanted(label):
+            continue
+        case = ep_case(label, g, dev)
         res = {}
-        ms = timed(lambda: res.update(o=fn()), 20)
+        ms = timed(lambda: res.update(o=case["run"]()), 20)
         out[label] = {"ms": ms, "check": checksum(res["o"])}
-        del spectra, exps, acc, res
+        del case, res
         torch.cuda.empty_cache()
     for name in (CLASSIC, CLASSIC_33, CLASSIC_44):
         # the keyswitch alone, the key carried in as a u64 array
+        if not wanted(f"keyswitch {name}"):
+            continue
         p = shortint_params(name)
         n_in, M = p.big_lwe_dimension, p.lwe_dimension + 1
         data = rng.uniform_torus(g, (n_in, p.ks_level, M)).cpu().numpy().view(np.uint64)
@@ -814,6 +852,8 @@ def measure_turn(seed: int) -> dict:
         del data, ksk, ct, res
         torch.cuda.empty_cache()
     for name in (CLASSIC,) + COMPARED:
+        if not wanted(f"KS+PBS {name}"):
+            continue
         p = shortint_params(name)
         t0 = time.perf_counter()
         ck, sk = shortint.gen_keys(p, seed=seed, device=dev)
@@ -835,8 +875,9 @@ def measure_turn(seed: int) -> dict:
     return out
 
 
-def compare(other: str, turns: int, seed: int) -> int:
-    """--against: this checkout and `other` in turns on one card."""
+def compare(other: str, turns: int, seed: int, only: tuple = ()) -> int:
+    """--against: this checkout and `other` in turns on one card (with
+    `only`, the measurements whose labels start with one of its prefixes)."""
     this = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
     card = smi("name,power.limit")
@@ -847,7 +888,8 @@ def compare(other: str, turns: int, seed: int) -> int:
         label, tree = pattern[i % 4]
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn-in", tree,
-                               "--seed", str(seed)], cwd=tree, capture_output=True, text=True)
+                               "--seed", str(seed)] + (["--only", ",".join(only)] if only else []),
+                              cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"turn {i + 1} ({label}) failed:\n{proc.stdout[-3000:]}\n"
                                f"{proc.stderr[-3000:]}")
@@ -2132,9 +2174,12 @@ def gadget_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_and_ms:
         row = {"op": label, "batch": GADGET_BATCH, "ms": ms, "first_ms": first_ms,
                "right": right, "launches": _launched(counts)}
         ops.append(row)
+        before = C12_TRUNCATING_RIGHT.get(label)
         print(f"{tag} gadget {label} at {GADGET_OP_SET}, batch {GADGET_BATCH}: {ms:.3f} ms a "
               f"call (the first call {first_ms:.3f}), right "
               + ", ".join(f"{r}/{GADGET_BATCH}" for r in right)
+              + (f" (with the truncating switch, ROADMAP C12: {before}/{GADGET_BATCH})"
+                 if before is not None else "")
               + f", launches {json.dumps(row['launches'])}", flush=True)
         if min(right) < GADGET_BATCH:
             print(f"{tag} finding: gadget {label} at {GADGET_OP_SET} decrypts "
@@ -2535,10 +2580,13 @@ def pbs128_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     random masks (at the first the mask is the trivial LUT's zeros), and
     timed alone there (a launch);
     the keyswitch's word form held against the plain 128-bit sum on 4
-    rows.  Then the custom moduli (`nonnative.py`) at tests/test_nonnative.py's
+    rows; the keyswitch timed again after a warm-up (the median of
+    KS128_REPS calls) and one PBS call traced under torch.profiler (idle
+    share, device time by kernel, K8's start-to-start cadence).  Then the
+    custom moduli (`nonnative.py`) at tests/test_nonnative.py's
     three moduli, an n = 742 key, PBS128_BATCH rows: encrypt, add,
     scalar-multiply, decrypt and the decomposition, against Python-int
-    models.  → {"launches", "pbs", "k8", "custom"}."""
+    models.  → {"launches", "pbs", "k8", "custom", "trace"}."""
     import numpy as np
 
     from tfhe_tpu_torch.core import rng as trng
@@ -2618,6 +2666,37 @@ def pbs128_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     if right != PBS128_BATCH:
         raise AssertionError(f"128-bit KS+PBS: {right}/{PBS128_BATCH} right")
 
+    # ---- the keyswitch warm, the median of KS128_REPS calls; one PBS call traced ----
+    M.keyswitch128(ct, ksk)
+    torch.cuda.synchronize()
+    ks_runs = sorted(cuda_ms_reps(lambda: M.keyswitch128(ct, ksk), KS128_REPS))
+    pbs["keyswitch_median_ms"] = ks_runs[len(ks_runs) // 2]
+    pbs["keyswitch_runs_ms"] = ks_runs
+    print(f"{tag} 128-bit keyswitch after a warm-up: median {pbs['keyswitch_median_ms']:.3f} ms "
+          f"of {KS128_REPS} calls {[round(t, 3) for t in ks_runs]} (the counted cold call "
+          f"{pbs['keyswitch_ms']:.3f})", flush=True)
+    wall_ms, by_kernel, timeline = profile_window(
+        lambda: M.programmable_bootstrap128(small, lut, bsk))
+    busy = print_profile(f"{tag} profiler, one 128-bit PBS call at batch {PBS128_BATCH}",
+                         wall_ms, by_kernel, timeline)
+    if not busy:
+        raise AssertionError("the 128-bit PBS trace shows no device time")
+    excl = exclusive_ms(timeline)
+    k8_runs = [e for e in timeline if "external_product" in e[0]]
+    starts = [e[1] for e in k8_runs]
+    cadence = sorted(b - a for a, b in zip(starts, starts[1:]))
+    trace = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+             "k8_launches": len(k8_runs),
+             "k8_ms": sum(v for k, v in excl.items() if "external_product" in k),
+             "k8_start_to_start_median_us": cadence[len(cadence) // 2] if cadence else None,
+             "gaps_ms": device_gaps(timeline)[0],
+             "by_kernel_ms": {k[:60]: v for k, v in sorted(excl.items(),
+                                                           key=lambda kv: -kv[1])[:6]}}
+    print(f"{tag} 128-bit PBS trace: idle share {trace['idle_share']:.2%}, K8 {trace['k8_ms']:.3f}"
+          f" ms of {busy:.3f} busy over {len(k8_runs)} launches (start to start, median "
+          f"{trace['k8_start_to_start_median_us']} us); by kernel (exclusive ms) "
+          f"{json.dumps(trace['by_kernel_ms'])}", flush=True)
+
     # ---- K8 held and timed on the last step's operands ------------------------
     (acc, spectra, decomp, exps), k8_out = spy["k8"]
     ends = torch.cat([torch.arange(8), torch.arange(PBS128_BATCH - 8, PBS128_BATCH)]).to(dev)
@@ -2690,7 +2769,88 @@ def pbs128_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
         if right != PBS128_BATCH or not dec_ok:
             raise AssertionError(f"custom modulus {q}: {right}/{PBS128_BATCH}, decomposition "
                                  f"{dec_ok}")
-    return {"launches": counts, "pbs": pbs, "k8": k8, "custom": custom}
+    return {"launches": counts, "pbs": pbs, "k8": k8, "custom": custom, "trace": trace}
+
+
+def kernel_ms(fn, launches: int):
+    """Device ms a launch of the external-product kernels over `launches`
+    calls of fn under torch.profiler (exclusive time, so a PDL launch's wait
+    is not charged), over the launches the trace recorded; traced again
+    where it recorded fewer than were made (the profiler can drop a
+    window's records: phase 4o's trace of 742 K8 launches once held 721);
+    None where it recorded none."""
+    for attempt in (1, 2):
+        _, _, timeline = profile_window(lambda: [fn() for _ in range(launches)], cpu=False)
+        events = [e for e in timeline if "external_product" in e[0]]
+        if len(events) == launches or attempt == 2:
+            break
+    if not events:
+        return None
+    return sum(v for k, v in exclusive_ms(timeline).items()
+               if "external_product" in k) / len(events)
+
+
+def ep_forms(seed: int, dev, tag: str, clock_hz: float, sms: int) -> dict:
+    """Phase 4p: K7 and K8 at each of EP_SHAPES (full batches, random
+    operands, `ep_case`) in every form `external_product._ep_forms` gives
+    (one block a row or a cluster of C blocks a row, C dividing P; staged
+    or not), each held bit for bit against the plain version on the same
+    inputs, then timed in turns (the forms in order, then in reverse; 20
+    launches a turn by CUDA events, which count the wrapper's host time
+    where it exceeds the kernel's) and once under torch.profiler (10
+    launches: the kernel's device time a launch, `kernel_ms`), beside the
+    plain version's time and the bound; prints where the rule's form ranks
+    by device time (by the events where a trace recorded no kernel).  → {label: {"shape", "rule", "ms":
+    {form: mean event ms}, "device_ms": {form: ms}, "runs", "plain_ms",
+    "bound", "err"}}, forms as "C" or "C staged"."""
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.poly import external_product as ep
+
+    g = rng.generator(seed, 0x4B7, device=dev)
+    out = {}
+    name = lambda f: f"{f[0]}{' staged' if f[1] else ''}"
+    for label in EP_SHAPES:
+        case = ep_case(label, g, dev)
+        b, n, R, J, P = (case[k] for k in ("batch", "n", "R", "J", "P"))
+        lay = ep._ep_layout(b, n, R, J, P)
+        rule = (lay.cluster, lay.stage)
+        forms = ep._ep_forms(n, R, J, P)
+        ref = case["plain"]()
+        plain_ms = cuda_ms(case["plain"], 2)
+        for f in forms:
+            err = max_abs_err(case["run"](_form=f), ref)
+            if err:
+                raise AssertionError(f"{label} in form {name(f)} differs from its plain "
+                                     f"version by {err}")
+        runs = {f: [] for f in forms}
+        for f in forms + forms[::-1]:
+            case["run"](_form=f)
+            runs[f].append(cuda_ms(lambda: case["run"](_form=f), 20))
+        mean = {f: sum(t) / len(t) for f, t in runs.items()}
+        device = {f: kernel_ms(lambda: case["run"](_form=f), 10) for f in forms}
+        timed_by = "device time" if None not in device.values() else "CUDA events"
+        key = device if timed_by == "device time" else mean
+        bnd = bound(case["mults"], case["bytes"], clock_hz, sms)
+        rank = sorted(forms, key=key.get).index(rule) + 1
+        print(f"{tag} {case['shape']}: bit-identical to the plain version in every form; "
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+        for f in forms:
+            dev_ms = ("not measured (no kernel in the trace)" if device[f] is None else
+                      f"{device[f]:.4f} ms a launch ({bnd[0] / device[f]:.1%} of bound)")
+            print(f"    {'one block a row' if f[0] == 1 else f'clusters of {f[0]}'}"
+                  f"{', staged' if f[1] else ''} ({ep._ep_smem(n, R, J, P, *f)} B): device "
+                  f"{dev_ms}, events {mean[f]:.4f} ms, runs {[round(t, 4) for t in runs[f]]}"
+                  f"{'  <- the rule' if f == rule else ''}", flush=True)
+        print(f"    the rule's form ({name(rule)}) ranks {rank} of {len(forms)} by {timed_by}",
+              flush=True)
+        out[label] = {"shape": case["shape"], "rule": name(rule),
+                      "ms": {name(f): v for f, v in mean.items()},
+                      "device_ms": {name(f): v for f, v in device.items()},
+                      "runs": {name(f): v for f, v in runs.items()},
+                      "plain_ms": plain_ms, "bound": bnd, "err": 0}
+        del case, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def noise_hold(seed: int, dev, tag: str) -> dict:
@@ -3268,18 +3428,23 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--against", metavar="DIR", help="time this checkout against DIR's")
     ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("--only", default="", help="with --against: the measurements whose labels "
+                    "start with one of these comma-separated prefixes (e.g. K7,K8)")
+    ap.add_argument("--ep", action="store_true", help="build, then only phase 4p: K7 and K8 "
+                    "at EP_SHAPES in every form, held and timed")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = tuple(x for x in args.only.split(",") if x)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
     if args.turn_in:
         sys.path.insert(0, args.turn_in)
-        print(json.dumps(measure_turn(args.seed)))
+        print(json.dumps(measure_turn(args.seed, only)))
         return 0
     if args.against:
-        return compare(args.against, args.turns, args.seed)
+        return compare(args.against, args.turns, args.seed, only)
 
     from tfhe_tpu_torch import config, cuda_lib, shortint, smem_probe
     from tfhe_tpu_torch.core import rng
@@ -3338,6 +3503,13 @@ def main() -> int:
     for line in info.get("log", "").splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
             print(f"ptxas: {line.strip()}")
+    if args.ep:
+        lap("4p")
+        forms = ep_forms(args.seed, dev, tag, clock_hz, sms)
+        lap("4o")
+        p128 = pbs128_path(args.seed, dev, tag, zero_counts, read_counts)
+        print(json.dumps({"ep_forms": forms, "pbs128": p128["pbs"], "k8": p128["k8"]}))
+        return 0
 
     g = rng.generator(args.seed, 7, device=dev)
 
@@ -4325,7 +4497,12 @@ def main() -> int:
     lap("4o")
     # ---- 4o. the 2^128 torus and the custom moduli ----------------------------------
     p128 = pbs128_path(args.seed, dev, tag, zero_counts, read_counts)
-    print(json.dumps({"pbs128": p128["pbs"], "custom_moduli": p128["custom"]}))
+    print(json.dumps({"pbs128": p128["pbs"], "pbs128_trace": p128["trace"],
+                      "custom_moduli": p128["custom"]}))
+
+    lap("4p")
+    # ---- 4p. K7 and K8 at EP_SHAPES in every form ------------------------------------
+    forms = ep_forms(args.seed, dev, tag, clock_hz, sms)
     slice_launches = {k: v + shift["launches"].get(k, 0) + iwop["launches"].get(k, 0)
                       + p128["launches"].get(k, 0) for k, v in slice_launches.items()}
 
@@ -4512,17 +4689,25 @@ def main() -> int:
               bound(largest, 8, clock_hz, sms)),
         entry("external_product", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/bootstrap.py:50", path_total("external_product"),
-              max(wop["k7"]["err"], gad["k7"]["err"], iwop["k7"]["err"]), wop["k7"]["ms"], wop["k7"]["plain_ms"],
-              bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
+              max(wop["k7"]["err"], gad["k7"]["err"], iwop["k7"]["err"]), wop["k7"]["ms"],
+              wop["k7"]["plain_ms"], bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
               [(k7["shape"], k7["ms"], k7["plain_ms"],
                 bound(k7["mults"], k7["bytes"], clock_hz, sms))
-               for k7 in (wop["k7"], gad["k7"], iwop["k7"])]),
+               for k7 in (wop["k7"], gad["k7"], iwop["k7"])]
+              + [(f["shape"], f["device_ms"][f["rule"]] or f["ms"][f["rule"]], f["plain_ms"],
+                  f["bound"], {"form": f["rule"], "events_ms": f["ms"][f["rule"]],
+                               "forms_device_ms": f["device_ms"]})
+                 for label, f in forms.items() if label.startswith("K7")]),
         entry("external_product128", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/pbs128.py:244", path_total("external_product128"),
               p128["k8"]["err"], p128["k8"]["ms"], p128["k8"]["plain_ms"],
               bound(p128["k8"]["mults"], p128["k8"]["bytes"], clock_hz, sms),
               [(p128["k8"]["shape"], p128["k8"]["ms"], p128["k8"]["plain_ms"],
-                bound(p128["k8"]["mults"], p128["k8"]["bytes"], clock_hz, sms))]),
+                bound(p128["k8"]["mults"], p128["k8"]["bytes"], clock_hz, sms))]
+              + [(f["shape"], f["device_ms"][f["rule"]] or f["ms"][f["rule"]], f["plain_ms"],
+                  f["bound"], {"form": f["rule"], "events_ms": f["ms"][f["rule"]],
+                               "forms_device_ms": f["device_ms"]})
+                 for label, f in forms.items() if label.startswith("K8")]),
     ]
     print(f"{tag} K3 GROUP_2 batch {B}: {k3[2]['ms']:.3f} ms, bound {k3[2]['bound'][0]:.3f} ms "
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")

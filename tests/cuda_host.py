@@ -49,13 +49,17 @@ def build_external_product_host(out: Path, entries) -> ctypes.CDLL:
 
 
 def _build_host(name: str, out: Path, entries, replacements) -> ctypes.CDLL:
-    """csrc/<name>.cu with each (inline PTX statement, host call) of
-    `replacements` replaced (each must be there once) and the rest of its
-    inline PTX removed, compiled into `out` and loaded."""
+    """csrc/<name>.cu with the csrc headers it includes inlined, each (inline
+    PTX statement, host call) of `replacements` replaced (each must be there
+    once) and the rest of its inline PTX removed, compiled into `out` and
+    loaded."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip(f"no C++ host compiler to build csrc/{name}.cu for the CPU")
     src = (cuda_lib.CSRC / f"{name}.cu").read_text()
+    # the sources' own headers (csrc/*.cuh) inlined, so their text is built too
+    src = re.sub(r'^#include "(\w+\.cuh)"$', lambda m: (cuda_lib.CSRC / m.group(1)).read_text(),
+                 src, flags=re.M)
     src = src.replace("#include <cooperative_groups.h>", '#include "cuda_host_stub.h"')
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_host_stub.h"')
     for asm, call in replacements:

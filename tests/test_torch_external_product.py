@@ -10,8 +10,13 @@ bit for bit against tfhe_tpu on the same numpy inputs (tolerance 0):
   rotate-subtract form, one K7 launch a step), the packing keyswitch (one
   LWE and a list), and `linear.py`;
 * K7's CUDA source built for the host (`tests/cuda_host_stub.h`, as the
-  delta and keyswitch host tests) at N = 512 on two rows, explicit and
-  rotated operands, a shared and a per-row GGSW, against its plain version.
+  delta and keyswitch host tests), in both forms `_ep_layout` gives (one
+  block a row, a cluster of blocks a row) and the rule's, against its plain
+  version: explicit and rotated operands, a shared and a per-row GGSW and
+  ct0, the gadget MVB's J = 16 at k+1 = 4, the gadget DEFAULT's k+1 = 3,
+  J = 18, N = 16 to 2048, batch 1 and batches that are not a multiple of
+  the cluster;
+* `_ep_layout`'s plan for every named set whose path reaches K7 or K8.
 
 The GGSWs are uniform words (exactness needs no encryption): the JAX side
 takes them through its `ggsw_to_ntt` (DIF order, Shoup twins), the port
@@ -45,7 +50,7 @@ from tfhe_tpu_torch.core.params import TEST_PARAMS_SHORTINT as P
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.core.poly import external_product as ep
 from tfhe_tpu_torch.core.poly import ntt
-from tfhe_tpu_torch.core.poly.rotation import _kernel_tables
+from tfhe_tpu_torch.core.poly.rotation import _delta_tables
 from torch_keys import random_bsk
 
 U64 = np.uint64
@@ -226,52 +231,141 @@ def host_lib(tmp_path_factory):
                                        ("tfhe_external_product",))
 
 
-def host_k7(lib, plan, decomp, ct0, s0, ct1, s1, exps, se, key, sk, rows):
-    """K7 through its C entry, with the tables and constants the wrapper
-    passes; res and out poisoned first."""
+def host_k7(lib, plan, decomp, ct0, s0, ct1, s1, exps, se, key, sk, rows, form=None):
+    """K7 through its C entry, with the tables, constants and layout the
+    wrapper passes (`form` = (cluster, stage) forces the layout's); out
+    poisoned first."""
     P, J, R, n = key.shape[-4:]
-    tab, consts = _kernel_tables(plan, "cpu")
-    res = torch.full((rows, P, R, n), -1, dtype=torch.int32)
+    lay = ep._ep_layout(rows, n, R, J, P, form)
     out = torch.full((rows, R, n), 12345, dtype=torch.int64)
     code = lib.tfhe_external_product(
         ct0.data_ptr(), s0, None if ct1 is None else ct1.data_ptr(), s1,
-        None if exps is None else exps.data_ptr(), se, key.data_ptr(), sk, tab.data_ptr(),
-        consts.data_ptr(), res.data_ptr(), out.data_ptr(), rows, n, plan.log_n, P, R,
-        decomp.level, decomp.base_log, None)
+        None if exps is None else exps.data_ptr(), se, key.data_ptr(), sk,
+        _delta_tables(plan, "cpu", variants=True).data_ptr(), ep._ep_consts(plan).ctypes.data,
+        out.data_ptr(), rows, plan.log_n, P, R, decomp.level, decomp.base_log,
+        *ep._ep_launch_args(lay), None)
     assert code == 0
     return out
 
 
-@pytest.mark.parametrize("mode", ["explicit", "rotated", "shared"])
-def test_k7_host_build_equals_plain(host_lib, mode):
-    """N = 512, k = 1, the WoP-PBS's cbs 5 x 3 (J = 6) over 3 primes, two
-    rows: explicit operands with a GGSW a row; the rotated operand
-    (exponents 5 and 1000: the wrap) with a GGSW a row; the rotated operand
-    of one shared ct0 row and one shared GGSW (both stride 0)."""
-    n, R, decomp = 512, 2, DecompParams(*CBS)
-    plan = ntt.get_plan(n, 3)
-    rng = np.random.default_rng(10)
-    ct0 = from_numpy_u64(words(rng, (2, R, n)))
-    ct1 = from_numpy_u64(words(rng, (2, R, n)))
-    key = torch.stack([torch.from_numpy(rng.integers(0, p, (2, 3 * R, R, n)))
-                       for p in plan.primes], dim=1).to(torch.int32)     # [2, P, J, R, N]
-    exps = torch.tensor([5, 1000], dtype=torch.int32)
-    if mode == "explicit":
-        got = host_k7(host_lib, plan, decomp, ct0, R * n, ct1, R * n, None, 0, key,
-                      key[0].numel(), 2)
-        want = ep.external_product_plain(ct0, key, decomp, ct1=ct1)
-    elif mode == "rotated":
-        got = host_k7(host_lib, plan, decomp, ct0, R * n, None, 0, exps, 1, key,
-                      key[0].numel(), 2)
-        want = ep.external_product_plain(ct0, key, decomp, exps=exps)
+# case -> (N, k+1, base_log, level, P, rows, operand, the GGSW shared, ct0 shared)
+K7_HOST_CASES = {
+    "explicit": (512, 2, *CBS, 3, 2, "explicit", False, False),
+    "rotated": (512, 2, *CBS, 3, 2, "rotated", False, False),
+    "shared": (512, 2, *CBS, 3, 2, "rotated", True, True),
+    "mvb": (512, 4, 6, 4, 3, 2, "rotated", True, False),          # AES_PARAMETERS_40: J = 16
+    "gadget_default": (512, 3, 6, 3, 3, 1, "rotated", True, False),   # k = 2: R odd, rt = 1
+    "wide_j": (64, 2, 7, 9, 3, 5, "explicit", False, False),      # J = 18: reduced every 16
+    "small": (16, 2, 11, 2, 2, 3, "rotated", False, False),
+    "regions": (2048, 2, *CBS, 3, 2, "explicit", False, False),   # one warp a 256-slot region
+    "shared_ct0": (256, 2, 10, 2, 4, 3, "explicit", False, True),
+}
+
+
+# the forms each case runs in: (cluster, stage), "P" a cluster of P, None the rule's
+K7_FORMS = {"block": (1, False), "block staged": (1, True), "cluster": ("P", False),
+            "rule": None}
+
+
+@pytest.mark.parametrize("form", list(K7_FORMS))
+@pytest.mark.parametrize("case", list(K7_HOST_CASES))
+def test_k7_host_build_equals_plain(host_lib, case, form):
+    """K7's source on the host against its plain version, words with the
+    top bit set (C1), exponents with and without the wrap (2N - 1 among
+    them), in one block a row (the operand read a prime, or staged in
+    shared memory), a cluster of P blocks a row and the form the rule picks
+    (K7_HOST_CASES: the WoP-PBS's cbs 5 x 3, the gadget MVB's J = 16 at
+    k+1 = 4, k+1 = 3, J = 18, N = 16 and 2048, one and several rows, none
+    a multiple of the cluster but 1; at N = 2048 and P = 3 in one block or
+    clusters of 3, and at the MVB's shape in one block, the kernels
+    compiled for those shapes)."""
+    n, R, base_log, level, P, rows, operand, key_shared, ct0_shared = K7_HOST_CASES[case]
+    decomp = DecompParams(base_log, level)
+    plan = ntt.get_plan(n, P)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ct0 = from_numpy_u64(words(rng, (rows, R, n)))
+    ct1 = from_numpy_u64(words(rng, (rows, R, n)))
+    key = torch.stack([torch.from_numpy(rng.integers(0, p, (rows, level * R, R, n)))
+                       for p in plan.primes], dim=1).to(torch.int32)     # [rows, P, J, R, N]
+    # the kernel takes any int64 exponent mod 2N: negative ones and ones past 2N too
+    exps = torch.tensor(([5, 2 * n - 1, -n - 3, 0, 3 * n] * rows)[:rows], dtype=torch.int64)
+    k_in, sk = (key[0].contiguous(), 0) if key_shared else (key, key[0].numel())
+    c_in, s0 = (ct0[0].contiguous(), 0) if ct0_shared else (ct0, R * n)
+    f = K7_FORMS[form]
+    f = f if f is None or f[0] != "P" else (P, False)
+    if operand == "explicit":
+        got = host_k7(host_lib, plan, decomp, c_in, s0, ct1, R * n, None, 0, k_in, sk, rows, f)
+        want = ep.external_product_plain(c_in, k_in, decomp, ct1=ct1)
     else:
-        got = host_k7(host_lib, plan, decomp, ct0[0].contiguous(), 0, None, 0, exps, 1,
-                      key[0].contiguous(), 0, 2)
-        want = ep.external_product_plain(ct0[0], key[0], decomp, exps=exps)
-    assert torch.equal(got, want)
+        got = host_k7(host_lib, plan, decomp, c_in, s0, None, 0, exps, 1, k_in, sk, rows, f)
+        want = ep.external_product_plain(c_in, k_in, decomp, exps=exps)
+    assert torch.equal(got, want.reshape(rows, R, n))
+
+
+def _ep_shapes(family: str) -> list:
+    """(name, N, k+1, decomposition, P) of every named set's K7 or K8 shape
+    in a family: "wopbs", the WoP sets' circuit bootstrap (the CMux tree
+    and the vertical packing); "shift key", the GGSW shift key's cbs 4 x 4
+    on them; "gadget", the gadget sets' PBS (MVB's blind_rotate_only);
+    "2^128", 2_2 on the 2^128 torus (K8)."""
+    from tfhe_tpu_torch.core.algorithms import external_product_num_primes as primes
+    from tfhe_tpu_torch.core.algorithms.pbs128 import external_product_num_primes128
+    from tfhe_tpu_torch.core.params import (GADGET, SHORTINT_WOPBS, TEST_PARAMS_GADGET,
+                                            TEST_PARAMS_WOPBS, shortint_params)
+    from tfhe_tpu_torch.integer.shift_key import SHIFT_CBS_DECOMP
+    wop = {**SHORTINT_WOPBS, "TEST_PARAMS_WOPBS": TEST_PARAMS_WOPBS}
+    if family in ("wopbs", "shift key"):
+        return [(name, p.polynomial_size, p.glwe_size, d, primes(p.polynomial_size, p.glwe_size, d))
+                for name, p in wop.items()
+                for d in [p.cbs_decomp if family == "wopbs" else SHIFT_CBS_DECOMP]]
+    if family == "gadget":
+        return [(name, p.polynomial_size, p.glwe_size, p.pbs_decomp,
+                 primes(p.polynomial_size, p.glwe_size, p.pbs_decomp))
+                for name, p in {**GADGET, "TEST_PARAMS_GADGET": TEST_PARAMS_GADGET}.items()]
+    p = shortint_params("PARAM_MESSAGE_2_CARRY_2_KS_PBS")
+    return [(p.name, p.polynomial_size, p.glwe_size, p.pbs_decomp,
+             external_product_num_primes128(p.polynomial_size, p.glwe_size, p.pbs_decomp))]
+
+
+@pytest.mark.parametrize("batch", [1, 64, 512])
+@pytest.mark.parametrize("family", ["wopbs", "shift key", "gadget", "2^128"])
+def test_ep_layout_plans_every_named_shape(family, batch):
+    """`_ep_layout` gives every named set's K7/K8 shape (`_ep_shapes`) a
+    launch plan the kernel takes: a cluster dividing P (at most 8; K8 at
+    most 7 primes), the passes
+    covering log2 N stages (the head, the tails and the MAC's two), the
+    MAC's outputs in whole chunks, shared memory 4 (J + R P / C) N within
+    one block's, 8 R N more staged (only where a block runs several
+    primes); the rule's form among those that leave two blocks a SM their
+    shared memory (if any): the largest cluster where none fills the card,
+    else the smallest filling cluster with a staged form, else the smallest
+    filling one."""
+    shapes = _ep_shapes(family)
+    assert shapes
+    for name, n, R, decomp, P in shapes:
+        J = decomp.level * R
+        assert 1 <= decomp.base_log <= 30 and decomp.base_log * decomp.level <= 64, name
+        assert P <= (7 if family == "2^128" else 8), name
+        lay = ep._ep_layout(batch, n, R, J, P)
+        smem = {(c, st): 4 * (J + R * P // c) * n + (8 * R * n if st else 0)
+                for c in range(1, min(P, 8) + 1) if P % c == 0
+                for st in (False, True) if not st or P // c > 1}
+        fits = {f: b for f, b in smem.items() if b <= 232448}
+        two = {f: b for f, b in fits.items() if b <= 232448 // 2} or fits
+        filled = sorted({c for c, _ in two if batch * c >= ep._EP_FILL})
+        staged = [c for c in filled if (c, True) in two]
+        c = staged[0] if staged else filled[0] if filled else max(c for c, _ in two)
+        assert (lay.cluster, lay.stage) == (c, (c, True) in two), name
+        assert P % lay.cluster == 0 and lay.cluster <= 8, name
+        assert sum(lay.head) + sum(lay.tail) + 2 == n.bit_length() - 1, name
+        assert lay.log_w == n.bit_length() - 1 - sum(lay.head) and R % lay.rt == 0, name
+        assert lay.smem == smem[(lay.cluster, lay.stage)] <= 232448, name
 
 
 def test_k7_wrapper_refuses_bad_operands():
+    """Neither or both operands, shapes that disagree, a device that is
+    neither the CPU nor the card, and a layout no cluster takes (a cluster
+    that does not divide P, shared memory beyond one block's)."""
     decomp = DecompParams(*CBS)
     key = torch.zeros((3, 6, 2, 64), dtype=torch.int32)
     ct = torch.zeros((2, 2, 64), dtype=torch.int64)
@@ -283,6 +377,12 @@ def test_k7_wrapper_refuses_bad_operands():
         ep.external_product(ct, key, DecompParams(5, 2), ct1=ct)
     with pytest.raises(ValueError, match="no external-product kernel"):
         ep.external_product(ct.to("meta"), key.to("meta"), decomp, ct1=ct.to("meta"))
+    with pytest.raises(ValueError, match="cluster dividing P"):
+        ep._ep_layout(2, 64, 2, 6, 3, form=(2, False))
+    with pytest.raises(ValueError, match="cluster dividing P"):
+        ep._ep_layout(2, 64, 2, 6, 3, form=(3, True))      # one prime a block: nothing to stage
+    with pytest.raises(ValueError, match="no cluster"):
+        ep._ep_layout(2, 65536, 2, 6, 1)
 
 
 def test_k8_wrapper_refuses_bad_operands():

@@ -5,12 +5,14 @@
 Bit for bit (tolerance 0) on the same uniform words (exactness needs no
 encryption; words with the top bit set, hazard C1: the operands' shift is
 logical): `glwe_mult` with its relinearization key at k = 1 and 2 and
-log_p = 2, 4, 6, `gsw_external_product` and `cmux_lwe` batched; the JAX side
-jitted.  Then the port alone: its relinearization key and GSW encryptions
-decrypt (m1*m2 after `glwe_mult`, m*pt after the GSW product, the CMux's
-selection), and `glwe_mult` refuses an odd log_p as the reference does;
-at AES_PARAMETERS_40's GLWE widths its truncating shift fails where a
-rounding one decrypts (ROADMAP C12)."""
+log_p = 2, 4, 6 (the port rounds where JAX truncates, ROADMAP C12, so it
+is held against JAX's function on words offset by 2^(shift-1)),
+`gsw_external_product` and `cmux_lwe` batched; the JAX side jitted.  Then
+the port alone: its relinearization key and GSW encryptions decrypt (m1*m2
+after `glwe_mult`, m*pt after the GSW product, the CMux's selection), and
+`glwe_mult` refuses an odd log_p as the reference does; at
+AES_PARAMETERS_40's GLWE widths the port's rounding product decrypts every
+row where the truncating shift of the JAX function fails (C12)."""
 import functools
 
 import jax
@@ -56,11 +58,16 @@ def _jax_glwe_mult(a, b, rlk, log_p, base_log, level):
 @pytest.mark.parametrize("k, n, base_log, level, log_p",
                          [(1, 256, 23, 1, 4), (2, 128, 8, 3, 2), (2, 64, 11, 2, 6)])
 def test_glwe_mult_bit_exact(k, n, base_log, level, log_p):
+    """The port's rounding switch (ROADMAP C12) on words w equals JAX's
+    truncating one on w + 2^(shift-1) mod 2^64: JAX's glwe_mult reads its
+    operands only through that shift.  The top-bit words carry out of the
+    top there (the smaller torus wrapping)."""
     r = np.random.default_rng(k * 100 + log_p)
     a, b = words(r, (3, k + 1, n)), words(r, (3, k + 1, n))
     rlk = words(r, (k * (k + 1) // 2, level, k + 1, n))
-    want = np.asarray(_jax_glwe_mult(jnp.asarray(a), jnp.asarray(b), jnp.asarray(rlk), log_p,
-                                     base_log, level))
+    half = U64(1 << (32 - log_p // 2 - 1))
+    want = np.asarray(_jax_glwe_mult(jnp.asarray(a + half), jnp.asarray(b + half),
+                                     jnp.asarray(rlk), log_p, base_log, level))
     key = GlweRelinearizationKey(data=from_numpy_u64(rlk), decomp=DecompParams(base_log, level))
     got = TGM.glwe_mult(GlweCiphertext(data=from_numpy_u64(a)),
                         GlweCiphertext(data=from_numpy_u64(b)), key, log_p)
@@ -156,13 +163,14 @@ def test_own_gsw_selects(bit):
 
 
 def test_truncating_modulus_switch_at_aes_widths(monkeypatch):
-    """ROADMAP C12: at AES_PARAMETERS_40's GLWE widths (k = 3, N = 512) the
-    operands' truncating shift (glwe_mult.py:59-62, the JAX package's, bit
-    for bit) leaves a non-centred error that the tensor product multiplies
-    by the phases' wrap counts, and noiseless encryptions of m1, m2 mod 16
-    mostly fail to decrypt; the same product with a rounding shift decrypts
-    every row.  Noiseless keys and encryptions, the published PBS
-    decomposition (6 x 4) for the relinearization key."""
+    """ROADMAP C12, repaired in the port: at AES_PARAMETERS_40's GLWE widths
+    (k = 3, N = 512) the port's rounding switch decrypts every row of
+    noiseless encryptions of m1, m2 mod 16.  The truncating shift of the
+    JAX function (glwe_mult.py:59-62), put back by undoing the rounding
+    offset, leaves a non-centred error that the tensor product multiplies
+    by the phases' wrap counts, and most rows fail.  Noiseless keys and
+    encryptions, the published PBS decomposition (6 x 4) for the
+    relinearization key."""
     k, n, log_p, rows = 3, 512, 4, 16
     glwe_sk = generate_glwe_secret_key(rng.generator(11, device="cpu"), k, n)
     rlk = TGM.generate_relinearization_key(rng.generator(12, device="cpu"), glwe_sk,
@@ -182,8 +190,8 @@ def test_truncating_modulus_switch_at_aes_widths(monkeypatch):
         got = ((phase + (1 << (63 - log_p))) >> (64 - log_p)) & 15
         return int((got == (m1 * m2) % 16).sum())
 
+    assert right() == rows
+    monkeypatch.setattr(TGM, "shr", lambda x, s: shr(x - (1 << (s - 1)), s))
     truncating = right()
     print(f"k = {k}, N = {n}: truncating shift {truncating}/{rows} right")
-    monkeypatch.setattr(TGM, "shr", lambda x, s: shr(x + (1 << (s - 1)), s))
-    assert right() == rows
     assert truncating < rows // 2, truncating

@@ -5,8 +5,12 @@ tests/test_nonnative.py (2^64 - 2^32 + 1, 2^48 - 59, 2^63): the masks
 seeded twins without noise, the linear algebra and the decomposition on
 the same words, and with noise the round trip decrypted (the noise is the
 port's own, from a torch generator).  Where q > 2^63 the JAX package's
-masked sum wraps past 2^64 before it reduces (ROADMAP C13); the port
-copies it, and the equal encryptions hold that."""
+sum wraps past 2^64 before it reduces (ROADMAP C13); the port compares
+before it adds, a deliberate deviation.  So at 2^64 - 2^32 + 1 the sums
+(the encryption's masked sum, add, plaintext add) are deviation tests:
+the port equals a Python-int model, and JAX differs from the model
+exactly where a sum wraps.  At the other moduli no sum reaches 2^64 and
+they stay JAX parity cases."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,6 +48,27 @@ def words(rng, shape, q):
     return w.astype(U64).reshape(shape)
 
 
+def ints(t) -> np.ndarray:
+    return t.numpy().view(U64).astype(object)
+
+
+def wrapping_body(mask, bits, pts, q):
+    """The JAX package's body as Python ints: the scan of its add_mod, each
+    a + b taken mod 2^64 before the compare with q; → (bodies, whether
+    some sum of the row wrapped)."""
+    bodies, wrapped = [], []
+    for row, pt in zip(mask, pts):
+        acc, w = 0, False
+        for a in list(row[bits != 0]) + [int(pt)]:
+            s = acc + int(a)
+            w |= s >= 1 << 64
+            s %= 1 << 64
+            acc = s - q if s >= q else s
+        bodies.append(acc)
+        wrapped.append(w)
+    return bodies, wrapped
+
+
 def keys(n, seed):
     bits = np.random.default_rng(seed).integers(0, 2, n).astype(np.int8)
     return interop.lwe_secret_key(bits, device="cpu"), JLweSk(bits=jnp.asarray(bits))
@@ -59,22 +84,43 @@ def test_uniform_mod_equals_jax(q):
 @pytest.mark.parametrize("q", ALL_Q)
 def test_encryption_and_seeded_twins_equal_jax_without_noise(q):
     """Noise 0: the ciphertexts, the seeded bodies and their decompression
-    word for word; decompressing the seeded form gives the direct form."""
+    word for word; decompressing the seeded form gives the direct form.  At
+    q > 2^63 the bodies are a deviation test (C13): the masks equal JAX's,
+    the bodies a Python-int model."""
     tsk, jsk = keys(64, 4)
     pts = np.array([123456789, 5, q - 1, 0], dtype=U64)
     key, jkey = threefry.key_from_seed(5, "cpu"), jrng.key_from_seed(5)
     gen = torch.Generator()
     ct = T.encrypt_lwe_custom_mod(key, gen, tsk, t64(pts), 0.0, q)
-    same(ct.data, J.encrypt_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q).data)
+    jct = J.encrypt_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q).data
     bodies = T.encrypt_seeded_lwe_custom_mod(key, gen, tsk, t64(pts), 0.0, q)
-    same(bodies, J.encrypt_seeded_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q))
+    jbodies = J.encrypt_seeded_lwe_custom_mod(jkey, jsk, jnp.asarray(pts), 0.0, q)
+    if q > 1 << 63:
+        # C13: the port's body is sum a_i s_i + pt mod q; JAX's differs
+        # exactly in the rows where one of its sums wrapped past 2^64
+        same(ct.mask, np.asarray(jct)[:, :-1])
+        mask, bits = ints(ct.mask), tsk.bits.numpy()
+        model = [(sum(int(a) for a in row[bits != 0]) + int(pt)) % q
+                 for row, pt in zip(mask, pts)]
+        jax_model, wrapped = wrapping_body(mask, bits, pts, q)
+        assert list(ints(ct.body)) == model and list(ints(bodies)) == model
+        assert list(np.asarray(jbodies).astype(object)) == jax_model
+        assert [j != m for j, m in zip(jax_model, model)] == wrapped and any(wrapped)
+    else:
+        same(ct.data, jct)
+        same(bodies, jbodies)
     back = T.decompress_seeded_lwe_custom_mod(key, bodies, 64, q)
     assert torch.equal(back.data, ct.data)
     same(back.data, J.decompress_seeded_lwe_custom_mod(jkey, jnp.asarray(bodies.numpy()
                                                                          .view(U64)), 64,
                                                        q).data)
-    same(T.decrypt_lwe_custom_mod(ct, tsk, q),
-         J.decrypt_lwe_custom_mod(JLwe(data=jnp.asarray(ct.data.numpy().view(U64))), jsk, q))
+    phase = T.decrypt_lwe_custom_mod(ct, tsk, q)
+    if q > 1 << 63:
+        # without noise the port's phase is the plaintext (JAX's dot wraps)
+        same(phase, pts)
+    else:
+        same(phase, J.decrypt_lwe_custom_mod(JLwe(data=jnp.asarray(ct.data.numpy().view(U64))),
+                                             jsk, q))
 
 
 @pytest.mark.parametrize("q", ALL_Q)
@@ -97,20 +143,45 @@ def test_encrypt_decrypt_with_noise(q):
 
 @pytest.mark.parametrize("q", ALL_Q)
 def test_linear_algebra_equals_jax(q):
-    """add, sub, neg, plaintext add and cleartext mul on the same words."""
+    """add, sub, neg, plaintext add and cleartext mul on the same words;
+    at q > 2^63 the two sums are deviation tests (C13)."""
     rng = np.random.default_rng(8)
     a, b = words(rng, (6, 17), q), words(rng, (6, 17), q)
     ta, tb = LweCiphertext(data=t64(a)), LweCiphertext(data=t64(b))
     ja, jb = JLwe(data=jnp.asarray(a)), JLwe(data=jnp.asarray(b))
-    same(T.lwe_add_custom_mod(ta, tb, q).data, J.lwe_add_custom_mod(ja, jb, q).data)
+    pt = words(rng, (6,), q)
+    sums = [(T.lwe_add_custom_mod(ta, tb, q).data, J.lwe_add_custom_mod(ja, jb, q).data,
+             a.astype(object), b.astype(object)),
+            (T.lwe_plaintext_add_custom_mod(ta, t64(pt), q).data[:, -1],
+             np.asarray(J.lwe_plaintext_add_custom_mod(ja, jnp.asarray(pt), q).data)[:, -1],
+             a[:, -1].astype(object), pt.astype(object))]
+    for got, jax_got, x, y in sums:
+        if q > 1 << 63:
+            # C13: the port is (x + y) mod q; JAX differs exactly where
+            # x + y wraps past 2^64 (by 2^64 - q each time)
+            assert (ints(got) == (x + y) % q).all()
+            wraps = x + y >= 1 << 64
+            assert ((np.asarray(jax_got).astype(object) != (x + y) % q) == wraps).all()
+            assert wraps.any()
+        else:
+            same(got, jax_got)
     same(T.lwe_sub_custom_mod(ta, tb, q).data, J.lwe_sub_custom_mod(ja, jb, q).data)
     same(T.lwe_neg_custom_mod(ta, q).data, J.lwe_neg_custom_mod(ja, q).data)
-    pt = words(rng, (6,), q)
-    same(T.lwe_plaintext_add_custom_mod(ta, t64(pt), q).data,
-         J.lwe_plaintext_add_custom_mod(ja, jnp.asarray(pt), q).data)
     for c in (3, q - 1, 1 << 40):
         same(T.lwe_cleartext_mul_custom_mod(ta, c, q).data,
              J.lwe_cleartext_mul_custom_mod(ja, c, q).data)
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+def test_add_mod_equals_python_ints(q):
+    """add_mod against (a + b) mod q in Python ints on every pair of the
+    words q - 1, q - 2, q/2, 1, 0 and random words below q (C13: at q >
+    2^63 most of the large pairs pass 2^64)."""
+    edge = np.array([q - 1, q - 2, q // 2, 1, 0], dtype=object).astype(U64)
+    w = np.concatenate([edge, words(np.random.default_rng(q % 1000), (59,), q)])
+    a, b = np.repeat(w, len(w)), np.tile(w, len(w))
+    got = ints(T.add_mod(t64(a), t64(b), q))
+    assert (got == (a.astype(object) + b.astype(object)) % q).all()
 
 
 def test_closest_representable_reference_vector():

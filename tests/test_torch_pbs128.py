@@ -41,7 +41,7 @@ from tfhe_tpu_torch.core.decomposition import signed_decompose128
 from tfhe_tpu_torch.core.params import DecompParams
 from tfhe_tpu_torch.core.poly import external_product as ep
 from tfhe_tpu_torch.core.poly import monomial_mul128, ntt
-from tfhe_tpu_torch.core.poly.rotation import _kernel_tables
+from tfhe_tpu_torch.core.poly.rotation import _delta_tables
 from cuda_host import build_external_product_host
 
 U64 = np.uint64
@@ -342,28 +342,40 @@ def host_lib(tmp_path_factory):
                                        ("tfhe_external_product128",))
 
 
-@pytest.mark.parametrize("base_log, level, P, shared",
-                         [(23, 1, 6, True), (16, 4, 7, False), (12, 3, 6, True)])
-def test_k8_host_build_equals_plain(host_lib, base_log, level, P, shared):
-    """K8 through its C entry on two rows at N = 256, k = 1: 2_2's PBS
-    decomposition on the 2^128 torus (23 x 1, P = 6), b * L = 64 (16 x 4,
-    P = 7, a GGSW a row) and 12 x 3; top-bit words, exponents with and
-    without the wrap; res and out poisoned first."""
-    n, R, decomp = 256, 2, DecompParams(base_log, level)
+# (base_log, level, P, the GGSW shared, rows, N, the form (cluster, stage): None the rule's)
+K8_HOST_CASES = [(23, 1, 6, True, 2, 256, f) for f in ((1, False), (1, True), (2, False),
+                                                      (2, True), (3, True), (6, False), None)] + [
+    (16, 4, 7, False, 2, 256, (1, True)), (16, 4, 7, False, 2, 256, (7, False)),
+    (16, 4, 7, False, 3, 64, None), (12, 3, 6, True, 2, 256, None),
+    (12, 3, 6, True, 5, 32, (3, True)), (23, 1, 6, True, 1, 2048, None),
+    (23, 1, 6, True, 1, 2048, (1, True)), (23, 1, 6, True, 3, 2048, (2, True))]
+
+
+@pytest.mark.parametrize("base_log, level, P, shared, rows, n, form", K8_HOST_CASES)
+def test_k8_host_build_equals_plain(host_lib, base_log, level, P, shared, rows, n, form):
+    """K8 through its C entry at k = 1 against its plain version: 2_2's PBS
+    decomposition on the 2^128 torus (23 x 1, P = 6) in every cluster that
+    divides 6, staged and not, and at its N = 2048 (one warp a 256-slot
+    region; in staged clusters of 2, the kernel compiled for that shape);
+    b * L = 64 (16 x 4, P = 7, a GGSW a row; lo's top bit rounds) in one
+    block a row (staged) and a cluster of 7; 12 x 3 in 3 rows at N = 32,
+    clusters of 3; words with the top bit set in both limbs (C1), negative
+    exponents and ones past 2N, with and without the wrap; out poisoned
+    first."""
+    R, decomp = 2, DecompParams(base_log, level)
     plan = ntt.get_plan(n, P)
-    rng = np.random.default_rng(12 + level)
-    acc = t128(words128(rng, (2, R, n)))
-    key = torch.stack([torch.from_numpy(rng.integers(0, p, (2, level * R, R, n)))
-                       for p in plan.primes], dim=1).to(torch.int32)   # [2, P, J, R, N]
-    exps = torch.tensor([7, 300], dtype=torch.int32)
+    rng = np.random.default_rng(12 + level + n)
+    acc = t128(words128(rng, (rows, R, n)))
+    key = torch.stack([torch.from_numpy(rng.integers(0, p, (rows, level * R, R, n)))
+                       for p in plan.primes], dim=1).to(torch.int32)   # [rows, P, J, R, N]
+    exps = torch.tensor(([7, 2 * n - 3, -n, 1, 5 * n + 1] * rows)[:rows], dtype=torch.int64)
     k_in, ks = (key[0].contiguous(), 0) if shared else (key, key[0].numel())
-    tab, consts = _kernel_tables(plan, "cpu")
-    res = torch.full((2, P, R, n), -1, dtype=torch.int32)
-    out = torch.full((2, R, n, 2), 12345, dtype=torch.int64)
+    lay = ep._ep_layout(rows, n, R, level * R, P, form)
+    out = torch.full((rows, R, n, 2), 12345, dtype=torch.int64)
     code = host_lib.tfhe_external_product128(
-        acc.data_ptr(), R * n * 2, exps.data_ptr(), 1, k_in.data_ptr(), ks, tab.data_ptr(),
-        consts.data_ptr(), res.data_ptr(), out.data_ptr(), 2, n, plan.log_n, P, R, level,
-        base_log, None)
+        acc.data_ptr(), R * n * 2, exps.data_ptr(), 1, k_in.data_ptr(), ks,
+        _delta_tables(plan, "cpu", variants=True).data_ptr(), ep._ep_consts(plan).ctypes.data,
+        out.data_ptr(), rows, plan.log_n, P, R, level, base_log, *ep._ep_launch_args(lay), None)
     assert code == 0
     want = ep.external_product128_plain(acc, k_in if shared else key, decomp,
                                         exps.to(torch.int64))

@@ -13,7 +13,8 @@ the port's through `interop.gadget_keys` from that key's DIF data.
 `programmable_bootstrap` by its fused route in interpret mode
 (`torch_jax_pbs.padded_pbs`, the delta form the port's K1 computes),
 `blind_rotate` (the XLA rotate-subtract form `blind_rotate_only` ports),
-`keyswitch_lwe`, `packing_keyswitch_lwe_to_glwe`, `glwe_mult` and
+`keyswitch_lwe`, `packing_keyswitch_lwe_to_glwe`, `glwe_mult` (on words
+offset by its rounding constant: the port rounds, ROADMAP C12) and
 `negacyclic_polymul` by jitted calls on rows padded to 16, so each shape
 compiles once a module."""
 import contextlib
@@ -228,8 +229,11 @@ def polymul_rows(a, b, log_q, log_bound=None):
 
 
 def glwe_mult_rows(lhs, rhs, rlk, log_p, log_q):
+    """JAX's glwe_mult on the operands offset by 2^(shift-1): the port's
+    rounding switch (ROADMAP C12) on the words themselves, bit for bit."""
     pad = ((0, ROWS - lhs.data.shape[0]), (0, 0), (0, 0))
-    out = _glwe_mult(jnp.pad(lhs.data, pad), jnp.pad(rhs.data, pad), rlk, log_p)
+    half = jnp.uint64(1 << (32 - log_p // 2 - 1))
+    out = _glwe_mult(jnp.pad(lhs.data + half, pad), jnp.pad(rhs.data + half, pad), rlk, log_p)
     return JGlwe(data=out[:lhs.data.shape[0]])
 
 

@@ -2,14 +2,22 @@
 
 Counterpart of `tfhe_tpu/core/algorithms/glwe_mult.py` (reference
 tfhe/src/core_crypto/algorithms/custom_glwe_glwe_product.rs and
-custom_relinearization_key_generation.rs).  Both operands are shifted down
-by 32 - log_p/2 bits (a logical shift of the int64 torus words,
+custom_relinearization_key_generation.rs).  Both operands are switched
+down by 32 - log_p/2 bits with rounding (2^(shift-1) added to each word,
+wrapping mod 2^64, then a logical shift of the int64 torus words,
 `numeric.shr`), multiplied as a tensor product over Z_q[X]/(X^N + 1), and
 the s_i*s_j cofactor polynomials are gadget-decomposed and contracted with
 the relinearization key.  Every product is `negacyclic_polymul` with the
 JAX package's `log_bound`, so the CRT width (and the exact result mod
 2^64) is the same.  These are plain torch ops on any device: the JAX
 package computes them in XLA, not in a Pallas kernel.
+
+A deliberate deviation from the JAX function (ROADMAP C12): it shifts with
+a floor, whose error on the mask words (mean ~kN/4 on every phase
+coefficient) the tensor product multiplies by the other phase's wrap
+count; at k = 3, N = 512 (AES_PARAMETERS_40) that passes the half slot of
+p = 16.  The JAX function reads the operands only through the shift, so
+this one equals it on words offset by 2^(shift-1), bit for bit.
 
 RLK block n = i(i+1)/2 + j holds, for the key-polynomial pair (i, j <= i),
 `level` GLWE encryptions of s_i*s_j * q/B^(l+1) (level l of weight
@@ -61,7 +69,10 @@ def glwe_mult(lhs: GlweCiphertext, rhs: GlweCiphertext, rlk: GlweRelinearization
     [..., k+1, N] int64."""
     assert log_p % 2 == 0, "log_p must be even (reference assert)"
     shift = 32 - log_p // 2
-    a, b = shr(lhs.data, shift), shr(rhs.data, shift)
+    # rounded, not truncated (ROADMAP C12): a carry out of the top is the
+    # smaller torus wrapping
+    half = 1 << (shift - 1)
+    a, b = shr(lhs.data + half, shift), shr(rhs.data + half, shift)
     k, n = lhs.data.shape[-2] - 1, lhs.polynomial_size
     # the operands are below 2^(64 - shift): an exact bound for the products
     pair_bound = 2 * (64 - shift) + np.log2(n) + 1

@@ -6,10 +6,11 @@ lwe_linear_algebra.rs :105, :314; `SignedDecomposerNonNative`,
 decomposer.rs:203-410, iter.rs:237-282, term.rs:140-156).  Ciphertext
 words are values in [0, q) held as int64 bit patterns (q may exceed 2^63:
 every compare is unsigned, `numeric.ult`/`uge`, and every division
-`numeric.udiv`).  The arithmetic is the JAX package's word for word,
-including its wrapping sum: where q > 2^63, a + b of two words below q
-may pass 2^64 and wrap before the reduction, as the JAX function's uint64
-add does (ROADMAP C13).  These are cold client-side paths, as in the
+`numeric.udiv`).  The arithmetic is the JAX package's word for word but
+for one deliberate deviation (ROADMAP C13): where q > 2^63, the JAX
+function's a + b of two words below q may pass 2^64 and wrap before the
+reduction; `add_mod` here compares a with q - b first, so every sum is a
+sum mod q.  These are cold client-side paths, as in the
 JAX package: the 128-bit reductions of `uniform_mod` and the scalar
 products run on the host in Python ints.
 
@@ -74,9 +75,11 @@ def gaussian_mod(gen: torch.Generator, shape, rel_std: float, q: int) -> torch.T
     return torch.where(r < 0, r + as_i64(q), r)
 
 
-def add_mod(a: torch.Tensor, b, q: int) -> torch.Tensor:
-    s = a + b
-    return torch.where(uge(s, as_i64(q)), s - as_i64(q), s)
+def add_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """a + b mod q for words a, b in [0, q): a - (q - b) where a >= q - b,
+    else a + b, so nothing passes 2^64 (ROADMAP C13)."""
+    rest = as_i64(q) - b
+    return torch.where(uge(a, rest), a - rest, a + b)
 
 
 def sub_mod(a: torch.Tensor, b, q: int) -> torch.Tensor:

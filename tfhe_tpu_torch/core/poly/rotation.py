@@ -202,9 +202,9 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
     device: tab its u32 tables [psi_rev, twin, psi_inv_rev, twin] [P, N],
     then [P, 2N] rows it does not read (zeros that keep its offsets until it
     takes the delta body's NTT), then [pw, twin] [P, 2N] with pw[m] = psi^m;
-    consts `_host_consts` on the device, then the 2^128 lift's words for K8
-    (`_consts128`).  The delta body (K1/K4) takes its tables from
-    `_delta_tables` and its constants from `_host_consts`."""
+    consts `_host_consts` on the device.  The delta body (K1/K4, K6, K7/K8)
+    takes its tables from `_delta_tables` and its constants from
+    `_host_consts` in host memory."""
     dkey = (plan.n, plan.num_primes, str(torch.device(device)))
     if dkey not in _TABLES:
         P, n = plan.num_primes, plan.n
@@ -216,21 +216,10 @@ def _kernel_tables(plan: ntt.NttPlan, device) -> tuple:
         parts += [np.zeros(2 * 2 * P * n, dtype=np.uint64)]
         parts += [plan.psi_pow.astype(np.uint64), _shoup_u32(plan.psi_pow, p)]
         tab = np.concatenate([a.reshape(-1) for a in parts]).astype(np.uint32)
-        consts = np.concatenate([_host_consts(plan), _consts128(plan)])
+        consts = _host_consts(plan)
         _TABLES[dkey] = (torch.from_numpy(tab.view(np.int32).copy()).to(device),
                          torch.from_numpy(consts.view(np.int64)).to(device))
     return _TABLES[dkey]
-
-
-def _consts128(plan: ntt.NttPlan) -> np.ndarray:
-    """The words after `_host_consts` (u64, external_product.cu's C_PREFIX128
-    and C_MMOD128): (hi, lo) of each prefix prod_{j<k} p_j mod 2^128 for
-    _MAXP primes (zeros past the plan's), then of M mod 2^128."""
-    vals = [0] * (2 * _MAXP + 2)
-    for i, v in enumerate(plan.prefix_mod128 + [plan.M_mod128]):
-        at = 2 * i if i < plan.num_primes else 2 * _MAXP
-        vals[at:at + 2] = [v >> 64, v & ((1 << 64) - 1)]
-    return np.array(vals, dtype=np.uint64)
 
 
 def _host_consts(plan: ntt.NttPlan) -> np.ndarray:
@@ -340,22 +329,27 @@ def _mac_chunks(R: int, slots: int, threads: int) -> int:
     return full[0] if full else chunks[-1]
 
 
+def _pass_schedule(log_n: int, R: int) -> dict:
+    """The delta body's passes for polynomials of 2^log_n slots and R
+    outputs (K1/K4's `_delta_layout`, K7/K8's `external_product._ep_layout`):
+    the head and tail radix logs, the region size and the MAC's chunks."""
+    # head: the stages above a warp's region of at most 256 coefficients
+    # (at least one stage, so that the first pass decomposes; none at N = 4,
+    # where a pass of radix 1 decomposes and the MAC runs both stages)
+    h = 0 if log_n == 2 else max(log_n - 8, 1)
+    log_w = log_n - h
+    c = _mac_chunks(R, 1 << log_n, _DELTA_THREADS)
+    return dict(log_n=log_n, head=_split(h, False) or (0,), tail=_split(log_w - 2, True),
+                log_w=log_w, rt=R // c, chunks=c, threads=_DELTA_THREADS)
+
+
 def _delta_layout(n: int, R: int, J: int, P: int) -> DeltaLayout:
     """The delta body's layout for polynomials of N = n slots, R outputs,
     J = L*R digit rows and P primes; raises where the kernel does not take
     the shape (P > 8, the working set above one block's shared memory:
     that shape runs K6, `_staged_layout`)."""
     log_n = _check_shape(n, R, J, P)
-    smem = _block_smem(n, R, J, P)
-    # head: the stages above a warp's region of at most 256 coefficients
-    # (at least one stage, so that the first pass decomposes; none at N = 4,
-    # where a pass of radix 1 decomposes and the MAC runs both stages)
-    h = 0 if log_n == 2 else max(log_n - 8, 1)
-    head = _split(h, False) or (0,)
-    log_w = log_n - h
-    c = _mac_chunks(R, n, _DELTA_THREADS)
-    return DeltaLayout(log_n=log_n, head=head, tail=_split(log_w - 2, True), log_w=log_w,
-                       rt=R // c, chunks=c, threads=_DELTA_THREADS, smem=smem)
+    return DeltaLayout(smem=_block_smem(n, R, J, P), **_pass_schedule(log_n, R))
 
 
 @dataclass(frozen=True)

@@ -20,27 +20,6 @@
 // csrc/rotation.cu), the operand is decomposed as a torus difference (the
 // JAX functions' form, bit for bit) and each row may bring its own GGSW.
 //
-// Design, a simple one: a block of EP_THREADS threads owns one row.  For
-// each prime p in turn it decomposes the operand straight into its J digit
-// polynomials mod p in shared memory, transforms them in place
-// (Cooley-Tukey with the psi twist merged into the twiddles, natural order
-// in, bit-reversed out, one barrier a stage; `ntt.py`'s transform, so the
-// spectra are in the order the key's are), multiplies and sums against
-// the row's GGSW spectra into R products, transforms those back
-// (Gentleman-Sande, times N^-1) and writes the residues to the scratch
-// res[B][P][R][N] in device memory.  Then each thread lifts its
-// coefficients over the P primes with Garner (signed lift, mod 2^64) and
-// adds ct0.  The twiddles take Shoup's multiply (their 32-bit twins come
-// with the table), the MAC a Barrett reduction with floor(2^64 / p).  Shared
-// memory: (J + R) * N * 4 bytes (64 KB at the WoP-PBS's N = 2048, J = 6,
-// R = 2).  The arithmetic is exact, so the result is bit-identical to the
-// plain version (`core/poly/external_product.py`) and to the JAX function.
-//
-// Bound on the H100, at the WoP-PBS of WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS
-// (N = 2048, k = 1, cbs 5 x 3, P = 3, batch 512): each row reads its own
-// spectra, 3 * 6 * 2 * 2048 * 4 = 295 KB, so the key's bytes (151 MB, 0.045
-// ms at 3.35 TB/s) bound it above its ~0.18 G modular multiplies.
-//
 // K8: K7's form on the 2^128 torus, the step of a 128-bit blind rotation.
 //
 //   acc[b] += GGSW [x] (X^e_b * acc[b] - acc[b])     (mod X^N + 1, 2^128)
@@ -49,76 +28,95 @@
 // [P][J][R][N] u32 of spectra for the batch (`key_stride` 0) or one a row.
 // Replaces the XLA `external_product_accumulate128`
 // (tfhe_tpu/core/algorithms/pbs128.py:244-261), which `blind_rotate128`
-// (:264-289) runs once a step.  K7's kernel with WIDE set: the same block a
-// row, transforms, MAC and Garner digits; three things differ:
-//   * the operand is a 128-bit difference (a borrow between the limbs);
-//   * the digits come from the high limb (`rounded_operand`);
-//   * the lift is mod 2^128: sum_k t_k * (prod_{j<k} p_j mod 2^128), each a
-//     64 x 128-bit product from __umul64hi, less M mod 2^128 where the lift
-//     is negative (M, the product of 6 or 7 primes, exceeds 2^128; only its
-//     residue is needed).  Both come after the 64-bit constants in the
-//     buffer.
-// Shared memory (J + R) * N * 4 bytes: 32 KB at 2_2's shapes on the 2^128
-// torus (N = 2048, k = 1, PBS 23 x 1, so J = 2), P = 6.
-#include <cuda_runtime.h>
+// (:264-289) runs once a step.  The operand is a 128-bit difference (a
+// borrow between the limbs), its digits come from the high limb (with lo's
+// top bit as the rounding bit where base_log * L = 64,
+// tfhe_tpu/core/decomposition.py:47), and the lift is mod 2^128 (each
+// Garner term a 64 x 128-bit product; M, the product of 6 or 7 primes,
+// exceeds 2^128, so only the prefixes and M mod 2^128 are needed).
+//
+// One kernel template, external_product_kernel<T128, RT, JW>, computes both.
+// The arithmetic is exact (NTTs over P primes below 2^30, Garner), so the
+// result is bit-identical to the plain versions (core/poly/external_product.py)
+// and to the JAX functions.
+//
+// What bounded the first design (one block a row, radix-2 stages
+// with a block barrier each, two scalar twiddle loads a butterfly, a 64-bit
+// Barrett reduction per MAC term, each prime's residues out to a scratch
+// res[B][P][R][N] in device memory and back for the lift; 0.6534 ms a K8
+// launch on the H100 against a 0.0591 ms bound, 9%): the block barriers and
+// shared-memory round trips of ~25 stages a prime, and one block's chain of
+// P primes.
+//
+// This design is K1's delta body (csrc/ntt_passes.cuh, shared with
+// rotation.cu) run once, with the pass schedule of rotation.py
+// _delta_layout:
+//  - radix-8 passes in registers: one head pass over the polynomial (block
+//    barrier), tail passes in 256-coefficient regions one warp owns (warp
+//    barriers); where every warp has a region (N >= 2048) one warp runs a
+//    region's forward tails, its MAC and its inverse tails;
+//  - the digits fused into the first forward pass: a thread reads its
+//    operand words (the torus difference, the rotate-subtract form or the
+//    128-bit high limb) straight from device memory and splits each into
+//    its L digits;
+//  - the MAC fused between the last two forward and the first two inverse
+//    stages: the digit residues reduced to [0, p) first (16 products of
+//    p^2 < 2^60 fit a 64-bit sum; past 16 digit rows the sum is reduced
+//    every 16), key words as 16-byte loads, one Barrett reduction and the
+//    1/N factor per output;
+//  - twiddles beside their Shoup twins in heap order, Harvey lazy
+//    reduction, the bank swizzle, the primes' constants a kernel parameter;
+//  - the Garner lift (mod 2^64, or 2^128) fused into the last inverse pass
+//    and added to ct0 (acc) on its way to `out`: no residue leaves shared
+//    memory, and the wrapper allocates no scratch;
+//  - primes across a thread block cluster (core/poly/external_product.py
+//    _ep_layout picks the form by shape): a cluster of C blocks (C divides
+//    P, C <= 8) owns a row, block c runs primes c, c + C, ...; after a cluster
+//    barrier each block lifts a share of the coefficients, reading its peers'
+//    residues through distributed shared memory (map_shared_rank), and a last
+//    cluster barrier keeps its own alive for them.  C = 1 is one block a row
+//    with the primes in series, the lift in the last prime's top pass;
+//  - programmatic stream serialization, so that a launch's blocks are
+//    scheduled while the previous launch (the previous rotation step) drains.
+//  - the operand staged: where a block runs several primes and shared
+//    memory leaves room (_ep_layout's `stage`), the first prime's pass keeps
+//    each source word in shared memory for the others, so the operand (the
+//    rotated gather of two 16-byte limbs for K8) is read from device memory
+//    once a block, not once a prime;
+// Shared memory 4 (J + R P / C) N bytes, plus 8 R N staged; 256 threads a
+// block.  What bounds it now (the H100, PERF.md): K8 at 2_2's shapes takes
+// 0.194 ms a launch, 30% of its operations bound, one block's (or
+// cluster's) chain of dependent work as K1's; at the gadget MVB and the
+// CMux tree the host's launches set the pace.
+#include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_runtime.h>
+
+#include "ntt_passes.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int EP_THREADS = 256;
-constexpr int EP_MAXP = 8;
-
-// The constants buffer's layout (core/poly/rotation.py _host_consts, then
-// _kernel_tables' 2^128 words: (hi, lo) of each prefix prod_{j<k} p_j mod
-// 2^128, then of M mod 2^128).
-constexpr int C_P = 0, C_BARRETT = 8, C_GINV = 16, C_GW = 32, C_HALF = 160, C_PREFIX = 168,
-              C_MMOD = 176, C_NINV = 177, C_NINV_SH = 185, C_PREFIX128 = 193, C_MMOD128 = 209;
+constexpr int EP_MAXCL = 8;        // blocks of a cluster, the portable limit
+constexpr int EP_SMEM = 232448;    // dynamic shared memory one block may use on sm_90
 
 struct EpArgs {
   const uint64_t* ct0;       // K7 rows [R][N]; K8 acc rows [R][N][2]
   long long ct0_stride;
   const uint64_t* ct1;       // K7's explicit operand; null: the rotated operand
   long long ct1_stride;
-  const int* exps;           // rotated: e_b = exps[b * e_stride] in [0, 2N)
+  const long long* exps;     // rotated: e_b = exps[b * e_stride] mod 2N
   long long e_stride;
   const uint32_t* ggsw;      // row b's spectra at ggsw + b * key_stride
   long long key_stride;
-  const uint32_t* tab;       // [psi_rev, twin, psi_inv_rev, twin], each [P][N]
-  const uint64_t* consts;    // the constants buffer
-  uint32_t* res;             // scratch [B][P][R][N]
+  const uint2* dtab;         // rotation.py _delta_tables(variants=True): phase[0] = 1/N
   uint64_t* out;             // K7 [B][R][N]; K8 [B][R][N][2]
-  int n, log_n, P, R, L, base_log;
+  int log_n, P, R, L, base_log, cluster, stage;
+  unsigned head, tail;
+  int log_w;
 };
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-  const uint32_t s = a + b;
-  return s >= p ? s - p : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-  return a >= b ? a - b : a + p - b;
-}
-
-// x * w mod p for x < 2^32, with w_sh = floor(w * 2^32 / p).
-__device__ __forceinline__ uint32_t mul_shoup(uint32_t x, uint32_t w, uint32_t w_sh,
-                                              uint32_t p) {
-  const uint32_t q = __umulhi(x, w_sh);
-  const uint32_t r = x * w - q * p;
-  return r >= p ? r - p : r;
-}
-
-// x mod p for any 64-bit x, with m = floor(2^64 / p): the quotient estimate
-// is at most 1 below the true one.
-__device__ __forceinline__ uint32_t reduce64(uint64_t x, uint32_t p, uint64_t m) {
-  uint64_t r = x - __umul64hi(x, m) * p;
-  if (r >= p) r -= p;
-  if (r >= p) r -= p;
-  return (uint32_t)r;
-}
-
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b, uint32_t p, uint64_t m) {
-  return reduce64((uint64_t)a * b, p, m);
-}
 
 // Word (r, i) of the operand of row c0 / c1.
 __device__ __forceinline__ uint64_t operand(const uint64_t* c0, const uint64_t* c1, int e,
@@ -149,180 +147,230 @@ __device__ __forceinline__ void operand128(const uint64_t* c0, int e, int r, int
   hi = yh - xh - (yl < xl ? 1ull : 0ull);
 }
 
-// The operand word (r, i) rounded to its top base_log * L bits (shift = 64
-// - base_log * L), the value its digits are taken from.  On the 2^128 torus
-// they lie in the high limb: below 64 bits the rounding constant is in hi
-// and nothing carries out of lo; at exactly 64, lo's top bit is the
-// rounding bit (tfhe_tpu/core/decomposition.py:47 signed_decompose128).
-template <bool WIDE>
-__device__ __forceinline__ uint64_t rounded_operand(const uint64_t* c0, const uint64_t* c1,
-                                                    int e, int r, int i, int n, int shift) {
-  uint64_t hi, lo = 0;
-  if constexpr (WIDE) {
+// The word whose top base_log * L bits (rounded) decompose_pass splits, at
+// coefficient idx = r*N + i: K7's operand; K8's high limb, which holds
+// every digit, or at base_log * L = 64 (no rounding shift) the high limb
+// plus lo's top bit, the rounding bit.
+template <bool T128>
+__device__ __forceinline__ uint64_t source_word(const uint64_t* c0, const uint64_t* c1, int e,
+                                                int idx, int log_n, int shift) {
+  const int n = 1 << log_n, r = idx >> log_n, i = idx & (n - 1);
+  if constexpr (T128) {
+    uint64_t hi, lo;
     operand128(c0, e, r, i, n, hi, lo);
+    return shift > 0 ? hi : hi + (lo >> 63);
   } else {
-    hi = operand(c0, c1, e, r, i, n);
+    return operand(c0, c1, e, r, i, n);
   }
-  return shift > 0 ? (hi + (1ull << (shift - 1))) >> shift : hi + (lo >> 63);
 }
 
-// K7 (WIDE false) and K8 (WIDE true): one block a row.
-template <bool WIDE>
-__global__ void __launch_bounds__(EP_THREADS)
-    external_product_kernel(const __grid_constant__ EpArgs a) {
+// K7 (T128 false) and K8 (T128 true).  A cluster of a.cluster blocks owns
+// row blockIdx.x / cluster.  Per prime of the block: the head passes (the
+// first decomposes the operand), a block barrier after each; the tails, the
+// MAC and the inverse tails (one warp a region, or with block barriers);
+// a block barrier; the inverse head passes, the top one storing the
+// residues or, on the last prime of a block that owns its row alone,
+// lifting them into `out`.  RT outputs per MAC item; JW for J > 16 digit
+// rows (the MAC reduces inside its j loop).  LN > 0: a kernel for N = 2^LN,
+// P = PT primes in clusters of CL under the layout of one head pass and the
+// 256-coefficient tail (`ep_fast`: the main paths' shapes), its shifts, loop
+// counts and the lift's unrolling constants.
+template <bool T128, int RT, bool JW, int LN = 0, int PT = 0, int CL = 0>
+__global__ void __launch_bounds__(EP_THREADS, 2)
+external_product_kernel(const __grid_constant__ EpArgs a, const __grid_constant__ DeltaConsts g,
+                        const __grid_constant__ Wide128 w) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
-  const int n = a.n, log_n = a.log_n, P = a.P, R = a.R, L = a.L, J = L * R;
-  const int half_n = n >> 1;
-  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);   // [J][N]
-  uint32_t* prod = spec + (size_t)J * n;                 // [R][N]
+  constexpr int TOP = LN > 0 ? LN - 8 : 0;
+  const int log_n = LN > 0 ? LN : a.log_n, n = 1 << log_n, R = a.R, L = a.L, J = L * R;
+  const int RN = R << log_n, P = PT > 0 ? PT : a.P, cl = CL > 0 ? CL : a.cluster;
+  const int rank = cl > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / cl;
+  const int ps = P / cl;
+  uint32_t* spec = reinterpret_cast<uint32_t*>(smem);   // [J][N], swizzled
+  uint32_t* res = spec + J * n;                          // [ps][R][N], swizzled
+  // with a.stage, the operand's source words [R][N] (the first prime reads
+  // them from device memory, the others from here)
+  uint64_t* staged = a.stage ? reinterpret_cast<uint64_t*>(res + ps * RN) : nullptr;
+  const uint2* fwd = a.dtab;                             // [P][N]
+  const uint2* inv = fwd + P * n;                        // [P][N]
+  const uint2* phase = inv + P * n;                      // [P][2N]: entry 0 is 1/N
+
   const uint64_t* c0 = a.ct0 + b * a.ct0_stride;
   const uint64_t* c1 = a.ct1 == nullptr ? nullptr : a.ct1 + b * a.ct1_stride;
-  const int e = a.ct1 == nullptr ? a.exps[b * a.e_stride] : 0;
+  const int e = a.ct1 == nullptr ? (int)(__ldg(a.exps + b * a.e_stride) & (2 * n - 1)) : 0;
   const uint32_t* key = a.ggsw + b * a.key_stride;
-  uint32_t* res = a.res + (size_t)b * P * R * n;
-  const int base_log = a.base_log;
-  const int shift = 64 - base_log * L;
-  const uint64_t digit_mask = (1ull << base_log) - 1, half = 1ull << (base_log - 1);
-
-  for (int pi = 0; pi < P; ++pi) {
-    const uint32_t p = (uint32_t)a.consts[C_P + pi];
-    const uint64_t m = a.consts[C_BARRETT + pi];
-    // 1. the balanced digits of the operand, mod p, level-major rows
-    for (int idx = threadIdx.x; idx < R * n; idx += blockDim.x) {
-      const int r = idx >> log_n, i = idx & (n - 1);
-      uint64_t s = rounded_operand<WIDE>(c0, c1, e, r, i, n, shift);
-      for (int l = L - 1; l >= 0; --l) {   // the least significant digit first
-        const uint64_t raw = s & digit_mask;
-        const uint64_t carry = (raw + half) >> base_log;
-        const int64_t d = (int64_t)raw - (int64_t)(carry << base_log);
-        s = (s >> base_log) + carry;
-        spec[(size_t)(l * R + r) * n + i] = d < 0 ? (uint32_t)(d + p) : (uint32_t)d;
-      }
-    }
-    __syncthreads();
-    // 2. forward transform of the J digit polynomials
-    const uint32_t* w = a.tab + (size_t)pi * n;
-    const uint32_t* w_sh = a.tab + (size_t)(P + pi) * n;
-    for (int mm = 1, lt = log_n - 1; mm < n; mm <<= 1, --lt) {
-      const int t = 1 << lt;
-      for (int k = threadIdx.x; k < J * half_n; k += blockDim.x) {
-        const int j = k >> (log_n - 1), q = k & (half_n - 1);
-        const int grp = q >> lt, i0 = (grp << (lt + 1)) + (q & (t - 1)), i1 = i0 + t;
-        uint32_t* v = spec + (size_t)j * n;
-        const uint32_t u = v[i0];
-        const uint32_t x = mul_shoup(v[i1], w[mm + grp], w_sh[mm + grp], p);
-        v[i0] = add_mod(u, x, p);
-        v[i1] = sub_mod(u, x, p);
-      }
-      __syncthreads();
-    }
-    // 3. the MAC with this row's GGSW: prod[r] = sum_j spec[j] * GGSW[p][j][r]
-    const uint32_t* kp = key + (size_t)pi * J * R * n;
-    for (int idx = threadIdx.x; idx < R * n; idx += blockDim.x) {
-      const int r = idx >> log_n, k = idx & (n - 1);
-      uint64_t acc = 0;
-      for (int j = 0; j < J; ++j)
-        acc += mul_mod(spec[(size_t)j * n + k], kp[((size_t)j * R + r) * n + k], p, m);
-      prod[idx] = reduce64(acc, p, m);
-    }
-    __syncthreads();
-    // 4. inverse transform of the R products, then times N^-1 into res
-    const uint32_t* wi = a.tab + (size_t)(2 * P + pi) * n;
-    const uint32_t* wi_sh = a.tab + (size_t)(3 * P + pi) * n;
-    for (int h = half_n, lt = 0; h >= 1; h >>= 1, ++lt) {
-      const int t = 1 << lt;
-      for (int k = threadIdx.x; k < R * half_n; k += blockDim.x) {
-        const int r = k >> (log_n - 1), q = k & (half_n - 1);
-        const int grp = q >> lt, i0 = (grp << (lt + 1)) + (q & (t - 1)), i1 = i0 + t;
-        uint32_t* v = prod + (size_t)r * n;
-        const uint32_t u = v[i0], x = v[i1];
-        v[i0] = add_mod(u, x, p);
-        v[i1] = mul_shoup(sub_mod(u, x, p), wi[h + grp], wi_sh[h + grp], p);
-      }
-      __syncthreads();
-    }
-    const uint32_t ninv = (uint32_t)a.consts[C_NINV + pi];
-    const uint32_t ninv_sh = (uint32_t)a.consts[C_NINV_SH + pi];
-    for (int idx = threadIdx.x; idx < R * n; idx += blockDim.x) {
-      const int r = idx >> log_n, i = idx & (n - 1);
-      res[((size_t)pi * R + r) * n + i] = mul_shoup(prod[idx], ninv, ninv_sh, p);
-    }
-    __syncthreads();
-  }
-  // 5. Garner over the primes, the signed lift (mod 2^64 or 2^128), plus ct0
-  for (int idx = threadIdx.x; idx < R * n; idx += blockDim.x) {
-    const int r = idx >> log_n, i = idx & (n - 1);
-    uint32_t t[EP_MAXP];
-    uint64_t c = 0, ch = 0;   // the lift; ch its high word on the 2^128 torus
-    for (int k = 0; k < P; ++k) {
-      const uint32_t pk = (uint32_t)a.consts[C_P + k];
-      const uint64_t mk = a.consts[C_BARRETT + k];
-      const uint32_t v = res[((size_t)k * R + r) * n + i];
-      if (k == 0) {
-        t[0] = v;
-      } else {
-        uint32_t acc = 0;
-        for (int j = 0; j < k; ++j)
-          acc = add_mod(acc, mul_mod(t[j], (uint32_t)a.consts[C_GW + 8 * k + j], pk, mk), pk);
-        t[k] = mul_mod(sub_mod(v, acc, pk), (uint32_t)a.consts[C_GINV + k], pk, mk);
-      }
-      if constexpr (WIDE) {
-        // t_k * prefix_k mod 2^128: a 64 x 128-bit product from __umul64hi
-        const uint64_t ph = a.consts[C_PREFIX128 + 2 * k], pl = a.consts[C_PREFIX128 + 2 * k + 1];
-        const uint64_t plo = (uint64_t)t[k] * pl;
-        c += plo;
-        ch += __umul64hi((uint64_t)t[k], pl) + (uint64_t)t[k] * ph + (c < plo ? 1ull : 0ull);
-      } else {
-        c += (uint64_t)t[k] * a.consts[C_PREFIX + k];
-      }
-    }
-    bool ge = false, eq = true;   // the lift is negative: t >= (M - 1) / 2 digit-wise
-    for (int k = P - 1; k >= 0; --k) {
-      const uint64_t h = a.consts[C_HALF + k];
-      ge = ge || (eq && t[k] > h);
-      eq = eq && t[k] == h;
-    }
-    if constexpr (WIDE) {
-      if (ge || eq) {
-        const uint64_t mh = a.consts[C_MMOD128], ml = a.consts[C_MMOD128 + 1];
-        ch -= mh + (c < ml ? 1ull : 0ull);
-        c -= ml;
-      }
-      const uint64_t xh = c0[(size_t)2 * idx], xl = c0[(size_t)2 * idx + 1];
-      const uint64_t lo = xl + c;
-      uint64_t* o = a.out + ((size_t)b * R * n + idx) * 2;
-      o[0] = xh + ch + (lo < xl ? 1ull : 0ull);
-      o[1] = lo;
+  uint64_t* out = a.out + (size_t)b * RN * (T128 ? 2 : 1);
+  const int shift = 64 - a.base_log * L;
+  // coefficient i's lift from its residues get(q), q < P, added into out
+  const auto lift = [&](int i, auto get) {
+    if constexpr (T128) {
+      uint64_t hi;
+      const uint64_t lo = garner_from<PT, true>(get, P, g, &w, &hi);
+      const uint64_t xh = c0[2 * i], xl = c0[2 * i + 1], sum = xl + lo;
+      out[2 * i] = xh + hi + (sum < xl ? 1ull : 0ull);
+      out[2 * i + 1] = sum;
     } else {
-      if (ge || eq) c -= a.consts[C_MMOD];
-      a.out[(size_t)b * R * n + idx] = c0[idx] + c;
+      out[i] = c0[i] + garner_from<PT>(get, P, g);
     }
+  };
+
+  const int log_w = LN > 0 ? 8 : a.log_w;
+  const unsigned tail = LN > 0 ? TAIL256 : a.tail;
+  const bool regions = log_w == 8 && tail == TAIL256 && (1 << (log_n - 8)) >= EP_THREADS / 32;
+  const int nhead = LN > 0 ? 1 : pass_count(a.head), top = LN > 0 ? TOP : pass_radix(a.head, 0);
+  const int groups = n >> 2, items = (R / RT) * groups;
+#pragma unroll 1
+  for (int s = 0; s < ps; ++s) {
+    const int pi = rank + s * cl;
+    const uint32_t p = g.p[pi];
+    const u64 mu = g.mu[pi];
+    const uint2* fwd_p = fwd + pi * n;
+    const uint2* inv_p = inv + pi * n;
+    const uint2* phase_p = phase + pi * 2 * n;
+    uint32_t* res_p = res + s * RN;
+    const uint32_t* key_p = key + (size_t)pi * J * RN;
+    // 1. digits, in the first forward pass, and the other head passes; a
+    // thread reads the same source words for every prime, so the staged
+    // words need no barrier
+    const bool fetch = s == 0 || staged == nullptr;
+    const auto src = [&](int idx) -> uint64_t {
+      if (!fetch) return staged[idx];
+      const uint64_t x = source_word<T128>(c0, c1, e, idx, log_n, shift);
+      if (staged != nullptr) staged[idx] = x;
+      return x;
+    };
+    if constexpr (LN > 0) decompose_pass<TOP>(src, spec, R, L, log_n, a.base_log, fwd_p, p);
+    else decompose_pass_r(top, src, spec, R, L, log_n, a.base_log, fwd_p, p);
+    for (int i = 1, lo = log_n - top; i < nhead; ++i) {
+      const int r = pass_radix(a.head, i);
+      lo -= r;
+      __syncthreads();
+      block_pass_r<true>(r, spec, J, log_n, lo, fwd_p, p);
+    }
+    __syncthreads();
+    // 2.-4. the forward tails, the MAC times 1/N, the inverse tails
+    if (regions) {
+      region_pipeline<RT, JW, false>(key_p, spec, res_p, J, R, log_n, fwd_p, inv_p, phase_p, 0u,
+                                     p, mu);
+    } else {
+      tail_passes<true>(spec, J, log_n, log_w, tail, fwd_p, p);
+      __syncthreads();
+      for (int f = threadIdx.x; f < items; f += blockDim.x)
+        mac_group<RT, JW, false>(spec, res_p, key_p, f & (groups - 1), (f >> (log_n - 2)) * RT,
+                                 J, R, log_n, log_n, swz(4 * (f & (groups - 1))), fwd_p, inv_p,
+                                 phase_p, 0u, p, mu);
+      __syncthreads();
+      tail_passes<false>(res_p, R, log_n, log_w, tail, inv_p, p);
+    }
+    __syncthreads();
+    // 5. the other inverse head passes, then the top one
+    for (int i = nhead - 1, lo = log_w; i >= 1; --i) {
+      const int r = pass_radix(a.head, i);
+      block_pass_r<false>(r, res_p, R, log_n, lo, inv_p, p);
+      lo += r;
+      __syncthreads();
+    }
+    const auto emit = [&](int i, int at, uint32_t v) {
+      lift(i, [&](int q) { return q == P - 1 ? v : res[q * RN + at]; });
+    };
+    const bool last = cl == 1 && s == ps - 1;
+    if constexpr (LN > 0) inverse_top<TOP>(res_p, R, log_n, inv_p, p, last, emit);
+    else inverse_top_r(top, res_p, R, log_n, inv_p, p, last, emit);
+  }
+  if (cl > 1) {
+    // 6. the lift of a share of the coefficients, prime q's residue in the
+    // shared memory of block q % cl, slot q / cl
+    const auto cluster = cg::this_cluster();
+    cluster.sync();
+    for (int i = rank * blockDim.x + threadIdx.x; i < RN; i += cl * blockDim.x) {
+      const int at = ((i >> log_n) << log_n) + swz(i & (n - 1));
+      lift(i, [&](int q) {
+        return cluster.map_shared_rank(res, (unsigned)(q % cl))[(q / cl) * RN + at];
+      });
+    }
+    cluster.sync();   // this block's residues stay until every peer has read them
   }
 }
 
-// Checks the launch, sets the shared memory and launches K7 or K8.
-template <bool WIDE>
-int launch(const EpArgs& args, int batch, int max_p, void* stream) {
-  const int n = args.n, R = args.R, L = args.L, base_log = args.base_log;
-  if (batch < 1 || n < 4 || n != (1 << args.log_n) || args.P < 1 || args.P > max_p || R < 1 ||
-      L < 1 || base_log < 1 || base_log > 30 || base_log * L > 64 ||
-      (args.ct1 == nullptr && args.exps == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int smem = (L * R + R) * n * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute((const void*)external_product_kernel<WIDE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+typedef void (*EpKernel)(EpArgs, DeltaConsts, Wide128);
+
+// The kernels compiled for a shape of the main paths (one head pass of
+// radix LN - 8, rt = 2, J <= 16): K8 at the 128-bit PBS (N = 2048, P = 6,
+// clusters of 2); K7 at the WoP-PBS's vertical packing (N = 2048, P = 3,
+// one block a row), its CMux tree (clusters of 3) and the gadget MVB
+// (N = 512, P = 3, one block a row); null for any other.
+template <bool T128>
+EpKernel ep_fast(int log_n, int P, int cl) {
+  if constexpr (T128) {
+    if (log_n == 11 && P == 6 && cl == 2) return external_product_kernel<T128, 2, false, 11, 6, 2>;
+  } else {
+    if (log_n == 11 && P == 3 && cl == 1) return external_product_kernel<T128, 2, false, 11, 3, 1>;
+    if (log_n == 11 && P == 3 && cl == 3) return external_product_kernel<T128, 2, false, 11, 3, 3>;
+    if (log_n == 9 && P == 3 && cl == 1) return external_product_kernel<T128, 2, false, 9, 3, 1>;
   }
+  return nullptr;
+}
+
+template <bool T128, bool JW>
+EpKernel ep_kernel(int rt) {
+  switch (rt) {
+    case 1: return external_product_kernel<T128, 1, JW>;
+    case 2: return external_product_kernel<T128, 2, JW>;
+    case 3: return external_product_kernel<T128, 3, JW>;
+    case 4: return external_product_kernel<T128, 4, JW>;
+    default: return nullptr;
+  }
+}
+
+// Checks the shape and the layout (external_product.py _ep_layout), sets
+// the shared memory and launches K7 (T128 false) or K8 in clusters of
+// a.cluster blocks, with programmatic stream serialization.
+template <bool T128>
+int launch(const EpArgs& a, const void* host_consts, int batch, int rt, int smem, int max_p,
+           void* stream) {
+  const int n = 1 << a.log_n, R = a.R, L = a.L, J = L * R, cl = a.cluster;
+  if (batch < 1 || a.log_n < 2 || a.log_n > 16 || a.P < 1 || a.P > max_p || R < 1 || L < 1 ||
+      a.base_log < 1 || a.base_log > 30 || a.base_log * L > 64 || cl < 1 || cl > EP_MAXCL ||
+      a.P % cl != 0 || host_consts == nullptr || (a.ct1 == nullptr && a.exps == nullptr) ||
+      !valid_layout(a.log_n, R, rt, a.head, a.tail, a.log_w) || smem > EP_SMEM ||
+      (a.stage != 0 && a.stage != 1) ||
+      (long long)smem != 4ll * (J + (long long)R * (a.P / cl)) * n + 8ll * a.stage * R * n)
+    return (int)cudaErrorInvalidValue;
+  const u64* cs = static_cast<const u64*>(host_consts);
+  const DeltaConsts g = delta_consts(cs);
+  Wide128 w = {};
+  for (int q = 0; q < MAXP; ++q) {
+    w.prefix[q][0] = cs[C_SIZE + 2 * q];
+    w.prefix[q][1] = cs[C_SIZE + 2 * q + 1];
+  }
+  w.mmod[0] = cs[C_SIZE + 2 * MAXP];
+  w.mmod[1] = cs[C_SIZE + 2 * MAXP + 1];
+  const bool one_head = a.log_n >= 9 && a.head == (1u | ((unsigned)(a.log_n - 8) << 4)) &&
+                        a.tail == TAIL256 && a.log_w == 8;
+  EpKernel kernel = one_head && rt == 2 && J <= MAX_PRODUCTS ? ep_fast<T128>(a.log_n, a.P, cl)
+                                                            : nullptr;
+  if (kernel == nullptr)
+    kernel = J > MAX_PRODUCTS ? ep_kernel<T128, true>(rt) : ep_kernel<T128, false>(rt);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = cl;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch);
+  cfg.gridDim = dim3(batch * cl);
   cfg.blockDim = dim3(EP_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
-  cfg.numAttrs = 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, external_product_kernel<WIDE>, args);
+  cfg.attrs = attrs;
+  cfg.numAttrs = cl > 1 ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, g, w);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -330,37 +378,42 @@ int launch(const EpArgs& args, int batch, int max_p, void* stream) {
 }  // namespace
 
 // K7.  ct0 [.][R][N] u64 rows ct0_stride words apart; ct1 likewise, or null
-// for the rotated operand with exps int32 rows e_stride apart; ggsw u32
-// spectra [P][J][R][N] a row, key_stride words apart; tab and consts as
-// rotation.py _kernel_tables gives them; res a scratch of B * P * R * N
-// u32; out [B][R][N] u64, apart from every input.
+// for the rotated operand with exps int64 rows e_stride apart (any value,
+// taken mod 2N); ggsw u32
+// spectra [P][J][R][N] a row, key_stride words apart; dtab the u32 pairs of
+// rotation.py _delta_tables(plan, variants=True); host_consts, in host
+// memory, external_product.py _ep_consts; out [B][R][N] u64, apart from
+// every input.  cluster, stage, rt, head, tail, log_w and smem are
+// external_product.py _ep_layout's.
 extern "C" int tfhe_external_product(const void* ct0, long long ct0_stride, const void* ct1,
                                      long long ct1_stride, const void* exps, long long e_stride,
-                                     const void* ggsw, long long key_stride, const void* tab,
-                                     const void* consts, void* res, void* out, int batch, int n,
-                                     int log_n, int P, int R, int L, int base_log,
+                                     const void* ggsw, long long key_stride, const void* dtab,
+                                     const void* host_consts, void* out, int batch, int log_n,
+                                     int P, int R, int L, int base_log, int cluster, int stage,
+                                     int rt, int head, int tail, int log_w, int smem,
                                      void* stream) {
   const EpArgs args = {(const uint64_t*)ct0, ct0_stride, (const uint64_t*)ct1, ct1_stride,
-                       (const int*)exps, e_stride, (const uint32_t*)ggsw, key_stride,
-                       (const uint32_t*)tab, (const uint64_t*)consts, (uint32_t*)res,
-                       (uint64_t*)out, n, log_n, P, R, L, base_log};
-  return launch<false>(args, batch, EP_MAXP, stream);
+                       (const long long*)exps, e_stride, (const uint32_t*)ggsw, key_stride,
+                       (const uint2*)dtab, (uint64_t*)out, log_n, P, R, L, base_log, cluster,
+                       stage, (unsigned)head, (unsigned)tail, log_w};
+  return launch<false>(args, host_consts, batch, rt, smem, MAXP, stream);
 }
 
-// K8.  acc [.][R][N][2] u64 rows acc_stride words apart; exps int32 rows
-// e_stride apart, each in [0, 2N); ggsw u32 spectra [P][J][R][N] a row,
-// key_stride words apart (0: one GGSW for the batch); tab and consts as K7
-// takes them (the 2^128 words included); res a scratch of B * P * R * N
-// u32; out [B][R][N][2] u64, apart from every input.
+// K8.  acc [.][R][N][2] u64 rows acc_stride words apart; exps int64 rows
+// e_stride apart, taken mod 2N; ggsw u32 spectra [P][J][R][N] a row,
+// key_stride words apart (0: one GGSW for the batch); dtab, host_consts and
+// the layout as K7 takes them; out [B][R][N][2] u64, apart from every input.
 extern "C" int tfhe_external_product128(const void* acc, long long acc_stride, const void* exps,
                                         long long e_stride, const void* ggsw,
-                                        long long key_stride, const void* tab,
-                                        const void* consts, void* res, void* out, int batch,
-                                        int n, int log_n, int P, int R, int L, int base_log,
-                                        void* stream) {
-  const EpArgs args = {(const uint64_t*)acc, acc_stride, nullptr, 0, (const int*)exps,
-                       e_stride, (const uint32_t*)ggsw, key_stride, (const uint32_t*)tab,
-                       (const uint64_t*)consts, (uint32_t*)res, (uint64_t*)out,
-                       n, log_n, P, R, L, base_log};
-  return exps == nullptr ? (int)cudaErrorInvalidValue : launch<true>(args, batch, 7, stream);
+                                        long long key_stride, const void* dtab,
+                                        const void* host_consts, void* out, int batch,
+                                        int log_n, int P, int R, int L, int base_log,
+                                        int cluster, int stage, int rt, int head, int tail,
+                                        int log_w, int smem, void* stream) {
+  const EpArgs args = {(const uint64_t*)acc, acc_stride, nullptr, 0, (const long long*)exps,
+                       e_stride, (const uint32_t*)ggsw, key_stride, (const uint2*)dtab,
+                       (uint64_t*)out, log_n, P, R, L, base_log, cluster, stage,
+                       (unsigned)head, (unsigned)tail, log_w};
+  return exps == nullptr ? (int)cudaErrorInvalidValue
+                         : launch<true>(args, host_consts, batch, rt, smem, 7, stream);
 }

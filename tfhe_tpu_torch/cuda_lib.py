@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `csrc/` have a plain C interface.  At first use each is
-compiled with `nvcc` for `sm_90a` into an object, all at once in parallel,
+The sources under `csrc/` have a plain C interface (`ntt_passes.cuh`, the
+passes K1/K4, K6 and K7/K8 share, is included by two of them).  At first
+use each is compiled with `nvcc` for `sm_90a` into an object, all at once in parallel,
 and the objects are linked into one shared library under `build/` (named by
 a hash of the sources and flags), loaded with ctypes; nothing is built when
 the package is imported.  If `nvcc` is missing or the build fails,
@@ -43,8 +44,8 @@ _SIGNATURES = {
     "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tfhe_keyswitch_decompose": [_P, _L, _P] + [_I] * 5 + [_P],
     "tfhe_keyswitch_tc": [_P, _P, _P, _P] + [_I] * 5 + [_P],
-    "tfhe_external_product": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 7 + [_P],
-    "tfhe_external_product128": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "tfhe_external_product": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P] + [_I] * 13 + [_P],
+    "tfhe_external_product128": [_P, _L, _P, _L, _P, _L, _P, _P, _P] + [_I] * 13 + [_P],
     "tfhe_smem_probe": [_I, _P, _P],
     "tfhe_smem_optin": [_I, ctypes.POINTER(ctypes.c_int)],
 }
@@ -73,7 +74,7 @@ def build() -> Path:
     nvcc = find_nvcc()
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(s.read_bytes())
     out = BUILD / f"libtfhe_tpu_torch_{digest.hexdigest()[:16]}.so"
     if out.exists():
