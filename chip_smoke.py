@@ -14,8 +14,8 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
 
   1. card, power limit, SM clock, torch and CUDA versions;
   2. builds the CUDA kernels (csrc/*.cu: K1, K3, K4, K5, K6 in rotation.cu,
-     the keyswitch's decomposition pass, K2' and the wide form K2 in
-     keyswitch.cu, K7 and K8 in external_product.cu, the shared-memory probe in
+     the keyswitch's decomposition pass and K2' (digits of 1 to 4 byte
+     limbs) in keyswitch.cu, K7 and K8 in external_product.cu, the shared-memory probe in
      probe.cu; one nvcc per source, in parallel) and prints ptxas's
      register, shared-memory and
      spill lines (K1/K4 once for each MAC chunk rt and once for the kernel
@@ -37,7 +37,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      PARAM_MESSAGE_2_CARRY_3_KS_PBS at N = 4096; random keys) and times
      K1 at batch 512 at each of them; times K1, K2', the decomposition pass
      and their plain versions at batch 512 with CUDA events beside their
-     bounds (and, at the same shape, the wide form, and torch._int_mm on
+     bounds (and, at the same shape, torch._int_mm on
      the same [B, K] x [K, 8M] int8 shape as a yardstick of the card's int8
      GEMM rate: signed bytes with no recombination, not K2's function), and
      K1 on one round of blocks (the batch the device holds at once) and on
@@ -96,9 +96,15 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      512), K4 and the paired K5 (one step) at AES_PARAMETERS_40 (J = 16) and
      WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS (J = 18), K1 timed at batch 512;
   3f. the keyswitch at the large shapes: the pass and K2' held (batch 8 and
-     512) and timed at 3_3, 3_3 GROUP_3 and 4_4; the wide form K2 held and
-     timed at WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS (b = 11) and
-     PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS (b = 25);
+     512) and timed at 3_3, 3_3 GROUP_3 and 4_4; the pass and K2' on digits
+     of several byte limbs held and timed at
+     WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS (b = 11, 2 limbs),
+     PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS (b = 25, 4 limbs; batch 1,
+     8, 512, 513) and PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS (b = 17,
+     3 limbs, K = 131072 in 6 splits; held at batch 1 and 8, timed at 512),
+     each beside its tensor-core bound, the CUDA-core bound the retired
+     wide form K2 was held to, its plain version and torch._int_mm at
+     [B, D*Kp] x [D*Kp, 8M];
   4. classic path: counts to 0, gen_keys on the card, encrypts 512
      messages, serves three requests (a LUT, a second LUT on its output, a
      bivariate LUT), reads the counts, decrypts all 3 x 512 results against
@@ -120,7 +126,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   4d. the large-N paths: for 3_3, 3_3 GROUP_3 and 4_4, gen_keys on the
      card, 512 messages encrypted, one LUT request with the counts set to 0
      just before and read just after (one cluster-step launch a step, one
-     decomposition pass and one K2', no wide form, no K1/K3 and no passes
+     decomposition pass and one K2', no K1/K3 and no passes
      form), 512/512 decrypted against the clear
      model, the 3_3 results held against the plain CPU path (one
      ciphertext), KS+PBS timed, one call traced under torch.profiler (idle
@@ -215,10 +221,12 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
   4k. the WoP-PBS (wopbs_path): new_wopbs_key(ck, sk, "auto") on 2_2 keys
      (WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS), 512 ciphertexts over all 16
      values through the identity and x^2 + 3 mod 16, launches exactly as
-     reckoned from the parameters (17 K1, 7 passes and K2', 24 wide K2, 4
-     K7 a call), 512/512 right, ms a call and peak memory; K7 held on the
-     first call's own operands against its plain version and timed alone,
-     a private functional keyswitch held against the CPU and one
+     reckoned from the parameters (17 K1, 7 + 24 passes and K2' for the
+     keyswitches and the private functional keyswitches, 4 K7 a call),
+     512/512 right, ms a call and peak memory; K7 held on the first call's
+     own operands against its plain version and timed alone, the pass and
+     K2' timed at the private functional keyswitch's shape (two digit
+     limbs), a private functional keyswitch held against the CPU and one
      circuit-bootstrapped GGSW against the plain kernels on the card's
      tensors; new_wopbs_key_only_for_wopbs on keys of the WoP-PBS set,
      512/512 right, and on the 2_2 keys, its rate recorded (a finding:
@@ -239,7 +247,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS); FheUint32 shl, shr, rotl, rotr
      and the arithmetic shr, and FheUint64 shl, at batch 64, each with its
      launches held equal to the reckoning from the code (two K1 calls, the
-     pass and K2' each, the wide K2 a GGSW row and the packing keyswitch,
+     pass and K2' each, a GGSW row and the packing keyswitch,
      K7 a CMux), timed, peak memory read, decrypted, beside the same op on
      the layered path in the same run; the hlapi's FheUint32 << on
      generate_keys(shift_key="auto"); 40 dependent rotl at batch 64 (the
@@ -264,7 +272,7 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      and holds it equal to the device's opt-in attribute and to the limit
      the rotation kernels size against;
   6. checks each kernel's launch count on its path (on every path the
-     decomposition pass and K2' once per KS+PBS call, the wide form never),
+     decomposition pass and K2' once per KS+PBS call),
      measures KS+PBS PBS/s at batch 512 for 2_2, GROUP_3 and GROUP_2, and
      prints the kernels line: each kernel's time beside its bound (the
      larger of its 32-bit integer multiplies, or for K2' its int8
@@ -275,9 +283,9 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      version, and per shape over every step (3_3, 4_4; 3_3 GROUP_3; no
      plain time there) and one step a launch on the per-step routes; K6's
      passes form at the shape it serves (no path serves that set, so its
-     launches on the paths are 0); the keyswitch's three kernels per shape
-     (the wide form's launches on the paths: the WoP-PBS's private
-     functional keyswitches); K7 at the WoP-PBS's vertical packing, the
+     launches on the paths are 0); the keyswitch's two kernels per shape
+     (digits of 1 to 4 byte limbs, the WoP-PBS's private functional
+     keyswitch among them); K7 at the WoP-PBS's vertical packing, the
      MVB and the integer WoP-PBS's CMux tree; K8 at a step of the 128-bit
      PBS.
 
@@ -293,7 +301,7 @@ turn a process of its own that imports and builds its tree's port.  Each
 turn measures at batch 512, by CUDA events, with the same seeded random
 keys and inputs: the whole rotation at PARAM_MESSAGE_2_CARRY_2_KS_PBS (K1)
 and, through K6, at 3_3, 3_3 GROUP_3 and 4_4; `keyswitch_lwe` alone at the
-2_2, 3_3 and 4_4 keyswitch shapes (the key built by
+2_2, 3_3 and 4_4 keyswitch shapes and at WIDE_KS_SETS' (the key built by
 `interop.keyswitch_key`); K7 and K8 alone at EP_SHAPES (random operands);
 and KS+PBS at 2_2 and those three sets
 (gen_keys on the card, 512 messages, one LUT request decrypted against
@@ -302,7 +310,10 @@ all turns (the pipeline is exact) and every KS+PBS output must decrypt
 right; it raises otherwise.  It prints each turn, then each tree's mean:
 
     python3 chip_smoke.py --against DIR [--turns 4] [--seed S]
-"""
+
+With --ks it builds and runs only the keyswitch's holds and times of phases
+3, 3b and 3f (the first check of a keyswitch change); with --ep only phase
+4p and 4o (K7 and K8)."""
 from __future__ import annotations
 
 import argparse
@@ -361,9 +372,13 @@ K6_SWEEP = ((CLASSIC_33, 32, ((8, 4), (4, 4), (2, 1), (16, 4), "passes")),
             (SET_2_6, 4, ((16, 1), "passes")))
 # the J > 15 shapes: AES_PARAMETERS_40 (J = 16), the WoP-PBS sets (J = 18)
 WIDE_SETS = ("AES_PARAMETERS_40", "WOPBS_PARAM_MESSAGE_1_CARRY_8_KS_PBS")
-# the keyswitch: the wide form's sets (base_log 11 and 25) and the large
-# tensor-core shapes (phase 3f)
-WIDE_KS_SETS = ("WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS", "PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS")
+# the keyswitch at the digits of 2, 3 and 4 byte limbs (phase 3f): (set,
+# batches held, batch the plain version is timed at): base_log 11, 25 and
+# 17 (7_1's K = 131072 crosses the int32 chunk; its plain version at batch
+# 512 is too slow to hold there); and the large one-limb shapes
+WIDE_KS_SETS = (("WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS", (1, 8, B, B + 1), B),
+                ("PARAM_MESSAGE_5_CARRY_1_COMPACT_PK_PBS_KS", (1, 8, B, B + 1), B),
+                ("PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS", (1, 8), 8))
 LARGE_KS_SETS = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS",
                  "PARAM_MULTI_BIT_MESSAGE_3_CARRY_3_GROUP_3_KS_PBS",
                  "PARAM_MESSAGE_4_CARRY_4_KS_PBS")
@@ -681,26 +696,63 @@ def k3_mults(batch, steps, V, P, J, R, n) -> int:
 
 
 def k2_mults(batch, K, M) -> int:
-    """The wide form: a u64 x u64 low product (3) a multiply-add."""
+    """The same contraction on the CUDA cores, as the retired wide form K2
+    ran it: a u64 x u64 low product (3) a multiply-add."""
     return 3 * batch * K * M
 
 
-def decompose_ops(batch, n_in, levels) -> int:
+def decompose_ops(batch, n_in, levels, limbs=1) -> int:
     """The decomposition pass's 32-bit integer operations, counted from
     csrc/keyswitch.cu: the rounding add and shift of a 64-bit word (4),
-    then an and, add, shift, subtract and shift-add of 64 bits a digit (10)."""
-    return batch * n_in * (4 + 10 * levels)
+    then an and, add, shift, subtract and shift-add of 64 bits a digit (10),
+    and a signed byte, subtract and shift of 64 bits a limb below the top
+    (6)."""
+    return batch * n_in * (4 + (10 + 6 * (limbs - 1)) * levels)
 
 
-def tc_bound(batch, K, M, Kp, sm_clock_hz, sms) -> tuple:
-    """K2': (bound_ms, bound_by), the larger of its 8 limb products, 2·B·K·M
-    operations each, over the int8 tensor-core rate (INT8_MACS_PER_SM
-    multiply-adds a clock, 2 operations each) and its bytes (the digits and
-    the key bytes read, the body read and the words written, once) over the
-    memory rate."""
-    ops_ms = 16 * batch * K * M / (2 * INT8_MACS_PER_SM * sms * sm_clock_hz) * 1e3
-    bytes_ms = (batch * Kp + 8 * M * Kp + batch * 8 + batch * M * 8) / HBM_BYTES_PER_S * 1e3
+def pair_products(limbs: int) -> int:
+    """K2's useful limb-pair products a word at `limbs` digit limbs: digit
+    limb i against key byte slots i..7 (8, 15, 21, 26)."""
+    return 8 * limbs - limbs * (limbs - 1) // 2
+
+
+def tc_bound(batch, K, M, Kp, sm_clock_hz, sms, limbs=1) -> tuple:
+    """K2': (bound_ms, bound_by), the larger of its useful limb-pair
+    products (`pair_products`), 2·B·K·M operations each, over the int8
+    tensor-core rate (INT8_MACS_PER_SM multiply-adds a clock, 2 operations
+    each) and its bytes (the digit limbs and the key bytes read, the body
+    read and the words written, once) over the memory rate."""
+    ops_ms = (2 * pair_products(limbs) * batch * K * M
+              / (2 * INT8_MACS_PER_SM * sms * sm_clock_hz) * 1e3)
+    bytes_ms = ((batch * limbs * Kp + 8 * M * Kp + batch * 8 + batch * M * 8)
+                / HBM_BYTES_PER_S * 1e3)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def cuda_core_bound(batch, K, M, sm_clock_hz, sms) -> tuple:
+    """The bound the retired wide form K2 was held to (64-bit multiply-adds
+    on the CUDA cores, int32 digits and the u64 key read once), printed
+    beside tc_bound at the shapes of several digit limbs, so that their
+    rows read against both yardsticks."""
+    return bound(k2_mults(batch, K, M), batch * K * 4 + K * M * 8 + batch * 8 + batch * M * 8,
+                 sm_clock_hz, sms)
+
+
+def int_mm_ms(m, k, n, dev):
+    """torch._int_mm on [m, k] x [k, n] int8 (the second column-major):
+    the card's int8 GEMM rate as PyTorch's library call gives it, a
+    yardstick only (signed bytes and no recombination: not K2's
+    function); None where it refuses the shape."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k * 3 + n)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        print(f"torch._int_mm [{m}, {k}] x [{k}, {n}]: not measured ({str(e)[:200]})")
+        return None
+    return cuda_ms(lambda: torch._int_mm(a, b), 10)
 
 
 def step_bytes(steps, V, P, J, R, n, e_per_step) -> int:
@@ -779,7 +831,7 @@ def measure_turn(seed: int, only: tuple = ()) -> dict:
     from tfhe_tpu_torch.core.algorithms.keyswitch import keyswitch_lwe
     from tfhe_tpu_torch.core.entities import (LweCiphertext, NttBootstrapKey,
                                               NttMultiBitBootstrapKey)
-    from tfhe_tpu_torch.core.params import shortint_params
+    from tfhe_tpu_torch.core.params import shortint_params, wopbs_params
     from tfhe_tpu_torch.core.poly import ntt, rotation
 
     dev = torch.device("cuda", 0)
@@ -837,11 +889,11 @@ def measure_turn(seed: int, only: tuple = ()) -> dict:
         out[label] = {"ms": ms, "check": checksum(res["o"])}
         del case, res
         torch.cuda.empty_cache()
-    for name in (CLASSIC, CLASSIC_33, CLASSIC_44):
+    for name in (CLASSIC, CLASSIC_33, CLASSIC_44) + tuple(w[0] for w in WIDE_KS_SETS):
         # the keyswitch alone, the key carried in as a u64 array
         if not wanted(f"keyswitch {name}"):
             continue
-        p = shortint_params(name)
+        p = wopbs_params(name) if name.startswith("WOPBS") else shortint_params(name)
         n_in, M = p.big_lwe_dimension, p.lwe_dimension + 1
         data = rng.uniform_torus(g, (n_in, p.ks_level, M)).cpu().numpy().view(np.uint64)
         ksk = interop.keyswitch_key(data, p.ks_decomp, device=dev)
@@ -925,28 +977,27 @@ def compare(other: str, turns: int, seed: int, only: tuple = ()) -> int:
 @contextlib.contextmanager
 def plain_kernels():
     """Within: the kernel wrappers of the classic KS+PBS path and of the
-    WoP-PBS (K1, the decomposition pass, K2', the wide form K2, K7) take
-    their plain PyTorch versions, the code CPU tensors take, on CUDA tensors
-    too."""
+    WoP-PBS (K1, the decomposition pass, K2', K7) take their plain PyTorch
+    versions, the code CPU tensors take, on CUDA tensors too."""
     from tfhe_tpu_torch.core.algorithms import bootstrap, keyswitch, wopbs
     from tfhe_tpu_torch.core.poly import external_product as ep
     from tfhe_tpu_torch.core.poly import rotation
     saved = (rotation.rotate_accumulator, keyswitch.decompose_digits,
-             keyswitch.neg_digit_mac_tensor_core, keyswitch.neg_digit_mac,
-             wopbs.external_product, bootstrap.external_product)
+             keyswitch.neg_digit_mac_tensor_core, wopbs.external_product,
+             bootstrap.external_product)
     rotation.rotate_accumulator = lambda acc, exps, key: rotation.blind_rotate_plain(acc, exps,
                                                                                      key)
     keyswitch.decompose_digits = keyswitch.decompose_digits_plain
-    keyswitch.neg_digit_mac_tensor_core = lambda digits, key, limbs, body: (
-        keyswitch.neg_digit_mac_plain(digits[:, :key.shape[0]], key, body))
-    keyswitch.neg_digit_mac = keyswitch.neg_digit_mac_plain
+    keyswitch.neg_digit_mac_tensor_core = lambda digits, key, limbs, body, base_log: (
+        keyswitch.neg_digit_mac_plain(keyswitch.join_limbs(
+            digits, key.shape[0], keyswitch.digit_limbs(base_log)), key, body))
     wopbs.external_product = bootstrap.external_product = ep.external_product_plain
     try:
         yield
     finally:
         (rotation.rotate_accumulator, keyswitch.decompose_digits,
-         keyswitch.neg_digit_mac_tensor_core, keyswitch.neg_digit_mac,
-         wopbs.external_product, bootstrap.external_product) = saved
+         keyswitch.neg_digit_mac_tensor_core, wopbs.external_product,
+         bootstrap.external_product) = saved
 
 
 def _blocks(out) -> list:
@@ -1792,16 +1843,17 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     published widths), WOPBS_BATCH ciphertexts over all 16 values through
     the identity and a non-linear LUT, each call with the counts at 0 just
     before and read just after (the launches reckoned from the parameters:
-    K1 a PBS, the pass and K2' a keyswitch, the wide K2 a private
-    functional keyswitch, K7 a CMux or rotation step, nothing else), timed
+    K1 a PBS, the pass and K2' a keyswitch or a private functional
+    keyswitch, K7 a CMux or rotation step, nothing else), timed
     by CUDA events, its peak device memory read, every output decrypted.
     From the first call, on WOPBS_HELD rows: K7 against its plain version
     on the call's own operands; a private functional keyswitch against the
     CPU (its row key and input rows copied there); one circuit-bootstrapped
     GGSW against the plain kernels on the card's tensors (`plain_kernels`).
     K7 timed alone on the call's operands beside its plain version, the
-    wide K2 alone at the private functional keyswitch's shape beside its
-    plain version, and one call traced under torch.profiler.  Then
+    pass and K2' alone at the private functional keyswitch's shape (digits
+    of two byte limbs) beside their plain versions and bounds, and one call
+    traced under torch.profiler.  Then
     new_wopbs_key_only_for_wopbs (the WoP-PBS set's cbs and pfks
     decompositions) through the non-linear LUT on keys of the WoP-PBS set,
     decrypted, and on the compute keys, where its decryption rate is
@@ -1828,7 +1880,7 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
     luts = max(1, (1 << bits) // wp.polynomial_size)
     tree = min(luts.bit_length() - 1, bits)
     want_calls = {"blind_rotate": 1 + (bits - 1) + bits * levels + 1,
-                  "keyswitch": 1 + 1 + bits + 1, "keyswitch_mac": bits * levels * rows,
+                  "keyswitch": 1 + 1 + bits + 1, "pfks": bits * levels * rows,
                   "external_product": (luts - 1) + (bits - tree)}
     print(f"{tag} WoP-PBS: {wp.name} (n={wp.lwe_dimension}, N={wp.polynomial_size}, PBS "
           f"{wp.pbs_base_log}x{wp.pbs_level}, cbs {wp.cbs_base_log}x{wp.cbs_level}, pfks "
@@ -1870,9 +1922,8 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
             peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e6
             want = {k: 0 for k in counts}
             want.update(blind_rotate=want_calls["blind_rotate"],
-                        keyswitch_tc=want_calls["keyswitch"],
-                        keyswitch_decompose=want_calls["keyswitch"],
-                        keyswitch_mac=want_calls["keyswitch_mac"],
+                        keyswitch_tc=want_calls["keyswitch"] + want_calls["pfks"],
+                        keyswitch_decompose=want_calls["keyswitch"] + want_calls["pfks"],
                         external_product=want_calls["external_product"])
             if counts != want:
                 raise AssertionError(f"WoP-PBS {label}: launches {counts}, reckoned {want}")
@@ -1915,7 +1966,7 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
                                                  inner.cbs_decomp, 63)
     cbs_err = max_abs_err(ggsw_rows, ggsw_plain.data)
     print(f"{tag} WoP-PBS holds: K7 on {WOPBS_HELD} rows of the first call's operands "
-          f"{k7_err}, the wide K2's PFPKS (row key {row}) on {WOPBS_HELD} rows against the "
+          f"{k7_err}, the PFPKS (row key {row}) on {WOPBS_HELD} rows against the "
           f"CPU {pf_err}, one circuit-bootstrapped GGSW (2 rows) against the plain kernels "
           f"{cbs_err} (max abs err; 0 is bit-identical)", flush=True)
     if pf_err or cbs_err:
@@ -1933,23 +1984,39 @@ def wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
                 f"cbs {decomp.base_log}x{decomp.level} (J={J}), P={P}, a GGSW a row")
     print(f"{tag} K7 {k7_shape}: {k7_ms:.4f} ms, plain {k7_plain_ms:.3f} ms", flush=True)
 
-    # ---- the wide K2 alone at the private functional keyswitch's shape -------
+    # ---- the pass and K2' alone at the private functional keyswitch's shape --
     from tfhe_tpu_torch.core.algorithms import keyswitch
     from tfhe_tpu_torch.core.decomposition import signed_decompose
-    Bp = x_all.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    Bp, base_log = x_all.shape[0], pf.decomp.base_log
     flat = pf.data[row].reshape(-1, pf.data.shape[-2] * pf.data.shape[-1])
-    digits = signed_decompose(x_all, pf.decomp).reshape(Bp, -1)
+    limbs, D = pf.limbs[row], keyswitch.digit_limbs(base_log)
+    digits = keyswitch.decompose_digits(x_all, pf.decomp)
     zero = torch.zeros(Bp, dtype=torch.int64, device=dev)
-    Kp, Mp = flat.shape
-    wide_ms = cuda_ms(lambda: keyswitch.neg_digit_mac(digits, flat, zero), 5)
-    wide_plain_ms = cuda_ms(lambda: keyswitch.neg_digit_mac_plain(digits, flat, zero, chunk=16), 1)
+    (K, Mp), Kp = flat.shape, limbs.shape[-1]
+    res = {}
+    pf_ms = cuda_ms(lambda: res.update(tc=keyswitch.neg_digit_mac_tensor_core(
+        digits, flat, limbs, zero, base_log)), 10)
+    pf_dec_ms = cuda_ms(lambda: keyswitch.decompose_digits(x_all, pf.decomp), 10)
+    d64 = signed_decompose(x_all, pf.decomp).reshape(Bp, -1)
+    pf_plain_ms = cuda_ms(lambda: res.update(plain=keyswitch.neg_digit_mac_plain(
+        d64, flat, zero, chunk=16)), 1)
+    pf_tc_err = hold(f"K2' at the PFPKS shape, batch {Bp}, {D} digit limbs", res["tc"],
+                     res["plain"])
     pfks = {"shape": f"WoP-PBS private functional keyswitch at {wp.name} batch {Bp}, "
-                     f"K={Kp}, M={Mp} (pfks {pf.decomp.base_log}x{pf.decomp.level})",
-            "ms": wide_ms, "plain_ms": wide_plain_ms, "mults": k2_mults(Bp, Kp, Mp),
-            "bytes": Bp * Kp * 4 + _nbytes(flat, zero) + Bp * Mp * 8}
-    print(f"{tag} K2 (wide form) {pfks['shape']}: {wide_ms:.4f} ms, plain {wide_plain_ms:.3f} "
-          f"ms", flush=True)
-    del digits, flat, x_all
+                     f"K={K}, M={Mp} (pfks {base_log}x{pf.decomp.level}, {D} digit limbs)",
+            "ms": pf_ms, "plain_ms": pf_plain_ms, "dec_ms": pf_dec_ms, "err": pf_tc_err,
+            "bound": tc_bound(Bp, K, Mp, Kp, clock_hz, sms, D),
+            "cuda_core_bound": cuda_core_bound(Bp, K, Mp, clock_hz, sms),
+            "int_mm_ms": int_mm_ms(Bp, D * Kp, 8 * Mp, dev)}
+    mm = pfks["int_mm_ms"]
+    print(f"{tag} K2' {pfks['shape']}: {pf_ms:.4f} ms (bound {pfks['bound'][0]:.4f} ms by "
+          f"{pfks['bound'][1]}; the CUDA-core bound {pfks['cuda_core_bound'][0]:.4f}), pass "
+          f"{pf_dec_ms:.4f} ms, plain {pf_plain_ms:.3f} ms; torch._int_mm [{Bp}, {D * Kp}] x "
+          f"[{D * Kp}, {8 * Mp}] " + (f"{mm:.4f} ms" if mm is not None else "not measured"),
+          flush=True)
+    del digits, d64, flat, x_all, res
 
     # ---- one call traced: device time by kernel, the idle share --------------
     lut = comb.generate_lut(lambda v: v)
@@ -2251,19 +2318,19 @@ def shift_reckoning(nb: int, bp: int, amount_nb: int, kind: str, glwe_size: int,
                     batch: int) -> dict:
     """The GGSW shift's launches and PBS rows, reckoned from
     `integer/shift_key.py`: one CBS call (a K1 launch, its pass and K2'), a
-    private functional keyswitch (the wide K2) per selector bit and GGSW
-    row, one packing keyswitch (the wide K2 at the pfks decomposition), a
-    K7 CMux per selector bit, one refresh call; the arithmetic shift's sign
-    bit one more KS+PBS call."""
+    private functional keyswitch (a pass and K2') per selector bit and GGSW
+    row, one packing keyswitch (a pass and K2' at the pfks decomposition),
+    a K7 CMux per selector bit, one refresh call; the arithmetic shift's
+    sign bit one more KS+PBS call."""
     n_sel = max(1, math.ceil(math.log2(nb * bp)))
     sb = int(math.log2(bp)) if bp > 1 else 0
     bits = [j for j in range(sb, n_sel) if j // bp < amount_nb]
     subs = [t for t in range(sb) if t // bp < amount_nb]
     refresh = 2 * nb - (kind in ("shl", "shr"))   # logical shifts have no edge neighbour
     calls = 2 + (kind == "ashr")
-    return {"launches": {"blind_rotate": calls, "keyswitch_tc": calls,
-                         "keyswitch_decompose": calls,
-                         "keyswitch_mac": len(bits) * glwe_size + 1,
+    pfks = len(bits) * glwe_size + 1
+    return {"launches": {"blind_rotate": calls, "keyswitch_tc": calls + pfks,
+                         "keyswitch_decompose": calls + pfks,
                          "external_product": len(bits)},
             "pbs_rows": batch * (len(bits) * lc + len(subs) + refresh + (kind == "ashr"))}
 
@@ -2443,8 +2510,8 @@ def integer_wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> di
     at IWOPBS_BATCH, and wopbs_crt at moduli (2, 3, 5) with x^2 + 1; each
     with the counts at 0 just before and read just after (held equal to
     the reckoning: K1 an extracted bit's PBS and a CBS level, the pass and
-    K2' a keyswitch, the wide K2 a private functional keyswitch, K7 a CMux
-    or rotation step), timed, its peak memory read, every row decrypted.
+    K2' a keyswitch or a private functional keyswitch, K7 a CMux or
+    rotation step), timed, its peak memory read, every row decrypted.
     K7 held and timed alone at the CMux tree's shape (a first-layer CMux,
     a GGSW a row).  → {"launches", "calls", "k7"}."""
     import numpy as np
@@ -2482,8 +2549,8 @@ def integer_wopbs_path(seed: int, dev, tag: str, zero_counts, read_counts) -> di
         luts = max(1, (1 << bits) // n)
         tree = min(luts.bit_length() - 1, bits)
         return {"blind_rotate": sum(w - 1 for w in widths) + bits * levels,
-                "keyswitch_tc": sum(widths), "keyswitch_decompose": sum(widths),
-                "keyswitch_mac": bits * levels * rows,
+                "keyswitch_tc": sum(widths) + bits * levels * rows,
+                "keyswitch_decompose": sum(widths) + bits * levels * rows,
                 "external_product": outputs * ((luts - 1) + (bits - tree))}
 
     nb = IWOPBS_BLOCKS
@@ -3432,6 +3499,8 @@ def main() -> int:
                     "start with one of these comma-separated prefixes (e.g. K7,K8)")
     ap.add_argument("--ep", action="store_true", help="build, then only phase 4p: K7 and K8 "
                     "at EP_SHAPES in every form, held and timed")
+    ap.add_argument("--ks", action="store_true", help="build, then only the keyswitch's holds "
+                    "and times of phases 3, 3b and 3f")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = tuple(x for x in args.only.split(",") if x)
@@ -3474,7 +3543,7 @@ def main() -> int:
 
     def zero_counts():
         rotation.launches = rotation.multi_bit_launches = 0
-        keyswitch.launches = keyswitch.decompose_launches = keyswitch.wide_launches = 0
+        keyswitch.launches = keyswitch.decompose_launches = 0
         rotation.step_launches = rotation.step_variant_launches = 0
         rotation.cluster_launches = rotation.cluster_variant_launches = 0
         rotation.staged_launches = 0
@@ -3490,7 +3559,6 @@ def main() -> int:
                 "blind_rotate_staged": rotation.staged_launches,
                 "keyswitch_tc": keyswitch.launches,
                 "keyswitch_decompose": keyswitch.decompose_launches,
-                "keyswitch_mac": keyswitch.wide_launches,
                 "external_product": external_product.launches,
                 "external_product128": external_product.launches128}
 
@@ -3615,31 +3683,17 @@ def main() -> int:
         ct.view(-1)[:4] = top_bits
         return ct
 
-    def int_mm_ms(m, k, n):
-        """torch._int_mm on [m, k] x [k, n] int8 (the second column-major):
-        the card's int8 GEMM rate as PyTorch's library call gives it, a
-        yardstick only (signed bytes and no recombination: not K2's
-        function); None where it refuses the shape."""
-        a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        b = torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8).t()
-        try:
-            torch._int_mm(a, b)
-        except RuntimeError as e:
-            print(f"torch._int_mm [{m}, {k}] x [{k}, {n}]: not measured ({str(e)[:200]})")
-            return None
-        return cuda_ms(lambda: torch._int_mm(a, b), 10)
-
     def hold_keyswitch(label, sp, batches, worst=False, reps=10):
         """The decomposition pass and K2' at set sp's keyswitch shape (a
         random key made by `keyswitch.keyswitch_key`, as keygen makes it):
         held bit for bit at each batch (with worst, also every digit
         -2^(b-1), then 2^(b-1) - 1, against key bytes all 0xFF), then timed
-        at batch B beside their bounds, with their plain versions, the wide
-        form at the same shape and torch._int_mm; → the numbers."""
+        at batch B beside their bounds, with their plain versions and
+        torch._int_mm; → the numbers."""
         n_in, L, M = sp.big_lwe_dimension, sp.ks_level, sp.lwe_dimension + 1
         K, decomp = n_in * L, sp.ks_decomp
-        if not keyswitch.tensor_core_form(K, decomp.base_log):
-            raise AssertionError(f"{label} does not take the tensor-core form")
+        if keyswitch.digit_limbs(decomp.base_log) != 1:
+            raise AssertionError(f"{label} does not take one-byte digits")
         ksk = keyswitch.keyswitch_key(rng.uniform_torus(g, (n_in, L, M)), decomp)
         key, Kp = ksk.data.reshape(K, M), ksk.limbs.shape[-1]
         err = {"tc": 0, "dec": 0}
@@ -3651,8 +3705,9 @@ def main() -> int:
             err["dec"] = max(err["dec"], hold(
                 f"decomposition pass {label}, batch {batch}, n_in {n_in}, base_log "
                 f"{decomp.base_log}, {L} levels", d, keyswitch.decompose_digits_plain(mask, decomp)))
-            per, splits = keyswitch._tc_plan(batch, M, Kp, sms)
-            got = keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body)
+            per, splits = keyswitch._tc_plan(batch, M, Kp, sms,
+                                             keyswitch.max_depth(decomp.base_log) // 64)
+            got = keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body, decomp.base_log)
             torch.cuda.synchronize()
             err["tc"] = max(err["tc"], hold(
                 f"K2' {label}, batch {batch}, K={K}, M={M} (K in {splits} splits of {per} "
@@ -3664,7 +3719,7 @@ def main() -> int:
                 d = torch.full((B, Kp), v, dtype=torch.int8, device=dev)
                 d[:, K:] = 0
                 got = keyswitch.neg_digit_mac_tensor_core(d, ones.data.reshape(K, M), ones.limbs,
-                                                          body)
+                                                          body, decomp.base_log)
                 torch.cuda.synchronize()
                 err["tc"] = max(err["tc"], hold(
                     f"K2' {label} worst case: every digit {v}, key bytes all 0xFF, batch {B}",
@@ -3676,74 +3731,124 @@ def main() -> int:
         d32 = signed_decompose(mask, decomp).reshape(B, K).to(torch.int32)
         res = {}
         tc_ms = cuda_ms(lambda: res.update(
-            tc=keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body)), reps)
+            tc=keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body, decomp.base_log)),
+            reps)
         dec_ms = cuda_ms(lambda: keyswitch.decompose_digits(mask, decomp), reps)
         tc_plain_ms = cuda_ms(lambda: res.update(
             plain=keyswitch.neg_digit_mac_plain(d32, key, body)), 1)
         dec_plain_ms = cuda_ms(lambda: keyswitch.decompose_digits_plain(mask, decomp), 3)
-        wide_ms = cuda_ms(lambda: res.update(wide=keyswitch.neg_digit_mac(d32, key, body)), 3)
         err["tc"] = max(err["tc"], hold(f"K2' {label}, batch {B} (timed)", res["tc"],
                                         res["plain"]))
-        hold(f"the wide form at {label}'s keyswitch shape, batch {B}", res["wide"], res["plain"])
         out = dict(err=err, tc_ms=tc_ms, tc_plain_ms=tc_plain_ms, dec_ms=dec_ms,
-                   dec_plain_ms=dec_plain_ms, wide_ms=wide_ms, int_mm_ms=int_mm_ms(B, Kp, 8 * M),
+                   dec_plain_ms=dec_plain_ms, int_mm_ms=int_mm_ms(B, Kp, 8 * M, dev),
                    tc_bound=tc_bound(B, K, M, Kp, clock_hz, sms),
                    dec_bound=bound(decompose_ops(B, n_in, L), B * n_in * 8 + B * Kp, clock_hz,
                                    sms),
-                   wide_bound=bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8,
-                                    clock_hz, sms),
-                   shape=f"{label} batch {B}, K={K}, M={M}")
+                   shape=f"{label} batch {B}, K={K}, M={M}", limbs=1)
         mm = out["int_mm_ms"]
         print(f"{tag} keyswitch {label} batch {B} (K={K}, M={M}, base_log {decomp.base_log}): "
               f"K2' {tc_ms:.4f} ms (bound {out['tc_bound'][0]:.4f} ms by "
               f"{out['tc_bound'][1]}), plain {tc_plain_ms:.3f} ms; decomposition pass "
               f"{dec_ms:.4f} ms (bound {out['dec_bound'][0]:.4f} ms by {out['dec_bound'][1]}), "
-              f"plain {dec_plain_ms:.3f} ms; the wide form (K2 as before) at this shape "
-              f"{wide_ms:.3f} ms (bound {out['wide_bound'][0]:.4f}); torch._int_mm [{B}, {Kp}] x "
+              f"plain {dec_plain_ms:.3f} ms; torch._int_mm [{B}, {Kp}] x "
               f"[{Kp}, {8 * M}] int8 " + (f"{mm:.4f} ms" if mm is not None else "not measured"))
         return out
 
-    def hold_wide_keyswitch(label, sp, batches, reps=3):
-        """The wide form at set sp's keyswitch shape (base_log > 8): held
-        bit for bit at each batch, `keyswitch_lwe` once with a key made by
-        `keyswitch.keyswitch_key` (one wide launch, no pass, no K2'), then
-        timed at batch B beside its bound; → the numbers."""
+    def hold_wide_keyswitch(label, sp, batches, plain_batch, reps=3):
+        """The pass and K2' at set sp's keyswitch shape, base_log > 8 (digits
+        of 2, 3 or 4 byte limbs; a random key made by
+        `keyswitch.keyswitch_key`): held bit for bit at each batch against
+        the torch decomposition and the plain contraction, `keyswitch_lwe`
+        once (one pass and one K2' launch), then timed at batch B beside
+        the tensor-core bound and the CUDA-core bound the retired wide form
+        was held to, the plain contraction timed (and held) at plain_batch,
+        torch._int_mm at [B, D*Kp] x [D*Kp, 8M]; → the numbers."""
         n_in, L, M = sp.big_lwe_dimension, sp.ks_level, sp.lwe_dimension + 1
         K, decomp = n_in * L, sp.ks_decomp
-        if keyswitch.tensor_core_form(K, decomp.base_log):
-            raise AssertionError(f"{label} takes the tensor-core form")
+        D = keyswitch.digit_limbs(decomp.base_log)
+        if D == 1 or not keyswitch.tensor_core_form(decomp.base_log):
+            raise AssertionError(f"{label} does not take digits of several byte limbs")
         ksk = keyswitch.keyswitch_key(rng.uniform_torus(g, (n_in, L, M)), decomp)
-        key, err = ksk.data.reshape(K, M), 0
+        key, Kp = ksk.data.reshape(K, M), ksk.limbs.shape[-1]
+        err = {"tc": 0, "dec": 0}
         for batch in batches:
             ct = ks_ciphertexts(n_in, batch)
-            d32 = signed_decompose(ct[:, :-1], decomp).reshape(batch, K).to(torch.int32)
-            got = keyswitch.neg_digit_mac(d32, key, ct[:, -1])
+            mask, body = ct[:, :-1], ct[:, -1]
+            d = keyswitch.decompose_digits(mask, decomp)
             torch.cuda.synchronize()
-            err = max(err, hold(f"wide form {label}, batch {batch}, K={K}, M={M}, base_log "
-                                f"{decomp.base_log}", got,
-                                keyswitch.neg_digit_mac_plain(d32, key, ct[:, -1])))
-        before = (keyswitch.launches, keyswitch.decompose_launches, keyswitch.wide_launches)
+            err["dec"] = max(err["dec"], hold(
+                f"decomposition pass {label}, batch {batch}, n_in {n_in}, base_log "
+                f"{decomp.base_log}, {L} levels, {D} digit limbs", d,
+                keyswitch.decompose_digits_plain(mask, decomp)))
+            per, splits = keyswitch._tc_plan(batch, M, Kp, sms,
+                                             keyswitch.max_depth(decomp.base_log) // 64)
+            got = keyswitch.neg_digit_mac_tensor_core(d, key, ksk.limbs, body, decomp.base_log)
+            want = keyswitch.neg_digit_mac_plain(
+                signed_decompose(mask, decomp).reshape(batch, K), key, body)
+            torch.cuda.synchronize()
+            err["tc"] = max(err["tc"], hold(
+                f"K2' {label}, batch {batch}, K={K}, M={M}, {D} digit limbs (K in {splits} "
+                f"splits of {per} steps)", got, want))
+        before = (keyswitch.launches, keyswitch.decompose_launches)
         got = keyswitch.keyswitch_lwe(LweCiphertext(data=ct), ksk)
-        ran = [a - b for a, b in zip((keyswitch.launches, keyswitch.decompose_launches,
-                                      keyswitch.wide_launches), before)]
-        if ksk.limbs is not None or ran != [0, 0, 1]:
-            raise AssertionError(f"{label}: keyswitch_lwe launched {ran} (K2', pass, wide)")
-        err = max(err, hold(f"keyswitch_lwe {label}, batch {ct.shape[0]} (the wide form)",
-                            got.data, keyswitch.neg_digit_mac_plain(d32, key, ct[:, -1])))
+        ran = [a - b for a, b in zip((keyswitch.launches, keyswitch.decompose_launches), before)]
+        if ran != [1, 1]:
+            raise AssertionError(f"{label}: keyswitch_lwe launched {ran} (K2', pass)")
+        err["tc"] = max(err["tc"], hold(f"keyswitch_lwe {label}, batch {ct.shape[0]}", got.data,
+                                        want))
+        del d, got, want
         ct = ks_ciphertexts(n_in, B)
-        body = ct[:, -1]
-        d32 = signed_decompose(ct[:, :-1], decomp).reshape(B, K).to(torch.int32)
+        mask, body = ct[:, :-1], ct[:, -1]
+        d = keyswitch.decompose_digits(mask, decomp)
         res = {}
-        ms = cuda_ms(lambda: res.update(got=keyswitch.neg_digit_mac(d32, key, body)), reps)
-        plain_ms = cuda_ms(lambda: res.update(plain=keyswitch.neg_digit_mac_plain(d32, key, body)),
-                           1)
-        err = max(err, hold(f"wide form {label}, batch {B} (timed)", res["got"], res["plain"]))
-        bnd = bound(k2_mults(B, K, M), B * K * 4 + K * M * 8 + B * 8 + B * M * 8, clock_hz, sms)
-        print(f"{tag} keyswitch wide form {label} batch {B} (K={K}, M={M}, base_log "
-              f"{decomp.base_log}): {ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}), plain "
-              f"{plain_ms:.3f} ms")
-        return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                    shape=f"{label} batch {B}, K={K}, M={M}")
+        tc_ms = cuda_ms(lambda: res.update(tc=keyswitch.neg_digit_mac_tensor_core(
+            d, key, ksk.limbs, body, decomp.base_log)), reps)
+        dec_ms = cuda_ms(lambda: keyswitch.decompose_digits(mask, decomp), reps)
+        pb = min(plain_batch, B)
+        d64 = signed_decompose(mask[:pb], decomp).reshape(pb, K)
+        tc_plain_ms = cuda_ms(lambda: res.update(
+            plain=keyswitch.neg_digit_mac_plain(d64, key, body[:pb])), 1)
+        dec_plain_ms = cuda_ms(lambda: keyswitch.decompose_digits_plain(mask, decomp), 1)
+        err["tc"] = max(err["tc"], hold(f"K2' {label}, batch {B} (timed; the first {pb} rows)",
+                                        res["tc"][:pb], res["plain"]))
+        out = dict(err=err, tc_ms=tc_ms, tc_plain_ms=tc_plain_ms, plain_batch=pb, dec_ms=dec_ms,
+                   dec_plain_ms=dec_plain_ms, int_mm_ms=int_mm_ms(B, D * Kp, 8 * M, dev),
+                   tc_bound=tc_bound(B, K, M, Kp, clock_hz, sms, D),
+                   cuda_core_bound=cuda_core_bound(B, K, M, clock_hz, sms),
+                   dec_bound=bound(decompose_ops(B, n_in, L, D), B * n_in * 8 + B * D * Kp,
+                                   clock_hz, sms),
+                   shape=f"{label} batch {B}, K={K}, M={M}, base_log {decomp.base_log}",
+                   limbs=D)
+        mm = out["int_mm_ms"]
+        print(f"{tag} keyswitch {label} batch {B} (K={K}, M={M}, base_log {decomp.base_log}, "
+              f"{D} digit limbs): K2' {tc_ms:.4f} ms (bound {out['tc_bound'][0]:.4f} ms by "
+              f"{out['tc_bound'][1]}, {out['tc_bound'][0] / tc_ms:.1%}; the CUDA-core bound "
+              f"{out['cuda_core_bound'][0]:.4f} ms), plain {tc_plain_ms:.3f} ms at batch {pb}; "
+              f"decomposition pass {dec_ms:.4f} ms (bound {out['dec_bound'][0]:.4f} ms by "
+              f"{out['dec_bound'][1]}), plain {dec_plain_ms:.3f} ms; torch._int_mm "
+              f"[{B}, {D * Kp}] x [{D * Kp}, {8 * M}] int8 "
+              + (f"{mm:.4f} ms" if mm is not None else "not measured"), flush=True)
+        del ksk, key, ct, mask, body, d, d64, res
+        return out
+
+    if args.ks:
+        # the first check of a keyswitch change: phases 3, 3b and 3f's holds
+        lap("3, 3b and 3f: the keyswitch alone")
+        ks = {CLASSIC: hold_keyswitch(CLASSIC, shortint_params(CLASSIC), (1, 8, B, B + 1),
+                                      worst=True)}
+        for name in (GROUP_3, GROUP_2):
+            ks[name] = hold_keyswitch(name, shortint_params(name), (1, 8, B, B + 1))
+        for name in LARGE_KS_SETS:
+            ks[name] = hold_keyswitch(name, shortint_params(name), (8, B), reps=3)
+            torch.cuda.empty_cache()
+        for name, batches, plain_batch in WIDE_KS_SETS:
+            ks[name] = hold_wide_keyswitch(
+                name, wopbs_params(name) if name.startswith("WOPBS") else shortint_params(name),
+                batches, plain_batch)
+            torch.cuda.empty_cache()
+        print(json.dumps({"keyswitch": {k: {f: v for f, v in r.items() if f != "err"}
+                                        for k, r in ks.items()}}))
+        return 0
 
     lap("3")
     # ---- 3. K1 and the keyswitch against their plain versions, 2_2 widths ---
@@ -3790,13 +3895,13 @@ def main() -> int:
     # the b = 8 edge: the deepest K (in rows of 16 bytes) the tensor-core
     # form takes, every limb sum 2^31 - 32768 in magnitude
     K8, M8 = 65792, 65
-    if not keyswitch.tensor_core_form(K8, 8) or keyswitch.tensor_core_form(K8 + 16, 8):
-        raise AssertionError(f"K = {K8} is not the deepest tensor-core shape at b = 8")
+    if not K8 <= keyswitch.max_depth(8) < K8 + 16:
+        raise AssertionError(f"K = {K8} is not the deepest unsplit shape at b = 8")
     key8 = torch.full((K8, M8), -1, dtype=torch.int64, device=dev)
     limbs8, body8 = keyswitch.limb_layout(key8), rng.uniform_torus(g, (B + 1,))
     for v in (-128, 127):
         d8 = torch.full((B + 1, K8), v, dtype=torch.int8, device=dev)
-        got = keyswitch.neg_digit_mac_tensor_core(d8, key8, limbs8, body8)
+        got = keyswitch.neg_digit_mac_tensor_core(d8, key8, limbs8, body8, 8)
         torch.cuda.synchronize()
         ks[CLASSIC]["err"]["tc"] = max(ks[CLASSIC]["err"]["tc"], hold(
             f"K2' worst case at b = 8: every digit {v}, key bytes all 0xFF, K={K8}, M={M8}, "
@@ -4208,14 +4313,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("3f")
-    # ---- 3f. the keyswitch at the large shapes; the wide form ---------------
+    # ---- 3f. the keyswitch at the large shapes; digits of several limbs -----
     for name in LARGE_KS_SETS:
         ks[name] = hold_keyswitch(name, shortint_params(name), (8, B), reps=3)
         torch.cuda.empty_cache()
-    ks_wide = {name: hold_wide_keyswitch(name, wopbs_params(name) if name.startswith("WOPBS")
-                                         else shortint_params(name), (1, 8, B, B + 1))
-               for name in WIDE_KS_SETS}
-    torch.cuda.empty_cache()
+    ks_wide = {}
+    for name, batches, plain_batch in WIDE_KS_SETS:
+        ks_wide[name] = hold_wide_keyswitch(
+            name, wopbs_params(name) if name.startswith("WOPBS") else shortint_params(name),
+            batches, plain_batch)
+        torch.cuda.empty_cache()
 
     def check_requests(ck, outs, expect, path, seconds, batch=B):
         right = 0
@@ -4534,14 +4641,14 @@ def main() -> int:
     print(f"boolean, apps, PBS -> KS, key-flow, hlapi, WoP-PBS and gadget paths kernel "
           f"launches: {json.dumps(slice_launches)}")
     print(f"gadget path kernel launches: {json.dumps(gad['launches'])}")
-    for name in ("external_product", "keyswitch_mac"):
+    for name in ("external_product", "keyswitch_tc", "keyswitch_decompose"):
         if wop["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the WoP-PBS path")
     for label, path, names in (
             ("GGSW shift", shift, ("blind_rotate", "keyswitch_tc", "keyswitch_decompose",
-                                   "keyswitch_mac", "external_product")),
+                                   "external_product")),
             ("integer WoP-PBS", iwop, ("blind_rotate", "keyswitch_tc", "keyswitch_decompose",
-                                       "keyswitch_mac", "external_product")),
+                                       "external_product")),
             ("128-bit PBS", p128, ("external_product128", "keyswitch_tc",
                                    "keyswitch_decompose"))):
         for name in names:
@@ -4571,12 +4678,11 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by its path")
     # the keyswitch on the classic and multi-bit paths: one pass and one K2'
-    # per KS+PBS call (one rotation launch a call there), never the wide form
+    # per KS+PBS call (one rotation launch a call there)
     for label, counts, rot in (("classic", classic_launches, "blind_rotate"),
                                ("multi-bit GROUP_3", multi_bit_launches,
                                 "blind_rotate_multibit")):
-        if not (counts["keyswitch_tc"] == counts["keyswitch_decompose"] == counts[rot]
-                and counts["keyswitch_mac"] == 0):
+        if not counts["keyswitch_tc"] == counts["keyswitch_decompose"] == counts[rot]:
             raise AssertionError(f"{label} path: keyswitch launches {counts}, not one pass "
                                  f"and one K2' a KS+PBS call")
 
@@ -4630,7 +4736,16 @@ def main() -> int:
 
     ks_src = "tfhe_tpu_torch/csrc/keyswitch.cu"
     ks22, ks_names = ks[CLASSIC], [CLASSIC, GROUP_3, GROUP_2] + list(LARGE_KS_SETS)
-    wide0 = ks_wide[WIDE_KS_SETS[0]]
+    ks_rows = [ks[k] for k in ks_names] + list(ks_wide.values())
+    pf = wop["pfks"]
+    tc_rows = [(r["shape"], r["tc_ms"], r["tc_plain_ms"], r["tc_bound"],
+                {"int_mm_ms": r["int_mm_ms"], "digit_limbs": r["limbs"],
+                 **({"plain_batch": r["plain_batch"],
+                     "cuda_core_bound_ms": r["cuda_core_bound"][0]} if r["limbs"] > 1 else {})})
+               for r in ks_rows]
+    tc_rows.append((pf["shape"], pf["ms"], pf["plain_ms"], pf["bound"],
+                    {"int_mm_ms": pf["int_mm_ms"], "digit_limbs": 2,
+                     "cuda_core_bound_ms": pf["cuda_core_bound"][0]}))
 
     rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
@@ -4639,22 +4754,12 @@ def main() -> int:
               + slice_launches["blind_rotate"], max(k1_err, gad["k7"]["k1_err"]), k1_ms,
               k1_plain_ms, k1_bound),
         entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
-              path_total("keyswitch_tc"), max(ks[k]["err"]["tc"] for k in ks_names),
-              ks22["tc_ms"], ks22["tc_plain_ms"], ks22["tc_bound"],
-              [(ks[k]["shape"], ks[k]["tc_ms"], ks[k]["tc_plain_ms"], ks[k]["tc_bound"],
-                {"int_mm_ms": ks[k]["int_mm_ms"], "wide_form_ms": ks[k]["wide_ms"]})
-               for k in ks_names]),
+              path_total("keyswitch_tc"), max([r["err"]["tc"] for r in ks_rows] + [pf["err"]]),
+              ks22["tc_ms"], ks22["tc_plain_ms"], ks22["tc_bound"], tc_rows),
         entry("keyswitch_decompose", ks_src, "tfhe_tpu/core/decomposition.py:19",
-              path_total("keyswitch_decompose"), max(ks[k]["err"]["dec"] for k in ks_names),
+              path_total("keyswitch_decompose"), max(r["err"]["dec"] for r in ks_rows),
               ks22["dec_ms"], ks22["dec_plain_ms"], ks22["dec_bound"],
-              [(ks[k]["shape"], ks[k]["dec_ms"], ks[k]["dec_plain_ms"], ks[k]["dec_bound"])
-               for k in ks_names]),
-        entry("keyswitch_mac", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:24",
-              path_total("keyswitch_mac"), max(w["err"] for w in ks_wide.values()),
-              wide0["ms"], wide0["plain_ms"], wide0["bound"],
-              [(w["shape"], w["ms"], w["plain_ms"], w["bound"]) for w in ks_wide.values()]
-              + [(wop["pfks"]["shape"], wop["pfks"]["ms"], wop["pfks"]["plain_ms"],
-                  bound(wop["pfks"]["mults"], wop["pfks"]["bytes"], clock_hz, sms))]),
+              [(r["shape"], r["dec_ms"], r["dec_plain_ms"], r["dec_bound"]) for r in ks_rows]),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"] + int_launches["blind_rotate_multibit"],
               max(k3[2]["err"], k3[3]["err"]),
@@ -4713,14 +4818,15 @@ def main() -> int:
           f"by {k3[2]['bound'][1]}, plain {k3[2]['plain_ms']:.3f} ms")
     print(f"{tag} K5 GROUP_3 per-step rotation batch {B}: {k5m_ms:.3f} ms, bound "
           f"{k5m_bound[0]:.3f} ms by {k5m_bound[1]}, plain {k3[3]['plain_ms']:.3f} ms")
-    print(f"{tag} keyswitch at batch {B}: shape | K2' ms | bound ms | bound / time | pass ms "
-          f"| pass bound ms | wide form ms | torch._int_mm ms")
-    for k in ks_names:
-        r = ks[k]
+    print(f"{tag} keyswitch at batch {B}: shape | digit limbs | K2' ms | bound ms | bound / "
+          f"time | CUDA-core bound ms | plain ms | pass ms | pass bound ms | torch._int_mm ms")
+    for r in ks_rows + [dict(pf, tc_ms=pf["ms"], tc_bound=pf["bound"], tc_plain_ms=pf["plain_ms"],
+                             limbs=2, dec_bound=(float("nan"), ""))]:
         mm = "not measured" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.4f}"
-        print(f"    {r['shape']} | {r['tc_ms']:.4f} | {r['tc_bound'][0]:.4f} | "
-              f"{r['tc_bound'][0] / r['tc_ms']:.1%} | {r['dec_ms']:.4f} | "
-              f"{r['dec_bound'][0]:.4f} | {r['wide_ms']:.3f} | {mm}")
+        cc = f"{r['cuda_core_bound'][0]:.4f}" if "cuda_core_bound" in r else "-"
+        print(f"    {r['shape']} | {r['limbs']} | {r['tc_ms']:.4f} | {r['tc_bound'][0]:.4f} | "
+              f"{r['tc_bound'][0] / r['tc_ms']:.1%} | {cc} | {r['tc_plain_ms']:.3f} | "
+              f"{r['dec_ms']:.4f} | {r['dec_bound'][0]:.4f} | {mm}")
     print(f"{tag} chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

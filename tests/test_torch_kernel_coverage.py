@@ -180,30 +180,45 @@ def _keyswitch_shapes():
 
 
 def test_the_keyswitch_forms_over_the_named_sets():
+    """Every named set's keyswitch takes the tensor-core form: 228 with
+    digits of one byte (b <= 8), 12 with digits of 2, 3 or 4 signed byte
+    limbs (the COMPACT_PK sets at b = 17 and 25, the WoP-PBS sets at b =
+    10 and 11)."""
     shapes = _keyswitch_shapes()
-    tc = [s for s in shapes if keyswitch.tensor_core_form(*s[1:])]
-    wide = {name: b for name, K, b, q in shapes if not keyswitch.tensor_core_form(K, b, q)}
-    assert len(shapes) == 240 and len(tc) == 228 and len(wide) == 12
-    assert wide == {**{f"PARAM_MESSAGE_{m}_CARRY_{c}_COMPACT_PK_PBS_KS": 25
+    assert len(shapes) == 240 and all(keyswitch.tensor_core_form(b, q) for _, _, b, q in shapes)
+    wide = {name: (b, keyswitch.digit_limbs(b)) for name, K, b, q in shapes
+            if keyswitch.digit_limbs(b) > 1}
+    assert len(wide) == 12
+    assert wide == {**{f"PARAM_MESSAGE_{m}_CARRY_{c}_COMPACT_PK_PBS_KS": (25, 4)
                        for m, c in ((2, 6), (3, 5), (4, 3), (4, 4), (5, 1), (5, 2), (5, 3),
                                     (6, 1))},
-                    "PARAM_MESSAGE_6_CARRY_2_COMPACT_PK_PBS_KS": 17,
-                    "PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS": 17,
-                    "WOPBS_PARAM_MESSAGE_3_CARRY_3_KS_PBS": 10,
-                    "WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS": 11}
+                    "PARAM_MESSAGE_6_CARRY_2_COMPACT_PK_PBS_KS": (17, 3),
+                    "PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS": (17, 3),
+                    "WOPBS_PARAM_MESSAGE_3_CARRY_3_KS_PBS": (10, 2),
+                    "WOPBS_PARAM_MESSAGE_4_CARRY_4_KS_PBS": (11, 2)}
 
 
 def test_every_tensor_core_keyswitch_sums_below_2_31():
-    """Every digit in [-2^(b-1), 2^(b-1)), every key byte <= 255: the limb
-    sums of each set on K2′ fit int32 (the largest, 4_4 PBS_KS at K =
-    196608, b = 4, is 0.19 * 2^31), and every K is a whole row of 16 bytes."""
-    worst = 0
+    """Every digit limb in [-128, 127] (a one-limb digit in [-2^(b-1),
+    2^(b-1))), every key byte <= 255: at batch 512 on 132 SMs K2′'s K
+    split keeps each split's slot sums inside int32 at every named set
+    (7_1 COMPACT at K = 131072, b = 17, in 6 splits; every one-limb set
+    would fit unsplit, the largest, 4_4 PBS_KS at K = 196608, b = 4, at
+    0.19 * 2^31), and every K is a whole row of 16 bytes."""
+    worst, splits = 0, {}
     for name, K, b, q in _keyswitch_shapes():
-        if keyswitch.tensor_core_form(K, b, q):
-            assert b <= 8 and q == 64, name
-            assert K * 2 ** (b - 1) * 255 < 2 ** 31, name
-            assert keyswitch.padded_depth(K) == K, name
-            worst = max(worst, K * 2 ** (b - 1) * 255)
+        limbs = keyswitch.digit_limbs(b)
+        reach = 2 ** (b - 1) if limbs == 1 else 128 * limbs
+        assert keyswitch.padded_depth(K) == K, name
+        M = ALL_NAMED_PARAMS[name].lwe_dimension + 1
+        per, splits[name] = keyswitch._tc_plan(512, M, K, 132, keyswitch.max_depth(b) // 64)
+        depth = min(K, per * 64)
+        assert depth * reach * 255 < 2 ** 31, name
+        if limbs == 1:
+            worst = max(worst, K * reach * 255)
     assert worst == 196608 * 8 * 255
-    assert not keyswitch.tensor_core_form(65808, 8) and keyswitch.tensor_core_form(65792, 8)
-    assert not keyswitch.tensor_core_form(64, 8, log_q=32)
+    assert splits["PARAM_MESSAGE_7_CARRY_1_COMPACT_PK_PBS_KS"] == 6
+    assert keyswitch.max_depth(8) == 65793 and [keyswitch.max_depth(b) for b in (11, 17, 25)] \
+        == [32896, 21931, 16448]
+    assert not keyswitch.tensor_core_form(32) and keyswitch.tensor_core_form(31)
+    assert not keyswitch.tensor_core_form(8, log_q=32)

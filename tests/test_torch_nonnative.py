@@ -10,7 +10,9 @@ before it adds, a deliberate deviation.  So at 2^64 - 2^32 + 1 the sums
 (the encryption's masked sum, add, plaintext add) are deviation tests:
 the port equals a Python-int model, and JAX differs from the model
 exactly where a sum wraps.  At the other moduli no sum reaches 2^64 and
-they stay JAX parity cases."""
+they stay JAX parity cases.  The decomposition's rounding add goes through
+`add_mod` too (C14); its JAX wrap changes no result, so the decomposition
+stays a parity case at every modulus, beside a Python-int model."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -204,6 +206,71 @@ def test_decomposition_equals_jax(q, base_log, level):
     same(terms, jterms)
     same(T.recomposition_summands_custom_mod(terms, base_log, level, q),
          J.recomposition_summands_custom_mod(jterms, base_log, level, q))
+
+
+def rounded_model(x: int, sr: int, q: int) -> int:
+    """The JAX function's rounding, ((x + sr/2) mod q) / sr, in Python ints."""
+    return ((x + (sr >> 1)) % q) // sr
+
+
+def terms_model(x: int, base_log: int, level: int, q: int) -> list:
+    """The balanced terms of decompose_custom_mod in Python ints."""
+    state, terms = rounded_model(x, q >> (base_log * level), q), []
+    for _ in range(level):
+        res = state & ((1 << base_log) - 1)
+        state >>= base_log
+        carry = (((res - 1) | state) & res) >> (base_log - 1)
+        state += carry
+        terms.append((res + q - (carry << base_log)) % q)
+    return terms
+
+
+def rounding_words(q: int, sr: int, rng) -> np.ndarray:
+    """q - 1, q - 2, 2^64 - sr/2 and its neighbours where below q, then
+    random words below q."""
+    edge = [w for w in (q - 1, q - 2, (1 << 64) - (sr >> 1), (1 << 64) - (sr >> 1) + 1,
+                        (1 << 64) - (sr >> 1) - 1) if 0 <= w < q]
+    return np.concatenate([np.array(edge, dtype=object).astype(U64), words(rng, (61,), q)])
+
+
+@pytest.mark.parametrize("q", ALL_Q)
+@pytest.mark.parametrize("base_log, level", [(4, 3), (1, 8), (7, 5)])
+def test_rounding_and_decomposition_equal_python_ints(q, base_log, level):
+    """C14: closest_representable and the balanced terms against the JAX
+    function's formula in Python ints, on the words below q nearest to q
+    and to 2^64 - sr/2 and on random words."""
+    sr = q >> (base_log * level)
+    x = rounding_words(q, sr, np.random.default_rng(base_log * 100 + level))
+    xs = [int(v) for v in x]
+    got = ints(T.closest_representable_custom_mod(t64(x), base_log, level, q))
+    assert list(got) == [rounded_model(v, sr, q) * sr % (1 << 64) for v in xs]
+    terms = ints(T.decompose_custom_mod(t64(x), base_log, level, q))
+    assert [list(row) for row in terms] == [terms_model(v, base_log, level, q) for v in xs]
+
+
+@pytest.mark.parametrize("base_log, level", [(4, 3), (1, 8), (2, 4)])
+def test_the_rounding_wrap_changes_no_result(base_log, level):
+    """C14 at q = 2^64 - 2^32 + 1: on the words in [2^64 - sr/2, q) the JAX
+    function's rounding add passes 2^64 and the port's does not.  Both
+    land in [0, sr/2) (x + sr/2 - 2^64 and x + sr/2 - q), so both round
+    to 0: JAX equals the port and the Python-int model on those words
+    too."""
+    q = GOLDILOCKS_ISH
+    sr = q >> (base_log * level)
+    rng = np.random.default_rng(base_log + level)
+    low = (1 << 64) - (sr >> 1)
+    wrap = [q - 1, q - 2, low] + [low + int(v) % (q - low) for v in
+                                  rng.integers(0, 2 ** 63, 13, dtype=np.int64)]
+    assert all(low <= v < q for v in wrap)
+    x = np.array(wrap, dtype=object).astype(U64)
+    tx, jx = t64(x), jnp.asarray(x)
+    port = T.closest_representable_custom_mod(tx, base_log, level, q)
+    same(port, J.closest_representable_custom_mod(jx, base_log, level, q))
+    assert (ints(port) == 0).all() and all(rounded_model(v, sr, q) == 0 for v in wrap)
+    terms = T.decompose_custom_mod(tx, base_log, level, q)
+    same(terms, J.decompose_custom_mod(jx, base_log, level, q))
+    assert [list(row) for row in ints(terms)] == [terms_model(v, base_log, level, q)
+                                                  for v in wrap]
 
 
 def test_bad_modulus_refused():

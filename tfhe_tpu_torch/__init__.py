@@ -12,7 +12,7 @@ examples (Trivium/Kreyvium with transciphering, SHA-256, the dark market,
 the regex engine).  Hand-written CUDA kernels carry the hot work (`csrc/`):
 the whole blind rotation (K1 classic, K3 multi-bit), one rotation step per
 launch (K4 delta, K5 paired or multi-bit), K6 beyond one block, the
-keyswitch contraction (K2′, K2), the external product with a GGSW a row
+keyswitch contraction (K2′, digits of 1 to 4 byte limbs), the external product with a GGSW a row
 (K7), and a shared-memory probe.
 Each sits beside a plain PyTorch version that CPU tensors take.
 

@@ -1,24 +1,24 @@
-"""LWE keyswitching, in two forms chosen from the shape, and the packing
-keyswitch into a GLWE.
+"""LWE keyswitching on the int8 tensor cores, and the packing keyswitch
+into a GLWE.
 
 Counterpart of `tfhe_tpu/core/algorithms/keyswitch.py:68 keyswitch_lwe`:
 out = (0, b) - sum_{i,l} d_{i,l} * KSK[i, l].  The JAX package contracts on
 int8 where base_log <= 8 (`_neg_digit_mac`, :41: s8 digits, the key in byte
 limbs, the limb dots recombined with wrapping shifts) and in u64 elsewhere
-(`_neg_digit_mac_chunked`, :24).  The port's kernels are in
-`csrc/keyswitch.cu` (its header gives the design and what bounds each):
-
-* the tensor-core form, where `tensor_core_form` holds (228 of the 240
-  named sets with a keyswitching key): the decomposition pass
-  (`decompose_digits`, int8 digits) and K2′ (`neg_digit_mac_tensor_core`,
-  int8 tensor cores on the key's byte limbs, `LweKeyswitchKey.limbs`);
-* the wide form otherwise (base_log > 8): the torch decomposition and K2
-  (`neg_digit_mac`, 64-bit multiply-adds).
+(`_neg_digit_mac_chunked`, :24).  The port has one form for every base_log
+up to 31 (`tensor_core_form`; all 240 named sets with a keyswitching key),
+two kernels in `csrc/keyswitch.cu` (its header gives the design and what
+bounds each): the decomposition pass (`decompose_digits`: each digit as
+`digit_limbs(base_log)` signed bytes) and K2′ (`neg_digit_mac_tensor_core`:
+the int8 tensor cores on the key's byte limbs, `LweKeyswitchKey.limbs`,
+each digit limb against the key bytes it meets, K split where the depth
+would pass the int32 sums).
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 (or raises) for CUDA tensors: `decompose_digits_plain` (the torch
-decomposition as int8) beside the pass, `neg_digit_mac_plain` on the int64
-key beside both contractions.
+decomposition split into byte limbs) beside the pass,
+`neg_digit_mac_plain` on the int64 key and the recombined digits beside
+K2′.
 """
 from __future__ import annotations
 
@@ -37,19 +37,35 @@ from ..poly import monomial_mul
 # Kernel launches, counted by each wrapper's CUDA branch only.
 launches = 0             # K2′, the tensor-core contraction
 decompose_launches = 0   # the decomposition pass
-wide_launches = 0        # K2, the wide form
 
 # K2′'s block tile (csrc/keyswitch.cu): batch rows, limb columns, K bytes a
-# step, and its ring of stages
+# step, and the ring of stages at one digit limb
 _TC_ROWS, _TC_COLS, _TC_DEPTH, _TC_STAGES = 128, 128, 64, 4
 _MAX_SPLITS, _MIN_SPLIT_STEPS = 8, 8
+_MAX_DIGIT_LIMBS = 4     # the kernels' instantiations (csrc/keyswitch.cu)
 
 
-def tensor_core_form(K: int, base_log: int, log_q: int = LOG_Q) -> bool:
-    """Whether a keyswitch of depth K = n_in * levels takes the tensor-core
-    form: the digits fit s8 and every limb sum, at most K * 2^(b-1) * 255
-    in magnitude, fits int32."""
-    return base_log <= 8 and log_q == 64 and K * (1 << (base_log - 1)) * 255 < 1 << 31
+def digit_limbs(base_log: int) -> int:
+    """The signed byte limbs a balanced digit of base_log bits takes on the
+    card: the digit itself for b <= 8, else ceil((b + 1) / 8) (2 for b <=
+    15, 3 for b <= 23, 4 for b <= 31), so the top limb fits s8."""
+    return 1 if base_log <= 8 else (base_log + 8) // 8
+
+
+def tensor_core_form(base_log: int, log_q: int = LOG_Q) -> bool:
+    """Whether the card's keyswitch takes digits of base_log bits under a
+    2^log_q torus: the kernels are instantiated up to 4 digit limbs."""
+    return log_q == 64 and base_log >= 1 and digit_limbs(base_log) <= _MAX_DIGIT_LIMBS
+
+
+def max_depth(base_log: int) -> int:
+    """The deepest K whose slot sums K2′ keeps exact in int32: a slot sums
+    at most 255 * sum_i max|e_i| a row of K, the digit's 2^(b-1) at one
+    limb and 128 a limb above (65793 rows at b = 8; 32896, 21930 and 16448
+    at 2, 3 and 4 limbs)."""
+    limbs = digit_limbs(base_log)
+    reach = 1 << (base_log - 1) if limbs == 1 else 128 * limbs
+    return (2 ** 31 - 1) // (255 * reach)
 
 
 def padded_depth(K: int) -> int:
@@ -71,7 +87,7 @@ def keyswitch_key(data: torch.Tensor, decomp: DecompParams) -> LweKeyswitchKey:
     it: a key on the card of a set that takes the tensor-core form."""
     n_in, levels, M = data.shape
     limbs = None
-    if data.device.type == "cuda" and tensor_core_form(n_in * levels, decomp.base_log):
+    if data.device.type == "cuda" and tensor_core_form(decomp.base_log):
         limbs = limb_layout(data.reshape(n_in * levels, M))
     return LweKeyswitchKey(data=data, decomp=decomp, limbs=limbs)
 
@@ -81,13 +97,36 @@ def _cuda_only(t: torch.Tensor) -> None:
         raise ValueError(f"no keyswitch kernel for device {t.device}")
 
 
+def split_limbs(digits: torch.Tensor, limbs: int) -> torch.Tensor:
+    """Digits [..., K] int64 → their signed byte limbs [..., limbs, K] int8,
+    d = sum_i e_i 2^(8i): each limb below the top is the low byte read
+    signed, the rest (d - e) / 256 carries on."""
+    out = []
+    for _ in range(limbs - 1):
+        e = ((digits & 0xFF) ^ 0x80) - 0x80
+        out.append(e)
+        digits = (digits - e) >> 8
+    out.append(digits)
+    return torch.stack(out, dim=-2).to(torch.int8)
+
+
+def join_limbs(digits: torch.Tensor, K: int, limbs: int) -> torch.Tensor:
+    """`decompose_digits`'s [B, limbs * Kp] int8 → the digits [B, K] int64."""
+    B = digits.shape[0]
+    parts = digits.reshape(B, limbs, -1)[:, :, :K].to(torch.int64)
+    return sum(parts[:, i] << (8 * i) for i in range(limbs))
+
+
 def decompose_digits_plain(mask: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
-    """mask [B, n_in] int64 → the balanced digits [B, Kp] int8, k = i*l + j
-    level-major as `signed_decompose` orders them, zeros past K = n_in*l."""
+    """mask [B, n_in] int64 → the balanced digits' signed byte limbs
+    [B, D * Kp] int8, D = digit_limbs(b): limb i of digit k at column
+    i * Kp + k, k = i*l + j level-major as `signed_decompose` orders them,
+    zeros past K = n_in*l."""
     B, n_in = mask.shape
     K = n_in * decomp.level
-    digits = signed_decompose(mask, decomp).reshape(B, K).to(torch.int8)
-    return F.pad(digits, (0, padded_depth(K) - K))
+    digits = split_limbs(signed_decompose(mask, decomp).reshape(B, K),
+                         digit_limbs(decomp.base_log))
+    return F.pad(digits, (0, padded_depth(K) - K)).reshape(B, -1)
 
 
 def decompose_digits(mask: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
@@ -99,17 +138,18 @@ def decompose_digits(mask: torch.Tensor, decomp: DecompParams) -> torch.Tensor:
     _cuda_only(mask)
     if mask.dtype != torch.int64 or mask.dim() != 2:
         raise TypeError("the mask must be an int64 torus tensor [B, n_in]")
-    if not 1 <= decomp.base_log <= 8:
-        raise ValueError(f"base_log {decomp.base_log}: int8 digits need 1..8")
+    if not tensor_core_form(decomp.base_log):
+        raise ValueError(f"base_log {decomp.base_log}: the card's digits take 1..31 bits")
     if mask.stride(1) != 1:
         mask = mask.contiguous()
     global decompose_launches
     B, n_in = mask.shape
+    limbs = digit_limbs(decomp.base_log)
     Kp = padded_depth(n_in * decomp.level)
-    out = torch.empty((B, Kp), dtype=torch.int8, device=mask.device)
+    out = torch.empty((B, limbs * Kp), dtype=torch.int8, device=mask.device)
     code = cuda_lib.library().tfhe_keyswitch_decompose(
         mask.data_ptr(), mask.stride(0) if B > 1 else n_in, out.data_ptr(), B, n_in, Kp,
-        decomp.base_log, decomp.level, cuda_lib.stream_of(mask))
+        decomp.base_log, decomp.level, limbs, cuda_lib.stream_of(mask))
     decompose_launches += 1
     cuda_lib.check(code, "tfhe_keyswitch_decompose")
     return out
@@ -131,47 +171,58 @@ def neg_digit_mac_plain(digits: torch.Tensor, key: torch.Tensor,
     return out
 
 
-def _tc_plan(B: int, M: int, Kp: int, sms: int) -> tuple:
+def _tc_plan(B: int, M: int, Kp: int, sms: int, max_steps: int | None = None) -> tuple:
     """(K steps a split, splits) for K2′: the split of K that spreads the
-    block tiles most evenly over `sms` SMs.  The cost of a split is the
-    most tiles an SM runs times the K steps of each, plus the steps that
-    fill the ring of stages; K is split only where that gains 5% (the
-    splits add into a zeroed output with atomics) and each split keeps at
-    least _MIN_SPLIT_STEPS steps."""
+    block tiles most evenly over `sms` SMs, with no split deeper than
+    `max_steps` (the int32 limit, in steps of 64 bytes).  The cost of a
+    split is the most tiles an SM runs times the K steps of each, plus the
+    steps that fill the ring of stages; K is split past what the limit
+    needs only where that gains 5% (the splits add into a zeroed output
+    with atomics) and each such split keeps at least _MIN_SPLIT_STEPS
+    steps."""
     tiles = math.ceil(B / _TC_ROWS) * math.ceil(8 * M / _TC_COLS)
     k_steps = math.ceil(Kp / _TC_DEPTH)
-    best_cost, best = math.ceil(tiles / sms) * (k_steps + _TC_STAGES), (k_steps, 1)
-    for s in range(2, _MAX_SPLITS + 1):
+    least = 1 if max_steps is None else math.ceil(k_steps / max_steps)
+    best_cost, best = None, None
+    for s in range(least, max(least, _MAX_SPLITS) + 1):
         per = math.ceil(k_steps / s)
-        if per < _MIN_SPLIT_STEPS:
+        if s > least and per < _MIN_SPLIT_STEPS:
             break
         used = math.ceil(k_steps / per)
         cost = math.ceil(tiles * used / sms) * (per + _TC_STAGES)
-        if cost < 0.95 * best_cost:
+        if best is None or cost < 0.95 * best_cost:
             best_cost, best = cost, (per, used)
     return best
 
 
 def neg_digit_mac_tensor_core(digits: torch.Tensor, key: torch.Tensor,
-                              limbs: torch.Tensor | None, body: torch.Tensor) -> torch.Tensor:
-    """K2′'s wrapper: -sum_k digits[b, k] * key[k, m] mod 2^64, plus body[b]
-    at the last column.  digits [B, Kp] int8 (`decompose_digits`), key
-    [K, M] int64 (the plain version's operand), limbs [M, 8, Kp] uint8 (the
-    kernel's, `limb_layout(key)`), body [B] int64 → [B, M] int64.  The
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors (or an
-    error: there is no fallback).  The digits must lie in [-2^(b-1),
-    2^(b-1)) with `tensor_core_form(K, b)`: the kernel sums in int32."""
+                              limbs: torch.Tensor | None, body: torch.Tensor,
+                              base_log: int) -> torch.Tensor:
+    """K2′'s wrapper: -sum_k d[b, k] * key[k, m] mod 2^64, plus body[b] at
+    the last column, for digits d of magnitude at most 2^(base_log - 1)
+    given as their D = digit_limbs(base_log) signed byte limbs: digits
+    [B, D * Kp] int8 (`decompose_digits`), key [K, M] int64 (the plain
+    version's operand), limbs [M, 8, Kp] uint8 (the kernel's,
+    `limb_layout(key)`), body [B] int64 → [B, M] int64.  The plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors (or an error: there is
+    no fallback).  K is split so that no split's int32 sums pass
+    `max_depth(base_log)`."""
+    D = digit_limbs(base_log)
     if key.device.type == "cpu":
-        return neg_digit_mac_plain(digits[:, :key.shape[0]], key, body)
+        return neg_digit_mac_plain(join_limbs(digits, key.shape[0], D), key, body)
     _cuda_only(key)
     global launches
-    (B, Kp), (K, M) = digits.shape, key.shape
+    (B, width), (K, M) = digits.shape, key.shape
+    Kp = padded_depth(K)
     if limbs is None:
         raise ValueError("the keyswitching key has no limb layout on the card: make it with "
                          "keyswitch.keyswitch_key")
-    if (Kp != padded_depth(K) or tuple(limbs.shape) != (M, 8, Kp) or body.shape != (B,)):
+    if not tensor_core_form(base_log):
+        raise ValueError(f"base_log {base_log}: the card's digits take 1..31 bits")
+    if width != D * Kp or tuple(limbs.shape) != (M, 8, Kp) or body.shape != (B,):
         raise ValueError(f"shapes digits {tuple(digits.shape)}, key {tuple(key.shape)}, limbs "
-                         f"{tuple(limbs.shape)}, body {tuple(body.shape)} disagree")
+                         f"{tuple(limbs.shape)}, body {tuple(body.shape)} disagree at "
+                         f"{D} digit limbs")
     if (digits.dtype != torch.int8 or limbs.dtype != torch.uint8
             or body.dtype != torch.int64):
         raise TypeError("digits int8, limbs uint8 and body int64 expected")
@@ -182,43 +233,15 @@ def neg_digit_mac_tensor_core(digits: torch.Tensor, key: torch.Tensor,
         if t.device != key.device:
             raise ValueError("all operands must be on one device")
     steps, splits = _tc_plan(B, M, Kp,
-                             torch.cuda.get_device_properties(key.device).multi_processor_count)
+                             torch.cuda.get_device_properties(key.device).multi_processor_count,
+                             max_depth(base_log) // _TC_DEPTH)
     out = (torch.zeros if splits > 1 else torch.empty)((B, M), dtype=torch.int64,
                                                         device=key.device)
     code = cuda_lib.library().tfhe_keyswitch_tc(
-        digits.data_ptr(), limbs.data_ptr(), body.data_ptr(), out.data_ptr(), B, M, Kp, steps,
-        splits, cuda_lib.stream_of(key))
+        digits.data_ptr(), limbs.data_ptr(), body.data_ptr(), out.data_ptr(), B, M, Kp, D,
+        steps, splits, cuda_lib.stream_of(key))
     launches += 1
     cuda_lib.check(code, "tfhe_keyswitch_tc")
-    return out
-
-
-def neg_digit_mac(digits: torch.Tensor, key: torch.Tensor,
-                  body: torch.Tensor) -> torch.Tensor:
-    """K2's wrapper, the wide form: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (or an error: there is no fallback)."""
-    if key.device.type == "cpu":
-        return neg_digit_mac_plain(digits, key, body)
-    _cuda_only(key)
-    global wide_launches
-    B, K = digits.shape
-    M = key.shape[1]
-    if key.shape[0] != K or body.shape != (B,):
-        raise ValueError(f"shapes digits {tuple(digits.shape)}, key "
-                         f"{tuple(key.shape)}, body {tuple(body.shape)} disagree")
-    if key.dtype != torch.int64 or body.dtype != torch.int64:
-        raise TypeError("key and body must be int64 torus tensors")
-    d32 = digits.to(torch.int32).contiguous()
-    key, body = key.contiguous(), body.contiguous()
-    for t in (d32, body):
-        if t.device != key.device:
-            raise ValueError("all operands must be on one device")
-    out = torch.empty((B, M), dtype=torch.int64, device=key.device)
-    lib = cuda_lib.library()
-    code = lib.tfhe_keyswitch_mac(d32.data_ptr(), key.data_ptr(), body.data_ptr(),
-                                  out.data_ptr(), B, K, M, cuda_lib.stream_of(key))
-    wide_launches += 1
-    cuda_lib.check(code, "tfhe_keyswitch_mac")
     return out
 
 
@@ -226,22 +249,17 @@ def contract(x: torch.Tensor, key: torch.Tensor, decomp: DecompParams, body: tor
              limbs: torch.Tensor | None = None) -> torch.Tensor:
     """-sum_{i,l} d_l(x_i) * key[i*L + l] mod 2^64, plus body[b] at the last
     column: x [B, n] int64 torus words (rows may be strided), key [n*L, M]
-    int64, body [B] → [B, M], in the form `tensor_core_form` gives the shape:
-    one decomposition pass and one K2′ launch on the card (with the key's
-    `limbs`, built here if not given), or the torch decomposition and one K2
-    launch."""
-    B, n = x.shape
-    if tensor_core_form(n * decomp.level, decomp.base_log):
-        if limbs is None and key.device.type == "cuda":
-            limbs = limb_layout(key)
-        return neg_digit_mac_tensor_core(decompose_digits(x, decomp), key, limbs, body)
-    return neg_digit_mac(signed_decompose(x, decomp).reshape(B, -1), key, body)
+    int64, body [B] → [B, M]: one decomposition pass and one K2′ launch on
+    the card (with the key's `limbs`, built here if not given)."""
+    if limbs is None and key.device.type == "cuda":
+        limbs = limb_layout(key)
+    return neg_digit_mac_tensor_core(decompose_digits(x, decomp), key, limbs, body,
+                                     decomp.base_log)
 
 
 def keyswitch_lwe(ct: LweCiphertext, ksk: LweKeyswitchKey) -> LweCiphertext:
-    """LWE(n_in) → LWE(n_out), in the form `tensor_core_form` gives the key's
-    shape (one decomposition pass and one K2′ launch on the card, or the
-    torch decomposition and one K2 launch)."""
+    """LWE(n_in) → LWE(n_out): one decomposition pass and one K2′ launch on
+    the card (`contract`)."""
     n_in, levels, M = ksk.data.shape
     batch = tuple(ct.data.shape[:-1])
     out = contract(ct.mask.reshape(-1, n_in), ksk.data.reshape(n_in * levels, M), ksk.decomp,
@@ -255,7 +273,7 @@ def packing_keyswitch_lwe_to_glwe(ct: LweCiphertext,
     (tfhe_tpu keyswitch.py:79; reference
     keyswitch_lwe_ciphertext_into_glwe_ciphertext): out = -sum d * PKSK,
     the body added at coefficient 0 of the body polynomial; the contraction
-    is `contract`'s (K2′ or K2 on the card)."""
+    is `contract`'s (the pass and K2′ on the card)."""
     n_in, levels, glwe_size, n = pksk.data.shape
     batch = tuple(ct.data.shape[:-1])
     zero = torch.zeros(ct.body.numel(), dtype=torch.int64, device=ct.data.device)

@@ -10,7 +10,9 @@ every compare is unsigned, `numeric.ult`/`uge`, and every division
 for one deliberate deviation (ROADMAP C13): where q > 2^63, the JAX
 function's a + b of two words below q may pass 2^64 and wrap before the
 reduction; `add_mod` here compares a with q - b first, so every sum is a
-sum mod q.  These are cold client-side paths, as in the
+sum mod q.  The decomposition's rounding adds through it too, where the
+JAX function's wrap changes no result (C14).  These are cold client-side
+paths, as in the
 JAX package: the 128-bit reductions of `uniform_mod` and the scalar
 products run on the host in Python ints.
 
@@ -184,21 +186,27 @@ def decompress_seeded_lwe_custom_mod(key: torch.Tensor, bodies: torch.Tensor,
 
 
 def _rounded(x: torch.Tensor, sr: int, q: int) -> torch.Tensor:
-    """((x + sr/2) mod q) / sr, the add wrapping as the JAX uint64 add."""
-    return udiv(umod(x + (sr >> 1), q), sr)
+    """((x + sr/2) mod q) / sr for words x < q.  The add is `add_mod`'s, so
+    nothing passes 2^64.  The JAX function adds in wrapping uint64, which at
+    q > 2^63 wraps for the words in [2^64 - sr/2, q); there its sum and the
+    exact one both lie in [0, sr/2) and round to 0, so the results agree
+    (ROADMAP C14)."""
+    return udiv(add_mod(x, torch.full_like(x, as_i64(sr >> 1)), q), sr)
 
 
 def closest_representable_custom_mod(x: torch.Tensor, base_log: int, level: int,
                                      q: int) -> torch.Tensor:
-    """round(x / (q/B^l)) * (q/B^l), floored-radix (decomposer.rs:341-357)."""
+    """round(x / (q/B^l)) * (q/B^l), floored-radix (decomposer.rs:341-357),
+    for words x < q (the rounding is `_rounded`'s, C14)."""
     _check_q(q)
     sr = q // (1 << (base_log * level))
     return _rounded(x, sr, q) * as_i64(sr)
 
 
 def decompose_custom_mod(x: torch.Tensor, base_log: int, level: int, q: int) -> torch.Tensor:
-    """The balanced decomposition under q: terms [..., level] in [0, q),
-    level l first down to 1 (iter.rs decompose_one_level_non_native)."""
+    """The balanced decomposition under q of words x < q: terms
+    [..., level] in [0, q), level l first down to 1 (iter.rs
+    decompose_one_level_non_native; the rounding is `_rounded`'s, C14)."""
     _check_q(q)
     b = base_log
     state = _rounded(x, q // (1 << (b * level)), q)

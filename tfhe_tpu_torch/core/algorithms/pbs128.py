@@ -89,9 +89,7 @@ class KeyswitchKey128:
     def limbs(self):
         """The word key's bytes for K2′ on the card (`keyswitch.limb_layout`)
         where the shape takes the tensor-core form; None elsewhere."""
-        n_in, levels = self.data.shape[:2]
-        if self.data.device.type != "cuda" or not tensor_core_form(n_in * levels,
-                                                                   self.decomp.base_log):
+        if self.data.device.type != "cuda" or not tensor_core_form(self.decomp.base_log):
             return None
         return limb_layout(self.words)
 

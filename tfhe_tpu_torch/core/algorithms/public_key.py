@@ -94,7 +94,7 @@ def encrypt_lwe_with_public_key(key: torch.Tensor, pk: LwePublicKey,
     m = pk.zero_encryption_count
     sel = threefry.binary_key(key, shape + (m,)).reshape(-1, m)
     digits = F.pad(sel.to(torch.int8), (0, padded_depth(m) - m))
-    out = neg_digit_mac_tensor_core(digits, pk.data, pk.limbs, -plaintexts.reshape(-1))
+    out = neg_digit_mac_tensor_core(digits, pk.data, pk.limbs, -plaintexts.reshape(-1), 1)
     return LweCiphertext(data=(-out).reshape(shape + (pk.lwe_dimension + 1,)))
 
 

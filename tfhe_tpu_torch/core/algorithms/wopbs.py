@@ -8,8 +8,8 @@ vertical_packing :785; algorithms/lwe_private_functional_packing_keyswitch.rs).
 Batched over leading axes; GGSW lists are ordered MSB first.  The kernels:
 the PBS of `extract_bits` and of the circuit bootstrap is K1 (or the route
 the key records), their keyswitches the pass and K2′; the private
-functional keyswitch is K2's contraction (the wide form where the pfks
-base_log exceeds 8, else the pass and K2′); every CMux and every step of
+functional keyswitch is `keyswitch.contract` (the pass and K2′, its digits
+in as many byte limbs as the pfks base_log needs); every CMux and every step of
 vertical packing's GGSW-driven rotation is one K7 launch over a GGSW per
 row.  GGSWs enter K7 as the port's spectra (`ggsw_to_ntt`), not the JAX
 package's DIF order and Shoup twins.
@@ -56,11 +56,10 @@ class CbsPfpkskList:
     @functools.cached_property
     def limbs(self) -> Optional[list]:
         """Each row key's words as bytes for K2′ (`keyswitch.limb_layout`),
-        built once on the card where the shape takes the tensor-core form;
-        None elsewhere (the wide form reads the words)."""
+        built once on the card where the decomposition takes the
+        tensor-core form; None elsewhere."""
         glwe_size, m, levels, _, n = self.data.shape
-        if self.data.device.type != "cuda" or not tensor_core_form(m * levels,
-                                                                   self.decomp.base_log):
+        if self.data.device.type != "cuda" or not tensor_core_form(self.decomp.base_log):
             return None
         return [limb_layout(self.data[r].reshape(m * levels, glwe_size * n))
                 for r in range(glwe_size)]
@@ -95,7 +94,7 @@ def private_functional_keyswitch(ct: LweCiphertext, pfpksk: CbsPfpkskList,
     """LWE(m) [..., n_in+1] → GLWE(m * v_row(X)) [..., k+1, N] (tfhe_tpu
     wopbs.py:83; reference
     private_functional_keyswitch_lwe_ciphertext_into_glwe_ciphertext):
-    sum_l d_l(b) K[n_in, l] - sum_{i,l} d_l(a_i) K[i, l].  K2's contraction
+    sum_l d_l(b) K[n_in, l] - sum_{i,l} d_l(a_i) K[i, l].  K2′'s contraction
     gives -sum over every position, mask and body alike; twice the body's
     term (l rows of the key) turns its sign."""
     key = pfpksk.data[row]                                 # [n_in+1, l, k+1, N]

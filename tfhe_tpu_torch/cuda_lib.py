@@ -41,9 +41,8 @@ _SIGNATURES = {
     "tfhe_cluster_step_active": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_variant_active_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "tfhe_delta_active_blocks": [_I, _I, ctypes.POINTER(ctypes.c_int)],
-    "tfhe_keyswitch_mac": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "tfhe_keyswitch_decompose": [_P, _L, _P] + [_I] * 5 + [_P],
-    "tfhe_keyswitch_tc": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "tfhe_keyswitch_decompose": [_P, _L, _P] + [_I] * 6 + [_P],
+    "tfhe_keyswitch_tc": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "tfhe_external_product": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P] + [_I] * 13 + [_P],
     "tfhe_external_product128": [_P, _L, _P, _L, _P, _L, _P, _P, _P] + [_I] * 13 + [_P],
     "tfhe_smem_probe": [_I, _P, _P],

@@ -19,8 +19,8 @@ At uint32 on 2_2 with cbs (4, 4): 16 CBS PBS + 1 sub-bit PBS + 31 refresh
 PBS = 48 PBS, 4 external products and 2 keyswitch passes (tfhe_tpu
 shift_key.py:15-17), against ~154-181 PBS on the layered path.  On the
 card: two K1 calls (the CBS round and the refresh sweep), the pass and K2′
-for their keyswitches and for the packing keyswitch, the wide K2 for the
-private functional keyswitches, one K7 launch a CMux.
+for their keyswitches, the packing keyswitch and the private functional
+keyswitches, one K7 launch a CMux.
 
 The casting keyswitches are one hop at SHIFT_CAST_KS_DECOMP (base 4, 8
 levels; the JAX package's measurement: the combined regime's double hop

@@ -8,8 +8,8 @@ list.  A LUT over t bits is max(1, 2^t / N) polynomials, built on the host
 as int64 bit patterns; where there are several, vertical packing runs its
 CMux tree over the most significant GGSWs first.  On the card: K1 for the
 extraction's and circuit bootstrap's PBS, the pass and K2′ for their
-keyswitches, the wide K2 for the private functional keyswitches and K7 for
-every CMux and rotation step.
+keyswitches and the private functional keyswitches, and K7 for every CMux
+and rotation step.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ parameter set for the PBS and the WoP-PBS) and `new_wopbs_key` (a dedicated
 WoP-PBS set with its own client key, and casting keyswitching keys into and
 out of the compute set).  On the card a `wopbs` call at
 WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS runs K1 for every PBS, the pass and
-K2′ for every keyswitch, the wide K2 for every private functional
-keyswitch and K7 for every CMux and rotation step of vertical packing.
+K2′ for every keyswitch and every private functional keyswitch (its
+digits of 15 bits as two byte limbs) and K7 for every CMux and rotation
+step of vertical packing.
 """
 from __future__ import annotations
 
