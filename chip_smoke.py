@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA card.
 
 Drives the port's shortint keyswitch + PBS paths, its integer path, its
-boolean scheme, its apps, its client-server key flow, its high-level API,
-its WoP-PBS, its gadget fork, its GGSW shifts, its integer WoP-PBS and its
-2^128 torus once each, through the entry points a user
+boolean scheme (64- and 32-bit tori), its apps, its client-server key flow,
+its high-level API, its WoP-PBS, its gadget fork, its GGSW shifts, its
+integer WoP-PBS, its 2^128 torus, its dp mesh, its CSPRNG and its C API
+once each, through the entry points a user
 calls, and checks them: the classic
 path at the full PARAM_MESSAGE_2_CARRY_2_KS_PBS widths (n=742, N=2048), the
 multi-bit path at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS (n=888 in
@@ -267,6 +268,26 @@ N=8192, its GROUP_3 multi-bit set, 4_4 at N=32768), batch 512 each:
      form held against the plain 128-bit sum; the custom moduli of
      tests/test_nonnative.py (encrypt, add, scalar-multiply, decrypt, the
      decomposition) at n = 742, batch 512, against Python-int models;
+  4q. the boolean scheme on the reference's 32-bit torus (bool32_path):
+     DEFAULT_PARAMETERS_KS_PBS's widths with log_q = 32, held lifted by
+     2^32, keys made on the card (the "rotate" route: one K7 launch a
+     step); AND, XOR and MUX at batch 1, 32 and 512, each with the counts
+     at 0 just before and read just after (664 K7 launches a gate, 1,328 a
+     MUX, one pass and one K2' a keyswitch), every row decrypted, every
+     word's low 32 bits zero, the first AND call (batch 1) bit-identical to
+     the plain CPU path, ms a call;
+     K7 (a GGSW of the key shared, rotated operand) at batch 1, 32, 512 and
+     the pass + K2' at one digit limb on the key's KSK, held bit for bit
+     against their plain versions and timed beside their bounds;
+  4r. the dp mesh (mesh_path): the card named twice, the 2_2 KS+PBS at
+     batch 512 split in two streams by shard_map_kspbs, bit-identical to
+     the unsplit call and decrypted; with one card, scaling is not
+     measured;
+  4s. the periphery (periphery_path): the AES-CTR CSPRNG built by g++,
+     FIPS-197 on both backends, its stream's SHA-256 equal to the one the
+     port writes on the CPU; libtfhe_tpu_torch_capi.so built against this
+     machine's libpython and the unchanged C client
+     tests/c_api/test_high_level_integers.c run on the card (PASS);
   5. the shared-memory probe: with its count at 0, finds the largest
      dynamic shared memory one block launches with and reads back right,
      and holds it equal to the device's opt-in attribute and to the limit
@@ -313,7 +334,7 @@ right; it raises otherwise.  It prints each turn, then each tree's mean:
 
 With --ks it builds and runs only the keyswitch's holds and times of phases
 3, 3b and 3f (the first check of a keyswitch change); with --ep only phase
-4p and 4o (K7 and K8)."""
+4p and 4o (K7 and K8); with --bool32 only phase 4q."""
 from __future__ import annotations
 
 import argparse
@@ -3490,6 +3511,294 @@ def apps_path(seed: int, dev, tag: str, zero_counts, read_counts, bool_sets: lis
     return {"launches": totals, "apps": apps}
 
 
+BOOL32_SET = "DEFAULT_PARAMETERS_KS_PBS"     # phase 4q, replaced to log_q = 32
+BOOL32_BATCHES = (1, 32, B)
+BOOL32_TRUTH = {"and_": lambda x, y, z: x & y, "xor_": lambda x, y, z: x ^ y,
+                "mux": lambda x, y, z: torch.where(x, y, z)}
+MESH_SET = CLASSIC                           # phase 4r
+# phase 4s: SHA-256 of the port's AES-CTR stream under bytes 0..15 (1 MiB,
+# then 64 KiB of fork 5's fork 2), written by the port on the CPU and equal
+# to the JAX package's generator's (tests/test_torch_native.py)
+CSPRNG_SEED = bytes(range(16))
+CSPRNG_DIGEST = "aeb1ebaea4d454da43b296fda0bd9df1d4d619f07915bb9a11a59425e320ad73"
+
+
+def csprng_digest(native) -> str:
+    import hashlib
+    g = native.AesCtrGenerator(CSPRNG_SEED)
+    h = hashlib.sha256(g.generate(1 << 20))
+    h.update(g.fork(5).fork(2).generate(1 << 16))
+    return h.hexdigest()
+
+
+def bool32_path(seed: int, dev, tag: str, zero_counts, read_counts, clock_hz: float,
+                sms: int) -> dict:
+    """Phase 4q: the boolean scheme on the reference's own 32-bit torus,
+    BOOL32_SET's published widths with log_q = 32, held lifted by 2^32.
+    boolean.gen_keys on the card (the key's route must be "rotate": the
+    rotate-subtract PBS, one K7 launch a step, at the 64-bit prime count);
+    AND, XOR and MUX at each of BOOL32_BATCHES on random operands, each
+    call with the counts set to 0 just before and read just after (a gate:
+    n K7 launches, one pass, one K2'; MUX: 2n K7 and, under KS -> PBS, two
+    keyswitches), every row decrypted against the truth table and every
+    word's low 32 bits zero; the first AND call (batch 1) bit-identical to
+    the plain CPU path; ms a call by CUDA events.  Then the kernels at this path's
+    shapes, held bit for bit against their plain versions on the same card
+    inputs and timed beside their bounds: K7 (one GGSW of the key shared,
+    rotated operand) at each batch, and the pass + K2' at one digit limb
+    on the key's KSK and the gate's ciphertexts.  → {"rows", "k7", "ks",
+    "launches", "keygen_s"}."""
+    from tfhe_tpu_torch import boolean as Bo
+    from tfhe_tpu_torch.core import rng
+    from tfhe_tpu_torch.core.algorithms import keyswitch
+    from tfhe_tpu_torch.core.decomposition import signed_decompose
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.params import PBSOrder, boolean_params
+    from tfhe_tpu_torch.core.poly import external_product as ep
+
+    p = dataclasses.replace(boolean_params(BOOL32_SET), log_q=32, name=f"{BOOL32_SET} u32")
+    t0 = time.perf_counter()
+    ck, sk = Bo.gen_keys(p, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    n, N, R = p.lwe_dimension, p.polynomial_size, p.glwe_size
+    P, J = sk.bsk.spectra.shape[1], p.pbs_level * R
+    if sk.bsk.route != "rotate" or sk.bsk.spectra.device != dev:
+        raise AssertionError(f"the 32-bit key took route {sk.bsk.route!r} on "
+                             f"{sk.bsk.spectra.device}, not 'rotate' on the card")
+    ks_first = p.pbs_order == PBSOrder.KEYSWITCH_BOOTSTRAP
+    print(f"{tag} boolean {p.name} (n={n}, k={p.glwe_dimension}, N={N}, PBS "
+          f"{p.pbs_base_log}x{p.pbs_level}, KS {p.ks_base_log}x{p.ks_level}, "
+          f"{'KS -> PBS' if ks_first else 'PBS -> KS'}, P={P}): gen_keys on the card "
+          f"{keygen_s:.2f} s", flush=True)
+    gen = torch.Generator().manual_seed(seed + 32)
+    m = torch.randint(0, 2, (3, B), generator=gen).bool()
+    cts = [Bo.encrypt(ck, m[i].to(dev), seed=seed + 320 + i) for i in range(3)]
+    sub = lambda ct, k: Bo.BoolCiphertext(lwe=LweCiphertext(data=ct.lwe.data[:k]), log_q=32)
+    cpu_sk = _cpu_server(sk)
+    per_gate = {"external_product": n, "keyswitch_tc": 1, "keyswitch_decompose": 1}
+    per_mux = {"external_product": 2 * n, "keyswitch_tc": 2 if ks_first else 1,
+               "keyswitch_decompose": 2 if ks_first else 1}
+    rows, totals, held = [], {}, []
+    for bt in BOOL32_BATCHES:
+        x, y, z = (sub(ct, bt) for ct in cts)
+        ops = {"and_": lambda: Bo.and_(sk, x, y), "xor_": lambda: Bo.xor_(sk, x, y),
+               "mux": lambda: Bo.mux(sk, x, y, z)}
+        row = {"batch": bt}
+        for name, fn in ops.items():
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect = {k: 0 for k in counts}
+            expect.update(per_mux if name == "mux" else per_gate)
+            if counts != expect:
+                raise AssertionError(f"{p.name} {name} batch {bt}: launches {counts}, "
+                                     f"expected {expect}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            if out.log_q != 32 or bool((out.lwe.data & 0xFFFFFFFF).any()):
+                raise AssertionError(f"{p.name} {name}: a word is not a lifted 32-bit word")
+            want = BOOL32_TRUTH[name](m[0, :bt], m[1, :bt], m[2, :bt])
+            ok = int((Bo.decrypt(ck, out).cpu() == want).sum())
+            if ok != bt:
+                raise AssertionError(f"{p.name} {name} batch {bt}: {ok}/{bt} decrypt right")
+            if not held:
+                t1 = time.perf_counter()
+                ref = Bo.and_(cpu_sk, *(Bo.BoolCiphertext(
+                    lwe=LweCiphertext(data=v.lwe.data.cpu()), log_q=32) for v in (x, y)))
+                same = torch.equal(ref.lwe.data, out.lwe.data.cpu())
+                print(f"{p.name} and_ at batch {bt}, the first call: card path "
+                      f"{'bit-identical' if same else 'MISMATCH'} to the plain CPU path "
+                      f"({time.perf_counter() - t1:.1f} s)", flush=True)
+                if not same:
+                    raise AssertionError(f"{p.name}: the first AND call disagrees with the "
+                                         f"plain CPU path")
+                held.append(bt)
+            op = name.rstrip("_")
+            row[f"{op}_ms"] = cuda_ms(fn, 2 if name == "mux" or bt == B else 5)
+            row[f"{op}_k7_launches"] = counts["external_product"]
+            row[f"{op}_right"] = ok
+        rows.append(row)
+        print(f"{tag} boolean {p.name} batch {bt}: AND {row['and_ms']:.3f} ms a call "
+              f"({bt / (row['and_ms'] / 1e3):.1f} gates/s, {row['and_k7_launches']} K7 "
+              f"launches), XOR {row['xor_ms']:.3f} ms, MUX {row['mux_ms']:.3f} ms "
+              f"({row['mux_k7_launches']} K7 launches); every row decrypts right", flush=True)
+
+    g = rng.generator(seed, 0x32, device=dev)
+    spectra = sk.bsk.spectra[0]
+    k7 = {"err": 0, "shapes": []}
+    for bt in BOOL32_BATCHES:
+        acc = rng.uniform_torus(g, (bt, R, N), log_q=32)
+        exps = torch.randint(0, 2 * N, (bt,), generator=g, device=dev)
+        run = lambda: ep.external_product(acc, spectra, p.pbs_decomp, exps=exps)
+        plain = lambda: ep.external_product_plain(acc, spectra, p.pbs_decomp, exps=exps)
+        k7["err"] = max(k7["err"], hold(f"K7 at {p.name}, batch {bt}, N={N}, k+1={R}, J={J}, "
+                                        f"P={P}, a GGSW shared", run(), plain()))
+        ms = cuda_ms(run, 20)
+        device_ms = kernel_ms(run, 10)
+        plain_ms = cuda_ms(plain, 2)
+        bnd = bound(k7_mults(bt, P, J, R, N), _nbytes(acc, spectra, exps) + acc.numel() * 8,
+                    clock_hz, sms)
+        shape = (f"K7 boolean u32 step: batch {bt}, N={N}, k+1={R}, "
+                 f"{p.pbs_base_log}x{p.pbs_level} (J={J}), P={P}, a GGSW shared, rotated "
+                 f"operand")
+        k7["shapes"].append({"shape": shape, "ms": device_ms or ms, "events_ms": ms,
+                             "plain_ms": plain_ms, "bound": bnd, "batch": bt})
+        dev_txt = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+        print(f"{tag} {shape}: device {dev_txt} a launch, events {ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}, plain {plain_ms:.3f} ms", flush=True)
+
+    decomp = p.ks_decomp
+    n_in, L, M = sk.ksk.data.shape
+    K, key, limbs = n_in * L, sk.ksk.data.reshape(n_in * L, M), sk.ksk.limbs
+    Kp = keyswitch.padded_depth(K)
+    ks = {"err": {"tc": 0, "dec": 0}}
+    for bt in BOOL32_BATCHES:
+        mask, body = cts[0].lwe.data[:bt, :-1], cts[0].lwe.data[:bt, -1]
+        d = keyswitch.decompose_digits(mask, decomp)
+        torch.cuda.synchronize()
+        ks["err"]["dec"] = max(ks["err"]["dec"], hold(
+            f"decomposition pass {p.name}, batch {bt}, n_in {n_in}, {L} levels", d,
+            keyswitch.decompose_digits_plain(mask, decomp)))
+        got = keyswitch.neg_digit_mac_tensor_core(d, key, limbs, body, decomp.base_log)
+        torch.cuda.synchronize()
+        ks["err"]["tc"] = max(ks["err"]["tc"], hold(
+            f"K2' {p.name}, batch {bt}, K={K}, M={M}, one digit limb", got,
+            keyswitch.neg_digit_mac_plain(d[:, :K], key, body)))
+    mask, body = cts[0].lwe.data[:, :-1], cts[0].lwe.data[:, -1]
+    d = keyswitch.decompose_digits(mask, decomp)
+    d32 = signed_decompose(mask, decomp).reshape(B, K).to(torch.int32)
+    ks.update(tc_ms=cuda_ms(lambda: keyswitch.neg_digit_mac_tensor_core(
+        d, key, limbs, body, decomp.base_log), 10),
+        dec_ms=cuda_ms(lambda: keyswitch.decompose_digits(mask, decomp), 10),
+        tc_plain_ms=cuda_ms(lambda: keyswitch.neg_digit_mac_plain(d32, key, body), 1),
+        dec_plain_ms=cuda_ms(lambda: keyswitch.decompose_digits_plain(mask, decomp), 3),
+        int_mm_ms=int_mm_ms(B, Kp, 8 * M, dev), tc_bound=tc_bound(B, K, M, Kp, clock_hz, sms),
+        dec_bound=bound(decompose_ops(B, n_in, L), B * n_in * 8 + B * Kp, clock_hz, sms),
+        shape=f"{p.name} batch {B}, K={K}, M={M}", limbs=1)
+    mm = "not measured" if ks["int_mm_ms"] is None else f"{ks['int_mm_ms']:.4f} ms"
+    print(f"{tag} keyswitch {p.name} batch {B} (K={K}, M={M}): K2' {ks['tc_ms']:.4f} ms "
+          f"(bound {ks['tc_bound'][0]:.4f} ms by {ks['tc_bound'][1]}), plain "
+          f"{ks['tc_plain_ms']:.3f} ms; pass {ks['dec_ms']:.4f} ms (bound "
+          f"{ks['dec_bound'][0]:.4f} ms by {ks['dec_bound'][1]}), plain "
+          f"{ks['dec_plain_ms']:.3f} ms; torch._int_mm {mm}", flush=True)
+    del ck, sk, cpu_sk, cts
+    torch.cuda.empty_cache()
+    return {"set": p.name, "keygen_s": keygen_s, "rows": rows, "held": held, "k7": k7,
+            "ks": ks, "launches": totals}
+
+
+def mesh_path(seed: int, dev, tag: str, zero_counts, read_counts) -> dict:
+    """Phase 4r: the dp mesh (`tfhe_tpu_torch.parallel`) with the card named
+    twice, on MESH_SET's KS+PBS at batch B: `shard_map_kspbs` runs each
+    half on its own stream of the card; with the counts set to 0 just before
+    and read just after, the split call makes two K1 launches and two of
+    each keyswitch kernel, and its output is bit-identical to the unsplit
+    call's and decrypts right.  Both timed by CUDA events.  The machine
+    has one card, so scaling across cards is not measured."""
+    from tfhe_tpu_torch import parallel, shortint
+    from tfhe_tpu_torch.core.entities import LweCiphertext
+    from tfhe_tpu_torch.core.params import shortint_params
+
+    p = shortint_params(MESH_SET)
+    ck, sk = shortint.gen_keys(p, seed=seed, device=dev)
+    msgs = torch.arange(B) % p.message_modulus
+    ct = ck.encrypt(msgs.to(dev), seed=seed + 41)
+    f = lambda x: (3 * x + 1) % p.message_modulus
+    lut = sk.generate_lookup_table(f)
+
+    def step(data, key, table):
+        c = dataclasses.replace(ct, lwe=LweCiphertext(data=data))
+        return key.apply_lookup_table(c, table).lwe.data
+
+    whole = step(ct.lwe.data, sk, lut)
+    mesh = parallel.make_mesh(devices=[dev, dev])
+    run = parallel.shard_map_kspbs(step, mesh)
+    keys, luts = parallel.replicate_tree(sk, mesh), parallel.replicate_tree(lut, mesh)
+    zero_counts()
+    out = run(ct.lwe.data, keys, luts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect = {k: 0 for k in counts}
+    expect.update({"blind_rotate": 2, "keyswitch_tc": 2, "keyswitch_decompose": 2})
+    if counts != expect:
+        raise AssertionError(f"mesh KS+PBS: launches {counts}, expected {expect}")
+    same = torch.equal(out, whole)
+    right = int((ck.decrypt(dataclasses.replace(ct, lwe=LweCiphertext(data=out))).cpu()
+                 == f(msgs)).sum())
+    print(f"{tag} mesh of {mesh.size} entries ({', '.join(map(str, mesh.devices))}), "
+          f"{MESH_SET} KS+PBS batch {B}: {'bit-identical' if same else 'MISMATCH'} to the "
+          f"unsplit call, {right}/{B} decrypt right", flush=True)
+    if not same or right != B:
+        raise AssertionError("the mesh's KS+PBS differs from the unsplit call or decrypts "
+                             "wrong")
+    split_ms = cuda_ms(lambda: run(ct.lwe.data, keys, luts), 3)
+    whole_ms = cuda_ms(lambda: step(ct.lwe.data, sk, lut), 3)
+    cards = torch.cuda.device_count()
+    print(f"{tag} mesh KS+PBS batch {B}: split in two on one card {split_ms:.3f} ms, unsplit "
+          f"{whole_ms:.3f} ms; cards on this machine: {cards}, so scaling across cards is "
+          f"not measured", flush=True)
+    del ck, sk, keys, luts
+    torch.cuda.empty_cache()
+    return {"set": MESH_SET, "entries": mesh.size, "split_ms": split_ms, "whole_ms": whole_ms,
+            "cards": cards, "launches": counts}
+
+
+def periphery_path(tag: str) -> dict:
+    """Phase 4s: the AES-CTR CSPRNG (`tfhe_tpu_torch.native`, built by g++
+    here) on the FIPS-197 vectors, both backends, and its stream against
+    CSPRNG_DIGEST (written by the port on the CPU, equal to the JAX
+    package's); then the C ABI: libtfhe_tpu_torch_capi.so built against
+    this machine's libpython, the unchanged C client
+    (tests/c_api/test_high_level_integers.c) built against it and run with
+    no device variable set, so on the card: it must print PASS."""
+    import sysconfig
+
+    from tfhe_tpu_torch import native
+
+    t0 = time.perf_counter()
+    key = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
+    block = bytes.fromhex("00112233445566778899aabbccddeeff")
+    vectors = {enc.__name__: enc(key, block).hex()
+               for enc in (native.aes128_encrypt_block, native.aes128_encrypt_block_soft)}
+    if set(vectors.values()) != {"69c4e0d86a7b0430d8cdb78070b4c55a"}:
+        raise AssertionError(f"AES-128 misses FIPS-197 C.1: {vectors}")
+    digest = csprng_digest(native)
+    if digest != CSPRNG_DIGEST:
+        raise AssertionError(f"the CSPRNG stream's digest {digest} is not {CSPRNG_DIGEST}")
+    print(f"{tag} CSPRNG ({native.backend()} backend, built in "
+          f"{time.perf_counter() - t0:.2f} s): FIPS-197 C.1 on both backends; the stream "
+          f"equals the one the port writes on the CPU (SHA-256 {digest[:16]}...)", flush=True)
+    libdir = sysconfig.get_config_var("LIBDIR")
+    ldlib = sysconfig.get_config_var("LDLIBRARY")
+    print(f"embedding CPython: {sysconfig.get_config_var('LDVERSION')}, {ldlib} in {libdir}, "
+          f"Py_ENABLE_SHARED={sysconfig.get_config_var('Py_ENABLE_SHARED')}", flush=True)
+    t0 = time.perf_counter()
+    so = native.build_capi()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        binary = os.path.join(tmp, "test_high_level_integers")
+        subprocess.run(["g++", "-O2", os.path.join(repo, "tests", "c_api",
+                                                   "test_high_level_integers.c"),
+                        f"-I{native.INCLUDE}", f"-L{so.parent}", f"-Wl,-rpath,{so.parent}",
+                        "-ltfhe_tpu_torch_capi", "-o", binary], check=True, capture_output=True)
+        build_s = time.perf_counter() - t0
+        env = {k: v for k, v in os.environ.items() if k != "TFHE_TPU_TORCH_DEVICE"}
+        env["PYTHONPATH"] = repo
+        t0 = time.perf_counter()
+        res = subprocess.run([binary], cwd=repo, env=env, capture_output=True, text=True,
+                             timeout=600)
+    run_s = time.perf_counter() - t0
+    print(f"{tag} C client against libtfhe_tpu_torch_capi.so on the card: exit "
+          f"{res.returncode}, {res.stdout.strip()[-60:]!r} (library and client built in "
+          f"{build_s:.1f} s, run {run_s:.1f} s)", flush=True)
+    if res.returncode != 0 or "PASS" not in res.stdout:
+        raise AssertionError(f"the C client failed: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return {"csprng_backend": native.backend(), "digest": digest, "capi_build_s": build_s,
+            "c_client_s": run_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -3501,6 +3810,8 @@ def main() -> int:
                     "at EP_SHAPES in every form, held and timed")
     ap.add_argument("--ks", action="store_true", help="build, then only the keyswitch's holds "
                     "and times of phases 3, 3b and 3f")
+    ap.add_argument("--bool32", action="store_true", help="build, then only phase 4q: the "
+                    "boolean gates on the 32-bit torus, K7 and the pass + K2' at its shapes")
     ap.add_argument("--turn-in", help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = tuple(x for x in args.only.split(",") if x)
@@ -3571,6 +3882,11 @@ def main() -> int:
     for line in info.get("log", "").splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
             print(f"ptxas: {line.strip()}")
+    if args.bool32:
+        lap("4q")
+        b32 = bool32_path(args.seed, dev, tag, zero_counts, read_counts, clock_hz, sms)
+        print(json.dumps({"bool32": {k: v for k, v in b32.items() if k != "ks"}}))
+        return 0
     if args.ep:
         lap("4p")
         forms = ep_forms(args.seed, dev, tag, clock_hz, sms)
@@ -4613,6 +4929,23 @@ def main() -> int:
     slice_launches = {k: v + shift["launches"].get(k, 0) + iwop["launches"].get(k, 0)
                       + p128["launches"].get(k, 0) for k, v in slice_launches.items()}
 
+    lap("4q")
+    # ---- 4q. the boolean scheme on the 32-bit torus ------------------------------------
+    b32 = bool32_path(args.seed, dev, tag, zero_counts, read_counts, clock_hz, sms)
+    print(json.dumps({"bool32": {k: v for k, v in b32.items() if k != "ks"}}))
+
+    lap("4r")
+    # ---- 4r. the dp mesh, the card named twice ------------------------------------------
+    mesh = mesh_path(args.seed, dev, tag, zero_counts, read_counts)
+    print(json.dumps({"mesh": mesh}))
+    slice_launches = {k: v + b32["launches"].get(k, 0) + mesh["launches"].get(k, 0)
+                      for k, v in slice_launches.items()}
+
+    lap("4s")
+    # ---- 4s. the CSPRNG and the C ABI -----------------------------------------------------
+    periphery = periphery_path(tag)
+    print(json.dumps({"periphery": periphery}))
+
     lap("5")
     # ---- 5. the shared-memory probe ------------------------------------------
     smem_probe.launches = 0
@@ -4662,6 +4995,12 @@ def main() -> int:
                key_flow["launches"][name]) <= 0:
             raise AssertionError(f"kernel {name} was not launched by the boolean, app or key-flow "
                                  f"path")
+    for label, path, names in (
+            ("32-bit boolean", b32, ("external_product", "keyswitch_tc", "keyswitch_decompose")),
+            ("mesh", mesh, ("blind_rotate", "keyswitch_tc", "keyswitch_decompose"))):
+        for name in names:
+            if path["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the {label} path")
     if key_flow["launches"]["blind_rotate_cluster_step"] <= 0:
         raise AssertionError("the key flow's 4_4 KS+PBS did not launch K6's cluster step")
     for name, count in (("blind_rotate", classic_launches["blind_rotate"]),
@@ -4746,6 +5085,9 @@ def main() -> int:
     tc_rows.append((pf["shape"], pf["ms"], pf["plain_ms"], pf["bound"],
                     {"int_mm_ms": pf["int_mm_ms"], "digit_limbs": 2,
                      "cuda_core_bound_ms": pf["cuda_core_bound"][0]}))
+    ks32 = b32["ks"]
+    tc_rows.append((ks32["shape"], ks32["tc_ms"], ks32["tc_plain_ms"], ks32["tc_bound"],
+                    {"int_mm_ms": ks32["int_mm_ms"], "digit_limbs": 1}))
 
     rot_src = "tfhe_tpu_torch/csrc/rotation.cu"
     kernels = [
@@ -4754,12 +5096,14 @@ def main() -> int:
               + slice_launches["blind_rotate"], max(k1_err, gad["k7"]["k1_err"]), k1_ms,
               k1_plain_ms, k1_bound),
         entry("keyswitch_tc", ks_src, "tfhe_tpu/core/algorithms/keyswitch.py:41",
-              path_total("keyswitch_tc"), max([r["err"]["tc"] for r in ks_rows] + [pf["err"]]),
+              path_total("keyswitch_tc"),
+              max([r["err"]["tc"] for r in ks_rows + [ks32]] + [pf["err"]]),
               ks22["tc_ms"], ks22["tc_plain_ms"], ks22["tc_bound"], tc_rows),
         entry("keyswitch_decompose", ks_src, "tfhe_tpu/core/decomposition.py:19",
-              path_total("keyswitch_decompose"), max(r["err"]["dec"] for r in ks_rows),
+              path_total("keyswitch_decompose"), max(r["err"]["dec"] for r in ks_rows + [ks32]),
               ks22["dec_ms"], ks22["dec_plain_ms"], ks22["dec_bound"],
-              [(r["shape"], r["dec_ms"], r["dec_plain_ms"], r["dec_bound"]) for r in ks_rows]),
+              [(r["shape"], r["dec_ms"], r["dec_plain_ms"], r["dec_bound"])
+               for r in ks_rows + [ks32]]),
         entry("blind_rotate_multibit", rot_src, "tfhe_tpu/core/poly/pallas_ntt.py:1073",
               multi_bit_launches["blind_rotate_multibit"] + int_launches["blind_rotate_multibit"],
               max(k3[2]["err"], k3[3]["err"]),
@@ -4794,7 +5138,8 @@ def main() -> int:
               bound(largest, 8, clock_hz, sms)),
         entry("external_product", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/bootstrap.py:50", path_total("external_product"),
-              max(wop["k7"]["err"], gad["k7"]["err"], iwop["k7"]["err"]), wop["k7"]["ms"],
+              max(wop["k7"]["err"], gad["k7"]["err"], iwop["k7"]["err"], b32["k7"]["err"]),
+              wop["k7"]["ms"],
               wop["k7"]["plain_ms"], bound(wop["k7"]["mults"], wop["k7"]["bytes"], clock_hz, sms),
               [(k7["shape"], k7["ms"], k7["plain_ms"],
                 bound(k7["mults"], k7["bytes"], clock_hz, sms))
@@ -4802,7 +5147,9 @@ def main() -> int:
               + [(f["shape"], f["device_ms"][f["rule"]] or f["ms"][f["rule"]], f["plain_ms"],
                   f["bound"], {"form": f["rule"], "events_ms": f["ms"][f["rule"]],
                                "forms_device_ms": f["device_ms"]})
-                 for label, f in forms.items() if label.startswith("K7")]),
+                 for label, f in forms.items() if label.startswith("K7")]
+              + [(r["shape"], r["ms"], r["plain_ms"], r["bound"], {"events_ms": r["events_ms"]})
+                 for r in b32["k7"]["shapes"]]),
         entry("external_product128", "tfhe_tpu_torch/csrc/external_product.cu",
               "tfhe_tpu/core/algorithms/pbs128.py:244", path_total("external_product128"),
               p128["k8"]["err"], p128["k8"]["ms"], p128["k8"]["plain_ms"],

@@ -4,8 +4,8 @@ TEST_PARAMS_BOOLEAN (key choice `small`: PBS → KS) and at its KS → PBS twin
 (key choice `big`, the same widths): every gate on all four operand pairs,
 a trivial operand, `not_`, `mux` on all eight triples, the key-switching
 cast.  Then the port alone: its own gen_keys → encrypt → gate → decrypt on
-the CPU, the calls each gate makes, the 32-bit torus refused (ROADMAP A9c),
-the card as the default device and operands off the key's device refused.
+the CPU, the calls each gate makes, the 32-bit torus taken and other widths
+refused, the card as the default device and operands off the key's device refused.
 
 The JAX side (tests/torch_boolean_jax.py) runs its fused-kernel PBS in
 interpret mode; its gates run eagerly, with `programmable_bootstrap` and
@@ -185,16 +185,24 @@ def test_calls_per_gate(monkeypatch, order):
 
 
 def test_32_bit_torus_refused():
-    """ROADMAP A9c: the port's keyswitch and rotation are 64-bit only."""
-    with pytest.raises(NotImplementedError, match="A9c"):
-        B.gen_keys(TEST_PARAMS_BOOLEAN_U32, device="cpu")
-    ck, sk = B.gen_keys(P, seed=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9c"):
-        B.ServerKey(bsk=sk.bsk, ksk=sk.ksk, params=TEST_PARAMS_BOOLEAN_U32)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        B.ClientKey(lwe_sk=ck.lwe_sk, glwe_sk=ck.glwe_sk, params=TEST_PARAMS_BOOLEAN_U32)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        B.trivial_encrypt(TEST_PARAMS_BOOLEAN_U32, True, device="cpu")
+    """The 32-bit torus, once refused (ROADMAP A9c), is served now (its
+    parity with JAX is tests/test_torch_boolean_u32.py): keys, the key
+    classes and trivial encryption take it.  A width the port does not hold
+    is still refused, by every entry point."""
+    ck, sk = B.gen_keys(TEST_PARAMS_BOOLEAN_U32, seed=5, device="cpu")
+    assert sk.bsk.route == "rotate"
+    B.ServerKey(bsk=sk.bsk, ksk=sk.ksk, params=TEST_PARAMS_BOOLEAN_U32)
+    B.ClientKey(lwe_sk=ck.lwe_sk, glwe_sk=ck.glwe_sk, params=TEST_PARAMS_BOOLEAN_U32)
+    assert B.trivial_encrypt(TEST_PARAMS_BOOLEAN_U32, True, device="cpu").log_q == 32
+    p16 = dataclasses.replace(TEST_PARAMS_BOOLEAN_U32, log_q=16)
+    with pytest.raises(ValueError, match="torus width 16"):
+        B.gen_keys(p16, device="cpu")
+    with pytest.raises(ValueError, match="torus width 16"):
+        B.ServerKey(bsk=sk.bsk, ksk=sk.ksk, params=p16)
+    with pytest.raises(ValueError, match="torus width 16"):
+        B.ClientKey(lwe_sk=ck.lwe_sk, glwe_sk=ck.glwe_sk, params=p16)
+    with pytest.raises(ValueError, match="torus width 16"):
+        B.trivial_encrypt(p16, True, device="cpu")
 
 
 def test_card_is_the_default(monkeypatch):

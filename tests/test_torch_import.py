@@ -1,4 +1,5 @@
-"""tfhe_tpu_torch imports without jax, carries the JAX package's parameter
+"""tfhe_tpu_torch imports without jax and starts no process (builds
+nothing) at import, carries the JAX package's parameter
 tables unchanged, and gives its exported random-source functions no CPU
 default device."""
 import dataclasses
@@ -17,7 +18,10 @@ _BLOCKED_IMPORT = """
 import sys
 for name in ("jax", "flax", "jaxlib"):
     sys.modules[name] = None          # any import of them now raises
-import importlib, pkgutil
+import importlib, pkgutil, subprocess
+def _no_build(*args, **kwargs):
+    raise AssertionError(f"a module started a process at import: {args}")
+subprocess.run = subprocess.Popen = _no_build     # nothing builds at import
 import tfhe_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(tfhe_tpu_torch.__path__, "tfhe_tpu_torch.")]
 for m in mods:
@@ -52,7 +56,9 @@ def test_imports_with_jax_blocked():
             "tfhe_tpu_torch.core.algorithms.gsw", "tfhe_tpu_torch.integer.shift_key",
             "tfhe_tpu_torch.integer.wopbs", "tfhe_tpu_torch.core.u128",
             "tfhe_tpu_torch.core.algorithms.pbs128",
-            "tfhe_tpu_torch.core.algorithms.nonnative"} <= mods
+            "tfhe_tpu_torch.core.algorithms.nonnative", "tfhe_tpu_torch.parallel",
+            "tfhe_tpu_torch.parallel.mesh", "tfhe_tpu_torch.native", "tfhe_tpu_torch.capi",
+            "tfhe_tpu_torch.utils.keycache", "tfhe_tpu_torch.utils.seeding"} <= mods
 
 
 def test_shift_key_constants_match_jax():

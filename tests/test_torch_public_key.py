@@ -101,6 +101,33 @@ def test_boolean_public_key_against_jax():
         == m.tolist()
 
 
+@pytest.mark.parametrize("order", ["pbs_ks", "ks_pbs"])
+def test_boolean_public_key_against_jax_u32(order):
+    """The 32-bit torus (held lifted): the port's public key has the JAX
+    package's uint32 masks and bodies within 8 sigma; encryption under the
+    JAX package's key is bit-identical to its own, and decrypts."""
+    from tfhe_tpu_torch.core.numeric import from_numpy_torus, to_numpy_torus
+    from torch_boolean_u32_jax import client_keys, keys
+    tck, jck = client_keys(keys(), order)
+    std = (tck.params.lwe_noise_std if order == "pbs_ks" else tck.params.glwe_noise_std)
+    jpk = jax.jit(lambda: JB.gen_public_key(jck, seed=5))()
+    pk = B.gen_public_key(tck, seed=5)
+    theirs, mine = np.asarray(jpk.pk.data), to_numpy_torus(pk.pk.data, 32)
+    assert theirs.dtype == np.uint32 and pk.pk.log_q == 32
+    np.testing.assert_array_equal(mine[:, :-1], theirs[:, :-1])
+    diff = (mine[:, -1] - theirs[:, -1]).view(np.int32).astype(np.float64)
+    assert np.abs(diff).max() <= 8 * std and (diff != 0).any()
+    carried = B.PublicKey(pk=PK.LwePublicKey(data=from_numpy_torus(theirs), log_q=32),
+                          params=tck.params)
+    m = np.array([True, False, True, True, False, False])
+    want = jax.jit(lambda: JB.encrypt_with_public_key(jpk, jnp.asarray(m), seed=8).lwe.data)()
+    got = B.encrypt_with_public_key(carried, m, seed=8)
+    assert got.log_q == 32
+    np.testing.assert_array_equal(to_numpy_torus(got.lwe.data, 32), np.asarray(want))
+    assert B.decrypt(tck, got).tolist() == m.tolist()
+    assert B.decrypt(tck, B.encrypt_with_public_key(pk, m, seed=8)).tolist() == m.tolist()
+
+
 def test_compact_encryption_against_jax():
     full, _ = jax_made("compact_public_key", 23)
     jpk = JPK.LweCompactPublicKey(data=jnp.asarray(full), log_q=64)

@@ -114,7 +114,13 @@ def test_decompress_on_a_card_by_name_raises_without_one(monkeypatch):
 
 
 def test_32_bit_torus_refused():
+    """The 32-bit torus, once refused here (ROADMAP A9c), decompresses now:
+    the 32-bit words of the seed's stream, lifted (its parity with JAX is
+    tests/test_torch_seeded_u32.py).  A width the port does not hold is still refused."""
     _, s = port_made("lwe", SEED)
-    with pytest.raises(NotImplementedError, match="A9c"):
+    lifted = TS.decompress_lwe(TS.SeededLweCiphertext(body=s.body, seed=s.seed,
+                                                      lwe_dimension=s.lwe_dimension, log_q=32))
+    assert not (lifted.data[..., :-1] & 0xFFFFFFFF).any()
+    with pytest.raises(ValueError, match="torus width 16"):
         TS.decompress_lwe(TS.SeededLweCiphertext(body=s.body, seed=s.seed,
-                                                 lwe_dimension=s.lwe_dimension, log_q=32))
+                                                 lwe_dimension=s.lwe_dimension, log_q=16))

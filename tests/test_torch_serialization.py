@@ -51,7 +51,7 @@ from tfhe_tpu_torch import integer, interop, shortint
 from tfhe_tpu_torch.core.algorithms import external_product_num_primes
 from tfhe_tpu_torch.core.algorithms import seeded as TS
 from tfhe_tpu_torch.core.entities import GlweSecretKey, LweCiphertext, LweSecretKey
-from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_u64
+from tfhe_tpu_torch.core.numeric import from_numpy_u64, to_numpy_torus, to_numpy_u64
 from tfhe_tpu_torch.core.params import TEST_PARAMS_BOOLEAN as PB
 from tfhe_tpu_torch.core.params import TEST_PARAMS_SHORTINT as P
 from tfhe_tpu_torch.utils import serialization as Ser
@@ -543,12 +543,26 @@ def test_version_type_and_size_refused(tmp_path):
            version="tfhe_tpu-v0")
     with pytest.raises(Ser.DeserializationError, match="version mismatch"):
         Ser.safe_load(tmp_path / "v.npz", device="cpu")
+    # the shortint ClientKey, once refused here, round-trips (A17); a type no
+    # JAX registry entry reads (the boolean CompressedCiphertext) is refused
+    ck = shortint.ClientKey(glwe_sk=GlweSecretKey(bits=torch.ones(1, 8, dtype=torch.int64)),
+                            lwe_sk=LweSecretKey(bits=torch.zeros(4, dtype=torch.int64)),
+                            params=P)
+    Ser.safe_save(ck, tmp_path / "w.npz")
+    back = JSer.safe_load(tmp_path / "w.npz", expected_type="ClientKey")
+    assert back.params == JP and np.asarray(back.glwe_sk.bits).tolist() == [[1] * 8]
+    again = Ser.safe_load(tmp_path / "w.npz", expected_type="ClientKey", device="cpu")
+    assert torch.equal(again.lwe_sk.bits, ck.lwe_sk.bits) and again.params == P
     with pytest.raises(Ser.DeserializationError, match="does not write"):
-        Ser.save(object.__new__(shortint.ClientKey), tmp_path / "w.npz")
-    JSer.save(JS.SeededLweCiphertext(body=jnp.zeros(3, jnp.uint32), seed=1, lwe_dimension=4,
-                                     log_q=32), tmp_path / "q.npz")
-    with pytest.raises(NotImplementedError, match="A9c"):
-        TS.decompress_lwe(Ser.load(tmp_path / "q.npz", device="cpu"))
+        Ser.save(B.CompressedCiphertext(seeded=s), tmp_path / "c.npz")
+    # a 32-bit seeded entity, once refused (A9c), decompresses to the JAX
+    # package's words, lifted
+    js = JS.SeededLweCiphertext(body=jnp.arange(3, dtype=jnp.uint32) << 30, seed=1,
+                                lwe_dimension=4, log_q=32)
+    JSer.save(js, tmp_path / "q.npz")
+    lifted = TS.decompress_lwe(Ser.load(tmp_path / "q.npz", device="cpu"))
+    want = np.asarray(jax.jit(lambda x: JS.decompress_lwe(x).data)(js))
+    np.testing.assert_array_equal(to_numpy_torus(lifted.data, 32), want)
 
 
 def test_key_on_another_prime_pool_refused(tmp_path, monkeypatch):

@@ -9,11 +9,18 @@ KS → PBS for key choice `big`, PBS → KS for `small`
 decomposition pass, one K2′ and one K1 launch; `mux` makes two such calls
 (under PBS → KS: two K1 and one keyswitch, as the JAX package orders it).
 
-The torus is the port's 64-bit one: the five named boolean sets are 64-bit.
-A 32-bit set (`TEST_PARAMS_BOOLEAN_U32`) is served by the JAX package's XLA
-path only; here its keys and server raise `NotImplementedError` (ROADMAP
-A9c).  Torus constants at or above 2^63 (false = 7/8) are int64 bit
-patterns: every add and multiply wraps mod 2^64.
+The five named boolean sets are 64-bit.  A 32-bit set (log_q = 32:
+`TEST_PARAMS_BOOLEAN_U32`, or a named set replaced to the reference's own
+u32 width) is held lifted (`core/numeric.py`: the word x as x * 2^32).
+Its keys and ciphertexts draw their randomness at 32 bits, as the JAX
+package does, then lift; ±1/8 are the same lifted words at both widths.
+The server side is the 64-bit code: the keyswitch is the pass + K2′, and
+the PBS is the rotate-subtract rotation (the key's route "rotate", one K7
+launch a step, then the sample extraction), which the JAX package runs on
+XLA for this torus, so gates equal its gates bit for bit; the prime count is
+the 64-bit one.  Files and `interop` carry the dropped uint32 words.
+Torus constants at or above 2^63 (false = 7/8) are int64 bit patterns:
+every add and multiply wraps mod 2^64.
 
 The key forms (tfhe_tpu boolean/__init__.py:143-163, :293-411): seeded
 ciphertexts (`encrypt_compressed`), the list-of-zeros public key
@@ -41,33 +48,30 @@ from ..core.algorithms import (bootstrap_key_to_ntt, decrypt_lwe, encrypt_lwe,
                                programmable_bootstrap, trivial_glwe, trivial_lwe)
 from ..core.entities import (GlweCiphertext, GlweSecretKey, LweCiphertext,
                              LweKeyswitchKey, LweSecretKey, NttBootstrapKey)
-from ..core.numeric import LOG_Q, as_i64
+from ..core.numeric import LOG_Q, as_i64, check_log_q, to_signed
 from ..core.params import BooleanParameters, DecompParams, EncryptionKeyChoice, PBSOrder
 from ..core.params import boolean_params as get_boolean_params
 from ..cuda_lib import resolve_device
 
 
 def _checked(params: BooleanParameters | str) -> BooleanParameters:
-    """The parameters (a name is looked up), refused unless on the 64-bit
-    torus the port's keyswitch and rotation serve."""
+    """The parameters (a name is looked up), on a torus of 64 or 32 bits."""
     if isinstance(params, str):
         params = get_boolean_params(params)
-    if params.log_q != LOG_Q:
-        raise NotImplementedError(
-            f"{params.name or 'these parameters'}: log_q = {params.log_q}; the port's "
-            f"boolean scheme serves the 64-bit torus only (the 32-bit torus is ROADMAP A9c)")
+    check_log_q(params.log_q)
     return params
 
 
 def plaintext_true(params: BooleanParameters) -> int:
     """+1/8 of the torus (reference PLAINTEXT_TRUE, boolean/mod.rs:76), as
-    an int64 bit pattern."""
-    return as_i64(1 << (params.log_q - 3))
+    an int64 bit pattern: built at the set's width, then lifted to 64."""
+    return as_i64(1 << (params.log_q - 3) << (LOG_Q - params.log_q))
 
 
 def plaintext_false(params: BooleanParameters) -> int:
-    """-1/8 of the torus (7/8: negative as an int64)."""
-    return as_i64(7 << (params.log_q - 3))
+    """-1/8 of the torus (7/8: negative as an int64), lifted as
+    `plaintext_true`."""
+    return as_i64(7 << (params.log_q - 3) << (LOG_Q - params.log_q))
 
 
 def _fresh_noise_std(params: BooleanParameters) -> float:
@@ -122,9 +126,11 @@ class ServerKey:
 
 @dataclass(frozen=True)
 class BoolCiphertext:
-    """Batch of encrypted booleans; data [..., n+1] int64 torus words."""
+    """Batch of encrypted booleans; data [..., n+1] int64 torus words (the
+    lifted words at log_q = 32: the width decides how a file holds them)."""
 
     lwe: LweCiphertext
+    log_q: int = LOG_Q
 
     @property
     def batch_shape(self) -> tuple:
@@ -161,13 +167,13 @@ def gen_server_key(ck: ClientKey, seed: int = 0) -> ServerKey:
     p = ck.params
     device = ck.device
     bsk_std = generate_bootstrap_key(rng.generator(seed, 0xB0, 3, device=device), ck.lwe_sk,
-                                     ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std)
+                                     ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std, p.log_q)
     npr = external_product_num_primes(p.polynomial_size, p.glwe_size, p.pbs_decomp)
-    bsk = bootstrap_key_to_ntt(bsk_std, npr)
+    bsk = bootstrap_key_to_ntt(bsk_std, npr, p.log_q)
     del bsk_std
     ksk = generate_keyswitch_key(rng.generator(seed, 0xB0, 4, device=device),
                                  ck.glwe_sk.as_lwe_secret_key(), ck.lwe_sk, p.ks_decomp,
-                                 p.lwe_noise_std)
+                                 p.lwe_noise_std, p.log_q)
     return ServerKey(bsk=bsk, ksk=ksk, params=p)
 
 
@@ -188,8 +194,8 @@ def encrypt(ck: ClientKey, messages, seed: int = 0) -> BoolCiphertext:
     parameters choose, on the key's device."""
     pts = _encode(ck.params, messages, ck.device)
     ct = encrypt_lwe(rng.generator(seed, 0xB1, device=ck.device), ck.encryption_key, pts,
-                     _fresh_noise_std(ck.params))
-    return BoolCiphertext(lwe=ct)
+                     _fresh_noise_std(ck.params), ck.params.log_q)
+    return BoolCiphertext(lwe=ct, log_q=ck.params.log_q)
 
 
 @dataclass(frozen=True)
@@ -201,7 +207,8 @@ class CompressedCiphertext:
     params: BooleanParameters = None
 
     def decompress(self, device=None) -> BoolCiphertext:
-        return BoolCiphertext(lwe=seeded.decompress_lwe(self.seeded, device))
+        return BoolCiphertext(lwe=seeded.decompress_lwe(self.seeded, device),
+                              log_q=self.seeded.log_q)
 
 
 def encrypt_compressed(ck: ClientKey, messages, seed: int = 1) -> CompressedCiphertext:
@@ -210,7 +217,8 @@ def encrypt_compressed(ck: ClientKey, messages, seed: int = 1) -> CompressedCiph
     of the seed."""
     pts = _encode(ck.params, messages, ck.device)
     sct = seeded.encrypt_lwe_seeded(seed, rng.generator(seed, 0x3E, device=ck.device),
-                                    ck.encryption_key, pts, _fresh_noise_std(ck.params))
+                                    ck.encryption_key, pts, _fresh_noise_std(ck.params),
+                                    ck.params.log_q)
     return CompressedCiphertext(seeded=sct, params=ck.params)
 
 
@@ -222,12 +230,13 @@ def trivial_encrypt(params: BooleanParameters, messages, device="cuda") -> BoolC
     pts = _encode(params, messages, resolve_device(device))
     n = (params.lwe_dimension if params.encryption_key_choice == EncryptionKeyChoice.SMALL
          else params.big_lwe_dimension)
-    return BoolCiphertext(lwe=trivial_lwe(pts, n))
+    return BoolCiphertext(lwe=trivial_lwe(pts, n), log_q=params.log_q)
 
 
 def decrypt(ck: ClientKey, ct: BoolCiphertext) -> torch.Tensor:
-    """→ bool tensor [...]: true iff the phase lies in the positive half."""
-    return decrypt_lwe(ct.lwe, ck.encryption_key) > 0
+    """→ bool tensor [...]: true iff the phase lies in the positive half
+    (of a lifted word too: bit 31 of the 32-bit phase is the int64's sign)."""
+    return to_signed(decrypt_lwe(ct.lwe, ck.encryption_key), ck.params.log_q) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +271,8 @@ def _apply_bootstrapping_pattern(sk: ServerKey, lwe: LweCiphertext) -> LweCipher
 
 
 def _gate(sk: ServerKey, data: torch.Tensor) -> BoolCiphertext:
-    return BoolCiphertext(lwe=_apply_bootstrapping_pattern(sk, LweCiphertext(data=data)))
+    return BoolCiphertext(lwe=_apply_bootstrapping_pattern(sk, LweCiphertext(data=data)),
+                          log_q=sk.params.log_q)
 
 
 def _sum(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext, body: int,
@@ -310,7 +320,7 @@ def xnor(sk: ServerKey, a: BoolCiphertext, b: BoolCiphertext) -> BoolCiphertext:
 
 def not_(a: BoolCiphertext) -> BoolCiphertext:
     """Negation is linear: no PBS (reference engine/mod.rs `not`)."""
-    return BoolCiphertext(lwe=LweCiphertext(data=-a.lwe.data))
+    return BoolCiphertext(lwe=LweCiphertext(data=-a.lwe.data), log_q=a.log_q)
 
 
 def mux(sk: ServerKey, cond: BoolCiphertext, then_ct: BoolCiphertext,
@@ -327,12 +337,13 @@ def mux(sk: ServerKey, cond: BoolCiphertext, then_ct: BoolCiphertext,
         p2 = programmable_bootstrap(keyswitch_lwe(LweCiphertext(c2), sk.ksk), acc, sk.bsk)
         out = p1.data + p2.data
         out[..., -1] += plaintext_true(sk.params)
-        return BoolCiphertext(lwe=LweCiphertext(data=out))
+        return BoolCiphertext(lwe=LweCiphertext(data=out), log_q=sk.params.log_q)
     p1 = programmable_bootstrap(LweCiphertext(c1), acc, sk.bsk)
     p2 = programmable_bootstrap(LweCiphertext(c2), acc, sk.bsk)
     out = p1.data + p2.data
     out[..., -1] += plaintext_true(sk.params)
-    return BoolCiphertext(lwe=keyswitch_lwe(LweCiphertext(data=out), sk.ksk))
+    return BoolCiphertext(lwe=keyswitch_lwe(LweCiphertext(data=out), sk.ksk),
+                          log_q=sk.params.log_q)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +370,8 @@ def gen_public_key(ck: ClientKey, zero_count: int | None = None, seed: int = 0) 
     zero_count = zero_count or 2 * ck.encryption_key.lwe_dimension
     key = threefry.fork(threefry.key_from_seed(seed, ck.device), 0xB0B)
     pk = generate_lwe_public_key(key, rng.generator(seed, 0xB0B, device=ck.device),
-                                 ck.encryption_key, zero_count, _fresh_noise_std(ck.params))
+                                 ck.encryption_key, zero_count, _fresh_noise_std(ck.params),
+                                 ck.params.log_q)
     return PublicKey(pk=pk, params=ck.params)
 
 
@@ -369,7 +381,8 @@ def encrypt_with_public_key(pk: PublicKey, messages, seed: int = 0) -> BoolCiphe
     the same key and seed."""
     pts = _encode(pk.params, messages, pk.device)
     key = threefry.fork(threefry.key_from_seed(seed, pk.device), 0xB0C)
-    return BoolCiphertext(lwe=encrypt_lwe_with_public_key(key, pk.pk, pts))
+    return BoolCiphertext(lwe=encrypt_lwe_with_public_key(key, pk.pk, pts),
+                          log_q=pk.params.log_q)
 
 
 # ---------------------------------------------------------------------------
@@ -401,10 +414,10 @@ def gen_compressed_server_key(ck: ClientKey, seed: int = 0) -> CompressedServerK
     p = ck.params
     _, sbsk = seeded.generate_seeded_bootstrap_key(
         seed * 2 + 0xB001, rng.generator(seed, 0xB0, 5, device=ck.device), ck.lwe_sk,
-        ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std)
+        ck.glwe_sk, p.pbs_decomp, p.glwe_noise_std, p.log_q)
     _, sksk = seeded.generate_seeded_keyswitch_key(
         seed * 2 + 0xB002, rng.generator(seed, 0xB0, 6, device=ck.device),
-        ck.glwe_sk.as_lwe_secret_key(), ck.lwe_sk, p.ks_decomp, p.lwe_noise_std)
+        ck.glwe_sk.as_lwe_secret_key(), ck.lwe_sk, p.ks_decomp, p.lwe_noise_std, p.log_q)
     return CompressedServerKey(seeded_bsk=sbsk, seeded_ksk=sksk, params=p)
 
 
@@ -427,7 +440,7 @@ def gen_compressed_public_key(ck: ClientKey, zero_count: int | None = None,
     zero_count = zero_count or 2 * ck.encryption_key.lwe_dimension
     _, spk = seeded.generate_seeded_lwe_public_key(
         seed * 2 + 0xB003, rng.generator(seed, 0xB0, 7, device=ck.device), ck.encryption_key,
-        zero_count, _fresh_noise_std(ck.params))
+        zero_count, _fresh_noise_std(ck.params), ck.params.log_q)
     return CompressedPublicKey(seeded=spk, params=ck.params)
 
 
@@ -442,7 +455,7 @@ class BooleanKeySwitchingKey:
     dest_params: BooleanParameters
 
     def cast(self, ct: BoolCiphertext) -> BoolCiphertext:
-        return BoolCiphertext(lwe=keyswitch_lwe(ct.lwe, self.ksk))
+        return BoolCiphertext(lwe=keyswitch_lwe(ct.lwe, self.ksk), log_q=self.dest_params.log_q)
 
 
 def gen_key_switching_key(ck1: ClientKey, ck2: ClientKey, ks_base_log: int = 2,
@@ -451,7 +464,7 @@ def gen_key_switching_key(ck1: ClientKey, ck2: ClientKey, ks_base_log: int = 2,
     ksk = generate_keyswitch_key(rng.generator(seed, 0xB5C, device=ck2.device),
                                  ck1.encryption_key, ck2.encryption_key,
                                  DecompParams(ks_base_log, ks_level),
-                                 _fresh_noise_std(ck2.params))
+                                 _fresh_noise_std(ck2.params), ck2.params.log_q)
     return BooleanKeySwitchingKey(ksk=ksk, dest_params=ck2.params)
 
 

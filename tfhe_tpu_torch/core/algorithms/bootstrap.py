@@ -9,7 +9,8 @@ or the per-step paired form (K5), never the rotate-subtract form of the JAX
 XLA `blind_rotate`, which differs in low bits (hazard C4 in ROADMAP.md).
 `blind_rotate_only` is that rotate-subtract form (the JAX function runs
 it), on K7 one step a launch, as are `external_product_accumulate` and
-`cmux` (`core/poly/external_product.py`).
+`cmux` (`core/poly/external_product.py`); it is also the PBS of a lifted
+32-bit key (route "rotate"), whose torus the JAX package serves on XLA.
 """
 from __future__ import annotations
 
@@ -56,9 +57,14 @@ def programmable_bootstrap(lwe: LweCiphertext, lut: GlweCiphertext,
                            bsk: NttBootstrapKey) -> LweCiphertext:
     """Mod-switch → blind rotate → sample-extract coefficient 0.  The
     rotation routes as tfhe_tpu bootstrap.py:148-165 does: a key converted
-    for the fused route runs K1 while `use_fused_rotation()` is on; every
-    other key, or that key with the switch off, runs one step per launch
-    (`blind_rotate_steps`: K4, or K5 for a paired key)."""
+    for the fused route runs K1 while `use_fused_rotation()` is on; a
+    lifted 32-bit key ("rotate") runs the rotate-subtract form, one K7
+    launch a step (`blind_rotate_only`), as the JAX package runs that torus
+    on its XLA `blind_rotate`; every other key, or a fused key with the
+    switch off, runs one step per launch (`blind_rotate_steps`: K4, or K5
+    for a paired key)."""
+    if bsk.route == "rotate":
+        return sample_extract(blind_rotate_only(lwe, lut, bsk), 0)
     if bsk.route == "fused" and config.use_fused_rotation():
         rotated = blind_rotate_fused(lut.data, lwe.data, bsk)
     else:

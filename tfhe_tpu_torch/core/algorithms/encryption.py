@@ -8,6 +8,12 @@ device of its inputs.  The `*_from_key` twins (and
 (`core/threefry.py`): their masks follow the JAX package's key tree index
 for index, so the seeded forms (`seeded.py`) replay them, while their noise
 still comes from a torch generator.
+
+Every drawing function takes `log_q` (64, or 32 for the lifted 32-bit
+torus, `core/numeric.py`): at 32 the masks and noise are drawn as 32-bit
+words and lifted, so the words it returns are the JAX package's at 32 bits
+times 2^32.  Plaintexts come in lifted already; the gadget constants
+q/B^(l+1) are the same lifted words at both widths.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from .. import rng, threefry
 from ..entities import (GlweCiphertext, GlweSecretKey, LweBootstrapKey,
                         LweCiphertext, LweKeyswitchKey, LwePackingKeyswitchKey,
                         LweSecretKey, NttBootstrapKey)
-from ..numeric import LOG_Q, as_i64
+from ..numeric import LOG_Q, as_i64, check_log_q
 from ..params import DecompParams
 from ..poly import ntt
 from .keyswitch import keyswitch_key
@@ -59,22 +65,23 @@ def encrypt_lwe_deterministic_mask(mask: torch.Tensor, sk: LweSecretKey,
 
 
 def encrypt_lwe(gen: torch.Generator, sk: LweSecretKey, plaintexts: torch.Tensor,
-                noise_std: float) -> LweCiphertext:
+                noise_std: float, log_q: int = LOG_Q) -> LweCiphertext:
     """Torus plaintexts [...] → LweCiphertext [..., n+1]."""
     shape = tuple(plaintexts.shape)
-    mask = rng.uniform_torus(gen, shape + (sk.lwe_dimension,))
-    noise = rng.gaussian_noise(gen, shape, noise_std)
+    mask = rng.uniform_torus(gen, shape + (sk.lwe_dimension,), log_q=log_q)
+    noise = rng.gaussian_noise(gen, shape, noise_std, log_q=log_q)
     return LweCiphertext(data=encrypt_lwe_deterministic_mask(
         mask, sk, plaintexts, noise))
 
 
 def encrypt_lwe_from_key(key: torch.Tensor, gen: torch.Generator, sk: LweSecretKey,
-                         plaintexts: torch.Tensor, noise_std: float) -> LweCiphertext:
+                         plaintexts: torch.Tensor, noise_std: float,
+                         log_q: int = LOG_Q) -> LweCiphertext:
     """`encrypt_lwe` with the mask of tfhe_tpu encrypt_lwe(key, ...): the
     words of split(key)[0] over plaintexts.shape + (n,)."""
     mask = threefry.uniform_torus(threefry.split(key)[..., 0, :],
-                                  tuple(plaintexts.shape) + (sk.lwe_dimension,))
-    noise = rng.gaussian_noise(gen, tuple(plaintexts.shape), noise_std)
+                                  tuple(plaintexts.shape) + (sk.lwe_dimension,), log_q=log_q)
+    noise = rng.gaussian_noise(gen, tuple(plaintexts.shape), noise_std, log_q=log_q)
     return LweCiphertext(data=encrypt_lwe_deterministic_mask(mask, sk, plaintexts, noise))
 
 
@@ -117,12 +124,13 @@ def encrypt_glwe_deterministic_mask(mask: torch.Tensor, sk: GlweSecretKey,
 
 
 def encrypt_glwe(gen: torch.Generator, sk: GlweSecretKey,
-                 plaintext_polys: torch.Tensor, noise_std: float) -> GlweCiphertext:
+                 plaintext_polys: torch.Tensor, noise_std: float,
+                 log_q: int = LOG_Q) -> GlweCiphertext:
     """plaintext_polys [..., N] → GlweCiphertext [..., k+1, N]."""
     k, n = sk.glwe_dimension, sk.polynomial_size
     lead = tuple(plaintext_polys.shape[:-1])
-    mask = rng.uniform_torus(gen, lead + (k, n))
-    noise = rng.gaussian_noise(gen, lead + (n,), noise_std)
+    mask = rng.uniform_torus(gen, lead + (k, n), log_q=log_q)
+    noise = rng.gaussian_noise(gen, lead + (n,), noise_std, log_q=log_q)
     return GlweCiphertext(data=encrypt_glwe_deterministic_mask(
         mask, sk, plaintext_polys, noise))
 
@@ -175,15 +183,15 @@ def ggsw_plaintexts(msg: torch.Tensor, sk: GlweSecretKey,
 
 def encrypt_constant_ggsw(gen: torch.Generator, sk: GlweSecretKey,
                           msg: torch.Tensor, decomp: DecompParams,
-                          noise_std: float) -> torch.Tensor:
+                          noise_std: float, log_q: int = LOG_Q) -> torch.Tensor:
     """GGSW encryptions of a batch of small integers msg [...]: data
     [..., l, k+1, k+1, N], every row a GLWE encryption of its plaintext
     row (tfhe_tpu encrypt_constant_ggsw, batched)."""
-    return encrypt_glwe(gen, sk, ggsw_plaintexts(msg, sk, decomp), noise_std).data
+    return encrypt_glwe(gen, sk, ggsw_plaintexts(msg, sk, decomp), noise_std, log_q).data
 
 
 def ggsw_masks_from_key(keys: torch.Tensor, levels: int, glwe_size: int, n_poly: int,
-                        out: torch.Tensor | None = None) -> torch.Tensor:
+                        out: torch.Tensor | None = None, log_q: int = LOG_Q) -> torch.Tensor:
     """The GLWE masks of tfhe_tpu encrypt_constant_ggsw(key, ...) under each
     key of keys [..., 2]: row r of the GGSW takes split(key, l*(k+1))[r], its
     mask split(that)[0] over (k, N) → [..., l, k+1, k, N] (into `out`, a view
@@ -193,42 +201,44 @@ def ggsw_masks_from_key(keys: torch.Tensor, levels: int, glwe_size: int, n_poly:
     mask_keys = threefry.split(threefry.split(keys, levels * glwe_size))[..., 0, :]
     if out is not None:
         out = out.view(lead + (levels * glwe_size, k, n_poly))
-    masks = threefry.uniform_torus(mask_keys, (k, n_poly), out=out)
+    masks = threefry.uniform_torus(mask_keys, (k, n_poly), out=out, log_q=log_q)
     return masks.view(lead + (levels, glwe_size, k, n_poly))
 
 
 def encrypt_constant_ggsw_from_key(keys: torch.Tensor, gen: torch.Generator,
                                    sk: GlweSecretKey, msg: torch.Tensor,
-                                   decomp: DecompParams, noise_std: float) -> torch.Tensor:
+                                   decomp: DecompParams, noise_std: float,
+                                   log_q: int = LOG_Q) -> torch.Tensor:
     """GGSWs of msg [...] each under its key of keys [..., 2], masks as
     tfhe_tpu encrypt_constant_ggsw draws them (`ggsw_masks_from_key`), noise from
     gen: data [..., l, k+1, k+1, N]."""
     k, n = sk.glwe_dimension, sk.polynomial_size
-    masks = ggsw_masks_from_key(keys, decomp.level, k + 1, n)
+    masks = ggsw_masks_from_key(keys, decomp.level, k + 1, n, log_q=log_q)
     pts = ggsw_plaintexts(msg, sk, decomp)
-    noise = rng.gaussian_noise(gen, tuple(pts.shape), noise_std)
+    noise = rng.gaussian_noise(gen, tuple(pts.shape), noise_std, log_q=log_q)
     return encrypt_glwe_deterministic_mask(masks, sk, pts, noise)
 
 
 def generate_bootstrap_key(gen: torch.Generator, lwe_sk: LweSecretKey,
                            glwe_sk: GlweSecretKey, decomp: DecompParams,
-                           noise_std: float) -> LweBootstrapKey:
+                           noise_std: float, log_q: int = LOG_Q) -> LweBootstrapKey:
     """One GGSW(s_i) of the GLWE key per input LWE key bit, all encrypted in
     one batched call: data [n, l, k+1, k+1, N]."""
     return LweBootstrapKey(data=encrypt_constant_ggsw(gen, glwe_sk, lwe_sk.bits,
-                                                      decomp, noise_std),
+                                                      decomp, noise_std, log_q),
                            decomp=decomp)
 
 
 def generate_bootstrap_key_from_key(key: torch.Tensor, gen: torch.Generator,
                                     lwe_sk: LweSecretKey, glwe_sk: GlweSecretKey,
-                                    decomp: DecompParams, noise_std: float) -> LweBootstrapKey:
+                                    decomp: DecompParams, noise_std: float,
+                                    log_q: int = LOG_Q) -> LweBootstrapKey:
     """`generate_bootstrap_key` with the masks of tfhe_tpu
     generate_bootstrap_key(key, ...): input bit i's GGSW under
     split(key, n)[i]."""
     keys = threefry.split(key, lwe_sk.lwe_dimension)
     return LweBootstrapKey(data=encrypt_constant_ggsw_from_key(
-        keys, gen, glwe_sk, lwe_sk.bits, decomp, noise_std), decomp=decomp)
+        keys, gen, glwe_sk, lwe_sk.bits, decomp, noise_std, log_q), decomp=decomp)
 
 
 def ggsw_spectra(data: torch.Tensor, num_primes: int) -> torch.Tensor:
@@ -259,12 +269,16 @@ def key_route(n: int) -> str:
     return "steps" if config.use_mxu_lanes() and n < 16384 else "fused"
 
 
-def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int) -> NttBootstrapKey:
+def bootstrap_key_to_ntt(bsk: LweBootstrapKey, num_primes: int,
+                         log_q: int = LOG_Q) -> NttBootstrapKey:
     """Standard BSK → the port's spectra [n, P, l*(k+1), k+1, N] int32
     (counterpart of tfhe_tpu bootstrap_key_to_ntt), recording the route the
-    switches choose now; the paired route gets the paired form."""
+    switches choose now; the paired route gets the paired form.  A lifted
+    32-bit key (log_q = 32) takes the "rotate" route whatever the switches:
+    the JAX package runs that torus on its XLA rotate-subtract rotation,
+    which the delta forms differ from in low bits (ROADMAP C4)."""
     n = bsk.data.shape[-1]
-    route = key_route(n)
+    route = "rotate" if check_log_q(log_q) == 32 else key_route(n)
     key = NttBootstrapKey(spectra=ggsw_spectra(bsk.data, num_primes), decomp=bsk.decomp,
                           primes=ntt.get_plan(n, num_primes).primes)
     if route == "paired":
@@ -320,19 +334,21 @@ def _gadget_plaintexts(bits: torch.Tensor, decomp: DecompParams) -> torch.Tensor
 
 def generate_keyswitch_key(gen: torch.Generator, in_sk: LweSecretKey,
                            out_sk: LweSecretKey, decomp: DecompParams,
-                           noise_std: float) -> LweKeyswitchKey:
+                           noise_std: float, log_q: int = LOG_Q) -> LweKeyswitchKey:
     """KSK[i, l] = LWE_out(s_in[i] * q/B^(l+1)), data [n_in, l, n_out+1]."""
     pts = _gadget_plaintexts(in_sk.bits, decomp)
-    return keyswitch_key(encrypt_lwe(gen, out_sk, pts, noise_std).data, decomp)
+    return keyswitch_key(encrypt_lwe(gen, out_sk, pts, noise_std, log_q).data, decomp)
 
 
 def generate_keyswitch_key_from_key(key: torch.Tensor, gen: torch.Generator,
                                     in_sk: LweSecretKey, out_sk: LweSecretKey,
-                                    decomp: DecompParams, noise_std: float) -> LweKeyswitchKey:
+                                    decomp: DecompParams, noise_std: float,
+                                    log_q: int = LOG_Q) -> LweKeyswitchKey:
     """`generate_keyswitch_key` with the mask of tfhe_tpu
     generate_keyswitch_key(key, ...): one encrypt_lwe over [n_in, l]."""
     pts = _gadget_plaintexts(in_sk.bits, decomp)
-    return keyswitch_key(encrypt_lwe_from_key(key, gen, out_sk, pts, noise_std).data, decomp)
+    return keyswitch_key(encrypt_lwe_from_key(key, gen, out_sk, pts, noise_std, log_q).data,
+                         decomp)
 
 
 def generate_packing_keyswitch_key(key: torch.Tensor, gen: torch.Generator,

@@ -77,11 +77,14 @@ class LweCompactPublicKey:
 
 
 def generate_lwe_public_key(key: torch.Tensor, gen: torch.Generator, sk: LweSecretKey,
-                            zero_count: int, noise_std: float) -> LwePublicKey:
+                            zero_count: int, noise_std: float,
+                            log_q: int = LOG_Q) -> LwePublicKey:
     """zero_count encryptions of zero, masks as tfhe_tpu
-    generate_lwe_public_key(key, ...) draws them, noise from gen."""
+    generate_lwe_public_key(key, ...) draws them (lifted 32-bit words at
+    log_q = 32), noise from gen."""
     zeros = torch.zeros((zero_count,), dtype=torch.int64, device=sk.bits.device)
-    return LwePublicKey(data=encrypt_lwe_from_key(key, gen, sk, zeros, noise_std).data)
+    return LwePublicKey(data=encrypt_lwe_from_key(key, gen, sk, zeros, noise_std, log_q).data,
+                        log_q=log_q)
 
 
 def encrypt_lwe_with_public_key(key: torch.Tensor, pk: LwePublicKey,

@@ -8,6 +8,11 @@ a compressed entity made by either package decompresses bit-identically in
 both.  Compression: LWE n+1 → 1 word, GLWE (k+1)N → N, a BSK's GGSWs
 l(k+1)^2 N → l(k+1) N, a KSK's rows n+1 → 1.
 
+Every entity carries its torus width (`log_q`): at 32 the bodies are
+lifted words (`core/numeric.py`) and the masks regenerate as the 32-bit
+words of the seed's stream, lifted, so a 32-bit entity of either package
+decompresses to the same words in both.
+
 Generation takes a torch generator for the noise (the JAX package's
 Gaussian noise is not reproduced) and returns (full entity, seeded twin):
 the full one is what the same streams generate, so its decompression must
@@ -28,7 +33,7 @@ from ... import cuda_lib
 from .. import rng, threefry
 from ..entities import (GgswCiphertext, GlweCiphertext, LweBootstrapKey, LweCiphertext,
                         LweKeyswitchKey, LweMultiBitBootstrapKey, LwePackingKeyswitchKey)
-from ..numeric import LOG_Q
+from ..numeric import LOG_Q, check_log_q
 from ..params import DecompParams
 from .bootstrap import external_product_num_primes
 from .encryption import (bootstrap_key_to_ntt, encrypt_constant_ggsw_from_key,
@@ -137,28 +142,27 @@ def _mask_key(seed: int, device) -> torch.Tensor:
 
 
 def _bodies_on(s, device) -> torch.Tensor:
-    """The stored bodies on `device` (default: where they are); 64-bit
-    torus only."""
-    if s.log_q != LOG_Q:
-        raise NotImplementedError(f"log_q = {s.log_q}: the port's torus is 64-bit "
-                                  f"(the 32-bit torus is ROADMAP A9c)")
+    """The stored bodies on `device` (default: where they are); the 64-bit
+    torus or the lifted 32-bit one."""
+    check_log_q(s.log_q)
     body = s.body if hasattr(s, "body") else s.bodies
     return body if device is None else body.to(cuda_lib.resolve_device(device))
 
 
-def seeded_mask_for(seed: int, shape, n: int, device) -> torch.Tensor:
-    return threefry.uniform_torus(_mask_key(seed, device), tuple(shape) + (n,))
+def seeded_mask_for(seed: int, shape, n: int, device, log_q: int = LOG_Q) -> torch.Tensor:
+    return threefry.uniform_torus(_mask_key(seed, device), tuple(shape) + (n,), log_q=log_q)
 
 
 def encrypt_lwe_seeded(seed: int, gen: torch.Generator, sk, plaintexts: torch.Tensor,
-                       noise_std: float) -> SeededLweCiphertext:
+                       noise_std: float, log_q: int = LOG_Q) -> SeededLweCiphertext:
     """Encrypt with the seed's mask (the masks of tfhe_tpu encrypt_lwe_seeded)
     and gen's noise; → the compressed form."""
     shape = tuple(plaintexts.shape)
-    mask = seeded_mask_for(seed, shape, sk.lwe_dimension, plaintexts.device)
-    noise = rng.gaussian_noise(gen, shape, noise_std)
+    mask = seeded_mask_for(seed, shape, sk.lwe_dimension, plaintexts.device, log_q)
+    noise = rng.gaussian_noise(gen, shape, noise_std, log_q=log_q)
     data = encrypt_lwe_deterministic_mask(mask, sk, plaintexts, noise)
-    return SeededLweCiphertext(body=data[..., -1], seed=seed, lwe_dimension=sk.lwe_dimension)
+    return SeededLweCiphertext(body=data[..., -1], seed=seed, lwe_dimension=sk.lwe_dimension,
+                               log_q=log_q)
 
 
 def decompress_lwe(sct: SeededLweCiphertext, device=None) -> LweCiphertext:
@@ -167,20 +171,22 @@ def decompress_lwe(sct: SeededLweCiphertext, device=None) -> LweCiphertext:
     n = sct.lwe_dimension
     data = torch.empty(tuple(body.shape) + (n + 1,), dtype=torch.int64, device=body.device)
     threefry.uniform_torus(_mask_key(sct.seed, body.device), tuple(body.shape) + (n,),
-                           out=data[..., :n])
+                           out=data[..., :n], log_q=sct.log_q)
     data[..., n] = body
     return LweCiphertext(data=data)
 
 
 def encrypt_glwe_seeded(seed: int, gen: torch.Generator, sk, plaintext_polys: torch.Tensor,
-                        noise_std: float) -> SeededGlweCiphertext:
+                        noise_std: float, log_q: int = LOG_Q) -> SeededGlweCiphertext:
     """Encrypt with the seed's mask; (k+1)N words compress to N."""
     k, n = sk.glwe_dimension, sk.polynomial_size
     lead = tuple(plaintext_polys.shape[:-1])
-    mask = threefry.uniform_torus(_mask_key(seed, plaintext_polys.device), lead + (k, n))
-    noise = rng.gaussian_noise(gen, lead + (n,), noise_std)
+    mask = threefry.uniform_torus(_mask_key(seed, plaintext_polys.device), lead + (k, n),
+                                  log_q=log_q)
+    noise = rng.gaussian_noise(gen, lead + (n,), noise_std, log_q=log_q)
     data = encrypt_glwe_deterministic_mask(mask, sk, plaintext_polys, noise)
-    return SeededGlweCiphertext(body=data[..., -1, :], seed=seed, glwe_dimension=k)
+    return SeededGlweCiphertext(body=data[..., -1, :], seed=seed, glwe_dimension=k,
+                                log_q=log_q)
 
 
 def decompress_glwe(sct: SeededGlweCiphertext, device=None) -> GlweCiphertext:
@@ -189,7 +195,7 @@ def decompress_glwe(sct: SeededGlweCiphertext, device=None) -> GlweCiphertext:
     k, lead, n = sct.glwe_dimension, tuple(body.shape[:-1]), body.shape[-1]
     data = torch.empty(lead + (k + 1, n), dtype=torch.int64, device=body.device)
     threefry.uniform_torus(_mask_key(sct.seed, body.device), lead + (k, n),
-                           out=data[..., :k, :])
+                           out=data[..., :k, :], log_q=sct.log_q)
     data[..., k, :] = body
     return GlweCiphertext(data=data)
 
@@ -198,14 +204,14 @@ def decompress_glwe(sct: SeededGlweCiphertext, device=None) -> GlweCiphertext:
 
 
 def bsk_masks_from_seed(seed: int, n_in: int, levels: int, glwe_size: int, n_poly: int,
-                        device, bits=None, out=None) -> torch.Tensor:
+                        device, bits=None, out=None, log_q: int = LOG_Q) -> torch.Tensor:
     """The masks of generate_bootstrap_key from the seed alone: GGSW i under
     split(key_from_seed(seed), n_in)[i] → [n_in, l, k+1, k, N] (only the
     input bits `bits`, an index tensor or slice, if given)."""
     keys = threefry.split(_root(seed, device), n_in)
     if bits is not None:
         keys = keys[bits]
-    return ggsw_masks_from_key(keys, levels, glwe_size, n_poly, out=out)
+    return ggsw_masks_from_key(keys, levels, glwe_size, n_poly, out=out, log_q=log_q)
 
 
 def _ggsw_data(s, device, bits, axes: int) -> torch.Tensor:
@@ -223,25 +229,27 @@ def _ggsw_data(s, device, bits, axes: int) -> torch.Tensor:
     data = torch.empty((flat.shape[0], levels, glwe_size, glwe_size, n_poly),
                        dtype=torch.int64, device=bodies.device)
     bsk_masks_from_seed(s.seed, count, levels, glwe_size, n_poly, bodies.device, bits,
-                        out=data[..., :glwe_size - 1, :])
+                        out=data[..., :glwe_size - 1, :], log_q=s.log_q)
     data[..., glwe_size - 1, :] = flat
     return data if bits is not None else data.view(lead + tuple(data.shape[1:]))
 
 
-def compress_bootstrap_key(bsk: LweBootstrapKey, seed: int) -> SeededLweBootstrapKey:
+def compress_bootstrap_key(bsk: LweBootstrapKey, seed: int,
+                           log_q: int = LOG_Q) -> SeededLweBootstrapKey:
     """The row bodies of a key whose masks are the seed's streams (made by
     `generate_seeded_bootstrap_key`)."""
     return SeededLweBootstrapKey(bodies=bsk.data[..., -1, :].contiguous(), seed=seed,
-                                 decomp=bsk.decomp)
+                                 decomp=bsk.decomp, log_q=log_q)
 
 
 def generate_seeded_bootstrap_key(seed: int, gen: torch.Generator, lwe_sk, glwe_sk,
-                                  decomp: DecompParams, noise_std: float) -> tuple:
+                                  decomp: DecompParams, noise_std: float,
+                                  log_q: int = LOG_Q) -> tuple:
     """(full key, seeded twin): a standard BSK whose masks are the streams of
     `seed`, as tfhe_tpu generate_seeded_bootstrap_key lays them out."""
     full = generate_bootstrap_key_from_key(_root(seed, lwe_sk.bits.device), gen, lwe_sk,
-                                           glwe_sk, decomp, noise_std)
-    return full, compress_bootstrap_key(full, seed)
+                                           glwe_sk, decomp, noise_std, log_q)
+    return full, compress_bootstrap_key(full, seed, log_q)
 
 
 def decompress_bootstrap_key(sbsk: SeededLweBootstrapKey, device=None,
@@ -294,14 +302,15 @@ def decompress_multi_bit_bootstrap_key(s: SeededLweMultiBitBootstrapKey,
 
 
 def generate_seeded_keyswitch_key(seed: int, gen: torch.Generator, in_sk, out_sk,
-                                  decomp: DecompParams, noise_std: float) -> tuple:
+                                  decomp: DecompParams, noise_std: float,
+                                  log_q: int = LOG_Q) -> tuple:
     """(full KSK, seeded twin): the masks of one encrypt_lwe over [n_in, l]
     under key_from_seed(seed)."""
     full = generate_keyswitch_key_from_key(_root(seed, in_sk.bits.device), gen, in_sk,
-                                           out_sk, decomp, noise_std)
+                                           out_sk, decomp, noise_std, log_q)
     return full, SeededLweKeyswitchKey(bodies=full.data[..., -1].contiguous(), seed=seed,
                                        decomp=decomp,
-                                       output_lwe_dimension=out_sk.lwe_dimension)
+                                       output_lwe_dimension=out_sk.lwe_dimension, log_q=log_q)
 
 
 def decompress_keyswitch_key(skk: SeededLweKeyswitchKey, device=None,
@@ -315,7 +324,8 @@ def decompress_keyswitch_key(skk: SeededLweKeyswitchKey, device=None,
     r0, r1 = (0, n_in) if rows is None else rows
     data = torch.empty((r1 - r0, levels, n + 1), dtype=torch.int64, device=bodies.device)
     mask_key = threefry.split(_root(skk.seed, bodies.device))[0]
-    threefry.uniform_torus(mask_key, (n_in, levels, n), out=data[..., :n], rows=(r0, r1))
+    threefry.uniform_torus(mask_key, (n_in, levels, n), out=data[..., :n], rows=(r0, r1),
+                           log_q=skk.log_q)
     data[..., n] = bodies[r0:r1]
     return keyswitch_key(data, skk.decomp)
 
@@ -328,7 +338,8 @@ def decompress_server_key(sbsk: SeededLweBootstrapKey, skk: SeededLweKeyswitchKe
     before the KSK is regenerated."""
     bsk_std = decompress_bootstrap_key(sbsk, device)
     _, _, R, _, N = bsk_std.data.shape
-    bsk = bootstrap_key_to_ntt(bsk_std, external_product_num_primes(N, R, sbsk.decomp))
+    bsk = bootstrap_key_to_ntt(bsk_std, external_product_num_primes(N, R, sbsk.decomp),
+                               sbsk.log_q)
     del bsk_std
     return bsk, decompress_keyswitch_key(skk, device)
 
@@ -351,7 +362,7 @@ def decompress_packing_keyswitch_key(s: SeededLwePackingKeyswitchKey,
     k = s.glwe_dimension
     data = torch.empty((n_in, levels, k + 1, n_poly), dtype=torch.int64, device=bodies.device)
     threefry.uniform_torus(threefry.split(_root(s.seed, bodies.device))[0],
-                           (n_in, levels, k, n_poly), out=data[..., :k, :])
+                           (n_in, levels, k, n_poly), out=data[..., :k, :], log_q=s.log_q)
     data[..., k, :] = bodies
     return LwePackingKeyswitchKey(data=data, decomp=s.decomp)
 
@@ -360,11 +371,11 @@ def decompress_packing_keyswitch_key(s: SeededLwePackingKeyswitchKey,
 
 
 def generate_seeded_lwe_public_key(seed: int, gen: torch.Generator, sk, zero_count: int,
-                                   noise_std: float) -> tuple:
+                                   noise_std: float, log_q: int = LOG_Q) -> tuple:
     full = generate_lwe_public_key(_root(seed, sk.bits.device), gen, sk, zero_count,
-                                   noise_std)
+                                   noise_std, log_q)
     return full, SeededLwePublicKey(bodies=full.data[..., -1].contiguous(), seed=seed,
-                                    lwe_dimension=sk.lwe_dimension)
+                                    lwe_dimension=sk.lwe_dimension, log_q=log_q)
 
 
 def decompress_lwe_public_key(s: SeededLwePublicKey, device=None) -> LwePublicKey:
@@ -374,9 +385,9 @@ def decompress_lwe_public_key(s: SeededLwePublicKey, device=None) -> LwePublicKe
     n = s.lwe_dimension
     data = torch.empty((bodies.shape[0], n + 1), dtype=torch.int64, device=bodies.device)
     threefry.uniform_torus(threefry.split(_root(s.seed, bodies.device))[0],
-                           (bodies.shape[0], n), out=data[:, :n])
+                           (bodies.shape[0], n), out=data[:, :n], log_q=s.log_q)
     data[:, n] = bodies
-    return LwePublicKey(data=data)
+    return LwePublicKey(data=data, log_q=s.log_q)
 
 
 def generate_seeded_compact_public_key(seed: int, gen: torch.Generator, sk,
@@ -390,8 +401,8 @@ def decompress_compact_public_key(s: SeededLweCompactPublicKey,
     """Replay generate_lwe_compact_public_key's a(X)."""
     body = _bodies_on(s, device)
     a = threefry.uniform_torus(threefry.split(_root(s.seed, body.device))[0],
-                               (body.shape[-1],))
-    return LweCompactPublicKey(data=torch.stack([a, body]))
+                               (body.shape[-1],), log_q=s.log_q)
+    return LweCompactPublicKey(data=torch.stack([a, body]), log_q=s.log_q)
 
 
 __all__ = [

@@ -27,7 +27,7 @@ import torch
 
 from .params import DecompParams
 
-ROUTES = ("fused", "steps", "paired")
+ROUTES = ("fused", "steps", "paired", "rotate")
 
 
 @dataclass(frozen=True)
@@ -215,7 +215,9 @@ class NttBootstrapKey:
     "fused" (the whole rotation in one launch, K1, unless
     `use_fused_rotation()` is off at PBS time), "steps" (one launch per
     step, K4) or "paired" (spectra [n, 2, P, J, R, N] of [GGSW(1 - s_i),
-    GGSW(s_i)], one K5 launch per step).  Counterpart of the JAX
+    GGSW(s_i)], one K5 launch per step) or "rotate" (the lifted 32-bit torus:
+    the rotate-subtract rotation of `blind_rotate_only`, one K7 launch a
+    step, as the JAX package runs that torus on XLA).  Counterpart of the JAX
     `NttLweBootstrapKey`, whose `paired_order` ("fourstep",
     "fourstep-lanes", "dif") records the same choice."""
 

@@ -10,7 +10,15 @@ arithmetic and each has a helper here:
   * division by a torus constant: use `udiv` (unsigned floor division);
   * numpy interchange: `to_numpy_u64` / `from_numpy_u64` reinterpret bits.
 
-Counterpart of `tfhe_tpu/core/numeric.py` for the 64-bit torus.
+Counterpart of `tfhe_tpu/core/numeric.py`.  The 32-bit torus (log_q = 32,
+the boolean `TEST_PARAMS_BOOLEAN_U32` and the reference's own boolean
+width) is held lifted: a 32-bit word x is the 64-bit word x * 2^32
+(`lift32`, `drop32`).  Every sum and product mod 2^64 of lifted words is
+the 32-bit one shifted up by 32, the signed decomposition at
+base_log * level <= 31 reads the same digits and the modulus switch the same
+top bits, so the 64-bit keyswitch and PBS serve both widths bit for bit.
+Randomness is drawn at 32 bits and lifted; whatever leaves the port (files,
+`interop`) drops the low 32 bits again (`to_numpy_torus`).
 """
 from __future__ import annotations
 
@@ -67,6 +75,48 @@ def to_numpy_u64(x: torch.Tensor) -> np.ndarray:
 def from_numpy_u64(a, device=None) -> torch.Tensor:
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def check_log_q(log_q: int) -> int:
+    """log_q if the port holds that torus width (64, or 32 lifted)."""
+    if log_q not in (32, 64):
+        raise ValueError(f"unsupported torus width {log_q}")
+    return log_q
+
+
+def lift32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit torus words (any int64 whose low 32 bits are the word, uint32
+    or int32 values alike) → the lifted 64-bit words x * 2^32."""
+    return x.to(torch.int64) << 32
+
+
+def drop32(x: torch.Tensor) -> torch.Tensor:
+    """Lifted words → the 32-bit words, uint32 values in int64."""
+    return shr(x, 32)
+
+
+def to_signed(x: torch.Tensor, log_q: int = LOG_Q) -> torch.Tensor:
+    """The signed representative in [-q/2, q/2) of each torus word (tfhe_tpu
+    numeric.to_signed): the int64 itself at 64 bits, the int32 value of a
+    lifted word at 32 (its top bit is the int64's sign bit)."""
+    return x if check_log_q(log_q) == 64 else x >> 32
+
+
+def to_numpy_torus(x: torch.Tensor, log_q: int = LOG_Q) -> np.ndarray:
+    """Torus words as the JAX package holds them: uint64 at 64 bits, the
+    dropped uint32 words at 32."""
+    if check_log_q(log_q) == 64:
+        return to_numpy_u64(x)
+    return drop32(x).detach().cpu().numpy().astype(np.uint32)
+
+
+def from_numpy_torus(a, device=None) -> torch.Tensor:
+    """The JAX package's torus words → the port's: uint32 words (the 32-bit
+    torus) lifted, anything else read as uint64 bit patterns."""
+    arr = np.asarray(a)
+    if arr.dtype == np.uint32:
+        return lift32(torch.from_numpy(arr.astype(np.int64))).to(device)
+    return from_numpy_u64(arr, device)
 
 
 def float_round_to_torus(x: torch.Tensor) -> torch.Tensor:

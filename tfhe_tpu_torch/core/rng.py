@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .numeric import float_round_to_torus
+from .numeric import LOG_Q, check_log_q, float_round_to_torus, lift32
 
 
 def generator(seed: int, *stream: int, device) -> torch.Generator:
@@ -26,10 +26,13 @@ def generator(seed: int, *stream: int, device) -> torch.Generator:
     return g
 
 
-def uniform_torus(gen: torch.Generator, shape, device=None) -> torch.Tensor:
-    """Uniform 64-bit torus elements: two 32-bit draws joined (randint
-    cannot span 2^64)."""
+def uniform_torus(gen: torch.Generator, shape, device=None, log_q: int = LOG_Q) -> torch.Tensor:
+    """Uniform torus elements: at 64 bits two 32-bit draws joined (randint
+    cannot span 2^64), at 32 bits one draw, lifted."""
     device = gen.device if device is None else device
+    if check_log_q(log_q) == 32:
+        return lift32(torch.randint(0, 1 << 32, tuple(shape), generator=gen,
+                                    dtype=torch.int64, device=device))
     hi_lo = torch.randint(0, 1 << 32, (2,) + tuple(shape), generator=gen,
                           dtype=torch.int64, device=device)
     return (hi_lo[0] << 32) | hi_lo[1]
@@ -43,12 +46,14 @@ def binary_key(gen: torch.Generator, shape, device=None) -> torch.Tensor:
 
 
 def gaussian_noise(gen: torch.Generator, shape, std: float,
-                   device=None) -> torch.Tensor:
-    """Rounded gaussian on the torus with absolute std-dev `std` (units of
-    q), sampled in float64."""
+                   device=None, log_q: int = LOG_Q) -> torch.Tensor:
+    """Rounded gaussian on the torus with absolute std-dev `std` (in units
+    of the 2^log_q torus's least word), sampled in float64; at 32 bits
+    rounded to a 32-bit word, then lifted."""
     device = gen.device if device is None else device
     if std == 0.0:
         return torch.zeros(tuple(shape), dtype=torch.int64, device=device)
     n = torch.randn(tuple(shape), generator=gen, dtype=torch.float64,
                     device=device)
-    return float_round_to_torus(n * std)
+    noise = float_round_to_torus(n * std)
+    return noise if check_log_q(log_q) == 64 else lift32(noise)

@@ -16,7 +16,8 @@ default of jax 0.9).  The specification is jax's own source
   * random words of a shape: element e (row-major flat index) is
     out0 ^ out1 of the counter pair (hi(e), lo(e));
   * `uniform_torus(k, shape)` draws the words of (2,) + shape and joins
-    (w[0] << 32) | w[1];
+    (w[0] << 32) | w[1]; at log_q = 32 it is the words of shape
+    (`jax.random.bits(k, shape, uint32)`), lifted by 2^32;
   * `binary_key(k, shape)` is `bernoulli(k, 0.5)`, whose uniform is float64
     from the 64-bit bits (out0 << 32) | out1: the bit is 1 where out0's top
     bit is 0.
@@ -34,6 +35,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .numeric import check_log_q
 
 CHUNK = 1 << 22                 # threefry evaluations a pass
 _M32 = 0xFFFFFFFF
@@ -87,8 +90,9 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
 
 
 def _draw(key: torch.Tensor, shape, torus: bool, out: torch.Tensor | None,
-          rows: tuple | None) -> torch.Tensor:
-    """The draw of `uniform_torus` (torus) or `binary_key` under keys
+          rows: tuple | None, lifted: bool = False) -> torch.Tensor:
+    """The draw of `uniform_torus` (torus; `lifted`: the 32-bit words of
+    shape, each times 2^32) or `binary_key` under keys
     [..., 2] over `shape`, or only rows [r0, r1) of its leading axis, into
     `out` (strided views allowed where the key axes merge) or a new tensor,
     in passes of whole rows of the leading axis."""
@@ -110,7 +114,8 @@ def _draw(key: torch.Tensor, shape, torus: bool, out: torch.Tensor | None,
         return out
     inner = size // shape[0]
     view = out.view((R,) + part)
-    per = CHUNK // (2 if torus else 1)
+    join = torus and not lifted            # two words an element
+    per = CHUNK // (2 if join else 1)
     if (r1 - r0) * inner <= per:
         step, kb = r1 - r0, per // ((r1 - r0) * inner)
     else:
@@ -120,10 +125,12 @@ def _draw(key: torch.Tensor, shape, torus: bool, out: torch.Tensor | None,
         for i0 in range(r0, r1, step):
             i1 = min(i0 + step, r1)
             ctr = torch.arange(i0 * inner, i1 * inner, dtype=torch.int64, device=key.device)
-            if torus:
+            if join:
                 ctr = torch.cat([ctr, ctr + size])
             out0, out1 = threefry2x32(k0, k1, ctr >> 32, ctr & _M32)
-            if torus:
+            if lifted:
+                val = out0.bitwise_xor_(out1) << 32
+            elif torus:
                 words = out0.bitwise_xor_(out1)
                 half = words.shape[1] // 2
                 val = (words[:, :half] << 32) | words[:, half:]
@@ -134,11 +141,12 @@ def _draw(key: torch.Tensor, shape, torus: bool, out: torch.Tensor | None,
 
 
 def uniform_torus(key: torch.Tensor, shape, out: torch.Tensor | None = None,
-                  rows: tuple | None = None) -> torch.Tensor:
-    """Uniform 64-bit torus words under keys [..., 2]: int64 [..., *shape],
-    those of tfhe_tpu rng.uniform_torus(key, shape, 64) for each key (with
-    rows=(r0, r1), only rows r0..r1-1 of the leading axis)."""
-    return _draw(key, shape, True, out, rows)
+                  rows: tuple | None = None, log_q: int = 64) -> torch.Tensor:
+    """Uniform torus words under keys [..., 2]: int64 [..., *shape], those
+    of tfhe_tpu rng.uniform_torus(key, shape, log_q) for each key, lifted
+    at log_q = 32 (with rows=(r0, r1), only rows r0..r1-1 of the leading
+    axis)."""
+    return _draw(key, shape, True, out, rows, lifted=check_log_q(log_q) == 32)
 
 
 def binary_key(key: torch.Tensor, shape, out: torch.Tensor | None = None,

@@ -40,7 +40,11 @@ package's, copied whole).
 
 A boolean server key crosses as its KSK data and its DIF-order
 `NttLweBootstrapKey.data` (`boolean_server_key`), a boolean ciphertext as
-its [..., n+1] u64 array (`bool_ciphertext`).  An integer ciphertext
+its [..., n+1] u64 array (`bool_ciphertext`).  On the 32-bit torus
+(log_q = 32) the words are uint32 and are lifted (`core/numeric.py`); the
+BSK's residues are those of 32-bit words over the JAX package's 32-bit
+prime count, inverted and lifted, then converted at the port's 64-bit
+count to the "rotate" route (`core.numeric.to_numpy_torus` drops them again).  An integer ciphertext
 crosses as its blocks' LWE arrays ([..., n+1] u64
 each) and their metadata (`radix_ciphertext`); an integer key is a
 shortint key and crosses as one.
@@ -65,7 +69,7 @@ from .core.algorithms.wopbs import CbsPfpkskList
 from .core.entities import (GlweSecretKey, LweBootstrapKey, LweCiphertext,
                             LweKeyswitchKey, LweMultiBitBootstrapKey, LweSecretKey,
                             NttBootstrapKey, NttMultiBitBootstrapKey)
-from .core.numeric import from_numpy_u64
+from .core.numeric import from_numpy_torus, from_numpy_u64, lift32
 from .core.params import DecompParams
 from .core.poly import ntt
 from .cuda_lib import resolve_device
@@ -91,9 +95,9 @@ def glwe_secret_key(bits, device="cuda") -> GlweSecretKey:
 
 
 def keyswitch_key(data, decomp: DecompParams, device="cuda") -> LweKeyswitchKey:
-    """KSK [n_in, l, n_out+1] u64; on the card with the limb layout K2′
-    reads, where the set takes the tensor-core keyswitch."""
-    return make_keyswitch_key(from_numpy_u64(data, resolve_device(device)), decomp)
+    """KSK [n_in, l, n_out+1] u64 (or u32, lifted); on the card with the
+    limb layout K2′ reads, where the set takes the tensor-core keyswitch."""
+    return make_keyswitch_key(from_numpy_torus(data, resolve_device(device)), decomp)
 
 
 def bootstrap_key_from_standard(data, decomp: DecompParams, num_primes: int,
@@ -152,12 +156,20 @@ def standard_from_dif(data, primes) -> np.ndarray:
 
 
 def bootstrap_key_from_dif(data, primes, decomp: DecompParams,
-                           device="cuda") -> NttBootstrapKey:
+                           device="cuda", log_q: int = 64) -> NttBootstrapKey:
     """JAX NttLweBootstrapKey.data → the port's spectra (through the
-    standard coefficients)."""
+    standard coefficients).  At log_q = 32 the residues are those of 32-bit
+    words (the JAX package's 32-bit prime count): the coefficients are
+    lifted and converted at the port's 64-bit prime count to the "rotate"
+    route."""
     std = standard_from_dif(data, primes)
     n_in, J, R, n = std.shape
     std = std.reshape(n_in, J // R, R, R, n)
+    if log_q == 32:
+        from .core.algorithms.bootstrap import external_product_num_primes
+        words = lift32(torch.from_numpy(std.view(np.int64) & 0xFFFFFFFF))
+        bsk = LweBootstrapKey(data=words.to(resolve_device(device)), decomp=decomp)
+        return bootstrap_key_to_ntt(bsk, external_product_num_primes(n, R, decomp), 32)
     return bootstrap_key_from_standard(std, decomp, np.asarray(data).shape[1], device)
 
 
@@ -196,16 +208,20 @@ def multi_bit_bootstrap_key_from_dif(data, primes, decomp: DecompParams,
 
 def boolean_server_key(ksk, bsk_dif, primes, params, device="cuda") -> BooleanServerKey:
     """A JAX boolean server key's arrays (`boolean.gen_server_key`): its KSK
-    data [kN, l, n+1] u64 and its NttLweBootstrapKey.data [n, P, J, R, N]
-    (DIF-order residues over `primes`) → the port's boolean ServerKey."""
+    data [kN, l, n+1] u64 (u32 on the 32-bit torus) and its
+    NttLweBootstrapKey.data [n, P, J, R, N] (DIF-order residues over
+    `primes`) → the port's boolean ServerKey."""
     return BooleanServerKey(bsk=bootstrap_key_from_dif(bsk_dif, primes, params.pbs_decomp,
-                                                       device),
+                                                       device, params.log_q),
                             ksk=keyswitch_key(ksk, params.ks_decomp, device), params=params)
 
 
 def bool_ciphertext(data, device="cuda") -> BoolCiphertext:
-    """A JAX BoolCiphertext's words [..., n+1] u64 → the port's."""
-    return BoolCiphertext(lwe=LweCiphertext(data=from_numpy_u64(data, resolve_device(device))))
+    """A JAX BoolCiphertext's words [..., n+1] u64 (u32 on the 32-bit
+    torus, lifted) → the port's."""
+    data = np.asarray(data)
+    return BoolCiphertext(lwe=LweCiphertext(data=from_numpy_torus(data, resolve_device(device))),
+                          log_q=32 if data.dtype == np.uint32 else 64)
 
 
 def radix_ciphertext(blocks, degrees, noise_levels, message_modulus: int,

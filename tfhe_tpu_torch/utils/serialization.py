@@ -10,7 +10,10 @@ the port builds its own spectra, so it drops them).  No pickle anywhere.
 Reading maps each JAX type name to the port's type (`_READERS`), on the
 device asked for (the card unless given device="cpu"; without a card that
 raises).  Torus words cross as uint64 ↔ int64 bit patterns and secret-key
-bits as int8 ↔ int64.  A JAX `NttLweBootstrapKey` or
+bits as int8 ↔ int64; the 32-bit torus's words as uint32 ↔ lifted int64
+(`core/numeric.py`): a reader lifts every uint32 array, and a writer drops
+the words of an object whose width (its `log_q`, or its parameters') is
+32, and of everything inside it.  A JAX `NttLweBootstrapKey` or
 `NttMultiBitBootstrapKey` crosses through its DIF-order residues
 (`interop`), which must be residues over primes_for(N) whose lift is a
 64-bit word: the file does not name its prime pool (ROADMAP C2), so a key
@@ -18,7 +21,7 @@ made on another pool is refused here, not decrypted as garbage.  A key
 with no DIF residues (the JAX "fourstep" slim form) is refused by name.  A
 gadget encoding (an "encoding" node) becomes the port's `Encoding`.
 
-Writing covers the types held as standard-domain words (`_WRITERS`):
+Writing covers every type the JAX registry names (`_WRITERS`):
 ciphertexts, seeded entities, compressed ciphertexts and keys, public keys
 and the WoP-PBS's PFPKSK list, under the JAX package's type names, so
 `tfhe_tpu.utils.safe_load` reads them (the boolean `CompressedCiphertext`
@@ -29,9 +32,15 @@ BSK is written as a JAX `NttLweBootstrapKey` of its residues and their
 Shoup quotients (`_ntt_key_fields`: the port's spectral order is the JAX
 package's DIF order, which tests/test_torch_serialization.py holds) with
 no paired form, so the JAX package runs it on its XLA route; the shortint
-and integer `ServerKey`s, the WoP-PBS keys and the GGSW shift key
-(`ShiftKey`) in the same way, an object met twice written once (the shift
-key shares its two BSKs).  The rest of the write side is ROADMAP A17.
+and integer `ServerKey`s, the WoP-PBS keys and the GGSW shift
+key (`ShiftKey`) in the same way, an object met twice written once (the shift
+key shares its two BSKs); the standard-domain `LweBootstrapKey`, the
+multi-bit NTT key (its residues and Shoup quotients, no 32-bit copies, so
+the JAX package runs it on XLA), the boolean and shortint `ClientKey`s, the
+boolean `ServerKey` and the `LookupTable`.  A 32-bit boolean server key's
+BSK is written as the JAX package holds it: the residues of its dropped
+words over the 32-bit prime count.  `safe_save` is `save`, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+
+from ..core.numeric import drop32, from_numpy_torus, to_numpy_torus
 
 SERIALIZATION_VERSION = "tfhe_tpu-v1"
 
@@ -61,9 +72,9 @@ _WRITE_FIELDS: Dict[type, Callable] = {}
 
 
 def _words(a, device) -> torch.Tensor:
-    """Torus words (uint64 numpy) → int64 bit patterns on `device`."""
-    arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
-    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+    """Torus words (uint64 numpy, or uint32 lifted) → int64 bit patterns on
+    `device`."""
+    return from_numpy_torus(a, device)
 
 
 def _bits(a, device) -> torch.Tensor:
@@ -71,14 +82,16 @@ def _bits(a, device) -> torch.Tensor:
 
 
 def _dif_key(f: dict, device):
-    """A JAX NttLweBootstrapKey → the port's, through its DIF residues."""
+    """A JAX NttLweBootstrapKey → the port's, through its DIF residues (of
+    32-bit words at log_q = 32: the key is lifted, `interop`)."""
     from .. import interop
     from ..core.poly import ntt
     decomp = f["decomp"]
     if f.get("data") is not None:
         data = np.asarray(f["data"])
         primes = ntt.primes_for(data.shape[-1])[:data.shape[1]]
-        return _check_pool(lambda: interop.bootstrap_key_from_dif(data, primes, decomp, device))
+        return _check_pool(lambda: interop.bootstrap_key_from_dif(
+            data, primes, decomp, device, f.get("log_q", 64)))
     order = f.get("paired_order", "dif")
     if order == "dif" and f.get("paired") is not None:
         paired = np.asarray(f["paired"])
@@ -111,18 +124,53 @@ def _check_pool(convert):
                                    f"{e}") from e
 
 
+def _with_shoup(spectra: torch.Tensor, prime_axis: int) -> tuple:
+    """Spectra (int32 residues) → (u64 residues, their Shoup quotients
+    floor(v * 2^32 / p)), as the JAX keys hold them."""
+    from ..core.poly import ntt
+    data = spectra.detach().cpu().numpy().astype(np.uint64)
+    P = data.shape[prime_axis]
+    primes = np.asarray(ntt.get_plan(data.shape[-1], P).primes, dtype=np.uint64)
+    shape = [1] * data.ndim
+    shape[prime_axis] = P
+    return data, (data << np.uint64(32)) // primes.reshape(shape)
+
+
+def _spectra_32(key) -> torch.Tensor:
+    """A lifted 32-bit key's spectra → those of its dropped words over the
+    JAX package's 32-bit prime count (the words inverted from the spectra,
+    exact: the port's prime count covers the 64-bit lift)."""
+    from ..core.algorithms.bootstrap import external_product_num_primes
+    from ..core.algorithms.encryption import ggsw_spectra
+    from ..core.poly import ntt
+    n_in, P, J, R, N = key.spectra.shape
+    plan = ntt.get_plan(N, P)
+    res = key.spectra.to(torch.int64).permute(0, 2, 3, 1, 4)         # [n, J, R, P, N]
+    words = ntt.garner_to_torus(plan, ntt.ntt_inverse(plan, res))     # [n, J, R, N]
+    words = drop32(words).reshape(n_in, J // R, R, R, N)
+    return ggsw_spectra(words, external_product_num_primes(N, R, key.decomp, 32))
+
+
 def _ntt_key_fields(key) -> dict:
     """A port NttBootstrapKey → the fields of a JAX NttLweBootstrapKey: the
-    residues [n, P, J, R, N] u64 (pair1, GGSW(s_i), of a paired key) and
-    their Shoup quotients floor(v * 2^32 / p), no paired form."""
-    from ..core.poly import ntt
-    spectra = key.spectra[:, 1] if key.paired else key.spectra
-    data = spectra.detach().cpu().numpy().astype(np.uint64)
-    P = data.shape[1]
-    primes = np.asarray(ntt.get_plan(data.shape[-1], P).primes, dtype=np.uint64)
-    shoup = (data << np.uint64(32)) // primes.reshape(1, P, 1, 1, 1)
+    residues [n, P, J, R, N] u64 (pair1, GGSW(s_i), of a paired key; those
+    of the dropped words for a lifted 32-bit key) and their Shoup quotients
+    floor(v * 2^32 / p), no paired form."""
+    log_q = 32 if key.route == "rotate" else 64
+    spectra = (_spectra_32(key) if log_q == 32 else
+               key.spectra[:, 1] if key.paired else key.spectra)
+    data, shoup = _with_shoup(spectra, 1)
     return {"data": data, "shoup": shoup, "paired": None, "paired_shoup": None, "mono": None,
-            "mono_shoup": None, "decomp": key.decomp, "log_q": 64, "paired_order": "dif"}
+            "mono_shoup": None, "decomp": key.decomp, "log_q": log_q, "paired_order": "dif"}
+
+
+def _multi_bit_key_fields(key) -> dict:
+    """A port NttMultiBitBootstrapKey → the fields of a JAX one: residues
+    [n/g, 2^g, P, J, R, N] u64 and their Shoup quotients, no u32 copies."""
+    data, shoup = _with_shoup(key.spectra, 2)
+    return {"data": data, "shoup": shoup, "data_u32": None, "shoup_u32": None, "mono": None,
+            "mono_shoup": None, "decomp": key.decomp, "grouping_factor": key.grouping_factor,
+            "log_q": 64, "u32_order": "dif"}
 
 
 def _secret_key_fields(key) -> dict:
@@ -174,7 +222,8 @@ def _register():
                                                                   words=("data",)),
         "tfhe_tpu.core.algorithms.public_key.LweCompactPublicKey": plain(
             PK.LweCompactPublicKey, words=("data",)),
-        "tfhe_tpu.boolean.BoolCiphertext": plain(boolean.BoolCiphertext),
+        "tfhe_tpu.boolean.BoolCiphertext": lambda f, device: boolean.BoolCiphertext(
+            lwe=f["lwe"], log_q=f.get("log_q", 64)),
         "tfhe_tpu.boolean.ClientKey": plain(boolean.ClientKey),
         "tfhe_tpu.boolean.ServerKey": plain(boolean.ServerKey),
         "tfhe_tpu.boolean.CompressedServerKey": plain(boolean.CompressedServerKey),
@@ -213,7 +262,12 @@ def _register():
 
     _WRITERS.update({
         E.LweCiphertext: core + "LweCiphertext", E.GlweCiphertext: core + "GlweCiphertext",
-        E.GgswCiphertext: core + "GgswCiphertext",
+        E.GgswCiphertext: core + "GgswCiphertext", E.LweBootstrapKey: core + "LweBootstrapKey",
+        E.NttMultiBitBootstrapKey: "tfhe_tpu.core.algorithms.multi_bit.NttMultiBitBootstrapKey",
+        boolean.ClientKey: "tfhe_tpu.boolean.ClientKey",
+        boolean.ServerKey: "tfhe_tpu.boolean.ServerKey",
+        shortint.ClientKey: "tfhe_tpu.shortint.client_key.ClientKey",
+        SS.LookupTable: "tfhe_tpu.shortint.server_key.LookupTable",
         PK.LwePublicKey: "tfhe_tpu.core.algorithms.public_key.LwePublicKey",
         PK.LweCompactPublicKey: "tfhe_tpu.core.algorithms.public_key.LweCompactPublicKey",
         boolean.BoolCiphertext: "tfhe_tpu.boolean.BoolCiphertext",
@@ -244,7 +298,8 @@ def _register():
     _WRITE_FIELDS.update({
         E.LweSecretKey: _secret_key_fields, E.GlweSecretKey: _secret_key_fields,
         E.LweKeyswitchKey: lambda k: {"data": k.data, "decomp": k.decomp},
-        E.NttBootstrapKey: _ntt_key_fields,
+        E.NttBootstrapKey: _ntt_key_fields, E.NttMultiBitBootstrapKey: _multi_bit_key_fields,
+        boolean.BoolCiphertext: lambda c: {"lwe": c.lwe},
     })
     for name in S.__all__:
         if name.startswith("Seeded"):
@@ -257,6 +312,15 @@ def _register():
 # ---------------------------------------------------------------------------
 # the tree
 # ---------------------------------------------------------------------------
+
+
+def _holds_uint32(node, arrays) -> bool:
+    """Whether an array under this tree node holds uint32 words."""
+    if node["t"] == "arr":
+        return arrays[node["k"]].dtype == np.uint32
+    children = (node["fields"].values() if node["t"] == "obj" else
+                node["v"] if node["t"] in ("list", "tuple") else ())
+    return any(_holds_uint32(c, arrays) for c in children)
 
 
 def _decode(node, arrays, device):
@@ -281,6 +345,9 @@ def _decode(node, arrays, device):
         if read is None:
             raise DeserializationError(f"unknown type {name}")
         fields = {k: _decode(v, arrays, device) for k, v in node["fields"].items()}
+        if name == "tfhe_tpu.boolean.BoolCiphertext":
+            # the JAX type has no width field: its words' dtype is the width
+            fields["log_q"] = 32 if _holds_uint32(node, arrays) else 64
         try:
             return read(fields, device)
         except (NotImplementedError, TypeError) as e:
@@ -288,7 +355,16 @@ def _decode(node, arrays, device):
     raise DeserializationError(f"bad node {t}")
 
 
-def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
+def _width(obj, inherited: int) -> int:
+    """The torus width an object's words are written at: its own `log_q`,
+    else its parameters', else its container's."""
+    w = getattr(obj, "log_q", None)
+    if w is None:
+        w = getattr(getattr(obj, "params", None), "log_q", None)
+    return w if w in (32, 64) else inherited
+
+
+def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict, width: int = 64):
     from ..gadget.encoding import Encoding
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return {"t": "lit", "v": obj}
@@ -306,12 +382,12 @@ def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
                 raise DeserializationError(f"only torus words (int64) are written, not "
                                            f"{obj.dtype}")
             key = f"a{len(arrays)}"
-            arrays[key] = obj.detach().cpu().numpy().view(np.uint64)
+            arrays[key] = to_numpy_torus(obj, width)
             seen[id(obj)] = key
         return {"t": "arr", "k": key}
     if isinstance(obj, (list, tuple)):
         return {"t": "list" if isinstance(obj, list) else "tuple",
-                "v": [_encode(x, arrays, seen) for x in obj]}
+                "v": [_encode(x, arrays, seen, width) for x in obj]}
     if dataclasses.is_dataclass(obj):
         # an object met twice (the shift key's shared BSKs) is one node,
         # so its arrays are written once
@@ -321,13 +397,14 @@ def _encode(obj, arrays: Dict[str, np.ndarray], seen: dict):
         _register()
         name = _WRITERS.get(type(obj))
         if name is None:
-            raise DeserializationError(f"the port does not write {type(obj).__name__} "
-                                       f"(the write side beyond this is ROADMAP A17)")
+            raise DeserializationError(f"the port does not write {type(obj).__name__}: "
+                                       f"no JAX type of that name reads it")
+        width = _width(obj, width)
         fields = _WRITE_FIELDS.get(type(obj))
         fields = (fields(obj) if fields else
                   {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
         node = {"t": "obj", "cls": name,
-                "fields": {k: _encode(v, arrays, seen) for k, v in fields.items()}}
+                "fields": {k: _encode(v, arrays, seen, width) for k, v in fields.items()}}
         seen[("obj", id(obj))] = node
         return node
     raise DeserializationError(f"cannot serialize {type(obj)}")
@@ -341,6 +418,12 @@ def save(obj, path_or_buf, compress: bool = True) -> None:
     meta = json.dumps({"version": SERIALIZATION_VERSION, "type": tree["cls"], "tree": tree})
     writer = np.savez_compressed if compress else np.savez
     writer(path_or_buf, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **arrays)
+
+
+def safe_save(obj, path_or_buf) -> None:
+    """`save` (tfhe_tpu serialization.py:219): the version and the type name
+    are in every file; `safe_load` checks them."""
+    save(obj, path_or_buf)
 
 
 def _read(path_or_buf) -> tuple:
@@ -387,4 +470,5 @@ def safe_load(path_or_buf, expected_type: str | None = None, size_limit: int | N
     return obj
 
 
-__all__ = ["SERIALIZATION_VERSION", "DeserializationError", "save", "load", "safe_load"]
+__all__ = ["SERIALIZATION_VERSION", "DeserializationError", "save", "load", "safe_save",
+           "safe_load"]
